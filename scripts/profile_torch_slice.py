@@ -1,0 +1,171 @@
+"""Where the time of the PyTorch port's hard-goal solve goes, on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_slice.py [--out build/profile_torch_slice.json]
+
+Builds the CUDA kernels, solves the smoke model of chip_smoke.py once as a
+warm-up, then:
+  1. once more with a synchronize after every goal, for each goal's wall time;
+  2. once under torch.profiler (CPU and CUDA activities), for the device's
+     busy time by kernel, the idle share of the solve's wall time, the number
+     of kernel launches and of host reads of device values;
+and times the set-up before the goal loops and the proposal diff after them.
+Prints a summary and writes the numbers as JSON to --out. Needs a GPU; exits
+non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+#: our kernels' __global__ functions (csrc/*.cu), by kernel
+OWN_KERNELS = {
+    "k_broker_sums": "K1 segment_aggregates", "k_counts": "K1 segment_aggregates",
+    "k_host_cpu": "K1 segment_aggregates", "k_bid": "K2 broker_topk",
+    "k_take": "K2 broker_topk", "k_score": "K3 score_candidates",
+    "k_apply_wave": "K4 apply_wave",
+}
+
+
+def _is_device_event(evt) -> bool:
+    """A kernel, memset or memcpy on the card (CPU-side ops also report the
+    device time of what they launched; counting those would count twice)."""
+    return str(getattr(evt, "device_type", "")).endswith("CUDA")
+
+
+def _short(name: str) -> str:
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0].split("<")[0]
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_slice.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_slice: needs an NVIDIA GPU")
+    from cruise_control_torch.analyzer import optimizer as opt
+    from cruise_control_torch.analyzer.acceptance import empty_tables
+    from cruise_control_torch.analyzer.context import build_static_ctx, compute_aggregates, dims_of
+    from cruise_control_torch.analyzer.goals import HARD_GOAL_NAMES, goals_by_priority
+    from cruise_control_torch.config.balancing import BalancingConstraint
+    from cruise_control_torch.kernels import build
+    from cruise_control_torch.models import generators
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card)
+    build.build_all()
+    prop = dataclasses.replace(generators.BASELINE_CONFIGS[5], num_dead_brokers=26,
+                               load_distribution="pareto", mean_utilization=0.5)
+    model = generators.random_cluster(42, prop)
+    optimizer = opt.GoalOptimizer(device="cuda")
+
+    def solve():
+        t0 = time.monotonic()
+        res = optimizer.optimizations(model, HARD_GOAL_NAMES, raise_on_hard_failure=False)
+        torch.cuda.synchronize()
+        return res, time.monotonic() - t0
+
+    res, warm_s = solve()
+    _, wall_s = solve()
+
+    # the host-side parts of a solve around the goal loops
+    from cruise_control_torch.analyzer.proposals import proposal_diff
+
+    t0 = time.monotonic()
+    proposal_diff(model.assignment.numpy(), res.final_assignment, model.part_load.numpy())
+    diff_s = time.monotonic() - t0
+
+    # 1. per-goal wall time, synchronizing at each goal boundary
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    gpu = model.to("cuda")
+    dims = dims_of(gpu)
+    static = build_static_ctx(gpu, BalancingConstraint.default(), dims)
+    agg = compute_aggregates(static, gpu.assignment, dims)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    tables = empty_tables(dims, gpu.device)
+    per_goal = {}
+    for goal in goals_by_priority(HARD_GOAL_NAMES):
+        loop = opt._make_goal_loop(goal, dims, opt.SLICE_SETTINGS)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        agg, rounds, _ = loop(static, agg, tables)
+        torch.cuda.synchronize()
+        per_goal[goal.name] = {"wall_s": time.monotonic() - t0, "rounds": rounds}
+        tables = goal.contribute_acceptance(static, goal.prepare(static, agg, dims), tables)
+
+    # 2. one traced solve
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, traced_s = solve()
+    by_kernel = collections.Counter()
+    launches = collections.Counter()
+    busy_us = 0.0
+    host = {}
+    glue = collections.Counter()
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if _is_device_event(evt):
+            busy_us += us
+            group = OWN_KERNELS.get(_short(evt.key), "PyTorch glue kernels")
+            by_kernel[group] += us
+            launches[group] += evt.count
+            if group == "PyTorch glue kernels":
+                glue[_short(evt.key)] += us
+        if evt.key in ("cudaLaunchKernel", "aten::_local_scalar_dense", "cudaStreamSynchronize",
+                       "cudaMemcpyAsync", "cudaMemsetAsync"):
+            host[evt.key] = {"count": evt.count, "cpu_us": float(evt.cpu_time_total)}
+    out = {
+        "card": card, "warmup_solve_s": warm_s, "solve_s": wall_s, "traced_solve_s": traced_s,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": (1.0 - busy_us / 1e6 / traced_s) if traced_s > 0 else None,
+        "device_s_by_group": {k: v / 1e6 for k, v in by_kernel.most_common()},
+        "device_launches_by_group": dict(launches),
+        "host_calls": host, "per_goal": per_goal,
+        "replica_moves": res.num_replica_moves, "leadership_moves": res.num_leadership_moves,
+        "glue_device_s_by_kernel": {k: v / 1e6 for k, v in glue.most_common(15)},
+        "setup_s": setup_s, "proposal_diff_s": diff_s,
+    }
+    path = pathlib.Path(args.out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    print(f"solve {wall_s:.3f} s (warm-up {warm_s:.3f} s, traced {traced_s:.3f} s); device busy "
+          f"{out['device_busy_s']:.3f} s, idle share {out['device_idle_share']:.3f}")
+    for k, v in out["device_s_by_group"].items():
+        print(f"  {k:36s} {v:9.4f} s  {launches[k]:7d} launches")
+    for k, v in out["glue_device_s_by_kernel"].items():
+        print(f"    glue {k[:60]:60s} {v:9.4f} s")
+    print(f"  set-up (model to the card, static context, K1) {setup_s:.3f} s; "
+          f"proposal diff {diff_s:.3f} s")
+    for k, v in per_goal.items():
+        print(f"  goal {k:30s} {v['wall_s']:8.3f} s  {v['rounds']:3d} rounds")
+    for k, v in host.items():
+        print(f"  host {k:30s} {v['count']:8d} calls  {v['cpu_us'] / 1e6:8.3f} s")
+    print(json.dumps({"device_busy_s": out["device_busy_s"],
+                      "device_idle_share": out["device_idle_share"], "solve_s": wall_s}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
