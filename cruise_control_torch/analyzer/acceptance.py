@@ -177,3 +177,61 @@ def score_batch(static: StaticCtx, agg: Aggregates, act: ActionBatch, goal, gs, 
                                                    device=score.device), zero)
     return torch.where(mask & (score > SCORE_EPS), score,
                        torch.tensor(-torch.inf, device=score.device))
+
+
+def swap_tables_acceptance(static: StaticCtx, tables: AcceptanceTables, agg: Aggregates,
+                           mv1: ActionBatch, mv2: ActionBatch) -> torch.Tensor:
+    """bool[...]: does a swap (mv1 moves a replica hot -> cold, mv2 one cold
+    -> hot) satisfy every merged bound on its NET effect (acceptance.py:234)?
+    Load-like quantities are checked on the net delta per broker, per-topic
+    counts per leg (inert when both replicas share a topic); replica counts
+    do not change. K5 (csrc/score_swaps.cu) has the same function on the
+    card."""
+    hot, cold = mv1.src.long(), mv2.src.long()
+    d = mv1.dload - mv2.dload
+
+    def box(broker, delta):
+        inc = delta > 0.0
+        after = agg.broker_load[broker] + delta
+        up = torch.all(~inc | (after <= tables.hi_load[broker]), dim=-1)
+        lo = torch.all(inc | (after >= tables.lo_load[broker]), dim=-1)
+        return up & lo
+
+    ok = box(cold, d) & box(hot, -d)
+    not_dead = torch.zeros(torch.broadcast_shapes(hot.shape, cold.shape), dtype=torch.bool,
+                           device=d.device)
+    ok = ok & band_move_acceptance(tables, agg, hot, cold, d, not_dead)
+
+    dl = (mv1.dleader - mv2.dleader).to(torch.float32)
+    lead = agg.leader_count
+    ok = ok & ((dl <= 0) | ((lead[cold] + dl <= tables.hi_lead[cold])
+                            & (lead[hot] - dl >= tables.lo_lead[hot])))
+    ok = ok & ((dl >= 0) | ((lead[hot] - dl <= tables.hi_lead[hot])
+                            & (lead[cold] + dl >= tables.lo_lead[cold])))
+
+    dpnw = mv1.dpnw - mv2.dpnw
+    pnw = agg.potential_nw_out
+    ok = ok & ((dpnw <= 0.0) | (pnw[cold] + dpnw <= tables.hi_pnw[cold]))
+    ok = ok & ((dpnw >= 0.0) | (pnw[hot] - dpnw <= tables.hi_pnw[hot]))
+    dlnw = mv1.dleader_nw_in - mv2.dleader_nw_in
+    lnw = agg.leader_nw_in
+    ok = ok & ((dlnw <= 0.0) | (lnw[cold] + dlnw <= tables.hi_lnw[cold]))
+    ok = ok & ((dlnw >= 0.0) | (lnw[hot] - dlnw <= tables.hi_lnw[hot]))
+
+    t1 = static.topic_id[mv1.p.long()].long()
+    t2 = static.topic_id[mv2.p.long()].long()
+    tc = agg.topic_replica_count
+    topic_ok = ((tc[t1, cold] + 1 <= tables.hi_topic[t1])
+                & (tc[t1, hot] - 1 >= tables.lo_topic[t1])
+                & (tc[t2, hot] + 1 <= tables.hi_topic[t2])
+                & (tc[t2, cold] - 1 >= tables.lo_topic[t2]))
+    ok = ok & ((t1 == t2) | topic_ok)
+
+    dcpu = d[..., Resource.CPU]
+    host_hot = static.broker_host[hot].long()
+    host_cold = static.broker_host[cold].long()
+    same_host = host_hot == host_cold
+    hcpu = agg.host_cpu_load
+    ok = ok & (same_host | (dcpu <= 0.0) | (hcpu[host_cold] + dcpu <= tables.hi_host_cpu[host_cold]))
+    ok = ok & (same_host | (dcpu >= 0.0) | (hcpu[host_hot] - dcpu <= tables.hi_host_cpu[host_hot]))
+    return ok

@@ -78,6 +78,12 @@ def _follower_vec(part_load: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     )
 
 
+def load_total(vec: torch.Tensor) -> torch.Tensor:
+    """f32[...]: the sum of a [..., 4] load vector, added in index order (the
+    order of XLA:CPU's sum over four terms)."""
+    return ((vec[..., 0] + vec[..., 1]) + vec[..., 2]) + vec[..., 3]
+
+
 def slot_contrib(part_load: torch.Tensor, assignment: torch.Tensor, res: int) -> torch.Tensor:
     """f32[P, R]: per-slot load contribution for one Resource (leader slots
     carry the leader variant, followers the follower variant)."""

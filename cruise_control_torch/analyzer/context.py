@@ -206,6 +206,18 @@ def replicas_on_dead(static: StaticCtx, assignment: torch.Tensor) -> torch.Tenso
     return static.dead[torch.where(valid, assignment, 0).long()] & valid
 
 
+def rank_paired_destinations(valid_src: torch.Tensor, dst_key: torch.Tensor,
+                             offset: int) -> torch.Tensor:
+    """i32[B]: pair the i-th valid source broker (by broker id) with the
+    (i + offset)-th best destination by `dst_key` (higher = better, -inf =
+    ineligible), wrapping over the feasible prefix (context.py:502). The
+    ranking is a stable descending sort: ties go to the lower broker id."""
+    rank = torch.sort(-dst_key, stable=True).indices.to(torch.int32)
+    n_feasible = torch.clamp(torch.sum(torch.isfinite(dst_key).to(torch.int64)), min=1)
+    rr = torch.cumsum(valid_src.to(torch.int64), dim=0) - 1
+    return rank[(rr + offset) % n_feasible]
+
+
 def dst_hosts_partition(agg: Aggregates, p: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """bool[...]: does dst already host a replica of p (any slot)?"""
     row = agg.assignment[p.long()]

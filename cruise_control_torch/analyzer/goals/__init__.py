@@ -1,9 +1,10 @@
 """Goal registry: name -> singleton goal instance, in reference priority order.
 
 Mirrors the default goal stack of cc/config/KafkaCruiseControlConfig.java:1287-1322
-and the name resolution of KafkaCruiseControl.goalsByPriority (:1218). The six
-hard goals are ported; the soft and kafka-assigner goals resolve by name as
-`UnportedGoal`s, which the optimizer refuses (ROADMAP.md, Queue 1 item 3).
+and the name resolution of KafkaCruiseControl.goalsByPriority (:1218). All
+fifteen goals of the default stack are ported; the kafka-assigner goals
+resolve by name as `UnportedGoal`s, which the optimizer refuses (ROADMAP.md,
+Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -16,6 +17,14 @@ from cruise_control_torch.analyzer.goals.hard import (
     RackAwareGoal,
     ReplicaCapacityGoal,
 )
+from cruise_control_torch.analyzer.goals.soft import (
+    LeaderBytesInDistributionGoal,
+    LeaderReplicaDistributionGoal,
+    PotentialNwOutGoal,
+    ReplicaDistributionGoal,
+    ResourceDistributionGoal,
+    TopicReplicaDistributionGoal,
+)
 from cruise_control_torch.common.resources import Resource
 
 #: Priority-ordered default stack (same order as the reference's default.goals).
@@ -26,15 +35,15 @@ DEFAULT_GOAL_ORDER: List[Goal] = [
     CapacityGoal(Resource.NW_IN),
     CapacityGoal(Resource.NW_OUT),
     CapacityGoal(Resource.CPU),
-    UnportedGoal("ReplicaDistributionGoal"),
-    UnportedGoal("PotentialNwOutGoal"),
-    UnportedGoal("DiskUsageDistributionGoal"),
-    UnportedGoal("NetworkInboundUsageDistributionGoal"),
-    UnportedGoal("NetworkOutboundUsageDistributionGoal"),
-    UnportedGoal("CpuUsageDistributionGoal"),
-    UnportedGoal("TopicReplicaDistributionGoal"),
-    UnportedGoal("LeaderReplicaDistributionGoal"),
-    UnportedGoal("LeaderBytesInDistributionGoal"),
+    ReplicaDistributionGoal(),
+    PotentialNwOutGoal(),
+    ResourceDistributionGoal(Resource.DISK),
+    ResourceDistributionGoal(Resource.NW_IN),
+    ResourceDistributionGoal(Resource.NW_OUT),
+    ResourceDistributionGoal(Resource.CPU),
+    TopicReplicaDistributionGoal(),
+    LeaderReplicaDistributionGoal(),
+    LeaderBytesInDistributionGoal(),
 ]
 
 #: kafka-assigner mode goals: resolvable by name, excluded from the default stack

@@ -15,8 +15,9 @@ import torch
 
 from cruise_control_torch.analyzer.actions import KIND_MOVE, ActionBatch, slot_contrib
 from cruise_control_torch.analyzer.context import utilization
-from cruise_control_torch.analyzer.goals.base import SCORE_EPS, Goal
+from cruise_control_torch.analyzer.goals.base import SCORE_EPS, BulkCounts, Goal
 from cruise_control_torch.common.resources import PartMetric, Resource
+from cruise_control_torch.common.xla_math import fma, xla_tanh
 
 
 def _neg_inf(like: torch.Tensor) -> torch.Tensor:
@@ -67,7 +68,7 @@ class RackAwareGoal(Goal):
         dup = agg.rack_replica_count[act.p.long(), rack_src.long()] > 1
         is_move = act.kind == KIND_MOVE
         util = torch.amax(utilization(agg, static), dim=1)
-        tiebreak = (1e-3 * (1.0 - torch.tanh(util)))[act.dst.long()]
+        tiebreak = (1e-3 * (1.0 - xla_tanh(util)))[act.dst.long()]
         return torch.where(is_move & dup, 1.0 + tiebreak, _zero(tiebreak))
 
     def src_rank(self, static, gs, agg):
@@ -78,7 +79,7 @@ class RackAwareGoal(Goal):
     def drain_contrib(self, static, gs, agg):
         disk = static.part_load[:, PartMetric.DISK]
         viol = self._slot_violation(static, agg)
-        return torch.where(viol, 1.0 - 1e-9 * disk[:, None], _neg_inf(disk))
+        return torch.where(viol, fma(-1e-9, disk[:, None], 1.0), _neg_inf(disk))
 
     def contribute_acceptance(self, static, gs, tables):
         return tables._replace(rack_enabled=torch.tensor(True, device=tables.hi_rep.device))
@@ -108,7 +109,7 @@ class ReplicaCapacityGoal(Goal):
         is_move = act.kind == KIND_MOVE
         over = agg.replica_count[act.src.long()] > static.max_replicas_per_broker
         headroom = (static.max_replicas_per_broker - agg.replica_count[act.dst.long()]).to(torch.float32)
-        score = 1.0 + 1e-3 * torch.tanh(headroom * 1e-3)
+        score = fma(1e-3, xla_tanh(headroom * 1e-3), 1.0)
         return torch.where(is_move & over, score, _zero(score))
 
     def dst_preference(self, static, gs, agg):
@@ -121,6 +122,14 @@ class ReplicaCapacityGoal(Goal):
     def drain_contrib(self, static, gs, agg):
         disk = static.part_load[:, PartMetric.DISK]
         return (-disk[:, None]).expand(agg.assignment.shape)
+
+    def bulk_counts(self, static, gs, agg):
+        c = agg.replica_count.to(torch.float32)
+        cap = static.max_replicas_per_broker.to(torch.float32)
+        surplus = torch.where(static.dead, c, torch.clamp(c - cap, min=0.0))
+        headroom = cap - c
+        dst_key = torch.where(static.replica_dst_ok & (headroom > 0.0), headroom, _neg_inf(c))
+        return BulkCounts(surplus=surplus, dst_key=dst_key)
 
     def contribute_acceptance(self, static, gs, tables):
         cap = static.max_replicas_per_broker.to(torch.float32)

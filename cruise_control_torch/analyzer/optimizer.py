@@ -1,15 +1,18 @@
-"""Batched-greedy goal optimizer, the slice that runs the hard goals.
+"""Batched-greedy goal optimizer: the fused goal stack on the card.
 
 The counterpart of the JAX package's analyzer/optimizer.py (itself the
 replacement of GoalOptimizer.optimizations, cc/analyzer/GoalOptimizer.java:392)
-for the settings this port carries so far: the fused goal stack in batched
-mode (`batch_k > 1`), every goal on the drain/fill engine, no bulk planner,
-no shape bucketing, no polish pass and no provenance ledger. Anything else
-raises NotImplementedError naming the ROADMAP.md item that brings it.
+for the settings this port carries: the fused goal stack in batched mode
+(`batch_k > 1`) with every engine of the default stack (the drain/fill
+rounds, the bulk count planner, the replica swaps, the topic goal's pair
+drain and topic swaps, the leadership relays), no shape bucketing, no polish
+pass and no provenance ledger. Anything else raises NotImplementedError
+naming the ROADMAP.md item that brings it.
 
 The JAX package runs each goal's rounds as a device `while_loop`; here the
 round loop is a host loop over device work that reads one device value per
-round, the loop condition (`empties`, optimizer.py:673-675 in the JAX code).
+round, the loop condition (`empties`, optimizer.py:673-675 in the JAX code),
+plus the bulk planner's and the fallbacks' `applied` flags.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from cruise_control_torch.analyzer.acceptance import empty_tables
+from cruise_control_torch.analyzer.bulk import make_bulk_count_round
 from cruise_control_torch.analyzer.context import (
     Dims,
     OptimizationOptions,
@@ -30,10 +34,17 @@ from cruise_control_torch.analyzer.context import (
     dims_of,
     replicas_on_dead,
 )
-from cruise_control_torch.analyzer.drain import make_drain_round
+from cruise_control_torch.analyzer.drain import (
+    make_drain_round,
+    make_leadership_relay_round,
+    make_pair_drain_round,
+    make_topic_swap_round,
+    round_jitter,
+)
 from cruise_control_torch.analyzer.goals import goals_by_priority
 from cruise_control_torch.analyzer.goals.base import SCORE_EPS, UnportedGoal
 from cruise_control_torch.analyzer.proposals import ExecutionProposal, proposal_diff
+from cruise_control_torch.analyzer.swaps import make_swap_round
 from cruise_control_torch.config.balancing import BalancingConstraint
 from cruise_control_torch.models.flat_model import FlatClusterModel
 
@@ -46,12 +57,14 @@ class OptimizationFailureException(Exception):
 @dataclasses.dataclass(frozen=True)
 class OptimizerSettings:
     """Tuning knobs, with the JAX package's names and defaults (the fields the
-    slice reads or refuses; the grid, swap, cost-scaled-cap and bucket-ladder
-    knobs come with the code that reads them). The port runs
-    `SLICE_SETTINGS`; check_supported lists what it refuses."""
+    port reads or refuses; the grid's and the cost-scaled cap's knobs come
+    with the code that reads them). check_supported lists what it refuses."""
 
     batch_k: int = 64
     max_rounds_per_goal: int = 64
+    num_swap_pairs: int = 8
+    swap_candidates: int = 8
+    swaps_per_broker: int = 4
     bucket_partitions: bool = True
     bucket_brokers: bool = True
     chunk_rounds: int = 0
@@ -65,26 +78,32 @@ class OptimizerSettings:
     ledger: bool = True
 
 
-#: The settings of the ported slice: the service defaults
-#: (cruise_config.py:102-130) on the fused stack, without shape bucketing,
-#: the bulk planner or the provenance ledger.
+#: The hard-goal slice's settings: the service defaults on the fused stack
+#: without the bulk planner, shape bucketing or the provenance ledger.
 SLICE_SETTINGS = OptimizerSettings(
     batch_k=16, max_rounds_per_goal=64, drain_src=512,
     drain_per_broker=8, drain_dst=64, apply_waves=8, bulk_waves=0, polish_rounds=0,
     chunk_rounds=0, bucket_partitions=False, bucket_brokers=False, ledger=False,
 )
 
+#: The full stack's settings: the service defaults (cruise_config.py:102-130)
+#: on the fused stack, bulk planner and swaps included, without shape
+#: bucketing or the provenance ledger.
+STACK_SETTINGS = dataclasses.replace(SLICE_SETTINGS, bulk_waves=16, bulk_min_brokers=32,
+                                     num_swap_pairs=8, swap_candidates=8, swaps_per_broker=4)
+
+
+def _use_bulk(goal, dims: Dims, settings: OptimizerSettings) -> bool:
+    return (settings.bulk_waves > 0 and dims.num_brokers >= settings.bulk_min_brokers
+            and goal.count_family)
+
 
 def goal_engine(goal, dims: Dims, settings: OptimizerSettings) -> str:
     """Which search engine a goal runs under these settings/dims (the JAX
-    package's labels). The reference also sends swap and pair-drain goals to
-    the drain engine at `batch_k == 1`; the port has no such goal yet."""
-    use_bulk = (
-        settings.bulk_waves > 0
-        and dims.num_brokers >= settings.bulk_min_brokers
-        and goal.count_family
-    )
-    engine = "drain" if settings.batch_k > 1 else "grid"
+    package's labels, optimizer.py:254)."""
+    use_bulk = _use_bulk(goal, dims, settings)
+    use_drain = settings.batch_k > 1 or goal.uses_swaps or (use_bulk and goal.pair_drain)
+    engine = "drain" if use_drain else "grid"
     if use_bulk:
         engine = f"bulk+{engine}"
     if settings.polish_rounds > 0:
@@ -92,22 +111,21 @@ def goal_engine(goal, dims: Dims, settings: OptimizerSettings) -> str:
     return engine
 
 
-def check_supported(goals, dims: Dims, settings: OptimizerSettings,
-                    options: OptimizationOptions) -> None:
-    """Raise NotImplementedError for anything outside the ported slice."""
+def check_supported(goals, settings: OptimizerSettings, options: OptimizationOptions) -> None:
+    """Raise NotImplementedError for anything outside the ported slices."""
 
     def refuse(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
-    q2 = "ROADMAP.md Queue 1 item 3, slice 2"
+    q3 = "ROADMAP.md Queue 1 item 3: left out of slice 2, it comes with slice 3"
     q4 = "ROADMAP.md Queue 1 item 4, production solve plumbing"
     for g in goals:
         if isinstance(g, UnportedGoal):
-            refuse(f"goal {g.name}", q2)
-        # the grid (batch_k=1), the bulk planner and the polish pass
-        engine = goal_engine(g, dims, settings)
-        if engine != "drain":
-            refuse(f"the {engine} engine for {g.name}", q2)
+            refuse(f"goal {g.name}", q4)
+    if settings.batch_k <= 1:
+        refuse("the batch_k=1 grid engine", q3)
+    if settings.polish_rounds > 0:
+        refuse("the polish pass (polish_rounds > 0)", q3)
     if settings.chunk_rounds > 0:
         refuse("the chunked goal machine (chunk_rounds > 0)", q4)
     if settings.bucket_partitions or settings.bucket_brokers:
@@ -121,31 +139,79 @@ def check_supported(goals, dims: Dims, settings: OptimizerSettings,
             refuse(f"the option {field.name}", q4)
 
 
+def _swap_width(num_brokers: int, num_swap_pairs: int) -> int:
+    """The swap round's hot/cold width (optimizer.py:612-614): a sixteenth
+    of the brokers, up to the next power of two, within [num_swap_pairs,
+    128]; 128 at 2,600 brokers."""
+    width = num_brokers // 16
+    width = 1 << max(0, width - 1).bit_length() if width > 1 else width
+    return max(num_swap_pairs, min(128, width))
+
+
 def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
-    """goal_loop(static, agg, tables) -> (agg, rounds, empties): drain rounds
-    until the goal stalls or its round cap; `agg` is updated in place."""
-    drain_fn = make_drain_round(goal, dims, settings.drain_src, settings.drain_per_broker,
-                                settings.drain_dst, settings.apply_waves)
-    empties_to_stall = 1
+    """goal_loop(static, agg, tables) -> (agg, rounds, empties): rounds until
+    the goal stalls or its round cap (optimizer.py:536-775); `agg` is
+    updated in place. Each round: the bulk planner first (count goals), then,
+    when it applied nothing, the goal's engine, then its stall fallbacks
+    (swaps, topic swaps, relays) only while nothing has applied."""
+    use_bulk = _use_bulk(goal, dims, settings)
+    bulk_fn = None
+    if use_bulk and not goal.pair_drain:
+        bulk_fn = make_bulk_count_round(goal, dims, settings.drain_per_broker, settings.bulk_waves)
+    topic_swap_fn = lead_swap_fn = swap_fn = None
+    if goal.pair_drain:
+        drain_fn = make_pair_drain_round(goal, dims, settings.drain_src, settings.apply_waves)
+        topic_swap_fn = make_topic_swap_round(goal, dims, settings.drain_src,
+                                              max(4, settings.drain_dst // 4), 8,
+                                              settings.apply_waves)
+    else:
+        drain_fn = make_drain_round(goal, dims, settings.drain_src, settings.drain_per_broker,
+                                    settings.drain_dst, settings.apply_waves)
+    if goal.leadership_swap and dims.max_rf >= 2:
+        lead_swap_fn = make_leadership_relay_round(goal, dims, settings.drain_src, 4, 8,
+                                                   settings.apply_waves)
+    if goal.uses_swaps:
+        swap_fn = make_swap_round(goal, dims, _swap_width(dims.num_brokers, settings.num_swap_pairs),
+                                  settings.swap_candidates, settings.swaps_per_broker,
+                                  settings.apply_waves)
+    rotated = goal.pair_drain or goal.rotate_drain_candidates
+    empties_to_stall = 8 if rotated else 1
+
+    def engine(static, agg, tables, gs0, rnd: int):
+        contrib = goal.drain_contrib(static, gs0, agg)
+        if goal.rotate_drain_candidates:
+            contrib = contrib * round_jitter(contrib.shape[0], rnd, contrib.device)[:, None]
+        agg, applied = drain_fn(static, agg, tables, gs0, contrib, rnd)
+        # the fallbacks run only after a round that applied nothing, on the
+        # round's unchanged aggregates
+        for fallback in (swap_fn, topic_swap_fn, lead_swap_fn):
+            if fallback is None or bool(applied):
+                continue
+            if fallback is swap_fn:
+                agg, applied = fallback(static, agg, tables, contrib, rnd)
+            else:
+                agg, applied = fallback(static, agg, tables, gs0, rnd)
+        return agg, applied
 
     def goal_loop(static, agg, tables):
         gs0 = goal.prepare(static, agg, dims)
         budget = settings.max_rounds_per_goal
-        dev = agg.assignment.device
-        empties = torch.zeros((), dtype=torch.int32, device=dev)
-        stall = torch.tensor(empties_to_stall, dtype=torch.int32, device=dev)
-        rnd = 0
-        # the loop condition is the one device value read per round
-        while rnd < budget and int(empties) < empties_to_stall:
-            contrib = goal.drain_contrib(static, gs0, agg)
-            agg, applied = drain_fn(static, agg, tables, gs0, contrib, rnd)
+        rnd, empties = 0, 0
+        while rnd < budget and empties < empties_to_stall:
+            applied = False
+            if bulk_fn is not None:
+                agg, applied = bulk_fn(static, agg, tables, gs0,
+                                       goal.drain_contrib(static, gs0, agg), rnd)
+            if not applied:
+                agg, applied = engine(static, agg, tables, gs0, rnd)
             # a zero-cost goal with no dead-broker replicas left is done
             satisfied = (goal.cost(static, gs0, agg) <= SCORE_EPS) & ~torch.any(
                 replicas_on_dead(static, agg.assignment))
-            empties = torch.where(satisfied, stall,
-                                  torch.where(applied, torch.zeros_like(empties), empties + 1))
+            state = torch.stack([satisfied, torch.as_tensor(applied, device=satisfied.device)])
+            satisfied, applied = (bool(x) for x in state.cpu())
+            empties = empties_to_stall if satisfied else (0 if applied else empties + 1)
             rnd += 1
-        return agg, rnd, int(empties)
+        return agg, rnd, empties
 
     goal_loop.empties_to_stall = empties_to_stall
     return goal_loop
@@ -257,7 +323,7 @@ class GoalOptimizer:
         goals = goals_by_priority(goal_names)
         model = model.to(self._device)
         dims = dims_of(model)
-        check_supported(goals, dims, self._settings, options)
+        check_supported(goals, self._settings, options)
         static = build_static_ctx(model, self._constraint, dims)
         init_np = model.assignment.cpu().numpy()
         part_load_np = model.part_load.cpu().numpy()

@@ -82,6 +82,35 @@ __device__ __forceinline__ Action build_action(const int* assignment, int R, con
   return a;
 }
 
+// XLA:CPU's float32 tanh (its elemental emitter's rational approximation):
+// clamp, x itself below 0.0004, else x * P(x^2) / Q(x^2) with every Horner
+// step a fused multiply-add and one IEEE divide. fmaf is explicit, so
+// -fmad=false leaves it fused; the other operations round as written.
+// common/xla_math.py xla_tanh is the same on the CPU.
+__device__ __forceinline__ float xla_tanhf(float x) {
+  const float c = 7.90531110763549805f;
+  const float xc = fminf(fmaxf(x, -c), c);
+  const float x2 = xc * xc;
+  float num = -2.76076847742355e-16f;
+  num = fmaf(x2, num, 2.00018790482477e-13f);
+  num = fmaf(x2, num, -8.60467152213735e-11f);
+  num = fmaf(x2, num, 5.12229709037114e-08f);
+  num = fmaf(x2, num, 1.48572235717979e-05f);
+  num = fmaf(x2, num, 6.37261928875436e-04f);
+  num = fmaf(x2, num, 4.89352455891786e-03f);
+  num = xc * num;
+  float den = 1.19825839466702e-06f;
+  den = fmaf(x2, den, 1.18534705686654e-04f);
+  den = fmaf(x2, den, 2.26843463243900e-03f);
+  den = fmaf(x2, den, 4.89352518554385e-03f);
+  return fabsf(x) < 0.0004f ? x : num / den;
+}
+
+// Distance of v outside [lo, hi]; 0 inside (goals/base.py imbalance).
+__device__ __forceinline__ float imbalance(float v, float lo, float hi) {
+  return fmaxf(0.0f, v - hi) + fmaxf(0.0f, lo - v);
+}
+
 CC_EXPORT const char* cc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,10 +1,11 @@
 // K3 score_candidates: the masked score of every candidate action under one
-// hard goal and the merged acceptance tables of the goals before it.
+// goal of the default stack and the merged acceptance tables of the goals
+// before it.
 //
 // Replaces: cruise_control_tpu/analyzer/acceptance.py score_batch (:330) with
 // structural_mask (:314), tables_acceptance (:164), band_move_acceptance
-// (:116), the goal's acceptance / action_score (goals/hard.py), fed by
-// actions.build_selected (:189).
+// (:116), the goal's acceptance / action_score (goals/hard.py, goals/soft.py),
+// fed by actions.build_selected (:189).
 //
 // Bound on this card: bytes, and in practice latency. Per candidate the
 // kernel gathers one assignment row, one part_load row and a few dozen
@@ -12,15 +13,19 @@
 // and does ~100 flops. The drain round's [512, 8, 64] move grid (262,144
 // cells) touches at most 4,096 partitions and the 64 destination brokers;
 // the [P, R-1] promotion grid (399,036 cells) reads every partition's row
-// once. Both are a few MB of distinct bytes.
+// once. Both are a few MB of distinct bytes. The bulk planner's [B, 8] and
+// [B, 8, 2] grids and the pair drain's [512, 4, 64] grid are smaller still.
 //
-// Design: one thread per candidate, a switch over the six hard goals' ids.
+// Design: one thread per candidate, a switch over the fifteen goals' ids
+// (goal.kernel_id: 0-5 the hard goals, 6-14 the soft goals, whose window
+// scalars, or per-topic arrays, come in as `lower`, `upper`, `active`).
 // The (p, kind, slot, dst) index tensors are read through broadcast strides,
 // so the lazy [V,K,1] x [1,1,C] grid of drain.py:960-971 and the strided
 // assignment[:, 1:] view of the promotion grid are never materialised. Every
 // float operation is the reference's, in its order (built with -fmad=false,
-// no fast math), so the only intended difference from the plain version is
-// tanhf. A candidate whose action is not valid (empty slot, src == dst, a -1
+// no fast math). Where XLA fuses a multiply into an add the kernel calls
+// fmaf, and every tanh is xla_tanhf, so the scores are bit-equal to the
+// plain version's (common/xla_math.py). A candidate whose action is not valid (empty slot, src == dst, a -1
 // destination) is -inf before anything is gathered with its indices: the
 // reference's values there are masked by the same `valid` bit.
 #include "common.cuh"
@@ -50,8 +55,21 @@ struct ScoreArgs {
   const unsigned char* rack_enabled;
   const float* limit;  // the capacity goal's usable capacity f32[B]
   const int* max_replicas;
+  const float *w_lower, *w_upper;  // the soft goal's window: f32[] or f32[T]
+  const unsigned char* w_active;
   int R, NR, B, goal;
 };
+
+// distribution_score (goals/base.py): the imbalance removed on the two
+// brokers plus 1e-3 * tanh(tiebreak), fused as XLA fuses it
+__device__ __forceinline__ float distribution_score(float b_src, float b_dst, float a_src,
+                                                    float a_dst, float lo, float hi, float tb) {
+  const float i_s0 = imbalance(b_src, lo, hi), i_d0 = imbalance(b_dst, lo, hi);
+  const float i_s1 = imbalance(a_src, lo, hi), i_d1 = imbalance(a_dst, lo, hi);
+  const float red = i_s0 + i_d0 - i_s1 - i_d1;
+  const bool endpoint_ok = i_s1 <= i_s0 + 1e-6f && i_d1 <= i_d0 + 1e-6f;
+  return (red > 1e-6f && endpoint_ok) ? fmaf(1e-3f, xla_tanhf(tb), red) : 0.0f;
+}
 
 // resource of each capacity-goal id (2..5), as goals/hard.py _CAPACITY_KERNEL_ID
 __device__ __forceinline__ int capacity_resource(int goal) {
@@ -152,7 +170,7 @@ __global__ void k_score(ScoreArgs g) {
       bool dup = g.rack_count[(long long)p * g.NR + rs] > 1;
       float m = -INFINITY;
       for (int r = 0; r < 4; ++r) m = fmaxf(m, g.broker_load[pd + r] / fmaxf(g.capacity[pd + r], 1e-9f));
-      float tiebreak = 1e-3f * (1.0f - tanhf(m));
+      float tiebreak = 1e-3f * (1.0f - xla_tanhf(m));
       score = (is_move && dup) ? 1.0f + tiebreak : 0.0f;
       break;
     }
@@ -161,10 +179,10 @@ __global__ void k_score(ScoreArgs g) {
       if (is_move && !(g.replica_count[dst] + 1 <= cap)) ok = false;
       bool over = g.replica_count[src] > cap;
       float headroom = (float)(cap - g.replica_count[dst]);
-      score = (is_move && over) ? 1.0f + 1e-3f * tanhf(headroom * 1e-3f) : 0.0f;
+      score = (is_move && over) ? fmaf(1e-3f, xla_tanhf(headroom * 1e-3f), 1.0f) : 0.0f;
       break;
     }
-    default: {  // CapacityGoal(resource)
+    case 2: case 3: case 4: case 5: {  // CapacityGoal(resource)
       int res = capacity_resource(g.goal);
       float dres = a.dload[res];
       float after = g.broker_load[pd + res] + dres;
@@ -177,6 +195,67 @@ __global__ void k_score(ScoreArgs g) {
       }
       if (!acc) ok = false;
       score = (src_over && dres > 1e-6f) ? dres : 0.0f;
+      break;
+    }
+    case 6: {  // ReplicaDistributionGoal
+      const float lo = g.w_lower[0], hi = g.w_upper[0];
+      if (is_move && !(((float)(g.replica_count[src] - 1) >= lo || dead_src) &&
+                       (float)(g.replica_count[dst] + 1) <= hi))
+        ok = false;
+      const float cs = (float)g.replica_count[src], cd = (float)g.replica_count[dst];
+      score = is_move ? distribution_score(cs, cd, cs - 1.0f, cd + 1.0f, lo, hi, (cs - cd) * 1e-2f)
+                      : 0.0f;
+      break;
+    }
+    case 7: {  // PotentialNwOutGoal: `limit` is capacity_limit[:, NW_OUT]
+      if (!(a.dpnw <= 0.0f || g.potential[dst] + a.dpnw <= g.limit[dst])) ok = false;
+      score = (g.potential[src] > g.limit[src] && a.dpnw > 1e-6f) ? a.dpnw : 0.0f;
+      break;
+    }
+    case 8: case 9: case 10: case 11: {  // ResourceDistributionGoal(resource)
+      const int res = g.goal - 8;
+      const float lo = g.w_lower[0], hi = g.w_upper[0];
+      const bool active = g.w_active[0];
+      const float dres = a.dload[res];
+      const float cap_s = fmaxf(g.capacity[ps + res], 1e-9f), cap_d = fmaxf(g.capacity[pd + res], 1e-9f);
+      const float u_s = g.broker_load[ps + res] / cap_s, u_d = g.broker_load[pd + res] / cap_d;
+      const float u_s1 = u_s - dres / cap_s, u_d1 = u_d + dres / cap_d;
+      const bool case1 = u_s >= lo && u_d <= hi;
+      const bool acc1 = u_d1 <= hi && (u_s1 >= lo || dead_src);
+      const bool acc2 = fabsf(u_s1 - u_d1) < fabsf(u_s - u_d);
+      const bool acc = case1 ? acc1 : (acc2 || dead_src);
+      if (active && fabsf(dres) > 0.0f && !acc) ok = false;
+      score = active ? distribution_score(u_s, u_d, u_s1, u_d1, lo, hi, u_s - u_d) : 0.0f;
+      break;
+    }
+    case 12: {  // TopicReplicaDistributionGoal: per-topic windows
+      const float lo = g.w_lower[t], hi = g.w_upper[t];
+      const int c_s = g.topic_count[t * g.B + src], c_d = g.topic_count[t * g.B + dst];
+      if (is_move && !(((float)(c_s - 1) >= lo || dead_src) && (float)(c_d + 1) <= hi)) ok = false;
+      const float cs = (float)c_s, cd = (float)c_d;
+      score = is_move ? distribution_score(cs, cd, cs - 1.0f, cd + 1.0f, lo, hi, (cs - cd) * 1e-2f)
+                      : 0.0f;
+      break;
+    }
+    case 13: {  // LeaderReplicaDistributionGoal
+      const float lo = g.w_lower[0], hi = g.w_upper[0];
+      const bool transfers = a.dleader > 0;
+      if (transfers && !(((float)(g.leader_count[src] - 1) >= lo || dead_src) &&
+                         (float)(g.leader_count[dst] + 1) <= hi))
+        ok = false;
+      const float cs = (float)g.leader_count[src], cd = (float)g.leader_count[dst];
+      score = transfers
+                  ? distribution_score(cs, cd, cs - 1.0f, cd + 1.0f, lo, hi, (cs - cd) * 1e-2f)
+                  : 0.0f;
+      break;
+    }
+    default: {  // 14: LeaderBytesInDistributionGoal
+      const float lo = g.w_lower[0], hi = g.w_upper[0];
+      const float d = a.dleader_nw_in;
+      if (d > 0.0f && !(g.leader_nw_in[dst] + d <= hi || dead_src)) ok = false;
+      const float bs = g.leader_nw_in[src], bd = g.leader_nw_in[dst];
+      score = d > 0.0f ? distribution_score(bs, bd, bs - d, bd + d, lo, hi, (bs - bd) * 1e-6f)
+                       : 0.0f;
       break;
     }
   }
@@ -192,8 +271,10 @@ __global__ void k_score(ScoreArgs g) {
 //   rack_replica_count, topic_replica_count, host_cpu_load,
 //   hi_load, lo_load, band_hi, band_lo, band_on, hi_rep, lo_rep, hi_lead,
 //   lo_lead, hi_pnw, hi_lnw, hi_lnw_waive_dead, hi_topic, lo_topic,
-//   hi_host_cpu, rack_enabled, limit, max_replicas_per_broker
-// ints: d0, d1, d2, strides of p (3), kind (3), slot (3), dst (3), R, NR, B, goal
+//   hi_host_cpu, rack_enabled, limit, max_replicas_per_broker, w_lower,
+//   w_upper, w_active
+// ints: d0, d1, d2, strides of p (3), kind (3), slot (3), dst (3), R, NR, B,
+//   goal
 CC_EXPORT int score_candidates(const long long* ptrs, const long long* ints, cudaStream_t stream) {
   ScoreArgs g;
   int k = 0;
@@ -239,6 +320,9 @@ CC_EXPORT int score_candidates(const long long* ptrs, const long long* ints, cud
   g.rack_enabled = (const unsigned char*)ptrs[k++];
   g.limit = (const float*)ptrs[k++];
   g.max_replicas = (const int*)ptrs[k++];
+  g.w_lower = (const float*)ptrs[k++];
+  g.w_upper = (const float*)ptrs[k++];
+  g.w_active = (const unsigned char*)ptrs[k++];
   long long d0 = ints[0];
   g.d1 = ints[1];
   g.d2 = ints[2];

@@ -1,9 +1,11 @@
 """K4: pick a conflict-free subset of one wave of actions and apply it.
 
 Replaces cruise_control_tpu/analyzer/context.py wave_select (:425) and
-apply_actions_batch (:525). The CUDA kernel is csrc/apply_wave.cu;
-`apply_wave_plain` (= build_selected + `wave_select` + `apply_actions_batch`)
-is the PyTorch version. Both write the aggregate tensors in place.
+apply_actions_batch (:525), for single actions and for the two-leg swaps and
+relays (swaps.py:293-298, drain.py:610-615, :862-867). The CUDA kernel is
+csrc/apply_wave.cu; `apply_wave_plain` (= build_selected + `wave_select` +
+`apply_actions_batch`) is the PyTorch version. Both write the aggregate
+tensors in place.
 """
 
 from __future__ import annotations
@@ -14,37 +16,46 @@ from cruise_control_torch.analyzer.actions import KIND_MOVE, build_selected
 from cruise_control_torch.common.resources import Resource
 from cruise_control_torch.kernels import build
 
-#: the most entries one wave may hold (one CUDA block, one thread each)
-MAX_WAVE = 1024
+#: the most entries one wave may hold (one CUDA block; the bulk planner's
+#: waves hold one entry per broker, 2,600 on the smoke model)
+MAX_WAVE = 4096
 
 
-def _unique_per_group(sel, s, group, n_groups: int):
+def _unique_per_group(sel, s, claims, n_groups: int):
     """Keep, per group id, only the best-scoring selected entry (ties by the
-    lowest index)."""
+    lowest index), over the union of the claim arrays: an entry must win
+    every group it claims."""
     n = s.shape[0]
     dev = s.device
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     big = n + 1
-    c = torch.where(sel, group.long(), n_groups)
+    claims = [torch.where(sel, c.long(), n_groups) for c in claims]
     s_sel = torch.where(sel, s, torch.tensor(-torch.inf, device=dev))
     smax = torch.full((n_groups + 1,), -torch.inf, dtype=torch.float32, device=dev)
-    smax = smax.scatter_reduce(0, c, s_sel, "amax")
-    c_and = sel & (s_sel >= smax[c])
+    for c in claims:
+        smax = smax.scatter_reduce(0, c, s_sel, "amax")
+    c_and = sel
+    for c in claims:
+        c_and = c_and & (s_sel >= smax[c])
     idx_s = torch.where(c_and, idx, big)
     cmin = torch.full((n_groups + 1,), big, dtype=torch.int64, device=dev)
-    cmin = cmin.scatter_reduce(0, c, idx_s, "amin")
-    return c_and & (idx == cmin[c])
+    for c in claims:
+        cmin = cmin.scatter_reduce(0, c, idx_s, "amin")
+    for c in claims:
+        sel = c_and & (idx == cmin[c])
+        c_and = sel
+    return sel
 
 
-def wave_select(score, src, dst, dst_host, part, valid, num_brokers: int, num_hosts: int,
-                num_partitions: int):
-    """bool[N]: a conflict-free, score-prioritized subset of the entries:
-    every broker in at most one selected action (either endpoint), every
-    destination host and every partition at most once. An entry survives iff
-    it holds the max score on both its brokers (ties to the lowest index),
-    then per destination host, then per partition. The reference's
-    `dst_host2` (swaps) and `brokers3` (leadership relays) claims come with
-    slice 2 (ROADMAP.md Queue 1 item 3)."""
+def wave_select(score, src, dst, dst_host, valid, num_brokers: int, num_hosts: int,
+                parts, num_partitions: int, dst_host2=None, brokers3=None):
+    """bool[N]: a conflict-free, score-prioritized subset of the entries
+    (context.py:425): every broker in at most one selected action (either
+    endpoint, and the third broker of a relay), every destination host and
+    every partition at most once. An entry survives iff it holds the max
+    score on both its brokers (ties to the lowest index), then per broker
+    over (src, dst, brokers3), per host over (dst_host, dst_host2) and per
+    partition over `parts`, each over the union of its claims."""
     n = score.shape[0]
     dev = score.device
     s = torch.where(valid, score, torch.tensor(-torch.inf, device=dev))
@@ -59,8 +70,12 @@ def wave_select(score, src, dst, dst_host, part, valid, num_brokers: int, num_ho
     imin = torch.full((num_brokers + 1,), big, dtype=torch.int64, device=dev)
     imin = imin.scatter_reduce(0, src_c, idx_c, "amin").scatter_reduce(0, dst_c, idx_c, "amin")
     sel = cand & (idx == imin[src_c]) & (idx == imin[dst_c])
-    sel = _unique_per_group(sel, s, dst_host, num_hosts)
-    return _unique_per_group(sel, s, part, num_partitions)
+    if brokers3 is not None:
+        b3_c = torch.where(valid, brokers3, num_brokers).long()
+        sel = _unique_per_group(sel, s, [src_c, dst_c, b3_c], num_brokers)
+    hosts = [h for h in (dst_host, dst_host2) if h is not None]
+    sel = _unique_per_group(sel, s, hosts, num_hosts)
+    return _unique_per_group(sel, s, list(parts), num_partitions)
 
 
 def apply_actions_batch(static, agg, act, flags, tag: int = -1) -> None:
@@ -115,29 +130,53 @@ def apply_actions_batch(static, agg, act, flags, tag: int = -1) -> None:
     agg.host_cpu_load.index_add_(0, static.broker_host[d_w].long(), dcpu)
 
 
-def apply_wave_plain(static, agg, p, kind, slot, dst, score, ok, tag: int):
+def apply_wave_plain(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
+                     brokers3: bool = False):
     """sel bool[N]: materialize the entries' actions on the current
-    assignment, select a conflict-free subset (broker-, destination-host- and
-    partition-disjoint) and apply it to `agg` in place."""
+    assignment, select a conflict-free subset and apply it to `agg` in place.
+    With `leg2` = (p2, kind2, slot2, dst2), each entry is a coupled pair (a
+    swap or a relay): both legs are built from the pre-wave assignment, the
+    selection also claims leg 2's destination host and partition (and, with
+    `brokers3`, its destination broker), and every selected entry's leg 1
+    applies before every leg 2, as the reference's two apply_actions_batch
+    calls do."""
     num_brokers = agg.broker_load.shape[0]
+    host = static.broker_host
     act = build_selected(static.part_load, agg.assignment, p, kind, slot, dst)
-    dst_host = static.broker_host[torch.clamp(act.dst, min=0).long()]
-    sel = wave_select(score, act.src, act.dst, dst_host, act.p, ok, num_brokers,
-                      agg.host_cpu_load.shape[0], agg.assignment.shape[0])
+    dst_host = host[torch.clamp(act.dst, min=0).long()]
+    parts, dst_host2, b3 = (act.p,), None, None
+    if leg2 is not None:
+        act2 = build_selected(static.part_load, agg.assignment, *leg2)
+        dst_host2 = host[torch.clamp(act2.dst, min=0).long()]
+        parts = (act.p, act2.p)
+        if brokers3:
+            b3 = act2.dst
+    sel = wave_select(score, act.src, act.dst, dst_host, ok, num_brokers,
+                      agg.host_cpu_load.shape[0], parts, agg.assignment.shape[0],
+                      dst_host2=dst_host2, brokers3=b3)
     apply_actions_batch(static, agg, act, sel, tag)
+    if leg2 is not None:
+        apply_actions_batch(static, agg, act2, sel, tag)
     return sel
 
 
-def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int):
+def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
+               brokers3: bool = False):
     """`apply_wave_plain` for CPU tensors, the CUDA kernel for CUDA tensors.
-    `p`, `kind`, `slot`, `dst` i32[N], `score` f32[N], `ok` bool[N]."""
+    `p`, `kind`, `slot`, `dst` i32[N] (and each of `leg2`'s), `score` f32[N],
+    `ok` bool[N]. A flagged two-leg entry's second leg must leave the broker
+    its first leg enters (every swap and relay does): the kernel claims no
+    other broker, and applies each entry's legs without atomics."""
     if score.device.type == "cpu":
-        return apply_wave_plain(static, agg, p, kind, slot, dst, score, ok, tag)
+        return apply_wave_plain(static, agg, p, kind, slot, dst, score, ok, tag, leg2, brokers3)
     dev = score.device
     n = score.shape[0]
     if n > MAX_WAVE:
         raise ValueError(f"apply_wave: {n} entries, the kernel takes at most {MAX_WAVE}")
-    for t, name in ((p, "p"), (kind, "kind"), (slot, "slot"), (dst, "dst")):
+    if brokers3 and leg2 is None:
+        raise ValueError("apply_wave: brokers3 needs a second leg")
+    legs = (p, kind, slot, dst) + (tuple(leg2) if leg2 is not None else (p, kind, slot, dst))
+    for t, name in zip(legs, ("p", "kind", "slot", "dst", "p2", "kind2", "slot2", "dst2")):
         build.require(t, torch.int32, 1, name, dev)
         if t.shape[0] != n:
             raise ValueError(f"apply_wave: {name} has {t.shape[0]} entries, score {n}")
@@ -153,9 +192,10 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int):
     sel = torch.empty(n, dtype=torch.bool, device=dev)
     lib = build.load("apply_wave")
     code = lib.apply_wave(
-        build.ptrs(p, kind, slot, dst, score, ok, sel, *tensors),
+        build.ptrs(*legs, score, ok, sel, *tensors),
         build.ints(n, agg.assignment.shape[1], agg.rack_replica_count.shape[1],
-                   agg.broker_load.shape[0], tag),
+                   agg.broker_load.shape[0], tag, 2 if leg2 is not None else 1,
+                   1 if brokers3 else 0),
         build.stream())
     build.check(lib, code, "apply_wave")
     apply_wave.launches += 1

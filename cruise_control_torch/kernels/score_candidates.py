@@ -1,4 +1,4 @@
-"""K3: masked scores of candidate actions under one hard goal.
+"""K3: masked scores of candidate actions under one goal of the default stack.
 
 Replaces cruise_control_tpu/analyzer/acceptance.py score_batch (:330) fed by
 actions.build_selected (:189). The CUDA kernel is csrc/score_candidates.cu;
@@ -49,14 +49,28 @@ def score_candidates(static, agg, tables, goal, gs, p, kind, slot, dst):
         raise ValueError(f"score_candidates: rank {len(shape)} > 3")
     shape3 = (1,) * (3 - len(shape)) + tuple(shape)
     out = torch.empty(shape3, dtype=torch.float32, device=dev)
-    limit = gs.limit if gs is not None else static.host_cpu_capacity_limit
+    # the capacity goals' usable capacity, PotentialNwOutGoal's limit, and
+    # the soft goals' window (per topic for the topic goal); unused
+    # arguments get a placeholder
+    if hasattr(goal, "limit"):
+        limit = goal.limit(static).contiguous()
+    elif gs is not None and hasattr(gs, "limit"):
+        limit = gs.limit
+    else:
+        limit = static.host_cpu_capacity_limit
+    has_window = gs is not None and hasattr(gs, "upper")
+    w_lower = gs.lower.contiguous() if has_window else limit
+    w_upper = gs.upper.contiguous() if has_window else limit
+    w_active = getattr(gs, "active", None)
+    if w_active is None:
+        w_active = torch.ones((), dtype=torch.bool, device=dev)
     tensors = (
         static.part_load, static.topic_id, static.broker_capacity, static.broker_rack,
         static.broker_host, static.dead, static.replica_dst_ok, static.leadership_dst_ok,
         static.movable_partition, static.host_cpu_capacity_limit,
         agg.broker_load, agg.replica_count, agg.leader_count, agg.potential_nw_out,
         agg.leader_nw_in, agg.rack_replica_count, agg.topic_replica_count, agg.host_cpu_load,
-        *tables, limit, static.max_replicas_per_broker,
+        *tables, limit, static.max_replicas_per_broker, w_lower, w_upper, w_active,
     )
     for t in (agg.assignment, *tensors):
         if t.device != dev or not t.is_contiguous():

@@ -1,9 +1,11 @@
-"""Where the time of the PyTorch port's hard-goal solve goes, on one NVIDIA GPU.
+"""Where the time of the PyTorch port's solves goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_slice.py [--out build/profile_torch_slice.json]
+    python3 scripts/profile_torch_slice.py [--path hard|stack|both]
+                                           [--out build/profile_torch_slice.json]
 
-Builds the CUDA kernels, solves the smoke model of chip_smoke.py once as a
-warm-up, then:
+Builds the CUDA kernels and, for each solve asked for (the six hard goals
+with SLICE_SETTINGS, the full 15-goal stack with STACK_SETTINGS; both by
+default), solves the smoke model of chip_smoke.py once as a warm-up, then:
   1. once more with a synchronize after every goal, for each goal's wall time;
   2. once under torch.profiler (CPU and CUDA activities), for the device's
      busy time by kernel, the idle share of the solve's wall time, the number
@@ -34,7 +36,9 @@ OWN_KERNELS = {
     "k_broker_sums": "K1 segment_aggregates", "k_counts": "K1 segment_aggregates",
     "k_host_cpu": "K1 segment_aggregates", "k_bid": "K2 broker_topk",
     "k_take": "K2 broker_topk", "k_score": "K3 score_candidates",
-    "k_apply_wave": "K4 apply_wave",
+    "k_apply_wave": "K4 apply_wave", "k_score_swaps": "K5 score_swaps",
+    "k_pair_init": "K6 pair_picks", "k_pair_bid": "K6 pair_picks",
+    "k_pair_take": "K6 pair_picks", "k_window_sum": "window_sum",
 }
 
 
@@ -56,32 +60,21 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_slice.json"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_torch_slice: needs an NVIDIA GPU")
-    from cruise_control_torch.analyzer import optimizer as opt
+def profile(path: str, model, opt) -> dict:
+    """The numbers of one solve (`path` "hard" or "stack")."""
     from cruise_control_torch.analyzer.acceptance import empty_tables
     from cruise_control_torch.analyzer.context import build_static_ctx, compute_aggregates, dims_of
     from cruise_control_torch.analyzer.goals import HARD_GOAL_NAMES, goals_by_priority
+    from cruise_control_torch.analyzer.proposals import proposal_diff
     from cruise_control_torch.config.balancing import BalancingConstraint
-    from cruise_control_torch.kernels import build
-    from cruise_control_torch.models import generators
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(card)
-    build.build_all()
-    prop = dataclasses.replace(generators.BASELINE_CONFIGS[5], num_dead_brokers=26,
-                               load_distribution="pareto", mean_utilization=0.5)
-    model = generators.random_cluster(42, prop)
-    optimizer = opt.GoalOptimizer(device="cuda")
+    settings = opt.STACK_SETTINGS if path == "stack" else opt.SLICE_SETTINGS
+    names = None if path == "stack" else HARD_GOAL_NAMES
+    optimizer = opt.GoalOptimizer(device="cuda", settings=settings)
 
     def solve():
         t0 = time.monotonic()
-        res = optimizer.optimizations(model, HARD_GOAL_NAMES, raise_on_hard_failure=False)
+        res = optimizer.optimizations(model, names, raise_on_hard_failure=False)
         torch.cuda.synchronize()
         return res, time.monotonic() - t0
 
@@ -89,8 +82,6 @@ def main() -> int:
     _, wall_s = solve()
 
     # the host-side parts of a solve around the goal loops
-    from cruise_control_torch.analyzer.proposals import proposal_diff
-
     t0 = time.monotonic()
     proposal_diff(model.assignment.numpy(), res.final_assignment, model.part_load.numpy())
     diff_s = time.monotonic() - t0
@@ -106,13 +97,14 @@ def main() -> int:
     setup_s = time.monotonic() - t0
     tables = empty_tables(dims, gpu.device)
     per_goal = {}
-    for goal in goals_by_priority(HARD_GOAL_NAMES):
-        loop = opt._make_goal_loop(goal, dims, opt.SLICE_SETTINGS)
+    for goal in goals_by_priority(names):
+        loop = opt._make_goal_loop(goal, dims, settings)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         agg, rounds, _ = loop(static, agg, tables)
         torch.cuda.synchronize()
-        per_goal[goal.name] = {"wall_s": time.monotonic() - t0, "rounds": rounds}
+        per_goal[goal.name] = {"wall_s": time.monotonic() - t0, "rounds": rounds,
+                               "engine": opt.goal_engine(goal, dims, settings)}
         tables = goal.contribute_acceptance(static, goal.prepare(static, agg, dims), tables)
 
     # 2. one traced solve
@@ -137,7 +129,7 @@ def main() -> int:
                        "cudaMemcpyAsync", "cudaMemsetAsync"):
             host[evt.key] = {"count": evt.count, "cpu_us": float(evt.cpu_time_total)}
     out = {
-        "card": card, "warmup_solve_s": warm_s, "solve_s": wall_s, "traced_solve_s": traced_s,
+        "warmup_solve_s": warm_s, "solve_s": wall_s, "traced_solve_s": traced_s,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": (1.0 - busy_us / 1e6 / traced_s) if traced_s > 0 else None,
         "device_s_by_group": {k: v / 1e6 for k, v in by_kernel.most_common()},
@@ -147,11 +139,8 @@ def main() -> int:
         "glue_device_s_by_kernel": {k: v / 1e6 for k, v in glue.most_common(15)},
         "setup_s": setup_s, "proposal_diff_s": diff_s,
     }
-    path = pathlib.Path(args.out)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(json.dumps(out, indent=1))
-    print(f"solve {wall_s:.3f} s (warm-up {warm_s:.3f} s, traced {traced_s:.3f} s); device busy "
-          f"{out['device_busy_s']:.3f} s, idle share {out['device_idle_share']:.3f}")
+    print(f"[{path}] solve {wall_s:.3f} s (warm-up {warm_s:.3f} s, traced {traced_s:.3f} s); "
+          f"device busy {out['device_busy_s']:.3f} s, idle share {out['device_idle_share']:.3f}")
     for k, v in out["device_s_by_group"].items():
         print(f"  {k:36s} {v:9.4f} s  {launches[k]:7d} launches")
     for k, v in out["glue_device_s_by_kernel"].items():
@@ -159,11 +148,40 @@ def main() -> int:
     print(f"  set-up (model to the card, static context, K1) {setup_s:.3f} s; "
           f"proposal diff {diff_s:.3f} s")
     for k, v in per_goal.items():
-        print(f"  goal {k:30s} {v['wall_s']:8.3f} s  {v['rounds']:3d} rounds")
+        print(f"  goal {k:36s} {v['wall_s']:8.3f} s  {v['rounds']:3d} rounds  {v['engine']}")
     for k, v in host.items():
         print(f"  host {k:30s} {v['count']:8d} calls  {v['cpu_us'] / 1e6:8.3f} s")
-    print(json.dumps({"device_busy_s": out["device_busy_s"],
-                      "device_idle_share": out["device_idle_share"], "solve_s": wall_s}))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=("hard", "stack", "both"), default="both")
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_slice.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_slice: needs an NVIDIA GPU")
+    from cruise_control_torch.analyzer import optimizer as opt
+    from cruise_control_torch.kernels import build
+    from cruise_control_torch.models import generators
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card)
+    build.build_all()
+    prop = dataclasses.replace(generators.BASELINE_CONFIGS[5], num_dead_brokers=26,
+                               load_distribution="pareto", mean_utilization=0.5)
+    model = generators.random_cluster(42, prop)
+    paths = ("hard", "stack") if args.path == "both" else (args.path,)
+    out = {"card": card}
+    for path in paths:
+        out[path] = profile(path, model, opt)
+    path = pathlib.Path(args.out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    print(json.dumps({p: {"device_busy_s": out[p]["device_busy_s"],
+                          "device_idle_share": out[p]["device_idle_share"],
+                          "solve_s": out[p]["solve_s"]} for p in paths}))
     return 0
 
 

@@ -1,10 +1,9 @@
 """The plain PyTorch versions of kernels K1-K4 against the JAX functions they
 replace, on the same seeded numpy inputs (CPU).
 
-Tolerances: integers exact; floats bit-equal (both sides sum each segment in
-ascending index order and do the same IEEE float32 operations); K3 scores of
-RackAwareGoal and ReplicaCapacityGoal to rtol 1e-6, because XLA:CPU's tanh
-and torch.tanh differ by a few ulp, and every other K3 score exact.
+Tolerances: integers exact; floats bit-equal. Both sides sum each segment in
+ascending index order and do the same IEEE float32 operations, with XLA:CPU's
+fused multiply-adds and tanh reproduced by common/xla_math.py.
 """
 
 import dataclasses
@@ -35,9 +34,6 @@ from cruise_control_torch.kernels.broker_topk import broker_topk_plain
 from cruise_control_torch.kernels.score_candidates import score_candidates_plain
 from cruise_control_torch.kernels.segment_aggregates import segment_aggregates_plain
 from cruise_control_torch.models.flat_model import from_numpy
-
-TANH_GOALS = ("RackAwareGoal", "ReplicaCapacityGoal")
-
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -167,10 +163,7 @@ def _compare_scores(name, js_, ts_):
     assert js_.shape == ts_.shape
     fin = np.isfinite(js_)
     assert np.array_equal(fin, np.isfinite(ts_)), name
-    if name in TANH_GOALS:
-        np.testing.assert_allclose(ts_[fin], js_[fin], rtol=1e-6, atol=0)
-    else:
-        assert _bits_equal(js_[fin], ts_[fin]), name
+    assert _bits_equal(js_[fin], ts_[fin]), name
     return int(fin.sum())
 
 
@@ -268,3 +261,240 @@ def test_argmax_of_all_minus_inf_rows_is_index_zero():
     assert np.array_equal(np.asarray(jnp.argmax(jnp.asarray(x), axis=1)),
                           torch.argmax(torch.from_numpy(x), dim=1).numpy())
     assert torch.argmax(torch.from_numpy(x), dim=1).tolist() == [0, 4, 0]
+
+
+# -- slice 2: the soft goals' K3 cases, K4's two-leg waves, K5, K6 ------------------
+
+STACK_IDS = [g.name for g in jgoals(None)]
+
+
+def _stack_tables(ctx, n_priors):
+    jt = jacc.build_tables(jgoals(None)[:n_priors], ctx["js"], ctx["ja"], ctx["jd"])
+    tt = tacc.build_tables(tgoals(None)[:n_priors], ctx["ts"], ctx["ta"], ctx["td"])
+    return jt, tt
+
+
+def _jitted_score(ctx, jgoal):
+    """score_batch as the JAX optimizer runs it: jitted, so XLA fuses its
+    multiply-adds (eager JAX rounds them twice)."""
+    return jax.jit(lambda act, gs, t: jacc.score_batch(ctx["js"], ctx["ja"], act, jgoal, gs, t))
+
+
+@pytest.mark.parametrize("gi", range(6, 15), ids=STACK_IDS[6:])
+def test_k3_soft_goals_equal_jax(ctx, gi):
+    """Each soft goal's acceptance and score on the drain grid and the
+    promotion grid, under its priors' tables and under the whole stack's
+    (usage bands on): finite masks and scores exact."""
+    jgoal, tgoal = jgoals(None)[gi], tgoals(None)[gi]
+    jscore = _jitted_score(ctx, jgoal)
+    jgs = jgoal.prepare(ctx["js"], ctx["ja"], ctx["jd"])
+    tgs = tgoal.prepare(ctx["ts"], ctx["ta"], ctx["td"])
+    total = 0
+    for n_priors in (gi, 15):
+        jt, tt = _stack_tables(ctx, n_priors)
+        if n_priors == 15:
+            assert bool(tt.band_on.all())
+        for seed in (1, 2, 3):
+            p, slot, dst = _grid_inputs(ctx, seed)
+            act = jact.build_selected(ctx["js"].part_load, ctx["ja"].assignment, jnp.asarray(p),
+                                      jnp.int32(jact.KIND_MOVE), jnp.asarray(slot),
+                                      jnp.asarray(dst))
+            js_ = jscore(act, jgs, jt)
+            ts_ = score_candidates_plain(ctx["ts"], ctx["ta"], tt, tgoal, tgs, torch.from_numpy(p),
+                                         KIND_MOVE, torch.from_numpy(slot), torch.from_numpy(dst))
+            total += _compare_scores(jgoal.name, js_, ts_)
+        lb = jact.make_leadership_batch(ctx["js"].part_load, ctx["ja"].assignment)
+        js_ = jnp.broadcast_to(jscore(lb, jgs, jt), lb.dst.shape)
+        ts_ = score_candidates_plain(ctx["ts"], ctx["ta"], tt, tgoal, tgs,
+                                     *leadership_grid(ctx["ta"].assignment))
+        total += _compare_scores(jgoal.name, js_, ts_)
+    assert total > 0, "the grids should hold acceptable candidates"
+
+
+def _random_leg(rng, a, n, kind_prob, b):
+    p = rng.integers(0, a.shape[0], n).astype(np.int32)
+    kind = (rng.random(n) < kind_prob).astype(np.int32)
+    slot = np.where(kind == 1, rng.integers(1, a.shape[1], n),
+                    rng.integers(0, a.shape[1], n)).astype(np.int32)
+    dst = np.where(kind == 1, a[p, slot], rng.integers(0, b, n)).astype(np.int32)
+    return p, kind, slot, dst
+
+
+@pytest.mark.parametrize("form", ["swaps", "relays", "wide"])
+def test_k4_two_leg_waves_equal_jax(ctx, form):
+    """N = 2,600 entries with integer-valued scores (forced ties): swaps
+    (two moves, both hosts and both partitions claimed), relays (two
+    promotions, a third broker claimed too) and a wide single-leg wave.
+    Selection and every applied aggregate exact."""
+    rng = np.random.default_rng({"swaps": 11, "relays": 12, "wide": 13}[form])
+    a = ctx["arrays"]["assignment"]
+    n, b = 2600, ctx["jd"].num_brokers
+    pl, ja = ctx["js"].part_load, ctx["ja"]
+    leg1 = _random_leg(rng, a, n, 1.0 if form == "relays" else (0.4 if form == "wide" else 0.0), b)
+    legs = [leg1]
+    if form != "wide":
+        p2, kind2, slot2, dst2 = _random_leg(rng, a, n, 1.0 if form == "relays" else 0.0, b)
+        if form == "swaps":  # the return leg lands on leg 1's source
+            dst2 = a[leg1[0], leg1[2]]
+        legs.append((p2, kind2, slot2, dst2.astype(np.int32)))
+    acts = [jact.build_selected(pl, ja.assignment, *(jnp.asarray(x) for x in leg)) for leg in legs]
+    score = rng.integers(0, 6, n).astype(np.float32)
+    ok = rng.random(n) < 0.8
+    for act in acts:
+        ok &= np.asarray(act.valid)
+    host = ctx["js"].broker_host
+    sel = jctx.wave_select(
+        jnp.asarray(score), acts[0].src, acts[0].dst, host[acts[0].dst], jnp.asarray(ok), b,
+        ctx["jd"].num_hosts, dst_host2=host[acts[1].dst] if form != "wide" else None,
+        parts=tuple(act.p for act in acts), num_partitions=ctx["jd"].num_partitions,
+        brokers3=acts[1].dst if form == "relays" else None)
+    tag = jctx.make_touch_tag(5, 2)
+    for act in acts:
+        ja = jctx.apply_actions_batch(ctx["js"], ja, act, sel, tag=tag)
+    ta2 = _clone(ctx["ta"])
+    tleg2 = tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in legs[1]) if form != "wide" else None
+    tsel = apply_wave_plain(ctx["ts"], ta2, *(torch.from_numpy(x) for x in leg1),
+                            torch.from_numpy(score), torch.from_numpy(ok),
+                            tctx.make_touch_tag(5, 2), tleg2,
+                            brokers3=form == "relays")
+    assert _bits_equal(sel, tsel)
+    assert int(np.asarray(sel).sum()) >= 3
+    for f in ta2._fields:
+        assert _bits_equal(ja._asdict()[f], ta2._asdict()[f]), f
+
+
+def _closure(fn, name):
+    """A function a JAX round builder closes over (its nested validate)."""
+    return dict(zip(fn.__code__.co_freevars, (c.cell_contents for c in fn.__closure__)))[name]
+
+
+def _slots_on(a, broker, rng, n):
+    where = np.argwhere(a == broker)
+    pick = where[rng.integers(0, len(where), n)]
+    return pick[:, 0].astype(np.int32), pick[:, 1].astype(np.int32)
+
+
+def test_k5_swap_tables_acceptance_equals_jax(ctx):
+    rng = np.random.default_rng(21)
+    a = ctx["arrays"]["assignment"]
+    n, b = 3000, ctx["jd"].num_brokers
+    hot = rng.integers(0, b, n)
+    cold = rng.integers(0, b, n)
+    p1, s1 = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    p2, s2 = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    for i in range(n):
+        p1[i:i + 1], s1[i:i + 1] = _slots_on(a, hot[i], rng, 1)
+        p2[i:i + 1], s2[i:i + 1] = _slots_on(a, cold[i], rng, 1)
+    jt, tt = _stack_tables(ctx, 15)
+    kind = jnp.int32(jact.KIND_MOVE)
+    pl = ctx["js"].part_load
+    j1 = jact.build_selected(pl, ctx["ja"].assignment, jnp.asarray(p1), kind, jnp.asarray(s1),
+                             jnp.asarray(cold.astype(np.int32)))
+    j2 = jact.build_selected(pl, ctx["ja"].assignment, jnp.asarray(p2), kind, jnp.asarray(s2),
+                             jnp.asarray(hot.astype(np.int32)))
+    want = np.asarray(jacc.swap_tables_acceptance(ctx["js"], jt, ctx["ja"], j1, j2))
+    from cruise_control_torch.analyzer.actions import build_selected as tbuild
+
+    tk = torch.tensor(KIND_MOVE, dtype=torch.int32)
+    t1 = tbuild(ctx["ts"].part_load, ctx["ta"].assignment, torch.from_numpy(p1), tk,
+                torch.from_numpy(s1), torch.from_numpy(cold.astype(np.int32)))
+    t2 = tbuild(ctx["ts"].part_load, ctx["ta"].assignment, torch.from_numpy(p2), tk,
+                torch.from_numpy(s2), torch.from_numpy(hot.astype(np.int32)))
+    got = tacc.swap_tables_acceptance(ctx["ts"], tt, ctx["ta"], t1, t2).numpy()
+    assert np.array_equal(want, got)
+    assert 0 < want.sum() < n
+
+
+def _k5_compare(jvalidate, tvalidate, ctx, jgs, tgs, cells, n_priors=15):
+    jt, tt = _stack_tables(ctx, n_priors)
+    jfn = jax.jit(lambda agg, t, gs, *c: jvalidate(ctx["js"], agg, t, gs, *c)[:2])
+    ok, imp = jfn(ctx["ja"], jt, jgs, *(jnp.asarray(c) for c in cells))
+    want = np.where(np.asarray(ok), np.asarray(imp), -np.inf).astype(np.float32)
+    got = tvalidate(ctx["ts"], ctx["ta"], tt, tgs, *(torch.from_numpy(c) for c in cells)).numpy()
+    assert np.array_equal(np.isfinite(want), np.isfinite(got))
+    assert _bits_equal(want, got)
+    return int(np.isfinite(want).sum())
+
+
+def test_k5_topic_swap_validation_equals_jax(ctx):
+    from cruise_control_torch.analyzer.drain import topic_swap_validate
+
+    rng = np.random.default_rng(22)
+    a = ctx["arrays"]["assignment"]
+    b_count = ctx["jd"].num_brokers
+    jgoal, tgoal = jgoals(None)[12], tgoals(None)[12]
+    jfn = _closure(jdrain.make_topic_swap_round(jgoal, ctx["jd"], 24, 8, 8, 8), "validate")
+    jgs = jgoal.prepare(ctx["js"], ctx["ja"], ctx["jd"])
+    tgs = tgoal.prepare(ctx["ts"], ctx["ta"], ctx["td"])
+    n = 4000
+    b = rng.integers(0, b_count, n).astype(np.int32)
+    d = rng.integers(0, b_count, n).astype(np.int32)
+    cells = [np.zeros(n, np.int32) for _ in range(4)]
+    for i in range(n):
+        cells[0][i], cells[1][i] = (x[0] for x in _slots_on(a, b[i], rng, 1))
+        cells[2][i], cells[3][i] = (x[0] for x in _slots_on(a, d[i], rng, 1))
+    p1, s1, p2, s2 = cells
+    # stale cells: a replica no longer on its broker
+    s1[:200] = (s1[:200] + 1) % a.shape[1]
+    ok = 0
+    for n_priors in (12, 15):
+        ok += _k5_compare(jfn, topic_swap_validate, ctx, jgs, tgs, (p1, s1, b, p2, s2, d),
+                          n_priors)
+    assert ok > 0
+
+
+def test_k5_relay_validation_equals_jax(ctx):
+    """Random relays and relays whose second leg lands back on the first
+    leg's source (e == b, the pure leadership swap)."""
+    from cruise_control_torch.analyzer.drain import relay_validate
+
+    rng = np.random.default_rng(23)
+    a = ctx["arrays"]["assignment"]
+    jgoal, tgoal = jgoals(None)[14], tgoals(None)[14]
+    jfn = _closure(jdrain.make_leadership_relay_round(jgoal, ctx["jd"], 24, 4, 8, 8), "validate")
+    jgs = jgoal.prepare(ctx["js"], ctx["ja"], ctx["jd"])
+    tgs = tgoal.prepare(ctx["ts"], ctx["ta"], ctx["td"])
+    rows = []
+    for p1 in range(a.shape[0]):
+        for s1 in range(1, a.shape[1]):
+            d = a[p1, s1]
+            if d < 0 or a[p1, 0] < 0:
+                continue
+            led_by_d = np.nonzero(a[:, 0] == d)[0]
+            for p2 in led_by_d[:3]:
+                for s2 in range(1, a.shape[1]):
+                    rows.append((p1, s1, a[p1, 0], p2, s2, d))
+    cells = np.asarray(rows, dtype=np.int32)
+    eb = a[cells[:, 3], cells[:, 4]] == cells[:, 2]
+    assert eb.sum() > 0, "the grid should hold e == b relays"
+    pick = np.concatenate([np.nonzero(eb)[0],
+                           rng.choice(np.nonzero(~eb)[0], 3000, replace=False)])
+    cells = [np.ascontiguousarray(cells[pick, j]) for j in range(6)]
+    n_ok = 0
+    for n_priors in (0, 14):
+        n_ok += _k5_compare(jfn, relay_validate, ctx, jgs, tgs, cells, n_priors)
+    assert n_ok > 0
+
+
+def test_k6_pair_picks_equal_jax(ctx):
+    """Pairs on distinct brokers, half naming a topic the broker holds and
+    half any topic (pairs the round would mark not ok): exact, for k = 2
+    and 4."""
+    from cruise_control_torch.kernels.pair_picks import pair_picks_plain
+
+    rng = np.random.default_rng(24)
+    a = ctx["arrays"]["assignment"]
+    topic = ctx["arrays"]["topic_id"]
+    pair_b = rng.permutation(ctx["jd"].num_brokers)[:16].astype(np.int32)
+    held = [topic[np.argwhere(a == x)[rng.integers(0, 5)][0]] for x in pair_b[:8]]
+    pair_t = np.asarray(held + list(rng.integers(0, ctx["jd"].num_topics, 8)), dtype=np.int32)
+    for k in (2, 4):
+        want = jdrain.pair_replica_picks(ctx["js"], ctx["ja"], jnp.asarray(pair_t),
+                                         jnp.asarray(pair_b), k, ctx["jd"].num_topics,
+                                         ctx["jd"].num_brokers)
+        got = pair_picks_plain(ctx["ta"].assignment, ctx["ts"].topic_id,
+                               ctx["ts"].movable_partition, torch.from_numpy(pair_t),
+                               torch.from_numpy(pair_b), k, ctx["jd"].num_brokers)
+        for x, y in zip(want, got):
+            assert _bits_equal(x, y)
+        assert np.asarray(want[2]).any() and not np.asarray(want[2]).all()

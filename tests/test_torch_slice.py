@@ -129,7 +129,8 @@ def test_raise_on_hard_failure_matches(runs):
     (dict(bucket_partitions=True), "item 4"),
     (dict(polish_rounds=4), "slice 2"),
     (dict(ledger=True), "item 4"),
-    (dict(bulk_waves=16, bulk_min_brokers=2), "slice 2"),
+    # the bulk planner in front of the batch_k=1 grid (the "bulk+grid" engine)
+    (dict(bulk_waves=16, bulk_min_brokers=2, batch_k=1), "slice 2"),
 ])
 def test_settings_outside_the_slice_are_refused(change, item):
     tmodel = from_numpy({k: np.asarray(v) for k, v in jgen.rack_aware_violated()._asdict().items()})
@@ -140,9 +141,12 @@ def test_settings_outside_the_slice_are_refused(change, item):
 
 
 def test_soft_goals_resolve_but_are_refused():
+    """The default stack's soft goals are ported; the kafka-assigner mode's
+    soft goal still resolves by name and is refused."""
     tmodel = from_numpy({k: np.asarray(v) for k, v in jgen.unbalanced()._asdict().items()})
-    with pytest.raises(NotImplementedError, match="ReplicaDistributionGoal"):
-        topt.GoalOptimizer(device="cpu").optimizations(tmodel, ["ReplicaDistributionGoal"])
+    name = "KafkaAssignerDiskUsageDistributionGoal"
+    with pytest.raises(NotImplementedError, match=f"{name} .*item 4"):
+        topt.GoalOptimizer(device="cpu").optimizations(tmodel, [name])
 
 
 @pytest.mark.parametrize("option, value", [
