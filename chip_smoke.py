@@ -4,36 +4,51 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the seven CUDA kernels from cruise_control_torch/csrc,
+  2. build: compile the nine CUDA kernels from cruise_control_torch/csrc,
      one nvcc per source, all at once;
-  3. kernels: run each kernel on the card at the shapes the two solves give
-     it, on the smoke model's own state, and hold it against its plain
-     PyTorch version run on a CPU copy of the same inputs (integers exact,
-     floats bit-equal, finite masks exact); time each on the card over a run
-     of back-to-back calls, as device time from a profiler trace and as time
+  3. kernels: run each kernel on the card at the shapes the solves give it,
+     on the smoke model's own state, and hold it against its plain PyTorch
+     version run on a CPU copy of the same inputs (integers exact, floats
+     bit-equal, finite masks exact); time each on the card over a run of
+     back-to-back calls, as device time from a profiler trace and as time
      per call from CUDA events, and its plain version from CUDA events:
        K1 segment_aggregates, K2 broker_topk, K3 score_candidates (a hard
        goal's [512, 8, 64] drain grid, the [P, 2] promotion grid and a soft
        goal's drain grid), K4 apply_wave (a 1,024-entry drain wave and a
        2,600-entry two-leg relay wave), K5 score_swaps (the [128, 128, 8, 8]
        replica-swap grid and the [512, 4, 2, 8, 2] relay grid), K6 pair_picks
-       (512 surplus pairs), window_sum (the brokers' leader bytes-in);
+       (512 surplus pairs), window_sum in XLA:CPU's order (the brokers'
+       leader bytes-in, the [2,600, 4] broker loads and the 199,518
+       partitions' leader bytes-in), K7 state_fingerprint (the aggregates)
+       and K8 cluster_stats (the statistics of the smoke model, whose
+       [4,000, 2,600] topic table is the work);
   4. hard goals: the self-healing proposal of the six hard goals through
-     GoalOptimizer(device="cuda", settings=SLICE_SETTINGS);
-  5. stack: the full 15-goal rebalance proposal through
-     GoalOptimizer(device="cuda", settings=STACK_SETTINGS).
+     GoalOptimizer(device="cuda", settings=SLICE_SETTINGS + ledger);
+  5. stack: the full 15-goal rebalance proposal through the fused stack,
+     GoalOptimizer(device="cuda", settings=STACK_SETTINGS + ledger);
+  6. service: the same proposal as the service computes it,
+     GoalOptimizer(device="cuda", settings=SERVICE_SETTINGS): the chunked
+     goal machine with the provenance ledger and the cluster statistics;
+  7. service hard goals: a hard-goal request through the service's machine
+     (the full-stack machine with the six goals enabled), beside the fused
+     stack run of the same six goals under STACK_SETTINGS + ledger.
   Around each solve every kernel's launch count is set to 0 and read after;
   each kernel of the solve's path must have launched, and the result must
   hold: no replica left on a dead broker, no goal worse than before,
-  sanity_check, the proposals replay to the final assignment. The solves'
-  per-goal tables are printed beside the JAX package's CPU run of the same
-  recipe; a difference is printed, not failed on.
+  sanity_check, the proposals replay to the final assignment. Each solve's
+  per-goal table and its decision digest (the ledger's
+  `digest(goals=<its goals>)`, with per-goal move counts) are printed beside
+  the JAX package's CPU run of the same recipe. The hard-goal solve's digest
+  must equal the JAX one; the stack's differences are printed, naming the
+  first goal whose move count differs. The service solve's final assignment
+  and touch tags must hash the same as the fused stack solve's, and the
+  hard-goal request through the machine must equal its fused run.
 The smoke model is BASELINE config 5's cluster (2,600 brokers, 52 racks,
 4,000 topics, ~200k partitions at RF 3) with config 3's pareto load at mean
 utilisation 0.5 and 26 dead brokers, from seed 42.
 
-The last two lines are a JSON object of per-kernel numbers and the final
-`{"ok": true, "device": {...}}` line.
+The last lines are the card's name and power limit, a JSON object of
+per-kernel numbers and the final `{"ok": true, "device": {...}}` line.
 """
 
 from __future__ import annotations
@@ -83,9 +98,43 @@ JAX_CPU_STACK_REFERENCE = {
     "LeaderBytesInDistributionGoal": (798, 600, 64, False, 7.063e6, 6.047e6),
 }
 JAX_CPU_STACK_MOVES = {"replica": 50949, "leadership": 19618}
+#: The decision digests of the JAX package's CPU runs of the same recipes
+#: (provenance `digest(goals=<the solve's goals>)`: the checksum and the
+#: per-goal move counts) and the SHA-256 of their final assignments. The
+#: chunked service run gives the fused stack's digest and assignment.
+#: tests/test_torch_service.py::test_chip_smoke_jax_references_are_current
+#: recomputes them (slow lane).
+_JAX_STACK_MOVES_BY_GOAL = {
+    "RackAwareGoal": 6006, "DiskCapacityGoal": 7813, "NetworkInboundCapacityGoal": 6941,
+    "NetworkOutboundCapacityGoal": 992, "CpuCapacityGoal": 11225,
+    "ReplicaDistributionGoal": 4979, "PotentialNwOutGoal": 878,
+    "DiskUsageDistributionGoal": 3228, "NetworkInboundUsageDistributionGoal": 2056,
+    "NetworkOutboundUsageDistributionGoal": 26242, "CpuUsageDistributionGoal": 19252,
+    "TopicReplicaDistributionGoal": 10655, "LeaderReplicaDistributionGoal": 5765,
+    "LeaderBytesInDistributionGoal": 2395,
+}
+_JAX_STACK_DIGEST = ("e00e2cfa47d76bd9", _JAX_STACK_MOVES_BY_GOAL,
+                     "b72d5d8924b4f769028da5108523775a5edb35d2e81c9d593e8187e0a90bac25")
+JAX_CPU_DIGESTS = {
+    "hard goals": ("97d90cc1f14cd990",
+                   {k: _JAX_STACK_MOVES_BY_GOAL[k] for k in (
+                       "RackAwareGoal", "DiskCapacityGoal", "NetworkInboundCapacityGoal",
+                       "NetworkOutboundCapacityGoal", "CpuCapacityGoal")},
+                   "ef2dcbf188952fb1293ccfb5e8f1bdc9ac5a3c8c8954f2ea72b21f788c881879"),
+    "stack": _JAX_STACK_DIGEST,
+    "service": _JAX_STACK_DIGEST,
+}
+# a hard-goal request through the service's machine, and the fused stack run
+# of the six goals under the stack settings, make the same decisions
+JAX_CPU_DIGESTS["service hard goals"] = JAX_CPU_DIGESTS["stack hard goals"] = \
+    JAX_CPU_DIGESTS["hard goals"]
 #: the kernels of each solve's path
-HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave")
-STACK_PATH = HARD_PATH + ("score_swaps", "pair_picks", "window_sum")
+HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
+             "window_sum", "state_fingerprint", "cluster_stats")
+STACK_PATH = HARD_PATH + ("score_swaps", "pair_picks")
+#: the kernels of the JSON line, in the order of build.KERNEL_SOURCES
+ALL_KERNELS = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
+               "score_swaps", "pair_picks", "window_sum", "state_fingerprint", "cluster_stats")
 
 
 def fail(msg: str):
@@ -190,6 +239,11 @@ def main() -> int:
         REPLICA_SWAP,
         score_swaps,
         score_swaps_plain,
+    )
+    from cruise_control_torch.kernels.cluster_stats import cluster_stats, cluster_stats_plain
+    from cruise_control_torch.kernels.state_fingerprint import (
+        state_fingerprint,
+        state_fingerprint_plain,
     )
     from cruise_control_torch.kernels.window_sum import window_sum, window_sum_plain
     from cruise_control_torch.kernels.score_candidates import (
@@ -607,28 +661,92 @@ def main() -> int:
         "k = 4 passes, each an atomicMin bid per slot on its pair's row and a decode per row")
     print(f"K6 pair_picks: 512 pairs x 4, {int(o6_c[2].sum())} found, exact")
 
-    # window_sum on the brokers' leader bytes-in (LeaderBytesInDistributionGoal's window)
-    ws_g = window_sum(agg_g.leader_nw_in)
+    # window_sum in XLA:CPU's order on the brokers' leader bytes-in
+    # (LeaderBytesInDistributionGoal's window, the JSON row), the [2,600, 4]
+    # broker loads (the mean replica load) and the 199,518 partitions' leader
+    # bytes-in (the goal's bulk unit)
+    ws_inputs = (("leader bytes-in", agg_g.leader_nw_in, agg_c.leader_nw_in),
+                 ("broker loads", agg_g.broker_load, agg_c.broker_load),
+                 ("partition leader bytes-in", st_g.part_load[:, 2].contiguous(),
+                  st_c.part_load[:, 2].contiguous()))
+    for label, x_g, x_c in ws_inputs:
+        ws_g = window_sum(x_g)
+        torch.cuda.synchronize()
+        ws_c = window_sum_plain(x_c)
+        if not bits_equal(ws_g, ws_c):
+            fail(f"window_sum ({label}, {tuple(x_c.shape)}) differs from the plain version")
+        n_terms = x_c.numel()
+        rw = row("window_sum", "window_sum.cu", "cruise_control_tpu/analyzer/goals/soft.py:462",
+                 max_abs_err(ws_g, ws_c), lambda i, x=x_g: window_sum(x),
+                 lambda i, x=x_g: window_sum_plain(x), n_terms * 4 + ws_c.numel() * 4, n_terms,
+                 f"{tuple(x_c.shape)}: one block per column, one thread per window of 32, "
+                 "levels in shared memory", library=lambda i, x=x_g: torch.sum(x, dim=0))
+        print(f"window_sum ({label}, {tuple(x_c.shape)}): bit-equal to the plain version; "
+              f"{rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per call, plain "
+              f"{rw['plain_ms']:.4f} ms, torch.sum {rw['library_ms']:.4f} ms, bound "
+              f"{rw['bound_ms']:.6f} ms")
+        if label == "leader bytes-in":
+            ws_row = rw
+    rows["window_sum"] = ws_row
+
+    # K7 on the smoke state's aggregates
+    fp_g = state_fingerprint(agg_g)
     torch.cuda.synchronize()
-    ws_c = window_sum_plain(agg_c.leader_nw_in)
-    if not bits_equal(ws_g.cpu().reshape(1), ws_c.reshape(1)):
-        fail("window_sum differs from the plain version")
-    row("window_sum", "window_sum.cu", "cruise_control_tpu/analyzer/goals/soft.py:462",
-        max_abs_err(ws_g, ws_c), lambda i: window_sum(agg_g.leader_nw_in),
-        lambda i: window_sum_plain(agg_g.leader_nw_in), dims.num_brokers * 4 + 4,
-        dims.num_brokers, "one thread adds 2,600 values in index order",
-        library=lambda i: torch.sum(agg_g.leader_nw_in))
-    print("window_sum: bit-equal to the sequential float32 sum")
+    fp_c = state_fingerprint_plain(agg_c)
+    if int(fp_g) != int(fp_c):
+        fail(f"K7 state_fingerprint: {int(fp_g)} differs from the plain version's {int(fp_c)}")
+    b_count = dims.num_brokers
+    row("state_fingerprint", "state_fingerprint.cu", "cruise_control_tpu/analyzer/optimizer.py:1199",
+        abs(int(fp_g) - int(fp_c)), lambda i: state_fingerprint(agg_g),
+        lambda i: state_fingerprint_plain(agg_g), 7 * b_count * 4 + 8, 7 * b_count * 4,
+        "one block of 1,024 threads, uint32 partial sums added in shared memory; launch-bound")
+    print(f"K7 state_fingerprint: {int(fp_g)}, equal to the plain version")
+
+    # K8 on the smoke model's statistics (stats_before's inputs)
+    from cruise_control_torch.models.flat_model import alive_broker_mask
+
+    k8_g = (agg_g.broker_load, model.broker_capacity, alive_broker_mask(model), agg_g.replica_count,
+            agg_g.leader_count, agg_g.potential_nw_out, agg_g.topic_replica_count)
+    k8_c = (agg_c.broker_load, model_cpu.broker_capacity, alive_broker_mask(model_cpu),
+            agg_c.replica_count, agg_c.leader_count, agg_c.potential_nw_out,
+            agg_c.topic_replica_count)
+    o8_g = cluster_stats(*k8_g)
+    torch.cuda.synchronize()
+    o8_c = cluster_stats_plain(*k8_c)
+    for n_, a_, b_ in zip(("f32 fields", "counts"), o8_g, o8_c):
+        if not bits_equal(a_, b_):
+            fail(f"K8 cluster_stats: {n_} differ from the plain version")
+    t_count = dims.num_topics
+    # the [T, B] table once, the per-broker vectors once, the outputs; per
+    # topic cell a subtract, a multiply, an add and the integer sums, per
+    # broker and series about ten operations
+    row("cluster_stats", "cluster_stats.cu", "cruise_control_tpu/analyzer/stats.py:69",
+        max(max_abs_err(a_, b_) for a_, b_ in zip(o8_g, o8_c)),
+        lambda i: cluster_stats(*k8_g), lambda i: cluster_stats_plain(*k8_g),
+        t_count * b_count * 4 + b_count * (16 + 16 + 1 + 4 + 4 + 4) + 25 * 4 + 12,
+        t_count * b_count * 6 + b_count * 7 * 10,
+        "one block per topic (XLA-ordered sums along the broker axis), then one block for "
+        "the seven per-broker series and the topic mean")
+    print("K8 cluster_stats: every field bit-equal to the plain version")
     del agg_g, agg_c
 
-    # -- 4., 5. the two solves -------------------------------------------------------
+    # -- 4.-7. the solves -------------------------------------------------------
+    from cruise_control_torch.analyzer.stats import stats_to_dict
+
     dead_ids = np.nonzero(model_cpu.broker_state.numpy() == 3)[0]
     solves = {}
+    results = {}
     for label, settings, goal_names, path, ref, ref_moves in (
-            ("hard goals", opt.SLICE_SETTINGS, HARD_GOAL_NAMES, HARD_PATH, JAX_CPU_REFERENCE,
-             JAX_CPU_MOVES),
-            ("stack", opt.STACK_SETTINGS, None, STACK_PATH, JAX_CPU_STACK_REFERENCE,
-             JAX_CPU_STACK_MOVES)):
+            ("hard goals", dataclasses.replace(opt.SLICE_SETTINGS, ledger=True), HARD_GOAL_NAMES,
+             HARD_PATH, JAX_CPU_REFERENCE, JAX_CPU_MOVES),
+            ("stack", dataclasses.replace(opt.STACK_SETTINGS, ledger=True), None, STACK_PATH,
+             JAX_CPU_STACK_REFERENCE, JAX_CPU_STACK_MOVES),
+            ("service", opt.SERVICE_SETTINGS, None, STACK_PATH, JAX_CPU_STACK_REFERENCE,
+             JAX_CPU_STACK_MOVES),
+            ("service hard goals", opt.SERVICE_SETTINGS, HARD_GOAL_NAMES, HARD_PATH,
+             JAX_CPU_REFERENCE, None),
+            ("stack hard goals", dataclasses.replace(opt.STACK_SETTINGS, ledger=True),
+             HARD_GOAL_NAMES, HARD_PATH, JAX_CPU_REFERENCE, None)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -644,8 +762,10 @@ def main() -> int:
                 fail(f"{label}: the solve never launched kernel {key}")
         print(f"{label}: {wall:.2f} s wall (kernel builds excluded), peak device memory "
               f"{peak / 2**20:.1f} MiB, launches {counts}")
-        print(f"{label}: {res.num_replica_moves} replica moves, {res.num_leadership_moves} "
-              f"leadership moves (JAX on a CPU: {ref_moves['replica']}, {ref_moves['leadership']})")
+        if ref_moves is not None:
+            print(f"{label}: {res.num_replica_moves} replica moves, {res.num_leadership_moves} "
+                  f"leadership moves (JAX on a CPU: {ref_moves['replica']}, "
+                  f"{ref_moves['leadership']})")
         print(f"{'goal':36s} {'viol':>11s} {'rounds':>6s} {'conv':>5s} "
               f"{'cost before -> after':>28s}   | JAX on a CPU")
         final = res.final_assignment
@@ -677,27 +797,61 @@ def main() -> int:
               "proposals replay to the final assignment")
         digest = hashlib.sha256(np.ascontiguousarray(final, dtype=np.int32).tobytes()).hexdigest()
         tags = hashlib.sha256(np.ascontiguousarray(res.touch_tag).tobytes()).hexdigest()
+        names = [g.name for g in res.goal_results]
+        dg = res.provenance.digest(goals=names)
+        print(f"{label}: decision digest {dg['checksum']}, {dg['moves']} moves, by goal "
+              f"{json.dumps(dg['byGoal'])}")
+        jref = JAX_CPU_DIGESTS.get(label)
+        if jref is not None:
+            print(f"{label}: JAX on a CPU: digest {jref[0]}, final assignment SHA-256 "
+                  f"{'equal' if jref[2] == digest else 'differs'}")
+            if dg["checksum"] != jref[0]:
+                first = next((n for n in names if dg["byGoal"].get(n, 0) != jref[1].get(n, 0)),
+                             None)
+                print(f"{label}: the decision digest DIFFERS from the JAX CPU run's; first goal "
+                      f"whose move count differs: {first} "
+                      f"({dg['byGoal'].get(first, 0) if first else '-'} vs "
+                      f"{jref[1].get(first, 0) if first else '-'})")
+                if label == "hard goals":
+                    fail("hard goals: the decision digest differs from the JAX CPU run's")
+            else:
+                print(f"{label}: the decision digest equals the JAX CPU run's")
+        stats_after = stats_to_dict(res.stats_after)
+        print(f"{label}: stats_after {json.dumps(stats_after)}")
         solves[label] = {"wall_s": wall, "replica_moves": res.num_replica_moves,
                          "leadership_moves": res.num_leadership_moves, "peak_bytes": peak,
                          "final_assignment_sha256": digest, "touch_tag_sha256": tags,
-                         "launches": counts,
+                         "decision_digest": dg["checksum"], "launches": counts,
                          "goals": [[g.name, g.violated_brokers_before, g.violated_brokers_after,
                                     g.rounds, g.converged, g.cost_before, g.cost_after]
                                    for g in res.goal_results]}
+        results[label] = (digest, tags, dg["checksum"])
         del res
 
-    # `launches` is the stack solve's count; the hard-goal solve's is kept beside it
+    if results["service"][:2] != results["stack"][:2]:
+        fail("service: the chunked solve's final assignment or touch tags differ from the "
+             "fused stack solve's")
+    print("service: final assignment and touch tags hash the same as the fused stack solve's")
+    if results["service hard goals"] != results["stack hard goals"]:
+        fail("service hard goals: the machine's subset solve differs from the fused stack "
+             "run of the same six goals")
+    print("service hard goals: equal to the fused stack run of the six goals (assignment, "
+          "touch tags, decision digest)")
+
+    # `launches` is the service solve's count (the main path); the other
+    # solves' counts are kept beside it
     for key, v in rows.items():
-        v["launches"] = solves["stack"]["launches"][key]
+        v["launches"] = solves["service"]["launches"][key]
+        v["launches_stack"] = solves["stack"]["launches"][key]
         v["launches_hard_goals"] = solves["hard goals"]["launches"][key]
     print(json.dumps({"solves": solves, "build_s": build_s,
                       "chip_smoke_s": time.monotonic() - t_start}))
     for k, v in rows.items():
         print(f"{k:20s} {v['ms']:9.4f} ms on the device per call, {v['call_ms']:9.4f} ms per "
               f"call (plain {v['plain_ms']:9.4f} ms, bound {v['bound_ms']:.6f} ms by "
-              f"{v['bound_by']}), {v['launches']} launches in the stack solve")
+              f"{v['bound_by']}), {v['launches']} launches in the service solve")
     print(nvidia_smi_line())
-    print(json.dumps({"kernels": [rows[k] for k in STACK_PATH]}))
+    print(json.dumps({"kernels": [rows[k] for k in ALL_KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

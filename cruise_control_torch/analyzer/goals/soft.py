@@ -9,9 +9,12 @@
 
 Each derives its balance window from the current aggregates, flags brokers
 outside it, and scores an action by the out-of-window distance it removes,
-as the JAX package's goals/soft.py. Float sums go through `window_sum` (one
-fixed, sequential order) and every `a * b + c` that XLA fuses goes through
-`fma`, so the CPU and the card agree bit for bit.
+as the JAX package's goals/soft.py. Float sums go through `window_sum`
+(XLA:CPU's summation order) and every `a * b + c` that XLA fuses goes
+through `fma`, so the CPU, the card and the JAX package agree bit for bit.
+The count goals' costs and source ranks sum whole numbers (counts against
+floored and ceiled windows), which are exact in any order: they keep
+`torch.sum`.
 """
 
 from __future__ import annotations

@@ -1,18 +1,23 @@
-"""Batched-greedy goal optimizer: the fused goal stack on the card.
+"""Batched-greedy goal optimizer: the goal stack on the card.
 
 The counterpart of the JAX package's analyzer/optimizer.py (itself the
 replacement of GoalOptimizer.optimizations, cc/analyzer/GoalOptimizer.java:392)
-for the settings this port carries: the fused goal stack in batched mode
-(`batch_k > 1`) with every engine of the default stack (the drain/fill
-rounds, the bulk count planner, the replica swaps, the topic goal's pair
-drain and topic swaps, the leadership relays), no shape bucketing, no polish
-pass and no provenance ledger. Anything else raises NotImplementedError
-naming the ROADMAP.md item that brings it.
+for the settings this port carries: batched mode (`batch_k > 1`) with every
+engine of the default stack (the drain/fill rounds, the bulk count planner,
+the replica swaps, the topic goal's pair drain and topic swaps, the
+leadership relays), run either as the fused stack (`chunk_rounds = 0`) or
+through the chunked goal machine (`chunk_rounds > 0`, the service default,
+`SERVICE_SETTINGS`), with the provenance ledger and the before/after cluster
+statistics. The polish pass, the `batch_k=1` grid and shape bucketing raise
+NotImplementedError naming the ROADMAP.md item that brings them.
 
 The JAX package runs each goal's rounds as a device `while_loop`; here the
 round loop is a host loop over device work that reads one device value per
 round, the loop condition (`empties`, optimizer.py:673-675 in the JAX code),
-plus the bulk planner's and the fallbacks' `applied` flags.
+plus the bulk planner's and the fallbacks' `applied` flags. The goal
+machine's cursor (goal, rounds in it, empty-round streak) is therefore
+already on the host, and a machine call reads back only the per-goal round
+counts.
 """
 
 from __future__ import annotations
@@ -41,11 +46,14 @@ from cruise_control_torch.analyzer.drain import (
     make_topic_swap_round,
     round_jitter,
 )
-from cruise_control_torch.analyzer.goals import goals_by_priority
+from cruise_control_torch.analyzer.goals import DEFAULT_GOAL_ORDER, goals_by_priority
 from cruise_control_torch.analyzer.goals.base import SCORE_EPS, UnportedGoal
 from cruise_control_torch.analyzer.proposals import ExecutionProposal, proposal_diff
+from cruise_control_torch.analyzer.provenance import LEDGER, build_run_ledger, new_run_id
+from cruise_control_torch.analyzer.stats import ClusterModelStats, compute_stats, stats_to_host
 from cruise_control_torch.analyzer.swaps import make_swap_round
 from cruise_control_torch.config.balancing import BalancingConstraint
+from cruise_control_torch.kernels.state_fingerprint import state_fingerprint
 from cruise_control_torch.models.flat_model import FlatClusterModel
 
 
@@ -92,6 +100,18 @@ SLICE_SETTINGS = OptimizerSettings(
 STACK_SETTINGS = dataclasses.replace(SLICE_SETTINGS, bulk_waves=16, bulk_min_brokers=32,
                                      num_swap_pairs=8, swap_candidates=8, swaps_per_broker=4)
 
+#: What the service runs: STACK_SETTINGS through the chunked goal machine
+#: (`optimizer.chunk.rounds` = 32, cruise_config.py:112) with the provenance
+#: ledger (`optimizer.provenance.ledger`, cruise_config.py:426): the service
+#: defaults but shape bucketing.
+SERVICE_SETTINGS = dataclasses.replace(STACK_SETTINGS, chunk_rounds=32, ledger=True)
+
+
+#: chunked mode: the target wall time of a machine call, from which later
+#: calls' budgets follow the measured round rate (the JAX package's
+#: `chunk_target_s` default)
+CHUNK_TARGET_S = 10.0
+
 
 def _use_bulk(goal, dims: Dims, settings: OptimizerSettings) -> bool:
     return (settings.bulk_waves > 0 and dims.num_brokers >= settings.bulk_min_brokers
@@ -117,21 +137,17 @@ def check_supported(goals, settings: OptimizerSettings, options: OptimizationOpt
     def refuse(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
-    q3 = "ROADMAP.md Queue 1 item 3: left out of slice 2, it comes with slice 3"
+    q3b = "ROADMAP.md Queue 1 item 3: left out of slice 2, it comes with slice 3b"
     q4 = "ROADMAP.md Queue 1 item 4, production solve plumbing"
     for g in goals:
         if isinstance(g, UnportedGoal):
             refuse(f"goal {g.name}", q4)
     if settings.batch_k <= 1:
-        refuse("the batch_k=1 grid engine", q3)
+        refuse("the batch_k=1 grid engine", q3b)
     if settings.polish_rounds > 0:
-        refuse("the polish pass (polish_rounds > 0)", q3)
-    if settings.chunk_rounds > 0:
-        refuse("the chunked goal machine (chunk_rounds > 0)", q4)
+        refuse("the polish pass (polish_rounds > 0)", q3b)
     if settings.bucket_partitions or settings.bucket_brokers:
         refuse("shape bucketing (bucket_partitions / bucket_brokers)", q4)
-    if settings.ledger:
-        refuse("the provenance ledger (ledger=True)", q4)
     # every option defaults to None or False; the port takes the defaults only
     for field in dataclasses.fields(options):
         value = getattr(options, field.name)
@@ -149,11 +165,14 @@ def _swap_width(num_brokers: int, num_swap_pairs: int) -> int:
 
 
 def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
-    """goal_loop(static, agg, tables) -> (agg, rounds, empties): rounds until
-    the goal stalls or its round cap (optimizer.py:536-775); `agg` is
-    updated in place. Each round: the bulk planner first (count goals), then,
-    when it applied nothing, the goal's engine, then its stall fallbacks
-    (swaps, topic swaps, relays) only while nothing has applied."""
+    """goal_loop(static, agg, tables, budget, rnd_base, empties0, stall_at)
+    -> (agg, rounds, empties): rounds until the goal stalls or `budget` more
+    rounds ran (optimizer.py:536-775); `agg` is updated in place. Each round:
+    the bulk planner first (count goals), then, when it applied nothing, the
+    goal's engine, then its stall fallbacks (swaps, topic swaps, relays) only
+    while nothing has applied. `rnd_base` and `empties0` resume a goal paused
+    by the chunked machine: the absolute round index seeds the round jitter
+    and the touch tags, and the empty-round streak carries over."""
     use_bulk = _use_bulk(goal, dims, settings)
     bulk_fn = None
     if use_bulk and not goal.pair_drain:
@@ -193,11 +212,16 @@ def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
                 agg, applied = fallback(static, agg, tables, gs0, rnd)
         return agg, applied
 
-    def goal_loop(static, agg, tables):
+    def goal_loop(static, agg, tables, budget: Optional[int] = None, rnd_base: int = 0,
+                  empties0: int = 0, stall_at: Optional[int] = None):
+        # the window is re-derived on every entry, as the JAX loop does (:641)
         gs0 = goal.prepare(static, agg, dims)
-        budget = settings.max_rounds_per_goal
-        rnd, empties = 0, 0
-        while rnd < budget and empties < empties_to_stall:
+        if budget is None:
+            budget = settings.max_rounds_per_goal
+        if stall_at is None:
+            stall_at = empties_to_stall
+        rnd, empties = rnd_base, empties0
+        while rnd - rnd_base < budget and empties < stall_at:
             applied = False
             if bulk_fn is not None:
                 agg, applied = bulk_fn(static, agg, tables, gs0,
@@ -211,14 +235,15 @@ def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
             satisfied, applied = (bool(x) for x in state.cpu())
             empties = empties_to_stall if satisfied else (0 if applied else empties + 1)
             rnd += 1
-        return agg, rnd, empties
+        return agg, rnd - rnd_base, empties
 
     goal_loop.empties_to_stall = empties_to_stall
     return goal_loop
 
 
 class StackMetrics(NamedTuple):
-    """Per-goal diagnostics of one stack run; row i = i-th goal."""
+    """Per-goal diagnostics of one stack run; row i = i-th goal. Device
+    tensors while the goal machine runs, numpy once the run is over."""
 
     violated_before: np.ndarray  # i32[G]
     violated_after: np.ndarray  # i32[G]
@@ -227,27 +252,63 @@ class StackMetrics(NamedTuple):
     rounds: np.ndarray  # i32[G]
     #: True when the goal stalled rather than exhausting its round cap
     converged: np.ndarray  # bool[G]
+    #: the aggregates' fingerprint at the goal's exit (K7; u32, held in
+    #: int64 on the device)
+    state_fp: np.ndarray  # u32[G]
+
+
+def empty_stack_metrics(n_goals: int, device) -> StackMetrics:
+    """Zeroed device metrics for the goal machine (optimizer.py:1187)."""
+    def zeros(dtype):
+        return torch.zeros(n_goals, dtype=dtype, device=device)
+
+    return StackMetrics(zeros(torch.int32), zeros(torch.int32), zeros(torch.float32),
+                        zeros(torch.float32), zeros(torch.int32), zeros(torch.bool),
+                        zeros(torch.int64))
+
+
+def _metrics_to_host(metrics: StackMetrics) -> StackMetrics:
+    host = [t.cpu().numpy() for t in metrics]
+    host[-1] = host[-1].astype(np.uint32)
+    return StackMetrics(*host)
+
+
+def empty_prov_snapshots(n_phases: int, dims: Dims, enabled: bool, device):
+    """The machine's per-phase (assignment, touch_tag) snapshot rows
+    (optimizer.py:1172); zero rows when the ledger is off."""
+    shape = (n_phases if enabled else 0, dims.num_partitions, dims.max_rf)
+    return (torch.zeros(shape, dtype=torch.int32, device=device),
+            torch.full(shape, -1, dtype=torch.int32, device=device))
+
+
+def _violated(goal, static, gs, agg) -> torch.Tensor:
+    return torch.sum(goal.broker_violation(static, gs, agg)).to(torch.int32)
 
 
 def run_stack(goals, dims: Dims, settings: OptimizerSettings, static, agg):
     """Run the priority-ordered goal stack (the JAX package's
     _make_stack_step, :823-889): each goal's loop feeds the next, and each
     finished goal contributes its bounds to the merged acceptance tables.
-    Returns (agg, StackMetrics)."""
+    With the ledger on, the assignment and touch tags are snapshotted after
+    each goal. Returns (agg, StackMetrics, snapshots or None), on the host."""
     tables = empty_tables(dims, agg.assignment.device)
-    vb, va, cb, ca, rs, cv = [], [], [], [], [], []
+    vb, va, cb, ca, rs, cv, fps, snaps_a, snaps_t = [], [], [], [], [], [], [], [], []
     for goal in goals:
         loop = _make_goal_loop(goal, dims, settings)
         gs0 = goal.prepare(static, agg, dims)
-        vb.append(torch.sum(goal.broker_violation(static, gs0, agg)).to(torch.int32))
+        vb.append(_violated(goal, static, gs0, agg))
         cb.append(goal.cost(static, gs0, agg).to(torch.float32))
         agg, rounds, empties = loop(static, agg, tables)
         gs1 = goal.prepare(static, agg, dims)
-        va.append(torch.sum(goal.broker_violation(static, gs1, agg)).to(torch.int32))
+        va.append(_violated(goal, static, gs1, agg))
         ca.append(goal.cost(static, gs1, agg).to(torch.float32))
         rs.append(rounds)
         cv.append(empties >= loop.empties_to_stall)
+        fps.append(state_fingerprint(agg))
         tables = goal.contribute_acceptance(static, gs1, tables)
+        if settings.ledger:
+            snaps_a.append(agg.assignment.clone())
+            snaps_t.append(agg.touch_tag.clone())
     metrics = StackMetrics(
         violated_before=torch.stack(vb).cpu().numpy(),
         violated_after=torch.stack(va).cpu().numpy(),
@@ -255,8 +316,90 @@ def run_stack(goals, dims: Dims, settings: OptimizerSettings, static, agg):
         cost_after=torch.stack(ca).cpu().numpy(),
         rounds=np.asarray(rs, dtype=np.int32),
         converged=np.asarray(cv, dtype=bool),
+        state_fp=torch.stack(fps).cpu().numpy().astype(np.uint32),
     )
-    return agg, metrics
+    prov = None
+    if settings.ledger:
+        prov = (torch.stack(snaps_a).cpu().numpy(), torch.stack(snaps_t).cpu().numpy())
+    return agg, metrics, prov
+
+
+def _make_goal_machine(goals, dims: Dims, settings: OptimizerSettings):
+    """The chunked goal machine (optimizer.py:911-1170) as a host function:
+
+        machine(static, agg, tables, goal_idx, rounds_in_goal, empties_in_goal,
+                metrics, budget, enabled, snap)
+          -> (agg, tables, goal_idx, rounds_in_goal, empties_in_goal, metrics,
+              spent, snap)
+
+    advances the stack by up to `budget` rounds, crossing goal boundaries. A
+    goal's entry row (violated_before, cost_before) is written the first
+    time it runs; its exit row, state fingerprint included, at every pause
+    or exit; its tables only when it is done (stalled, or its round cap
+    reached), and then its snapshot row. A disabled goal (`enabled[i]`
+    False) advances the cursor with no rounds, no tables and untouched
+    metrics rows, and writes its snapshot row from the unchanged state
+    (skip_branch, :1107-1121). `metrics` and `snap` are updated in place; the
+    cursor is host ints. The polish phases are not ported (slice 3b)."""
+    loops = [_make_goal_loop(g, dims, settings) for g in goals]
+    n_goals = len(goals)
+    cap = settings.max_rounds_per_goal
+
+    def machine(static, agg, tables, goal_idx: int, rounds_in_goal: int, empties_in_goal: int,
+                metrics: StackMetrics, budget: int, enabled, snap):
+        gi, rig, emp, left = goal_idx, rounds_in_goal, empties_in_goal, budget
+        snap_a, snap_t = snap
+
+        def snapshot(row):
+            if snap_a.shape[0]:
+                snap_a[row].copy_(agg.assignment)
+                snap_t[row].copy_(agg.touch_tag)
+
+        while left > 0 and gi < n_goals:
+            goal, loop = goals[gi], loops[gi]
+            if not enabled[gi]:
+                snapshot(gi)
+                gi, rig, emp = gi + 1, 0, 0
+                continue
+            if rig == 0:
+                # the JAX machine measures the entry state on every entry and
+                # records it on the first only (:986-1000)
+                gs_in = goal.prepare(static, agg, dims)
+                metrics.violated_before[gi] = _violated(goal, static, gs_in, agg)
+                metrics.cost_before[gi] = goal.cost(static, gs_in, agg)
+            agg, rounds, emp2 = loop(static, agg, tables, min(left, cap - rig), rnd_base=rig,
+                                     empties0=emp)
+            rig2 = rig + rounds
+            stalled = emp2 >= loop.empties_to_stall
+            done = stalled or rig2 >= cap
+            gs_out = goal.prepare(static, agg, dims)
+            metrics.violated_after[gi] = _violated(goal, static, gs_out, agg)
+            metrics.cost_after[gi] = goal.cost(static, gs_out, agg)
+            metrics.rounds[gi] = rig2
+            metrics.converged[gi] = stalled
+            metrics.state_fp[gi] = state_fingerprint(agg)
+            left -= rounds
+            if done:
+                tables = goal.contribute_acceptance(static, gs_out, tables)
+                snapshot(gi)
+                gi, rig, emp = gi + 1, 0, 0
+            else:
+                rig, emp = rig2, emp2
+        return agg, tables, gi, rig, emp, metrics, budget - left, snap
+
+    return machine
+
+
+def _machine_goal_plan(requested: Sequence[str]):
+    """(machine_names, enabled, rows) (optimizer.py:1402): any subset of the
+    default stack runs through the full-stack machine with the runtime
+    `enabled` mask, and the requested goals' rows are selected back out."""
+    default_names = tuple(g.name for g in DEFAULT_GOAL_ORDER)
+    requested = tuple(requested)
+    machine_names = default_names if set(requested) <= set(default_names) else requested
+    enabled = np.array([n in requested for n in machine_names])
+    rows = np.array([machine_names.index(n) for n in requested], dtype=np.int64)
+    return machine_names, enabled, rows
 
 
 @dataclasses.dataclass
@@ -276,14 +419,12 @@ class GoalResult:
 
 @dataclasses.dataclass
 class OptimizerResult:
-    """The analog of GoalOptimizer.OptimizerResult (GoalOptimizer.java:537).
-    `stats_before` / `stats_after` stay None until analyzer/stats.py is
-    ported (ROADMAP.md Queue 1 item 4)."""
+    """The analog of GoalOptimizer.OptimizerResult (GoalOptimizer.java:537)."""
 
     proposals: List[ExecutionProposal]
     goal_results: List[GoalResult]
-    stats_before: Optional[object]
-    stats_after: Optional[object]
+    stats_before: ClusterModelStats
+    stats_after: ClusterModelStats
     final_assignment: np.ndarray
     num_replica_moves: int
     num_leadership_moves: int
@@ -291,6 +432,9 @@ class OptimizerResult:
     duration_s: float
     #: the final touch tags i32[P, R] (packed round/wave of each cell's last write)
     touch_tag: Optional[np.ndarray] = None
+    #: the run's decision-provenance ledger (analyzer/provenance.py
+    #: RunLedger), also recorded in provenance.LEDGER; None with the ledger off
+    provenance: Optional[object] = None
 
     @property
     def violated_goals_before(self) -> List[str]:
@@ -328,22 +472,80 @@ class GoalOptimizer:
         init_np = model.assignment.cpu().numpy()
         part_load_np = model.part_load.cpu().numpy()
         if not goals:
+            stats = stats_to_host(compute_stats(model, dims.num_topics))
             return OptimizerResult(
-                proposals=[], goal_results=[], stats_before=None, stats_after=None,
+                proposals=[], goal_results=[], stats_before=stats, stats_after=stats,
                 final_assignment=init_np, num_replica_moves=0, num_leadership_moves=0,
                 data_to_move_mb=0.0, duration_s=time.monotonic() - t0,
             )
         return self._solve_prepared(goals, dims, static, model, init_np, part_load_np,
                                     raise_on_hard_failure, t0)
 
+    def _run_chunked(self, goals, enabled: np.ndarray, dims: Dims, static, agg):
+        """Drive the goal machine (optimizer.py:1553-1653): calls of at most
+        `chunk` rounds each, crossing goal boundaries. After each call the
+        per-goal round counts are read back once, the call's wall time is
+        attributed to goals by their share of its rounds, and the next
+        budget follows the measured round rate (at most 8x the last, back to
+        `chunk_rounds` at a goal boundary). Decisions do not depend on where
+        the calls end. Returns (agg, host metrics, stack seconds, per-goal
+        seconds, host snapshots or None); rows follow `goals`."""
+        s = self._settings
+        dev = agg.assignment.device
+        n = len(goals)
+        tables = empty_tables(dims, dev)
+        metrics = empty_stack_metrics(n, dev)
+        snap = empty_prov_snapshots(n, dims, s.ledger, dev)
+        machine = _make_goal_machine(goals, dims, s)
+        gi = rig = emp = 0
+        chunk = s.chunk_rounds
+        durs = np.zeros(n, np.float64)
+        rounds_seen = np.zeros(n, np.int64)
+        last_gi = 0
+        t_stack = time.monotonic()
+        while True:
+            t_call = time.monotonic()
+            agg, tables, gi, rig, emp, metrics, spent, snap = machine(
+                static, agg, tables, gi, rig, emp, metrics, max(1, chunk), enabled, snap)
+            rounds_h = metrics.rounds.cpu().numpy().astype(np.int64)
+            call_s = time.monotonic() - t_call
+            delta = np.maximum(rounds_h - rounds_seen, 0)
+            if delta.sum() > 0:
+                durs += call_s * delta / delta.sum()
+            rounds_seen = np.maximum(rounds_seen, rounds_h)
+            if gi >= n:
+                break
+            if gi != last_gi:
+                chunk = s.chunk_rounds
+                last_gi = gi
+            elif spent > 0 and call_s > 0:
+                rate = spent / call_s
+                chunk = max(1, min(4096, int(rate * CHUNK_TARGET_S), chunk * 8))
+        host_snap = (snap[0].cpu().numpy(), snap[1].cpu().numpy()) if s.ledger else None
+        return agg, _metrics_to_host(metrics), time.monotonic() - t_stack, durs, host_snap
+
     def _solve_prepared(self, goals, dims, static, model, init_np, part_load_np,
                         raise_on_hard_failure: bool, t0: float) -> OptimizerResult:
+        stats_before = compute_stats(model, dims.num_topics)
         agg = compute_aggregates(static, model.assignment, dims)
-        t_stack = time.monotonic()
-        agg, metrics = run_stack(goals, dims, self._settings, static, agg)
+        names = tuple(g.name for g in goals)
+        ledger_names, ledger_enabled, goal_durs = names, None, None
+        if self._settings.chunk_rounds > 0:
+            machine_names, enabled, rows = _machine_goal_plan(names)
+            agg, metrics_full, stack_s, goal_durs, prov = self._run_chunked(
+                goals_by_priority(machine_names), enabled, dims, static, agg)
+            ledger_names, ledger_enabled = machine_names, enabled
+            metrics = StackMetrics(*(a[rows] for a in metrics_full))
+            goal_durs = goal_durs[rows]
+        else:
+            t_stack = time.monotonic()
+            agg, metrics, prov = run_stack(goals, dims, self._settings, static, agg)
+            metrics_full = metrics
+            stack_s = time.monotonic() - t_stack
+        stats_after = compute_stats(model._replace(assignment=agg.assignment), dims.num_topics)
         final_np = agg.assignment.cpu().numpy()
         touch_np = agg.touch_tag.cpu().numpy()
-        stack_s = time.monotonic() - t_stack
+        stats_before, stats_after = stats_to_host(stats_before), stats_to_host(stats_after)
 
         total_rounds = max(1, int(metrics.rounds.sum()))
         goal_results: List[GoalResult] = []
@@ -358,8 +560,9 @@ class GoalOptimizer:
                 cost_after=float(metrics.cost_after[i]),
                 rounds=int(metrics.rounds[i]),
                 converged=bool(metrics.converged[i]),
-                # attributed by round share of the stack's wall time
-                duration_s=stack_s * int(metrics.rounds[i]) / total_rounds,
+                # chunked: measured per call; fused: the stack's wall by round share
+                duration_s=(float(goal_durs[i]) if goal_durs is not None
+                            else stack_s * int(metrics.rounds[i]) / total_rounds),
             )
             goal_results.append(gr)
             if gr.is_hard and gr.violated_brokers_after > 0 and first_hard_failure is None:
@@ -374,15 +577,60 @@ class GoalOptimizer:
         n_leader = sum(
             1 for pr in proposals if pr.new_leader != pr.old_leader and not pr.replicas_to_add
         )
+        provenance = self._build_ledger(ledger_names, ledger_enabled, metrics_full, prov,
+                                        init_np, dims, len(proposals))
         return OptimizerResult(
             proposals=proposals,
             goal_results=goal_results,
-            stats_before=None,
-            stats_after=None,
+            stats_before=stats_before,
+            stats_after=stats_after,
             final_assignment=final_np,
             num_replica_moves=n_moves,
             num_leadership_moves=n_leader,
             data_to_move_mb=float(sum(pr.data_to_move_mb for pr in proposals)),
             duration_s=time.monotonic() - t0,
             touch_tag=touch_np,
+            provenance=provenance,
         )
+
+    def _build_ledger(self, ledger_names, enabled, metrics_full: StackMetrics, prov,
+                      init_assignment: np.ndarray, dims: Dims, num_proposals: int):
+        """Diff the per-phase snapshots into this run's RunLedger and record
+        it in provenance.LEDGER (optimizer.py:2208-2275). Phases the enabled
+        mask switched off are dropped and the kept ones renumbered, so a
+        subset run through the machine and a fused run of the same subset
+        build the same ledger."""
+        if prov is None or prov[0].shape[0] == 0:
+            return None
+        g = len(ledger_names)
+        n_phases = prov[0].shape[0]
+        m = metrics_full
+        by_name = {goal.name: goal for goal in goals_by_priority(ledger_names)}
+        phases = []
+        for i in range(n_phases):
+            gi = i % g
+            phases.append({
+                "goal": ledger_names[gi],
+                "engine": goal_engine(by_name[ledger_names[gi]], dims, self._settings),
+                "phase": "main" if i < g else "polish",
+                "costBefore": float(m.cost_before[gi]),
+                "costAfter": float(m.cost_after[gi]),
+                "violatedBefore": int(m.violated_before[gi]),
+                "violatedAfter": int(m.violated_after[gi]),
+                "rounds": int(m.rounds[gi]),
+                "converged": bool(m.converged[gi]),
+            })
+        ledger = build_run_ledger(
+            new_run_id(), phases, init_assignment, prov[0], prov[1],
+            valid_partitions=dims.num_partitions,
+            meta={"bucket": None, "numProposals": num_proposals, "goals": list(ledger_names)},
+        )
+        if enabled is not None:
+            keep = [i for i in range(n_phases) if bool(enabled[i % g])]
+            index_map = {old: new for new, old in enumerate(keep)}
+            ledger.segments = [dataclasses.replace(s, index=index_map[s.index])
+                               for s in ledger.segments if s.index in index_map]
+            ledger.moves = [mv._replace(goal_index=index_map[mv.goal_index])
+                            for mv in ledger.moves if mv.goal_index in index_map]
+        LEDGER.record(ledger)
+        return ledger

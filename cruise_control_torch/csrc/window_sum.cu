@@ -1,32 +1,34 @@
-// window_sum: column sums of a small float32 matrix, each taken in ascending
-// row order with one float32 rounding per add.
+// window_sum: column sums of a float32 matrix, each taken in XLA:CPU's order
+// (block_xla_sum in common.cuh: windows of 32 in index order, then the
+// window sums the same way).
 //
 // Replaces: the jnp.sum reductions behind the soft goals' balance windows and
 // costs (cruise_control_tpu/analyzer/goals/soft.py ResourceDistributionGoal
 // .prepare :63-64, LeaderBytesInDistributionGoal.prepare :462 and
-// .bulk_counts :516, the goals' `cost`), and the per-resource means of
-// analyzer/drain.py :214 and :278. XLA:CPU sums up to 32 terms in ascending
-// order; a tree sum (torch.sum) rounds elsewhere, and the windows decide
-// which brokers are out of bounds, so the port fixes one order on every
-// device: the sequential one.
+// .bulk_counts :516, the goals' `cost`), the capacity goals' costs
+// (goals/hard.py :198, :206) and the per-resource means of analyzer/drain.py
+// :214 and :278. The windows decide which brokers are out of bounds, so the
+// port sums in the order the reference's compiler does, on every device.
 //
 // Bound on this card: latency. The inputs are a few thousand floats (one per
-// broker), or 199,518 (one per partition, the mean leader weight, summed once
-// per goal window); one thread per column walks its rows, so a call costs
-// the launch plus n dependent adds.
+// broker) or 199,518 (one per partition, the mean leader weight, summed once
+// per goal window): a call costs the launch plus a few levels of 32
+// dependent adds.
 //
-// Design: one block, one thread per column, a plain loop, unrolled so that
-// the loads of the next rows are in flight while the adds wait on each
-// other. Nothing is gained from parallel adds that would round differently.
+// Design: one block per column. Level 1 reads the column from device memory,
+// one thread per window of 32; the window sums stay in shared memory for the
+// later levels, so a column of n values needs ceil(n / 32) + ceil(n / 1024)
+// floats of it.
 #include "common.cuh"
 
-__global__ void k_window_sum(const float* x, long long n, int cols, float* out) {
-  int c = threadIdx.x;
-  if (c >= cols) return;
-  float acc = 0.0f;
-#pragma unroll 16
-  for (long long i = 0; i < n; ++i) acc = __fadd_rn(acc, x[i * cols + c]);
-  out[c] = acc;
+__global__ void k_window_sum(const float* x, int n, int cols, float* out) {
+  extern __shared__ float smem[];
+  const int c = blockIdx.x;
+  const int n1 = (n + 31) / 32;
+  float* s_a = smem;
+  float* s_b = smem + n1;
+  float total = block_xla_sum([&](int i) { return x[(long long)i * cols + c]; }, n, s_a, s_b);
+  if (threadIdx.x == 0) out[c] = total;
 }
 
 // ptrs: x f32[n, cols] (row-major, contiguous), out f32[cols]
@@ -37,7 +39,13 @@ CC_EXPORT int window_sum(const long long* ptrs, const long long* ints, cudaStrea
   long long n = ints[0];
   int cols = (int)ints[1];
   if (cols <= 0) return cudaSuccess;
-  if (cols > 1024) return cudaErrorInvalidValue;
-  k_window_sum<<<1, cols, 0, stream>>>(x, n, cols, out);
+  if (n < 0 || n > (1LL << 30)) return cudaErrorInvalidValue;
+  size_t smem = (size_t)((n + 31) / 32 + (n + 1023) / 1024 + 1) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(k_window_sum, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  k_window_sum<<<cols, 256, smem, stream>>>(x, (int)n, cols, out);
   return cudaGetLastError();
 }

@@ -8,7 +8,10 @@ PyTorch version.
   K5 score_swaps         the swap / topic-swap / relay validations
                          (acceptance.swap_tables_acceptance)
   K6 pair_picks          drain.pair_replica_picks
-  window_sum             the soft goals' sequential window sums
+  window_sum             float32 sums in XLA:CPU's order (the goals' windows
+                         and costs)
+  K7 state_fingerprint   optimizer._state_fingerprint
+  K8 cluster_stats       stats.compute_stats
 
 A wrapper runs the plain version for CPU tensors and launches its kernel for
 CUDA tensors (or raises); it counts its launches in `<wrapper>.launches`.
@@ -24,10 +27,12 @@ def wrappers():
     imports the analyzer)."""
     from cruise_control_torch.kernels.apply_wave import apply_wave
     from cruise_control_torch.kernels.broker_topk import broker_topk
+    from cruise_control_torch.kernels.cluster_stats import cluster_stats
     from cruise_control_torch.kernels.pair_picks import pair_picks
     from cruise_control_torch.kernels.score_candidates import score_candidates
     from cruise_control_torch.kernels.score_swaps import score_swaps
     from cruise_control_torch.kernels.segment_aggregates import segment_aggregates
+    from cruise_control_torch.kernels.state_fingerprint import state_fingerprint
     from cruise_control_torch.kernels.window_sum import window_sum
 
     return {
@@ -38,6 +43,8 @@ def wrappers():
         "score_swaps": score_swaps,
         "pair_picks": pair_picks,
         "window_sum": window_sum,
+        "state_fingerprint": state_fingerprint,
+        "cluster_stats": cluster_stats,
     }
 
 

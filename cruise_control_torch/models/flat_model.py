@@ -10,7 +10,10 @@ The same dense layout as the JAX package's model:
   broker_rack / broker_host : i32[B]
   broker_state : i32[B]   BrokerState (ALIVE/NEW/DEMOTED/DEAD).
 
-Every tensor lives on one device; `to(device)` moves the whole model.
+Every tensor lives on one device; `to(device)` moves the whole model. The
+segment helpers (`broker_loads`, `replica_counts`, ...) are the JAX model's
+(models/flat_model.py :96-246); their sums come from K1
+(kernels.segment_aggregates) on the model's assignment.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
+
+from cruise_control_torch.common.resources import BrokerState
 
 _DTYPES = {
     "assignment": torch.int32,
@@ -63,6 +68,64 @@ class FlatClusterModel(NamedTuple):
 
     def to(self, device) -> "FlatClusterModel":
         return FlatClusterModel(*(t.to(device) for t in self))
+
+
+# -- masks and segment helpers (the JAX model's :96-246) -------------------------
+
+
+def valid_slot_mask(model: FlatClusterModel) -> torch.Tensor:
+    """bool[P, R]: which replica slots are populated."""
+    return model.assignment >= 0
+
+
+def alive_broker_mask(model: FlatClusterModel) -> torch.Tensor:
+    """bool[B]: brokers that can receive replicas (not DEAD)."""
+    return model.broker_state != BrokerState.DEAD
+
+
+def _segment_ids(model: FlatClusterModel) -> torch.Tensor:
+    """i32[P, R]: broker id per slot, with empty slots routed to bucket B."""
+    return torch.where(valid_slot_mask(model), model.assignment, model.num_brokers)
+
+
+def segment_sums(model: FlatClusterModel, num_topics: int):
+    """K1's outputs for the model's assignment (kernels.segment_aggregates):
+    (broker_load, replica_count, leader_count, potential_nw_out,
+    leader_nw_in, rack_replica_count, topic_replica_count, host_cpu_load).
+    Each broker's slots are summed in ascending slot order, the order of
+    XLA:CPU's segment_sum."""
+    from cruise_control_torch.kernels.segment_aggregates import segment_aggregates
+
+    num_racks = int(model.broker_rack.max()) + 1 if model.num_brokers else 0
+    num_hosts = int(model.broker_host.max()) + 1 if model.num_brokers else 0
+    return segment_aggregates(model.assignment, model.part_load, model.topic_id,
+                              model.broker_rack, model.broker_host, model.num_brokers,
+                              num_racks, num_hosts, num_topics)
+
+
+def broker_loads(model: FlatClusterModel) -> torch.Tensor:
+    """f32[B, 4]: per-broker load per Resource."""
+    return segment_sums(model, model.num_topics)[0]
+
+
+def replica_counts(model: FlatClusterModel) -> torch.Tensor:
+    """i32[B]: replicas per broker."""
+    return segment_sums(model, model.num_topics)[1]
+
+
+def leader_counts(model: FlatClusterModel) -> torch.Tensor:
+    """i32[B]: leader replicas per broker."""
+    return segment_sums(model, model.num_topics)[2]
+
+
+def potential_nw_out(model: FlatClusterModel) -> torch.Tensor:
+    """f32[B]: NW_OUT each broker would carry if every replica it hosts led."""
+    return segment_sums(model, model.num_topics)[3]
+
+
+def topic_replica_counts(model: FlatClusterModel, num_topics: int) -> torch.Tensor:
+    """i32[T, B]: replicas of each topic on each broker."""
+    return segment_sums(model, num_topics)[6]
 
 
 def from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> FlatClusterModel:

@@ -192,6 +192,47 @@ def _distinct_choice(rng: np.random.Generator, n_rows: int, k: int, n_choices: i
     return out
 
 
+#: numpy's reduction buffer (`np.getbufsize()`'s default)
+_NP_BUFSIZE = 8192
+
+
+def _pairwise_sum(a: np.ndarray) -> np.float32:
+    """numpy's pairwise float32 sum of a 1-D array: eight running sums below
+    129 terms, halves (cut at a multiple of 8) above."""
+    n = a.shape[0]
+    if n < 8:
+        res = np.float32(0.0)
+        for v in a:
+            res = np.float32(res + v)
+        return res
+    if n <= 128:
+        r = a[:8].copy()
+        end = n - n % 8
+        for i in range(8, end, 8):
+            r = r + a[i:i + 8]
+        res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+        for v in a[end:]:
+            res = np.float32(res + v)
+        return res
+    half = n // 2
+    half -= half % 8
+    return np.float32(_pairwise_sum(a[:half]) + _pairwise_sum(a[half:]))
+
+
+def _column_sum(column: np.ndarray) -> np.float32:
+    """The float32 sum of a strided column, in one fixed order: numpy 2.0's
+    (pairwise within each 8,192-term buffer, the buffers added in order), the
+    order the JAX package's generator gets under numpy 2.0. Later numpy
+    versions pair over the whole column and round differently, so
+    `column.sum()` would give another model on another installation."""
+    a = np.ascontiguousarray(column, dtype=np.float32)
+    total = None
+    for start in range(0, a.shape[0], _NP_BUFSIZE):
+        part = _pairwise_sum(a[start:start + _NP_BUFSIZE])
+        total = part if total is None else np.float32(total + part)
+    return np.float32(0.0) if total is None else total
+
+
 def random_cluster(
     seed: int, prop: ClusterProperty = ClusterProperty()
 ) -> FlatClusterModel:
@@ -233,13 +274,13 @@ def random_cluster(
     # CPU on a broker gets leader + follower shares; NW_IN gets leader+follower;
     # NW_OUT and DISK as modeled in resources.py.
     def budget(res: Resource, replicas: float) -> np.ndarray:
-        total = prop.mean_utilization * cap[:, res].sum()
+        total = prop.mean_utilization * _column_sum(cap[:, res])
         return total / replicas
 
     follower_cpu_ratio = 0.5
     cpu_weight = 1.0 + follower_cpu_ratio * (rf - 1)
-    cpu_leader = raw[:, 0] / raw[:, 0].sum() * budget(Resource.CPU, cpu_weight)
-    nw_in = raw[:, 1] / raw[:, 1].sum() * budget(Resource.NW_IN, float(rf))
+    cpu_leader = raw[:, 0] / _column_sum(raw[:, 0]) * budget(Resource.CPU, cpu_weight)
+    nw_in = raw[:, 1] / _column_sum(raw[:, 1]) * budget(Resource.NW_IN, float(rf))
     # NW_OUT budget is sized against *potential* leadership (every replica
     # counted, PotentialNwOutGoal semantics): leader-only utilization is then
     # mean_utilization/rf and potential utilization is mean_utilization, below
@@ -248,8 +289,8 @@ def random_cluster(
     # every broker's potential above the threshold, and a globally-violated
     # PotentialNwOutGoal (faithfully to the reference's actionAcceptance)
     # vetoes every replica move for all downstream goals.
-    nw_out = raw[:, 2] / raw[:, 2].sum() * budget(Resource.NW_OUT, float(rf))
-    disk = raw[:, 3] / raw[:, 3].sum() * budget(Resource.DISK, float(rf))
+    nw_out = raw[:, 2] / _column_sum(raw[:, 2]) * budget(Resource.NW_OUT, float(rf))
+    disk = raw[:, 3] / _column_sum(raw[:, 3]) * budget(Resource.DISK, float(rf))
     load = _part_load(cpu_leader, nw_in, nw_out, disk, follower_cpu_ratio=follower_cpu_ratio)
 
     state = np.full(b, BrokerState.ALIVE, dtype=np.int32)

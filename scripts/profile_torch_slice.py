@@ -1,12 +1,16 @@
 """Where the time of the PyTorch port's solves goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_slice.py [--path hard|stack|both]
+    python3 scripts/profile_torch_slice.py [--path hard|stack|service|all]
                                            [--out build/profile_torch_slice.json]
 
 Builds the CUDA kernels and, for each solve asked for (the six hard goals
-with SLICE_SETTINGS, the full 15-goal stack with STACK_SETTINGS; both by
+with SLICE_SETTINGS, the full 15-goal stack with STACK_SETTINGS, the same
+stack as the service runs it with SERVICE_SETTINGS: the chunked goal
+machine, the provenance ledger and the cluster statistics; all three by
 default), solves the smoke model of chip_smoke.py once as a warm-up, then:
-  1. once more with a synchronize after every goal, for each goal's wall time;
+  1. once more with a synchronize after every goal, for each goal's wall time
+     (the service solve: its per-goal times as `_run_chunked` measures
+     them, each call's wall shared out by the goals' rounds);
   2. once under torch.profiler (CPU and CUDA activities), for the device's
      busy time by kernel, the idle share of the solve's wall time, the number
      of kernel launches and of host reads of device values;
@@ -39,6 +43,8 @@ OWN_KERNELS = {
     "k_apply_wave": "K4 apply_wave", "k_score_swaps": "K5 score_swaps",
     "k_pair_init": "K6 pair_picks", "k_pair_bid": "K6 pair_picks",
     "k_pair_take": "K6 pair_picks", "k_window_sum": "window_sum",
+    "k_state_fingerprint": "K7 state_fingerprint", "k_topic_spread": "K8 cluster_stats",
+    "k_broker_stats": "K8 cluster_stats",
 }
 
 
@@ -61,15 +67,16 @@ def _device_us(evt) -> float:
 
 
 def profile(path: str, model, opt) -> dict:
-    """The numbers of one solve (`path` "hard" or "stack")."""
+    """The numbers of one solve (`path` "hard", "stack" or "service")."""
     from cruise_control_torch.analyzer.acceptance import empty_tables
     from cruise_control_torch.analyzer.context import build_static_ctx, compute_aggregates, dims_of
     from cruise_control_torch.analyzer.goals import HARD_GOAL_NAMES, goals_by_priority
     from cruise_control_torch.analyzer.proposals import proposal_diff
     from cruise_control_torch.config.balancing import BalancingConstraint
 
-    settings = opt.STACK_SETTINGS if path == "stack" else opt.SLICE_SETTINGS
-    names = None if path == "stack" else HARD_GOAL_NAMES
+    settings = {"hard": opt.SLICE_SETTINGS, "stack": opt.STACK_SETTINGS,
+                "service": opt.SERVICE_SETTINGS}[path]
+    names = HARD_GOAL_NAMES if path == "hard" else None
     optimizer = opt.GoalOptimizer(device="cuda", settings=settings)
 
     def solve():
@@ -97,7 +104,12 @@ def profile(path: str, model, opt) -> dict:
     setup_s = time.monotonic() - t0
     tables = empty_tables(dims, gpu.device)
     per_goal = {}
-    for goal in goals_by_priority(names):
+    if path == "service":
+        per_goal = {g.name: {"wall_s": g.duration_s, "rounds": g.rounds,
+                             "engine": opt.goal_engine(goals_by_priority([g.name])[0], dims,
+                                                       settings)}
+                    for g in res.goal_results}
+    for goal in goals_by_priority(names) if path != "service" else ():
         loop = opt._make_goal_loop(goal, dims, settings)
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -156,7 +168,7 @@ def profile(path: str, model, opt) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("hard", "stack", "both"), default="both")
+    ap.add_argument("--path", choices=("hard", "stack", "service", "all"), default="all")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_slice.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -172,7 +184,7 @@ def main() -> int:
     prop = dataclasses.replace(generators.BASELINE_CONFIGS[5], num_dead_brokers=26,
                                load_distribution="pareto", mean_utilization=0.5)
     model = generators.random_cluster(42, prop)
-    paths = ("hard", "stack") if args.path == "both" else (args.path,)
+    paths = ("hard", "stack", "service") if args.path == "all" else (args.path,)
     out = {"card": card}
     for path in paths:
         out[path] = profile(path, model, opt)

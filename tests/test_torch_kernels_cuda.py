@@ -29,7 +29,13 @@ from cruise_control_torch.kernels.apply_wave import apply_wave, apply_wave_plain
 from cruise_control_torch.kernels.broker_topk import broker_topk, broker_topk_plain
 from cruise_control_torch.kernels.pair_picks import pair_picks, pair_picks_plain
 from cruise_control_torch.kernels.score_candidates import score_candidates, score_candidates_plain
-from cruise_control_torch.kernels.window_sum import window_sum
+from cruise_control_torch.analyzer.stats import compute_stats
+from cruise_control_torch.kernels.cluster_stats import cluster_stats, cluster_stats_plain
+from cruise_control_torch.kernels.state_fingerprint import (
+    state_fingerprint,
+    state_fingerprint_plain,
+)
+from cruise_control_torch.kernels.window_sum import window_sum, window_sum_plain
 from cruise_control_torch.models import generators
 
 pytestmark = pytest.mark.cuda
@@ -222,15 +228,49 @@ def test_k6_pair_picks(pair):
 
 
 def test_window_sum_is_sequential():
+    # sequential within each window of 32, then over the window sums
+    # (XLA:CPU's order): bit-equal to the plain version at every length
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     rng = np.random.default_rng(2)
-    for shape in ((2600,), (32,), (2600, 4), (1,)):
+    for shape in ((2600,), (32,), (2600, 4), (1,), (33,), (199518,), (1025, 3), (2600, 1100)):
         x = rng.standard_normal(shape).astype(np.float32) * np.float32(1e3)
-        want = np.add.accumulate(x, axis=0)[-1]
-        got = window_sum(torch.from_numpy(x).cuda()).cpu().numpy()
-        assert np.array_equal(np.asarray(want, dtype=np.float32).view(np.int32),
-                              np.asarray(got, dtype=np.float32).view(np.int32))
+        want = window_sum_plain(torch.from_numpy(x))
+        got = window_sum(torch.from_numpy(x).cuda())
+        assert _bits(want, got), shape
+    z = torch.full((100,), -0.0)
+    assert _bits(window_sum_plain(z), window_sum(z.cuda()))
+
+
+def test_k7_state_fingerprint(pair):
+    assert int(state_fingerprint_plain(pair["ac"])) == int(state_fingerprint(pair["ag"]))
+    flipped = pair["ag"]._replace(broker_load=pair["ag"].broker_load.clone())
+    flipped.broker_load[3, 1] = -flipped.broker_load[3, 1]
+    plain = state_fingerprint_plain(pair["ac"]._replace(broker_load=flipped.broker_load.cpu()))
+    assert int(plain) == int(state_fingerprint(flipped)) != int(state_fingerprint(pair["ag"]))
+
+
+@pytest.mark.parametrize("dead_all", [False, True])
+def test_k8_cluster_stats(pair, dead_all):
+    ac, ag = pair["ac"], pair["ag"]
+    alive = pair["sc"].alive & (not dead_all)
+    args_c = (ac.broker_load, pair["sc"].broker_capacity, alive, ac.replica_count,
+              ac.leader_count, ac.potential_nw_out, ac.topic_replica_count)
+    out_c = cluster_stats_plain(*args_c)
+    out_g = cluster_stats(*(t.cuda() for t in args_c))
+    torch.cuda.synchronize()
+    for x, y in zip(out_c, out_g):
+        assert _bits(x, y)
+
+
+def test_compute_stats_on_the_card_equals_the_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    model = generators.random_cluster(42, FIXTURE_C)
+    t = model.num_topics
+    c, g = compute_stats(model, t), compute_stats(model.to("cuda"), t)
+    for x, y in zip(c, g):
+        assert _bits(x, y)
 
 
 # -- replay of the 15-goal stack's kernel calls -------------------------------------
@@ -332,3 +372,31 @@ def test_stack_on_the_card_equals_the_cpu():
     for a, b in zip(res[0].goal_results, res[1].goal_results):
         assert (a.violated_brokers_after, a.rounds, a.converged, a.cost_after) == (
             b.violated_brokers_after, b.rounds, b.converged, b.cost_after)
+
+
+def test_service_on_the_card_equals_the_cpu():
+    """The chunked goal machine with the ledger and the statistics
+    (SERVICE_SETTINGS, chunk budget 3 so that goals pause and resume) on the
+    card against the CPU, and against the fused run on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from cruise_control_torch import kernels
+    from cruise_control_torch.analyzer.stats import stats_to_dict
+
+    model = generators.random_cluster(42, FIXTURE_C)
+    settings = dataclasses.replace(opt.SERVICE_SETTINGS, chunk_rounds=3)
+    kernels.reset_launches()
+    res = [opt.GoalOptimizer(settings=settings, device=d).optimizations(
+        model, None, raise_on_hard_failure=False) for d in ("cpu", "cuda")]
+    launched = kernels.launches()
+    assert launched["state_fingerprint"] > 0 and launched["cluster_stats"] == 2
+    fused = opt.GoalOptimizer(settings=dataclasses.replace(opt.STACK_SETTINGS, ledger=True),
+                              device="cuda").optimizations(model, None,
+                                                           raise_on_hard_failure=False)
+    names = [g.name for g in fused.goal_results]
+    for r in (res[1], fused):
+        assert np.array_equal(res[0].final_assignment, r.final_assignment)
+        assert np.array_equal(res[0].touch_tag, r.touch_tag)
+        assert res[0].provenance.digest(goals=names) == r.provenance.digest(goals=names)
+    assert stats_to_dict(res[0].stats_after) == stats_to_dict(res[1].stats_after)
+    assert stats_to_dict(res[0].stats_before) == stats_to_dict(res[1].stats_before)

@@ -1,0 +1,259 @@
+"""The service's proposal path: the port's chunked goal machine with the
+provenance ledger and the cluster statistics (`SERVICE_SETTINGS`) against
+the JAX package's chunked ledger run of the same settings, on fixture C
+(32 brokers in 4 racks, 80 topics, 766 partitions at RF 3, pareto load,
+2 dead brokers), at chunk budgets of 32 and 3 rounds (with 3, goals pause
+and resume in the middle). Compared exactly: the final assignment, touch
+tags, proposals, the StackMetrics integers with the state fingerprints, the
+statistics before and after, and the decision digest. The port's chunked
+run equals its fused run, a hard-goal subset through the machine equals a
+fused run of the subset, and the port's ledger JSON reads back through the
+JAX package's RunLedger and the unchanged scripts/diff_runs.py. The JAX
+machine compiles once for the module (its programs ignore the chunk
+budget). No assertion reads a clock.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from cruise_control_tpu.analyzer import optimizer as jopt
+from cruise_control_tpu.analyzer.provenance import RunLedger as JRunLedger
+from cruise_control_tpu.analyzer.stats import stats_to_dict as jstats_to_dict
+from cruise_control_tpu.models import generators as jgen
+from cruise_control_torch.analyzer import optimizer as topt
+from cruise_control_torch.analyzer.goals import HARD_GOAL_NAMES
+from cruise_control_torch.analyzer.provenance import RunLedger
+from cruise_control_torch.analyzer.stats import stats_to_dict
+from cruise_control_torch.models.flat_model import from_numpy
+
+REPO = Path(__file__).resolve().parents[1]
+FIXTURE_C = jgen.ClusterProperty(num_racks=4, num_brokers=32, num_topics=80,
+                                 mean_partitions_per_topic=10, replication_factor=3,
+                                 num_dead_brokers=2, load_distribution="pareto",
+                                 mean_utilization=0.5)
+#: the JAX side of SERVICE_SETTINGS (the port has no field for the batch_k=1
+#: grid's width, which batch_k = 16 never reads)
+JAX_SERVICE = dict(batch_k=16, max_rounds_per_goal=64, drain_src=512, drain_per_broker=8,
+                   drain_dst=64, apply_waves=8, bulk_waves=16, bulk_min_brokers=32,
+                   num_swap_pairs=8, swap_candidates=8, swaps_per_broker=4, polish_rounds=0,
+                   chunk_rounds=32, bucket_partitions=False, bucket_brokers=False,
+                   ledger=True, num_dst_candidates=8)
+INT_METRICS = ("violated_before", "violated_after", "rounds", "converged", "state_fp")
+CHUNKS = (32, 3)
+
+
+def _capturing(opt):
+    """Wrap `opt._run_chunked` to keep what it returns (agg, metrics, ...)."""
+    seen = []
+    inner = opt._run_chunked
+
+    def run(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    opt._run_chunked = run
+    return seen
+
+
+def _port_run(settings, goal_names=None):
+    tmodel = from_numpy({k: np.asarray(v) for k, v in _model()._asdict().items()})
+    opt = topt.GoalOptimizer(settings=settings, device="cpu")
+    seen = _capturing(opt)
+    res = opt.optimizations(tmodel, goal_names, raise_on_hard_failure=False)
+    return res, (seen[0][1] if seen else None)
+
+
+def _model():
+    return jgen.random_cluster(42, FIXTURE_C)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """{chunk: (jax result, jax metrics, jax touch tags, port result, port
+    metrics)} plus the port's fused run."""
+    out = {}
+    for chunk in CHUNKS:
+        jo = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(**dict(JAX_SERVICE,
+                                                                       chunk_rounds=chunk)))
+        seen = _capturing(jo)
+        jres = jo.optimizations(_model(), None, raise_on_hard_failure=False)
+        jagg, jmetrics = seen[0][0], jax.device_get(seen[0][1])
+        tres, tmetrics = _port_run(dataclasses.replace(topt.SERVICE_SETTINGS, chunk_rounds=chunk))
+        out[chunk] = (jres, jmetrics, np.asarray(jax.device_get(jagg.touch_tag)), tres, tmetrics)
+    out["fused"] = _port_run(dataclasses.replace(topt.STACK_SETTINGS, ledger=True))[0]
+    return out
+
+
+def _all_goals(res):
+    return [g.name for g in res.goal_results]
+
+
+def test_service_settings_are_the_service_defaults_but_bucketing():
+    s = topt.SERVICE_SETTINGS
+    assert (s.chunk_rounds, s.ledger, s.polish_rounds, s.batch_k) == (32, True, 0, 16)
+    assert not s.bucket_partitions and not s.bucket_brokers
+    assert dataclasses.replace(s, chunk_rounds=0, ledger=False) == topt.STACK_SETTINGS
+    for k, v in JAX_SERVICE.items():
+        if k != "num_dst_candidates":
+            assert getattr(s, k) == v, k
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_final_assignment_and_touch_tags_equal_jax(runs, chunk):
+    jres, _, jtouch, tres, _ = runs[chunk]
+    assert np.array_equal(np.asarray(jres.final_assignment), tres.final_assignment)
+    assert np.array_equal(jtouch, tres.touch_tag)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_proposals_equal_jax(runs, chunk):
+    jres, _, _, tres, _ = runs[chunk]
+    assert (tres.num_replica_moves, tres.num_leadership_moves) == (
+        jres.num_replica_moves, jres.num_leadership_moves)
+
+    def key(prs):
+        return [(p.partition, p.old_replicas, p.new_replicas, p.data_to_move_mb) for p in prs]
+
+    assert key(jres.proposals) == key(tres.proposals)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_stack_metrics_integers_equal_jax(runs, chunk):
+    _, jm, _, _, tm = runs[chunk]
+    for field in INT_METRICS:
+        assert np.array_equal(np.asarray(getattr(jm, field)).astype(np.int64),
+                              np.asarray(getattr(tm, field)).astype(np.int64)), field
+    # costs are float sums that XLA may take in another order inside its
+    # machine program
+    np.testing.assert_allclose(tm.cost_after, np.asarray(jm.cost_after), rtol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_stats_before_and_after_equal_jax(runs, chunk):
+    jres, _, _, tres, _ = runs[chunk]
+    assert stats_to_dict(tres.stats_before) == jstats_to_dict(jres.stats_before)
+    assert stats_to_dict(tres.stats_after) == jstats_to_dict(jres.stats_after)
+    assert stats_to_dict(tres.stats_after) != stats_to_dict(tres.stats_before)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_decision_digest_equals_jax(runs, chunk):
+    jres, _, _, tres, _ = runs[chunk]
+    names = _all_goals(tres)
+    assert tres.provenance.digest(goals=names) == jres.provenance.digest(goals=names)
+    assert [(s.goal, s.index, s.num_moves, s.num_leadership, s.rounds) for s in
+            tres.provenance.segments] == [
+        (s.goal, s.index, s.num_moves, s.num_leadership, s.rounds) for s in
+        jres.provenance.segments]
+
+
+def test_chunk_budget_changes_no_decision(runs):
+    a, b = runs[32][3], runs[3][3]
+    assert np.array_equal(a.final_assignment, b.final_assignment)
+    assert np.array_equal(a.touch_tag, b.touch_tag)
+    assert np.array_equal(runs[32][4].state_fp, runs[3][4].state_fp)
+
+
+def test_chunked_run_equals_fused_run(runs):
+    chunked, fused = runs[32][3], runs["fused"]
+    assert np.array_equal(chunked.final_assignment, fused.final_assignment)
+    assert np.array_equal(chunked.touch_tag, fused.touch_tag)
+    names = _all_goals(fused)
+    assert chunked.provenance.digest(goals=names) == fused.provenance.digest(goals=names)
+    assert [(g.name, g.violated_brokers_before, g.violated_brokers_after, g.rounds, g.converged)
+            for g in chunked.goal_results] == [
+        (g.name, g.violated_brokers_before, g.violated_brokers_after, g.rounds, g.converged)
+        for g in fused.goal_results]
+
+
+def test_hard_goal_subset_through_the_machine_equals_its_fused_run():
+    machine, _ = _port_run(topt.SERVICE_SETTINGS, HARD_GOAL_NAMES)
+    fused, _ = _port_run(dataclasses.replace(topt.STACK_SETTINGS, ledger=True), HARD_GOAL_NAMES)
+    assert [g.name for g in machine.goal_results] == list(HARD_GOAL_NAMES)
+    assert np.array_equal(machine.final_assignment, fused.final_assignment)
+    assert np.array_equal(machine.touch_tag, fused.touch_tag)
+    assert machine.provenance.digest(goals=HARD_GOAL_NAMES) == fused.provenance.digest(
+        goals=HARD_GOAL_NAMES)
+    # the disabled phases are dropped and the kept ones renumbered
+    assert [(s.goal, s.index) for s in machine.provenance.segments] == [
+        (n, i) for i, n in enumerate(HARD_GOAL_NAMES)]
+    assert machine.provenance.meta["goals"] == [g.name for g in topt.DEFAULT_GOAL_ORDER]
+
+
+def test_machine_goal_plan_matches_jax():
+    for names in (HARD_GOAL_NAMES, ["TopicReplicaDistributionGoal", "RackAwareGoal"],
+                  [g.name for g in topt.DEFAULT_GOAL_ORDER]):
+        req = tuple(g.name for g in topt.goals_by_priority(names))
+        j, t = jopt._machine_goal_plan(req), topt._machine_goal_plan(req)
+        assert j[0] == t[0]
+        assert np.array_equal(j[1], t[1]) and np.array_equal(j[2], t[2])
+
+
+def test_ledger_json_reads_back_through_the_jax_package(runs, tmp_path):
+    jres, _, _, tres, _ = runs[32]
+    doc = json.loads(json.dumps(tres.provenance.to_dict()))
+    back = JRunLedger.from_dict(doc)
+    assert back.digest() == tres.provenance.digest()
+    assert RunLedger.from_dict(doc).digest() == tres.provenance.digest()
+    port_file, jax_file = tmp_path / "port.json", tmp_path / "jax.json"
+    port_file.write_text(json.dumps(doc))
+    jax_file.write_text(json.dumps(jres.provenance.to_dict()))
+    proc = subprocess.run([sys.executable, str(REPO / "scripts" / "diff_runs.py"), str(port_file),
+                           str(jax_file)], capture_output=True, text=True, cwd=REPO,
+                          env=dict(os.environ, JAX_PLATFORMS="cpu"), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_fused_run_keeps_its_ledger_off_by_default():
+    res, _ = _port_run(topt.STACK_SETTINGS, HARD_GOAL_NAMES)
+    assert res.provenance is None
+    assert res.stats_before is not None and res.stats_after is not None
+
+
+@pytest.mark.parametrize("field,value", [("polish_rounds", 1), ("batch_k", 1),
+                                         ("bucket_brokers", True)])
+def test_what_the_slice_leaves_out_is_refused(field, value):
+    with pytest.raises(NotImplementedError):
+        _port_run(dataclasses.replace(topt.SERVICE_SETTINGS, **{field: value}))
+
+
+@pytest.mark.slow
+def test_chip_smoke_jax_references_are_current():
+    """chip_smoke.py's JAX references, recomputed: the JAX package's CPU runs
+    of the smoke recipe (2,600 brokers, 199,518 partitions; minutes and a few
+    GB of memory), each solve's decision digest, per-goal move counts, final
+    assignment hash and goal rows."""
+    import hashlib
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from cruise_control_tpu.analyzer.goals import HARD_GOAL_NAMES as JHARD
+
+    prop = dataclasses.replace(jgen.BASELINE_CONFIGS[5], num_dead_brokers=26,
+                               load_distribution="pareto", mean_utilization=0.5)
+    model = jgen.random_cluster(42, prop)
+    base = dict(JAX_SERVICE, chunk_rounds=0)
+    recipes = {"hard goals": (dict(base, bulk_waves=0), JHARD),
+               "stack": (base, None), "service": (dict(base, chunk_rounds=32), None),
+               "service hard goals": (dict(base, chunk_rounds=32), JHARD)}
+    for label, (settings, names) in recipes.items():
+        res = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(**settings)).optimizations(
+            model, names, raise_on_hard_failure=False)
+        goals = [g.name for g in res.goal_results]
+        dg = res.provenance.digest(goals=goals)
+        sha = hashlib.sha256(np.ascontiguousarray(res.final_assignment, dtype=np.int32)
+                             .tobytes()).hexdigest()
+        assert (dg["checksum"], dg["byGoal"], sha) == chip_smoke.JAX_CPU_DIGESTS[label], label
+        ref = chip_smoke.JAX_CPU_STACK_REFERENCE
+        for g in res.goal_results:
+            assert (g.violated_brokers_before, g.violated_brokers_after, g.rounds,
+                    g.converged) == ref[g.name][:4], (label, g.name)

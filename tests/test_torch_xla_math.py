@@ -1,6 +1,7 @@
 """The port's float32 helpers against XLA:CPU (CPU): `xla_tanh` and `fma`
 bit-equal to jitted `jnp.tanh` and `a * b + c`, and `window_sum` equal to
-`jnp.sum` wherever XLA:CPU sums in index order (up to 32 terms)."""
+jitted `jnp.sum`, in index order up to 32 terms and in XLA:CPU's windows of
+32 beyond."""
 
 import jax
 import jax.numpy as jnp
@@ -51,10 +52,10 @@ def test_window_sum_equals_jnp_sum_up_to_32_terms(n):
 
 
 def test_window_sum_is_sequential_beyond_32_terms():
+    # beyond 32 terms the order is XLA:CPU's: sequential within each window
+    # of 32, then the window sums (tests/test_torch_window_order.py)
     rng = np.random.default_rng(5)
     x = (rng.standard_normal((2600, 4)) * 1e3).astype(np.float32)
-    acc = np.zeros(4, dtype=np.float32)
-    for row in x:
-        acc = (acc + row).astype(np.float32)
-    assert np.array_equal(_bits(acc), _bits(window_sum_plain(torch.from_numpy(x)).numpy()))
-    assert np.array_equal(_bits(acc[0]), _bits(window_sum(torch.from_numpy(x[:, 0].copy()))))
+    ref = np.asarray(jax.jit(lambda v: jnp.sum(v, axis=0))(x))
+    assert np.array_equal(_bits(ref), _bits(window_sum_plain(torch.from_numpy(x)).numpy()))
+    assert np.array_equal(_bits(ref[0]), _bits(window_sum(torch.from_numpy(x[:, 0].copy()))))
