@@ -20,8 +20,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        (512 surplus pairs), window_sum in XLA:CPU's order (the brokers'
        leader bytes-in, the [2,600, 4] broker loads and the 199,518
        partitions' leader bytes-in), K7 state_fingerprint (the aggregates)
-       and K8 cluster_stats (the statistics of the smoke model, whose
-       [4,000, 2,600] topic table is the work);
+       K8 cluster_stats (the statistics of the smoke model, whose
+       [4,000, 2,600] topic table is the work) and K9 grid_shortlist (the
+       greedy round's [199,518, 3, 16] move grid and [199,518, 2] promotion
+       grid under a hard goal with dead brokers and under
+       LeaderReplicaDistributionGoal, beside K3 on the materialized grid
+       followed by torch.argmax);
   4. hard goals: the self-healing proposal of the six hard goals through
      GoalOptimizer(device="cuda", settings=SLICE_SETTINGS + ledger);
   5. stack: the full 15-goal rebalance proposal through the fused stack,
@@ -31,24 +35,33 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      goal machine with the provenance ledger and the cluster statistics;
   7. service hard goals: a hard-goal request through the service's machine
      (the full-stack machine with the six goals enabled), beside the fused
-     stack run of the same six goals under STACK_SETTINGS + ledger.
+     stack run of the same six goals under STACK_SETTINGS + ledger;
+  8. bench batched: BASELINE config 5 as bench.py builds it (2,600 brokers,
+     199,518 partitions, exponential load, nothing cut) through the bench's
+     batched pass, BENCH_SETTINGS: the chunked machine with 48 polish rounds
+     and the ledger; the polish phases' skip tests must launch K7;
+  9. parity: the bench's config-5 parity model (520 brokers, 52 racks, 800
+     topics, RF 3, exponential load, seed 47) through the faithful-greedy
+     pass, GREEDY_SETTINGS (the batch_k=1 grid, which must launch K9), and
+     through BENCH_SETTINGS, held to bench.py's parity gate.
   Around each solve every kernel's launch count is set to 0 and read after;
   each kernel of the solve's path must have launched, and the result must
   hold: no replica left on a dead broker, no goal worse than before,
   sanity_check, the proposals replay to the final assignment. Each solve's
   per-goal table and its decision digest (the ledger's
   `digest(goals=<its goals>)`, with per-goal move counts) are printed beside
-  the JAX package's CPU run of the same recipe. The hard-goal solve's digest
-  must equal the JAX one; the stack's differences are printed, naming the
-  first goal whose move count differs. The service solve's final assignment
+  the JAX package's CPU run of the same recipe; the digest and the final
+  assignment's SHA-256 must equal the JAX run's (a difference names the
+  first goal whose move count differs). The service solve's final assignment
   and touch tags must hash the same as the fused stack solve's, and the
   hard-goal request through the machine must equal its fused run.
 The smoke model is BASELINE config 5's cluster (2,600 brokers, 52 racks,
 4,000 topics, ~200k partitions at RF 3) with config 3's pareto load at mean
 utilisation 0.5 and 26 dead brokers, from seed 42.
 
-The last lines are the card's name and power limit, a JSON object of
-per-kernel numbers and the final `{"ok": true, "device": {...}}` line.
+The last lines are the total run time, the card's name and power limit, a
+JSON object of per-kernel numbers and the final `{"ok": true, "device":
+{...}}` line.
 """
 
 from __future__ import annotations
@@ -128,13 +141,111 @@ JAX_CPU_DIGESTS = {
 # of the six goals under the stack settings, make the same decisions
 JAX_CPU_DIGESTS["service hard goals"] = JAX_CPU_DIGESTS["stack hard goals"] = \
     JAX_CPU_DIGESTS["hard goals"]
+#: The JAX package's CPU runs of the slice-3b solves, with bench.py's
+#: settings and shape bucketing off (goal -> the same six columns; the
+#: digests as above, with the moves of each solve: replica, leadership).
+#: Phase 8: BASELINE config 5 under BENCH_SETTINGS.
+JAX_CPU_BENCH_REFERENCE = {
+    "RackAwareGoal": (0, 0, 2, True, 0.0, 0.0),
+    "ReplicaCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "DiskCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "NetworkInboundCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "NetworkOutboundCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "CpuCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "ReplicaDistributionGoal": (424, 0, 10, True, 3101, 0.0),
+    "PotentialNwOutGoal": (0, 0, 2, True, 0.0, 0.0),
+    "DiskUsageDistributionGoal": (876, 0, 13, True, 15.68, 0.0),
+    "NetworkInboundUsageDistributionGoal": (681, 0, 12, True, 9.969, 0.0),
+    "NetworkOutboundUsageDistributionGoal": (1475, 0, 10, True, 17.44, 0.0),
+    "CpuUsageDistributionGoal": (753, 0, 8, True, 10.85, 0.0),
+    "TopicReplicaDistributionGoal": (2598, 0, 73, True, 1.683e+04, 0.0),
+    "LeaderReplicaDistributionGoal": (543, 5, 24, True, 1833, 11),
+    "LeaderBytesInDistributionGoal": (570, 40, 19, True, 4.946e+05, 3.161e+04),
+}
+#: Phase 9: the config-5 parity model under GREEDY_SETTINGS and BENCH_SETTINGS.
+JAX_CPU_PARITY_GREEDY_REFERENCE = {
+    "RackAwareGoal": (0, 0, 1, True, 0.0, 0.0),
+    "ReplicaCapacityGoal": (0, 0, 1, True, 0.0, 0.0),
+    "DiskCapacityGoal": (0, 0, 1, True, 0.0, 0.0),
+    "NetworkInboundCapacityGoal": (0, 0, 1, True, 0.0, 0.0),
+    "NetworkOutboundCapacityGoal": (0, 0, 1, True, 0.0, 0.0),
+    "CpuCapacityGoal": (0, 0, 1, True, 0.0, 0.0),
+    "ReplicaDistributionGoal": (83, 0, 72, True, 605, 0.0),
+    "PotentialNwOutGoal": (0, 0, 1, True, 0.0, 0.0),
+    "DiskUsageDistributionGoal": (176, 0, 6, True, 2.998, 0.0),
+    "NetworkInboundUsageDistributionGoal": (163, 0, 3, True, 2.445, 0.0),
+    "NetworkOutboundUsageDistributionGoal": (304, 0, 3, True, 2.956, 0.0),
+    "CpuUsageDistributionGoal": (147, 0, 4, True, 2.17, 0.0),
+    "TopicReplicaDistributionGoal": (520, 1, 127, True, 1.438e+04, 4),
+    "LeaderReplicaDistributionGoal": (130, 1, 63, True, 471, 1),
+    "LeaderBytesInDistributionGoal": (126, 1, 18, True, 1.148e+05, 215.9),
+}
+JAX_CPU_PARITY_BATCHED_REFERENCE = {
+    "RackAwareGoal": (0, 0, 2, True, 0.0, 0.0),
+    "ReplicaCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "DiskCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "NetworkInboundCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "NetworkOutboundCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "CpuCapacityGoal": (0, 0, 2, True, 0.0, 0.0),
+    "ReplicaDistributionGoal": (83, 0, 9, True, 605, 0.0),
+    "PotentialNwOutGoal": (0, 0, 2, True, 0.0, 0.0),
+    "DiskUsageDistributionGoal": (177, 0, 6, True, 3.121, 0.0),
+    "NetworkInboundUsageDistributionGoal": (161, 0, 4, True, 2.43, 0.0),
+    "NetworkOutboundUsageDistributionGoal": (310, 0, 4, True, 3.007, 0.0),
+    "CpuUsageDistributionGoal": (148, 0, 5, True, 2.146, 0.0),
+    "TopicReplicaDistributionGoal": (520, 0, 110, True, 1.432e+04, 0.0),
+    "LeaderReplicaDistributionGoal": (128, 0, 6, True, 499, 0.0),
+    "LeaderBytesInDistributionGoal": (129, 3, 11, True, 1.114e+05, 1126),
+}
+JAX_CPU_DIGESTS["bench batched"] = (
+    "b533e5d13b306bb3", {
+        "ReplicaDistributionGoal": 1745, "DiskUsageDistributionGoal": 1573,
+        "NetworkInboundUsageDistributionGoal": 1073, "NetworkOutboundUsageDistributionGoal": 3124,
+        "CpuUsageDistributionGoal": 1798, "TopicReplicaDistributionGoal": 17239,
+        "LeaderReplicaDistributionGoal": 1283, "LeaderBytesInDistributionGoal": 1327,
+    },
+    "457c6e7966f46040e49acad46cd96a0321e673dd5e24b3c4390fae356efe7449")
+JAX_CPU_DIGESTS["parity greedy"] = (
+    "dda7924d6e3ff34c", {
+        "ReplicaDistributionGoal": 392, "DiskUsageDistributionGoal": 307,
+        "NetworkInboundUsageDistributionGoal": 237, "NetworkOutboundUsageDistributionGoal": 543,
+        "CpuUsageDistributionGoal": 319, "TopicReplicaDistributionGoal": 14605,
+        "LeaderReplicaDistributionGoal": 364, "LeaderBytesInDistributionGoal": 328,
+    },
+    "a21e5093d1bb315f17f1c2859c74211a14966604db1224e8f14070de45dcf5bd")
+JAX_CPU_DIGESTS["parity batched"] = (
+    "14e910fe5f279f2e", {
+        "ReplicaDistributionGoal": 392, "DiskUsageDistributionGoal": 310,
+        "NetworkInboundUsageDistributionGoal": 237, "NetworkOutboundUsageDistributionGoal": 556,
+        "CpuUsageDistributionGoal": 325, "TopicReplicaDistributionGoal": 14556,
+        "LeaderReplicaDistributionGoal": 398, "LeaderBytesInDistributionGoal": 320,
+    },
+    "957b2f746e3efc4771e72684cd26152e5a02c2b31fb9c806c8891c2c830fc0ec")
+#: bench.py's default, with shape bucketing, makes other decisions on config 5
+#: than the exact-shape run (LeaderReplicaDistributionGoal: 23 rounds, not
+#: 24; ROADMAP.md Queue 3): printed beside phase 8, which is held to the
+#: exact-shape run
+JAX_CPU_BENCH_BUCKETED = ("1457d341e23f5a8e",
+                          "806dd3fe8702428b368ec72e8cc5c0c90a1d23652ff2b6aa74748051647bbdf0")
+JAX_CPU_BENCH_MOVES = {"replica": 24356, "leadership": 1955}
+JAX_CPU_PARITY_GREEDY_MOVES = {"replica": 15916, "leadership": 313}
+JAX_CPU_PARITY_BATCHED_MOVES = {"replica": 15896, "leadership": 325}
 #: the kernels of each solve's path
 HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
              "window_sum", "state_fingerprint", "cluster_stats")
 STACK_PATH = HARD_PATH + ("score_swaps", "pair_picks")
+#: the bench's batched pass and the greedy pass on models without dead
+#: brokers, where the swaps run only if a drain round stalls
+BENCH_PATH = HARD_PATH + ("pair_picks",)
+GREEDY_PATH = BENCH_PATH + ("grid_shortlist",)
 #: the kernels of the JSON line, in the order of build.KERNEL_SOURCES
 ALL_KERNELS = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
-               "score_swaps", "pair_picks", "window_sum", "state_fingerprint", "cluster_stats")
+               "score_swaps", "pair_picks", "window_sum", "state_fingerprint", "cluster_stats",
+               "grid_shortlist")
+#: the bench's config-5 parity model (bench.py:596-604: 520 brokers, seed
+#: 42 + 5) and parity gate (bench.py:189-203, :546-580)
+PARITY_BROKERS = 520
+PARITY_COST_REL, PARITY_COST_FLOOR, PARITY_COUNT_SLACK = 0.05, 0.01, 3
 
 
 def fail(msg: str):
@@ -206,6 +317,31 @@ def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> float:
     return float((x[both] - y[both]).abs().max())
 
 
+def parity_gate(batched, greedy) -> dict:
+    """bench.py's parity gate (_parity_block, :546-580): the batched pass
+    violates no goal the greedy pass satisfies, no goal's final cost exceeds
+    the greedy's by more than 5% and by more than 1% of its entry cost, and
+    no goal's violated-broker count by more than 3."""
+    batched_after = set(batched.violated_goals_after)
+    greedy_after = set(greedy.violated_goals_after)
+    regressed, count_worse, delta = [], [], {}
+    for bg, gg in zip(batched.goal_results, greedy.goal_results, strict=True):
+        d = bg.cost_after - gg.cost_after
+        delta[bg.name] = d
+        if d > PARITY_COST_REL * max(abs(gg.cost_after), 1e-9) and (
+                d > PARITY_COST_FLOOR * max(gg.cost_before, 1.0)):
+            regressed.append(bg.name)
+        if bg.violated_brokers_after > gg.violated_brokers_after + PARITY_COUNT_SLACK:
+            count_worse.append(bg.name)
+    worse = sorted(batched_after - greedy_after)
+    return {"greedyViolatedAfter": sorted(greedy_after),
+            "batchedViolatedAfter": sorted(batched_after), "batchedWorseGoals": worse,
+            "costRegressedGoals": regressed, "countRegressedGoals": count_worse,
+            "costAfterDeltaVsGreedy": delta,
+            "greedyCapBoundGoals": [g.name for g in greedy.goal_results if not g.converged],
+            "parityOk": not worse and not regressed and not count_worse}
+
+
 def main() -> int:
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -213,7 +349,7 @@ def main() -> int:
     from cruise_control_torch import kernels
     from cruise_control_torch.analyzer import optimizer as opt
     from cruise_control_torch.analyzer.acceptance import build_tables
-    from cruise_control_torch.analyzer.actions import KIND_MOVE, leadership_grid
+    from cruise_control_torch.analyzer.actions import KIND_MOVE, leadership_grid, make_move_batch
     from cruise_control_torch.analyzer.context import (
         build_static_ctx,
         compute_aggregates,
@@ -241,6 +377,7 @@ def main() -> int:
         score_swaps_plain,
     )
     from cruise_control_torch.kernels.cluster_stats import cluster_stats, cluster_stats_plain
+    from cruise_control_torch.kernels.grid_shortlist import grid_shortlist, grid_shortlist_plain
     from cruise_control_torch.kernels.state_fingerprint import (
         state_fingerprint,
         state_fingerprint_plain,
@@ -728,31 +865,132 @@ def main() -> int:
         "one block per topic (XLA-ordered sums along the broker axis), then one block for "
         "the seven per-broker series and the topic mean")
     print("K8 cluster_stats: every field bit-equal to the plain version")
+
+    # K9 on the greedy round's grid of the smoke state: [199,518, 3, 16]
+    # moves toward num_dst_candidates = 16 rack-representative brokers and
+    # [199,518, 2] promotions, under DiskCapacityGoal (dead brokers: finite
+    # evacuation scores) and LeaderReplicaDistributionGoal (promotions
+    # compete), each under its priors' tables
+    k_dst = opt.GREEDY_SETTINGS.num_dst_candidates
+
+    def grid_args(goal, st, agg):
+        tables = priors(goal, st, agg)
+        gs = goal.prepare(st, agg, dims)
+        cands = opt.dst_candidates(st, gs, agg, goal, dims, k_dst, tables)
+        return st, agg, tables, goal, gs, cands
+
+    def k3_argmax(st, agg, tables, goal, gs, cands):
+        """The unfused comparison: K3 on the materialized move grid, then
+        torch.argmax per partition and over the partitions."""
+        s_ = score_candidates(st, agg, tables, goal, gs, *make_move_batch(agg.assignment, cands))
+        best = torch.amax(s_.reshape(p_count, -1), dim=1)
+        return torch.argmax(s_.reshape(p_count, -1), dim=1), torch.argmax(best)
+
+    k9_rows = []
+    for label, goal in (("hard goal", disk_goal),
+                        ("leader count goal", by_name["LeaderReplicaDistributionGoal"])):
+        args_g, args_c = grid_args(goal, st_g, agg_g), grid_args(goal, st_c, agg_c)
+        if not bits_equal(args_g[5], args_c[5]):
+            fail(f"K9 grid_shortlist ({label}): the destination candidates differ between card "
+                 "and CPU")
+        o9_g = grid_shortlist(*args_g)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        o9_c = grid_shortlist_plain(*args_c)
+        plain_cpu_s = time.monotonic() - t0
+        for n_, a_, b_ in zip(("score", "p", "kind", "slot", "dst"), o9_g, o9_c):
+            if not bits_equal(a_, b_):
+                fail(f"K9 grid_shortlist ({label}): {n_} differs from the plain version "
+                     f"({a_.tolist()} vs {b_.tolist()})")
+        if not bool(torch.isfinite(o9_c[0]).all()):
+            fail(f"K9 grid_shortlist ({label}): no finite cell in the grid")
+        kk = args_c[5].shape[0]
+        cells = p_count * r * kk + (p_count * (r - 1) if goal.uses_leadership else 0)
+        # each partition's row, its topic, its flag, the rack and topic-count
+        # words of its source and destination racks and brokers, once; each
+        # broker's aggregate and table words once; the outputs
+        nbytes = p_count * (r * 4 + 24 + 4 + 1 + 2 * (kk + r) * 4) + dims.num_brokers * 168 + 20
+        # ~100 operations per cell (csrc/score_goal.cuh)
+        k9_rows.append(dict(label=label, cells=cells, nbytes=nbytes, nops=100 * cells,
+                            err=max(max_abs_err(a_, b_) for a_, b_ in zip(o9_g, o9_c)),
+                            call=lambda i, a=args_g: grid_shortlist(*a),
+                            plain=lambda i, a=args_g: grid_shortlist_plain(*a),
+                            unfused=lambda i, a=args_g: k3_argmax(*a)))
+        print(f"K9 grid_shortlist ({label}, [{p_count}, {r}, {kk}] moves"
+              f"{f' + [{p_count}, {r - 1}] promotions' if goal.uses_leadership else ''}): "
+              f"p {int(o9_c[1])} kind {int(o9_c[2])} slot {int(o9_c[3])} dst {int(o9_c[4])} score "
+              f"{float(o9_c[0]):.6g}, bit-equal to the plain version (plain on the CPU "
+              f"{plain_cpu_s:.1f} s)")
+    err9 = max(x["err"] for x in k9_rows)
+    for x, key in zip(k9_rows, ("grid_shortlist", "grid_shortlist leader count goal")):
+        rw = row(key, "grid_shortlist.cu", "cruise_control_tpu/analyzer/optimizer.py:357", err9,
+                 x["call"], x["plain"], x["nbytes"], x["nops"],
+                 f"one thread per partition over its {x['cells'] // p_count} cells (K3's "
+                 "score_action), a 64-bit atomicMax bid, one thread re-scores the winner; the "
+                 f"{x['label']} grid of {x['cells']} cells")
+        rw["k3_argmax_ms"] = time_ms(x["unfused"])
+        print(f"K9 grid_shortlist on the {x['label']} grid: {rw['ms']:.4f} ms on the device, "
+              f"{rw['call_ms']:.4f} ms per call, plain {rw['plain_ms']:.4f} ms, K3 + argmax "
+              f"{rw['k3_argmax_ms']:.4f} ms, bound {rw['bound_ms']:.6f} ms by {rw['bound_by']}")
+        if key != "grid_shortlist":
+            rows.pop(key)
     del agg_g, agg_c
 
     # -- 4.-7. the solves -------------------------------------------------------
     from cruise_control_torch.analyzer.stats import stats_to_dict
 
-    dead_ids = np.nonzero(model_cpu.broker_state.numpy() == 3)[0]
+    # the bench's config-5 model (bench.py:642) and its parity model
+    # (bench.py:596-604)
+    t0 = time.monotonic()
+    bench_model = generators.random_cluster(SEED, generators.BASELINE_CONFIGS[5])
+    parity_model = generators.random_cluster(SEED + 5, generators.ClusterProperty(
+        num_racks=52, num_brokers=PARITY_BROKERS, num_topics=max(50, (PARITY_BROKERS * 20) // 13),
+        mean_partitions_per_topic=50.0, replication_factor=3, load_distribution="exponential"))
+    print(f"bench model: {bench_model.num_brokers} brokers, {bench_model.num_partitions} "
+          f"partitions; parity model: {parity_model.num_brokers} brokers, "
+          f"{parity_model.num_partitions} partitions (generated in {time.monotonic() - t0:.1f} s)")
+
+    # the polish phases' skip tests: how many ran, and the K7 launches they made
+    polish_skips = {"tests": 0, "skipped": 0, "k7": 0}
+    inner_skip = opt._polish_skip
+
+    def counted_skip(*args):
+        before = kernels.launches()["state_fingerprint"]
+        skip = inner_skip(*args)
+        polish_skips["tests"] += 1
+        polish_skips["skipped"] += int(skip)
+        polish_skips["k7"] += kernels.launches()["state_fingerprint"] - before
+        return skip
+
+    opt._polish_skip = counted_skip
+
     solves = {}
     results = {}
-    for label, settings, goal_names, path, ref, ref_moves in (
-            ("hard goals", dataclasses.replace(opt.SLICE_SETTINGS, ledger=True), HARD_GOAL_NAMES,
-             HARD_PATH, JAX_CPU_REFERENCE, JAX_CPU_MOVES),
-            ("stack", dataclasses.replace(opt.STACK_SETTINGS, ledger=True), None, STACK_PATH,
+    for label, model_s, settings, goal_names, path, ref, ref_moves in (
+            ("hard goals", model_cpu, dataclasses.replace(opt.SLICE_SETTINGS, ledger=True),
+             HARD_GOAL_NAMES, HARD_PATH, JAX_CPU_REFERENCE, JAX_CPU_MOVES),
+            ("stack", model_cpu, dataclasses.replace(opt.STACK_SETTINGS, ledger=True), None,
+             STACK_PATH, JAX_CPU_STACK_REFERENCE, JAX_CPU_STACK_MOVES),
+            ("service", model_cpu, opt.SERVICE_SETTINGS, None, STACK_PATH,
              JAX_CPU_STACK_REFERENCE, JAX_CPU_STACK_MOVES),
-            ("service", opt.SERVICE_SETTINGS, None, STACK_PATH, JAX_CPU_STACK_REFERENCE,
-             JAX_CPU_STACK_MOVES),
-            ("service hard goals", opt.SERVICE_SETTINGS, HARD_GOAL_NAMES, HARD_PATH,
+            ("service hard goals", model_cpu, opt.SERVICE_SETTINGS, HARD_GOAL_NAMES, HARD_PATH,
              JAX_CPU_REFERENCE, None),
-            ("stack hard goals", dataclasses.replace(opt.STACK_SETTINGS, ledger=True),
-             HARD_GOAL_NAMES, HARD_PATH, JAX_CPU_REFERENCE, None)):
+            ("stack hard goals", model_cpu, dataclasses.replace(opt.STACK_SETTINGS, ledger=True),
+             HARD_GOAL_NAMES, HARD_PATH, JAX_CPU_REFERENCE, None),
+            ("bench batched", bench_model, opt.BENCH_SETTINGS, None, BENCH_PATH,
+             JAX_CPU_BENCH_REFERENCE, JAX_CPU_BENCH_MOVES),
+            ("parity greedy", parity_model, opt.GREEDY_SETTINGS, None, GREEDY_PATH,
+             JAX_CPU_PARITY_GREEDY_REFERENCE, JAX_CPU_PARITY_GREEDY_MOVES),
+            ("parity batched", parity_model, opt.BENCH_SETTINGS, None, BENCH_PATH,
+             JAX_CPU_PARITY_BATCHED_REFERENCE, JAX_CPU_PARITY_BATCHED_MOVES)):
+        dead_ids = np.nonzero(model_s.broker_state.numpy() == 3)[0]
+        polish_skips.update(tests=0, skipped=0, k7=0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.monotonic()
         res = opt.GoalOptimizer(device="cuda", settings=settings).optimizations(
-            model_cpu, goal_names, raise_on_hard_failure=False)
+            model_s, goal_names, raise_on_hard_failure=False)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = kernels.launches()
@@ -784,8 +1022,8 @@ def main() -> int:
         on_dead = int(np.isin(final[final >= 0], dead_ids).sum())
         if on_dead:
             fail(f"{label}: {on_dead} replicas left on dead brokers")
-        sanity_check(model_cpu._replace(assignment=torch.from_numpy(final)))
-        replay = model_cpu.assignment.numpy().copy()
+        sanity_check(model_s._replace(assignment=torch.from_numpy(final)))
+        replay = model_s.assignment.numpy().copy()
         for pr in res.proposals:
             rrow = np.full(replay.shape[1], -1, dtype=replay.dtype)
             rrow[: len(pr.new_replicas)] = pr.new_replicas
@@ -805,20 +1043,33 @@ def main() -> int:
         if jref is not None:
             print(f"{label}: JAX on a CPU: digest {jref[0]}, final assignment SHA-256 "
                   f"{'equal' if jref[2] == digest else 'differs'}")
-            if dg["checksum"] != jref[0]:
+            if dg["checksum"] != jref[0] or digest != jref[2]:
                 first = next((n for n in names if dg["byGoal"].get(n, 0) != jref[1].get(n, 0)),
                              None)
-                print(f"{label}: the decision digest DIFFERS from the JAX CPU run's; first goal "
-                      f"whose move count differs: {first} "
+                print(f"{label}: the decision digest or the final assignment DIFFERS from the JAX "
+                      f"CPU run's; first goal whose move count differs: {first} "
                       f"({dg['byGoal'].get(first, 0) if first else '-'} vs "
                       f"{jref[1].get(first, 0) if first else '-'})")
-                if label == "hard goals":
-                    fail("hard goals: the decision digest differs from the JAX CPU run's")
-            else:
-                print(f"{label}: the decision digest equals the JAX CPU run's")
+                fail(f"{label}: the decision digest or the final assignment differs from the JAX "
+                     "CPU run's")
+            print(f"{label}: the decision digest and the final assignment equal the JAX CPU run's")
+            if label == "bench batched":
+                print(f"{label}: JAX on a CPU with shape bucketing (bench.py's default): digest "
+                      f"{JAX_CPU_BENCH_BUCKETED[0]}, final assignment SHA-256 "
+                      f"{'equal' if JAX_CPU_BENCH_BUCKETED[1] == digest else 'differs'}")
+        if settings.polish_rounds > 0:
+            polish = [sg for sg in res.provenance.segments if sg.phase == "polish"]
+            if len(polish) != len(names) or polish_skips["tests"] < len(names) or \
+                    polish_skips["k7"] == 0:
+                fail(f"{label}: the polish phases did not run their K7 skip tests "
+                     f"({len(polish)} polish segments, {polish_skips})")
+            print(f"{label}: {len(polish)} polish phases; {polish_skips['tests']} skip tests "
+                  f"launched K7 {polish_skips['k7']} times and skipped {polish_skips['skipped']} "
+                  "phases")
         stats_after = stats_to_dict(res.stats_after)
         print(f"{label}: stats_after {json.dumps(stats_after)}")
         solves[label] = {"wall_s": wall, "replica_moves": res.num_replica_moves,
+                         "polish_skip_tests": dict(polish_skips),
                          "leadership_moves": res.num_leadership_moves, "peak_bytes": peak,
                          "final_assignment_sha256": digest, "touch_tag_sha256": tags,
                          "decision_digest": dg["checksum"], "launches": counts,
@@ -826,7 +1077,10 @@ def main() -> int:
                                     g.rounds, g.converged, g.cost_before, g.cost_after]
                                    for g in res.goal_results]}
         results[label] = (digest, tags, dg["checksum"])
+        if label.startswith("parity"):
+            results[label] = res
         del res
+    opt._polish_skip = inner_skip
 
     if results["service"][:2] != results["stack"][:2]:
         fail("service: the chunked solve's final assignment or touch tags differ from the "
@@ -837,19 +1091,27 @@ def main() -> int:
              "run of the same six goals")
     print("service hard goals: equal to the fused stack run of the six goals (assignment, "
           "touch tags, decision digest)")
+    gate = parity_gate(results["parity batched"], results["parity greedy"])
+    print(f"parity: {json.dumps(gate)}")
+    if not gate["parityOk"]:
+        fail("parity: the batched pass is worse than the greedy pass (bench.py's parity gate)")
+    solves["parity batched"]["parity"] = gate
 
-    # `launches` is the service solve's count (the main path); the other
-    # solves' counts are kept beside it
+    # `launches` is the count of the path each kernel carries: the service
+    # solve's (the main path), and for K9 the greedy pass's; every solve's
+    # count is kept beside it
     for key, v in rows.items():
-        v["launches"] = solves["service"]["launches"][key]
-        v["launches_stack"] = solves["stack"]["launches"][key]
-        v["launches_hard_goals"] = solves["hard goals"]["launches"][key]
-    print(json.dumps({"solves": solves, "build_s": build_s,
-                      "chip_smoke_s": time.monotonic() - t_start}))
+        v["launches"] = solves["parity greedy" if key == "grid_shortlist" else "service"][
+            "launches"][key]
+        for label in ("stack", "hard goals", "bench batched", "parity greedy", "parity batched"):
+            v["launches_" + label.replace(" ", "_")] = solves[label]["launches"][key]
+    total_s = time.monotonic() - t_start
+    print(json.dumps({"solves": solves, "build_s": build_s, "chip_smoke_s": total_s}))
     for k, v in rows.items():
         print(f"{k:20s} {v['ms']:9.4f} ms on the device per call, {v['call_ms']:9.4f} ms per "
               f"call (plain {v['plain_ms']:9.4f} ms, bound {v['bound_ms']:.6f} ms by "
-              f"{v['bound_by']}), {v['launches']} launches in the service solve")
+              f"{v['bound_by']}), {v['launches']} launches in its path's solve")
+    print(f"chip_smoke: {total_s:.1f} s in all, kernel builds {build_s:.2f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [rows[k] for k in ALL_KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -104,6 +104,21 @@ def slot_contrib(part_load: torch.Tensor, assignment: torch.Tensor, res: int) ->
     return torch.where(is_leader, lead[:, None], foll[:, None])
 
 
+def make_move_batch(assignment: torch.Tensor, dst_cands: torch.Tensor):
+    """(p, kind, slot, dst) index tensors of the [P, R, K] move grid: every
+    replica slot toward every destination candidate (the JAX package's
+    make_move_batch, :113, as indices for build_selected / K3 / K9). The
+    tensors stay at their broadcast shapes, p [P,1,1], slot [1,R,1], dst
+    [1,1,K]: nothing is materialized at [P, R, K]. build_selected's extra
+    `dst >= 0` check changes nothing: a destination candidate is a broker."""
+    p_count, r = assignment.shape
+    dev = assignment.device
+    p = torch.arange(p_count, dtype=torch.int32, device=dev)[:, None, None]
+    slot = torch.arange(r, dtype=torch.int32, device=dev)[None, :, None]
+    kind = torch.tensor(KIND_MOVE, dtype=torch.int32, device=dev)
+    return p, kind, slot, dst_cands.to(torch.int32)[None, None, :]
+
+
 def leadership_grid(assignment: torch.Tensor):
     """(p, kind, slot, dst) index tensors of the [P, R-1] promotion grid:
     promote the replica in slot s >= 1 to leader (the JAX package's

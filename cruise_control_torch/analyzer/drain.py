@@ -234,6 +234,11 @@ def _mean_replica_load(agg: Aggregates) -> torch.Tensor:
     return window_sum(agg.broker_load) / n
 
 
+def _wrap_i32(x):
+    """x wrapped to int32 as two's complement (int32 arithmetic in JAX wraps)."""
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
 def select_surplus_pairs(static: StaticCtx, agg: Aggregates, tables, gs, rnd: int, v: int,
                          t_count: int, b_count: int):
     """(pair_t, pair_b, pair_ok), each [V]: one (topic, broker) surplus pair
@@ -248,12 +253,16 @@ def select_surplus_pairs(static: StaticCtx, agg: Aggregates, tables, gs, rnd: in
     excess = torch.where(static.alive[None, :], excess,
                          torch.where(trc > 0, torch.tensor(1e9, device=dev), neg_inf))
     t_ids = torch.arange(t_count, dtype=torch.int64, device=dev)
-    rot_t = (((t_ids + rnd * 7919) * 131) % 104729).to(torch.float32) / 104729.0
+    # the rotations are int32 arithmetic in the reference: from round ~79 on
+    # (b + rnd * 104729) * 257 wraps, and the wrapped value decides the order
+    rot_t = (_wrap_i32(_wrap_i32(t_ids + _wrap_i32(rnd * 7919)) * 131) % 104729).to(
+        torch.float32) / 104729.0
     key_tb = torch.where(torch.isfinite(excess), fma(1e-3, rot_t[:, None], excess), neg_inf)
     best_t = torch.argmax(key_tb, dim=0)
     b_ids = torch.arange(b_count, dtype=torch.int64, device=dev)
     best_val = excess[best_t, b_ids]
-    rot_b = (((b_ids + rnd * 104729) * 257) % 7919).to(torch.float32) / 7919.0
+    rot_b = (_wrap_i32(_wrap_i32(b_ids + _wrap_i32(rnd * 104729)) * 257) % 7919).to(
+        torch.float32) / 7919.0
     typ = _mean_replica_load(agg)
     lo_margin = agg.broker_load - tables.band_lo
     mobile = torch.all(~tables.band_on[None, :] | (lo_margin >= 0.5 * typ[None, :]), dim=1)

@@ -47,6 +47,9 @@ class BulkCounts(NamedTuple):
 class Goal:
     name: str = ""
     is_hard: bool = False
+    #: nominate replica moves in the batch_k=1 grid (every goal of the
+    #: default stack does)
+    uses_moves: bool = True
     #: also nominate promotions from the [P, R-1] leadership grid each round
     uses_leadership: bool = False
     #: floor/ceil count goal, drained by the bulk planner when it is on

@@ -2,22 +2,25 @@
 
 The counterpart of the JAX package's analyzer/optimizer.py (itself the
 replacement of GoalOptimizer.optimizations, cc/analyzer/GoalOptimizer.java:392)
-for the settings this port carries: batched mode (`batch_k > 1`) with every
-engine of the default stack (the drain/fill rounds, the bulk count planner,
-the replica swaps, the topic goal's pair drain and topic swaps, the
-leadership relays), run either as the fused stack (`chunk_rounds = 0`) or
-through the chunked goal machine (`chunk_rounds > 0`, the service default,
-`SERVICE_SETTINGS`), with the provenance ledger and the before/after cluster
-statistics. The polish pass, the `batch_k=1` grid and shape bucketing raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+for the settings this port carries: every engine of the default stack (the
+drain/fill rounds, the bulk count planner, the replica swaps, the topic goal's
+pair drain and topic swaps, the leadership relays) in batched mode
+(`batch_k > 1`), the exhaustive `batch_k=1` greedy grid with its cost-scaled
+round caps (`GREEDY_SETTINGS`), and the polish pass (`BENCH_SETTINGS`), run
+either as the fused stack (`chunk_rounds = 0`) or through the chunked goal
+machine (`chunk_rounds > 0`, the service default, `SERVICE_SETTINGS`), with
+the provenance ledger and the before/after cluster statistics. Shape
+bucketing and non-default OptimizationOptions raise NotImplementedError
+naming the ROADMAP.md item that brings them.
 
 The JAX package runs each goal's rounds as a device `while_loop`; here the
 round loop is a host loop over device work that reads one device value per
 round, the loop condition (`empties`, optimizer.py:673-675 in the JAX code),
 plus the bulk planner's and the fallbacks' `applied` flags. The goal
-machine's cursor (goal, rounds in it, empty-round streak) is therefore
+machine's cursor (phase, rounds in it, empty-round streak) is therefore
 already on the host, and a machine call reads back only the per-goal round
-counts.
+counts (and, entering a polish phase, the goal's converged flag and
+fingerprint).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from cruise_control_torch.analyzer.acceptance import empty_tables
+from cruise_control_torch.analyzer.actions import KIND_MOVE
 from cruise_control_torch.analyzer.bulk import make_bulk_count_round
 from cruise_control_torch.analyzer.context import (
     Dims,
@@ -37,6 +41,7 @@ from cruise_control_torch.analyzer.context import (
     build_static_ctx,
     compute_aggregates,
     dims_of,
+    make_touch_tag,
     replicas_on_dead,
 )
 from cruise_control_torch.analyzer.drain import (
@@ -45,6 +50,8 @@ from cruise_control_torch.analyzer.drain import (
     make_pair_drain_round,
     make_topic_swap_round,
     round_jitter,
+    table_demoted_pref,
+    top_k,
 )
 from cruise_control_torch.analyzer.goals import DEFAULT_GOAL_ORDER, goals_by_priority
 from cruise_control_torch.analyzer.goals.base import SCORE_EPS, UnportedGoal
@@ -53,6 +60,9 @@ from cruise_control_torch.analyzer.provenance import LEDGER, build_run_ledger, n
 from cruise_control_torch.analyzer.stats import ClusterModelStats, compute_stats, stats_to_host
 from cruise_control_torch.analyzer.swaps import make_swap_round
 from cruise_control_torch.config.balancing import BalancingConstraint
+from cruise_control_torch.kernels.apply_wave import apply_wave
+from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
+from cruise_control_torch.kernels.score_candidates import score_candidates
 from cruise_control_torch.kernels.state_fingerprint import state_fingerprint
 from cruise_control_torch.models.flat_model import FlatClusterModel
 
@@ -65,11 +75,17 @@ class OptimizationFailureException(Exception):
 @dataclasses.dataclass(frozen=True)
 class OptimizerSettings:
     """Tuning knobs, with the JAX package's names and defaults (the fields the
-    port reads or refuses; the grid's and the cost-scaled cap's knobs come
-    with the code that reads them). check_supported lists what it refuses."""
+    port reads or refuses). check_supported lists what it refuses."""
 
     batch_k: int = 64
     max_rounds_per_goal: int = 64
+    #: > 0: a goal's round cap is clip(ceil(cost_scaled_rounds * entry cost),
+    #: max_rounds_per_goal, rounds_ceiling), the cost divided first by the
+    #: entry violated-broker count where the bulk planner runs
+    cost_scaled_rounds: float = 0.0
+    rounds_ceiling: int = 8192
+    #: the batch_k=1 grid's rack-representative destination brokers
+    num_dst_candidates: int = 16
     num_swap_pairs: int = 8
     swap_candidates: int = 8
     swaps_per_broker: int = 4
@@ -106,6 +122,25 @@ STACK_SETTINGS = dataclasses.replace(SLICE_SETTINGS, bulk_waves=16, bulk_min_bro
 #: defaults but shape bucketing.
 SERVICE_SETTINGS = dataclasses.replace(STACK_SETTINGS, chunk_rounds=32, ledger=True)
 
+#: The bench's batched pass (bench.py:215-227 at its defaults: 128 rounds a
+#: goal, swaps 16x16x4, chunk 16, 48 polish rounds), without shape bucketing,
+#: which the port does not have yet (the JAX package's bucketed and
+#: exact-shape runs of config 5 differ: ROADMAP.md Queue 3).
+BENCH_SETTINGS = OptimizerSettings(
+    batch_k=1024, max_rounds_per_goal=128, num_dst_candidates=16, num_swap_pairs=16,
+    swap_candidates=16, swaps_per_broker=4, chunk_rounds=16, polish_rounds=48,
+    bucket_partitions=False, bucket_brokers=False,
+)
+
+#: The bench's faithful-greedy parity pass (bench.py:242-248 at its defaults:
+#: batch_k=1, cost-scaled caps of 1.5 rounds per cost unit up to 4,096, chunk
+#: 64), without shape bucketing.
+GREEDY_SETTINGS = OptimizerSettings(
+    batch_k=1, max_rounds_per_goal=512, num_dst_candidates=16, num_swap_pairs=16,
+    swap_candidates=16, swaps_per_broker=4, chunk_rounds=64, cost_scaled_rounds=1.5,
+    rounds_ceiling=4096, bucket_partitions=False, bucket_brokers=False,
+)
+
 
 #: chunked mode: the target wall time of a machine call, from which later
 #: calls' budgets follow the measured round rate (the JAX package's
@@ -118,12 +153,18 @@ def _use_bulk(goal, dims: Dims, settings: OptimizerSettings) -> bool:
             and goal.count_family)
 
 
+def _use_drain(goal, dims: Dims, settings: OptimizerSettings) -> bool:
+    """Whether the goal runs the drain engine rather than the batch_k=1 grid
+    (optimizer.py:541-545)."""
+    return (settings.batch_k > 1 or goal.uses_swaps
+            or (_use_bulk(goal, dims, settings) and goal.pair_drain))
+
+
 def goal_engine(goal, dims: Dims, settings: OptimizerSettings) -> str:
     """Which search engine a goal runs under these settings/dims (the JAX
     package's labels, optimizer.py:254)."""
     use_bulk = _use_bulk(goal, dims, settings)
-    use_drain = settings.batch_k > 1 or goal.uses_swaps or (use_bulk and goal.pair_drain)
-    engine = "drain" if use_drain else "grid"
+    engine = "drain" if _use_drain(goal, dims, settings) else "grid"
     if use_bulk:
         engine = f"bulk+{engine}"
     if settings.polish_rounds > 0:
@@ -137,15 +178,10 @@ def check_supported(goals, settings: OptimizerSettings, options: OptimizationOpt
     def refuse(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
-    q3b = "ROADMAP.md Queue 1 item 3: left out of slice 2, it comes with slice 3b"
     q4 = "ROADMAP.md Queue 1 item 4, production solve plumbing"
     for g in goals:
         if isinstance(g, UnportedGoal):
             refuse(f"goal {g.name}", q4)
-    if settings.batch_k <= 1:
-        refuse("the batch_k=1 grid engine", q3b)
-    if settings.polish_rounds > 0:
-        refuse("the polish pass (polish_rounds > 0)", q3b)
     if settings.bucket_partitions or settings.bucket_brokers:
         refuse("shape bucketing (bucket_partitions / bucket_brokers)", q4)
     # every option defaults to None or False; the port takes the defaults only
@@ -164,21 +200,125 @@ def _swap_width(num_brokers: int, num_swap_pairs: int) -> int:
     return max(num_swap_pairs, min(128, width))
 
 
+def dst_candidates(static, gs, agg, goal, dims: Dims, k: int, tables=None) -> torch.Tensor:
+    """i32[min(k, NR)]: the best eligible broker of each of the top-k racks by
+    the goal's table-demoted destination preference (optimizer.py:303-321):
+    a first-index argmax per rack, the racks ranked with ties to the lowest
+    index. A rack with no eligible broker falls back to the best rack's
+    candidate, a duplicate column that is inert in the grid."""
+    pref = table_demoted_pref(static, gs, agg, goal, tables)
+    nr = dims.num_racks
+    dev = pref.device
+    neg_inf = torch.tensor(-torch.inf, dtype=torch.float32, device=dev)
+    rack_mask = static.broker_rack[None, :] == torch.arange(nr, device=dev)[:, None]
+    per_rack = torch.where(rack_mask, pref[None, :], neg_inf)
+    best_broker = torch.argmax(per_rack, dim=1).to(torch.int32)
+    vals, rack_idx = top_k(torch.amax(per_rack, dim=1), min(k, nr))
+    cands = best_broker[rack_idx]
+    return torch.where(torch.isfinite(vals), cands, cands[0])
+
+
+def _scaled_cap(cost, violated, use_bulk: bool, floor: int, settings: OptimizerSettings) -> int:
+    """A goal's cost-scaled round cap (optimizer.py:644-667, :1000-1023), in
+    float32 as the JAX code computes it: ceil(cost_scaled_rounds * cost),
+    the cost divided first by max(1, violated) where the bulk planner runs,
+    clipped to [floor, rounds_ceiling] in float before the int cast."""
+    dev = cost.device
+    scale = cost.to(torch.float32)
+    if use_bulk:
+        scale = scale / torch.clamp(violated.to(torch.float32), min=1.0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    scaled = torch.clamp(torch.ceil(torch.tensor(settings.cost_scaled_rounds, **f32) * scale),
+                         torch.tensor(float(floor), **f32),
+                         torch.tensor(float(settings.rounds_ceiling), **f32))
+    return int(scaled.to(torch.int32))
+
+
+def _make_grid_round(goal, dims: Dims, settings: OptimizerSettings):
+    """one_round(static, agg, tables, rnd) -> (agg, applied): the batch_k=1
+    greedy round (optimizer.py:357-520). K9 gives the shortlist (the best
+    action over the [P, R, K] move grid and the [P, R-1] leadership grid);
+    unless the round is the faithful greedy's (one entry, a goal with moves),
+    `apply_waves` waves re-score it (K3) and apply it (K4), toward
+    rank-paired destinations for moves and wherever the promoted replica
+    lives for promotions; then, for goals with moves, the precision wave
+    scores the entry against every broker (K3) and applies it toward the
+    first best. `agg` is updated in place; `applied` is a bool device
+    tensor."""
+    p_count = dims.num_partitions
+    k_dst = max(1, min(settings.num_dst_candidates, dims.num_racks))
+    k_sel = max(1, min(settings.batch_k, p_count))
+    n_waves = max(1, settings.apply_waves)
+
+    def one_round(static, agg, tables, rnd: int):
+        dev = agg.assignment.device
+        gs = goal.prepare(static, agg, dims)
+        cands = dst_candidates(static, gs, agg, goal, dims, k_dst, tables)
+        top_scores, sel_p, sel_kind, sel_slot, sel_dst0 = grid_shortlist(
+            static, agg, tables, goal, gs, cands, k_sel)
+        live = torch.isfinite(top_scores)
+        is_move = sel_kind == KIND_MOVE
+        applied = torch.zeros((), dtype=torch.bool, device=dev)
+        done = torch.zeros(k_sel, dtype=torch.bool, device=dev)
+
+        def lead_dst():
+            return agg.assignment[sel_p.long(), sel_slot.long()]
+
+        def wave_with_dst(fresh_dst, w: int):
+            nonlocal applied, done
+            fresh_dst = fresh_dst.to(torch.int32).contiguous()
+            s = score_candidates(static, agg, tables, goal, gs, sel_p, sel_kind, sel_slot,
+                                 fresh_dst)
+            sel = apply_wave(static, agg, sel_p, sel_kind, sel_slot, fresh_dst, s,
+                             torch.isfinite(s) & live & ~done, make_touch_tag(rnd, w))
+            applied = applied | torch.any(sel)
+            done = done | sel
+
+        if not (k_sel == 1 and goal.uses_moves):
+            for w in range(n_waves):
+                if goal.uses_moves:
+                    pref = table_demoted_pref(static, gs, agg, goal, tables)
+                    dst_rank = torch.argsort(-pref, stable=True).to(torch.int32)
+                    # only move entries consume destination ranks, wrapped
+                    # over the feasible prefix
+                    r = torch.cumsum((~done & live & is_move).to(torch.int32), dim=0) - 1
+                    n_feasible = torch.clamp(torch.sum(torch.isfinite(pref)), min=1)
+                    fresh = torch.where(is_move, dst_rank[((r + w) % n_feasible).long()],
+                                        lead_dst())
+                else:
+                    fresh = torch.where(is_move, sel_dst0, lead_dst())
+                wave_with_dst(fresh, w)
+        if goal.uses_moves:
+            all_brokers = torch.arange(dims.num_brokers, dtype=torch.int32, device=dev)
+            s_b = score_candidates(static, agg, tables, goal, gs, sel_p[:, None],
+                                   sel_kind[:, None], sel_slot[:, None], all_brokers[None, :])
+            best = torch.argmax(s_b, dim=1).to(torch.int32)
+            wave_with_dst(torch.where(is_move, best, lead_dst()), n_waves)
+        return agg, applied
+
+    return one_round
+
+
 def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
     """goal_loop(static, agg, tables, budget, rnd_base, empties0, stall_at)
     -> (agg, rounds, empties): rounds until the goal stalls or `budget` more
     rounds ran (optimizer.py:536-775); `agg` is updated in place. Each round:
     the bulk planner first (count goals), then, when it applied nothing, the
-    goal's engine, then its stall fallbacks (swaps, topic swaps, relays) only
-    while nothing has applied. `rnd_base` and `empties0` resume a goal paused
-    by the chunked machine: the absolute round index seeds the round jitter
-    and the touch tags, and the empty-round streak carries over."""
+    goal's engine (the drain round, or the batch_k=1 grid), then its stall
+    fallbacks (swaps, topic swaps, relays) only while nothing has applied.
+    `rnd_base` and `empties0` resume a goal paused by the chunked machine:
+    the absolute round index seeds the round jitter and the touch tags, and
+    the empty-round streak carries over. Without a `budget` the cap is
+    max_rounds_per_goal, or the cost-scaled cap."""
     use_bulk = _use_bulk(goal, dims, settings)
+    use_drain = _use_drain(goal, dims, settings)
     bulk_fn = None
     if use_bulk and not goal.pair_drain:
         bulk_fn = make_bulk_count_round(goal, dims, settings.drain_per_broker, settings.bulk_waves)
-    topic_swap_fn = lead_swap_fn = swap_fn = None
-    if goal.pair_drain:
+    drain_fn = grid_fn = topic_swap_fn = lead_swap_fn = swap_fn = None
+    if not use_drain:
+        grid_fn = _make_grid_round(goal, dims, settings)
+    elif goal.pair_drain:
         drain_fn = make_pair_drain_round(goal, dims, settings.drain_src, settings.apply_waves)
         topic_swap_fn = make_topic_swap_round(goal, dims, settings.drain_src,
                                               max(4, settings.drain_dst // 4), 8,
@@ -197,10 +337,14 @@ def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
     empties_to_stall = 8 if rotated else 1
 
     def engine(static, agg, tables, gs0, rnd: int):
-        contrib = goal.drain_contrib(static, gs0, agg)
-        if goal.rotate_drain_candidates:
-            contrib = contrib * round_jitter(contrib.shape[0], rnd, contrib.device)[:, None]
-        agg, applied = drain_fn(static, agg, tables, gs0, contrib, rnd)
+        contrib = None
+        if grid_fn is not None:
+            agg, applied = grid_fn(static, agg, tables, rnd)
+        else:
+            contrib = goal.drain_contrib(static, gs0, agg)
+            if goal.rotate_drain_candidates:
+                contrib = contrib * round_jitter(contrib.shape[0], rnd, contrib.device)[:, None]
+            agg, applied = drain_fn(static, agg, tables, gs0, contrib, rnd)
         # the fallbacks run only after a round that applied nothing, on the
         # round's unchanged aggregates
         for fallback in (swap_fn, topic_swap_fn, lead_swap_fn):
@@ -218,6 +362,10 @@ def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
         gs0 = goal.prepare(static, agg, dims)
         if budget is None:
             budget = settings.max_rounds_per_goal
+            if settings.cost_scaled_rounds > 0:
+                budget = _scaled_cap(goal.cost(static, gs0, agg),
+                                     _violated(goal, static, gs0, agg), use_bulk, budget,
+                                     settings)
         if stall_at is None:
             stall_at = empties_to_stall
         rnd, empties = rnd_base, empties0
@@ -285,16 +433,51 @@ def _violated(goal, static, gs, agg) -> torch.Tensor:
     return torch.sum(goal.broker_violation(static, gs, agg)).to(torch.int32)
 
 
+def measure(goals, dims: Dims, static, agg):
+    """(violated i32[G], cost f32[G]) of every goal on the state `agg` (the
+    JAX package's _cached_measure, :1246): the final per-goal rows after a
+    polish pass, in which a later phase may move an earlier goal's cost
+    within its bounds."""
+    viol, cost = [], []
+    for goal in goals:
+        gs = goal.prepare(static, agg, dims)
+        viol.append(_violated(goal, static, gs, agg))
+        cost.append(goal.cost(static, gs, agg).to(torch.float32))
+    return torch.stack(viol), torch.stack(cost)
+
+
+def _polish_stall(loop) -> int:
+    """A polish phase's cheaper stall proof: half the empty-round threshold."""
+    return max(1, loop.empties_to_stall // 2)
+
+
+def _polish_skip(agg, converged: bool, exit_fp) -> bool:
+    """A polish phase retries a goal only when it stopped on its round cap or
+    the state changed since its exit (K7's fingerprint, optimizer.py:1035)."""
+    return converged and int(state_fingerprint(agg)) == int(exit_fp)
+
+
 def run_stack(goals, dims: Dims, settings: OptimizerSettings, static, agg):
     """Run the priority-ordered goal stack (the JAX package's
     _make_stack_step, :823-889): each goal's loop feeds the next, and each
     finished goal contributes its bounds to the merged acceptance tables.
-    With the ledger on, the assignment and touch tags are snapshotted after
-    each goal. Returns (agg, StackMetrics, snapshots or None), on the host."""
+    With `polish_rounds`, a second pass re-runs each goal under the full
+    tables (:848-878): skipped when the goal converged and the state is
+    still its exit state, at most `polish_rounds` rounds with half the
+    stall threshold otherwise; the rounds add up, and every goal's after-row
+    is re-measured at the end. With the ledger on, the assignment and touch
+    tags are snapshotted after each phase. Returns (agg, StackMetrics,
+    snapshots or None), on the host."""
     tables = empty_tables(dims, agg.assignment.device)
+    loops = [_make_goal_loop(goal, dims, settings) for goal in goals]
     vb, va, cb, ca, rs, cv, fps, snaps_a, snaps_t = [], [], [], [], [], [], [], [], []
-    for goal in goals:
-        loop = _make_goal_loop(goal, dims, settings)
+
+    def snapshot():
+        if settings.ledger:
+            snaps_a.append(agg.assignment.clone())
+            snaps_t.append(agg.touch_tag.clone())
+
+    for goal, loop in zip(goals, loops):
         gs0 = goal.prepare(static, agg, dims)
         vb.append(_violated(goal, static, gs0, agg))
         cb.append(goal.cost(static, gs0, agg).to(torch.float32))
@@ -306,9 +489,19 @@ def run_stack(goals, dims: Dims, settings: OptimizerSettings, static, agg):
         cv.append(empties >= loop.empties_to_stall)
         fps.append(state_fingerprint(agg))
         tables = goal.contribute_acceptance(static, gs1, tables)
-        if settings.ledger:
-            snaps_a.append(agg.assignment.clone())
-            snaps_t.append(agg.touch_tag.clone())
+        snapshot()
+    if settings.polish_rounds > 0:
+        for i, loop in enumerate(loops):
+            skip = _polish_skip(agg, cv[i], fps[i])
+            stall = _polish_stall(loop)
+            agg, rounds, empties = loop(static, agg, tables,
+                                        0 if skip else settings.polish_rounds, stall_at=stall)
+            rs[i] += rounds
+            cv[i] = cv[i] if skip else empties >= stall
+            fps[i] = state_fingerprint(agg)
+            snapshot()
+        viol, cost = measure(goals, dims, static, agg)
+        va, ca = list(viol), list(cost)
     metrics = StackMetrics(
         violated_before=torch.stack(vb).cpu().numpy(),
         violated_after=torch.stack(va).cpu().numpy(),
@@ -327,27 +520,34 @@ def run_stack(goals, dims: Dims, settings: OptimizerSettings, static, agg):
 def _make_goal_machine(goals, dims: Dims, settings: OptimizerSettings):
     """The chunked goal machine (optimizer.py:911-1170) as a host function:
 
-        machine(static, agg, tables, goal_idx, rounds_in_goal, empties_in_goal,
+        machine(static, agg, tables, phase, rounds_in_goal, empties_in_goal,
                 metrics, budget, enabled, snap)
-          -> (agg, tables, goal_idx, rounds_in_goal, empties_in_goal, metrics,
+          -> (agg, tables, phase, rounds_in_goal, empties_in_goal, metrics,
               spent, snap)
 
-    advances the stack by up to `budget` rounds, crossing goal boundaries. A
-    goal's entry row (violated_before, cost_before) is written the first
-    time it runs; its exit row, state fingerprint included, at every pause
-    or exit; its tables only when it is done (stalled, or its round cap
-    reached), and then its snapshot row. A disabled goal (`enabled[i]`
-    False) advances the cursor with no rounds, no tables and untouched
-    metrics rows, and writes its snapshot row from the unchanged state
-    (skip_branch, :1107-1121). `metrics` and `snap` are updated in place; the
-    cursor is host ints. The polish phases are not ported (slice 3b)."""
+    advances the stack by up to `budget` rounds, crossing goal boundaries.
+    Phases 0..G-1 run the goals; with `polish_rounds`, phases G..2G-1 re-run
+    goal g = phase - G under the full tables (:964-971). A goal's entry row
+    (violated_before, cost_before) is written the first time its main phase
+    runs; its exit row, state fingerprint included, at every pause or exit;
+    its tables when its main phase is done (stalled, or its round cap
+    reached); the phase's snapshot row then. The round cap is
+    max_rounds_per_goal, or the cost-scaled cap of the goal's entry row; a
+    polish phase's is `polish_rounds`, or 0 when it is skipped (the goal
+    converged and the state is its exit state), and it stalls at half the
+    threshold, adds its rounds to the goal's, and keeps the goal's converged
+    flag when skipped (:1000-1092). A disabled goal (`enabled[g]` False)
+    advances the cursor with no rounds, no tables and untouched metrics
+    rows, and writes its snapshot row from the unchanged state (skip_branch,
+    :1107-1121). `metrics` and `snap` are updated in place; the cursor is
+    host ints."""
     loops = [_make_goal_loop(g, dims, settings) for g in goals]
     n_goals = len(goals)
-    cap = settings.max_rounds_per_goal
+    n_phases = 2 * n_goals if settings.polish_rounds > 0 else n_goals
 
-    def machine(static, agg, tables, goal_idx: int, rounds_in_goal: int, empties_in_goal: int,
+    def machine(static, agg, tables, phase: int, rounds_in_goal: int, empties_in_goal: int,
                 metrics: StackMetrics, budget: int, enabled, snap):
-        gi, rig, emp, left = goal_idx, rounds_in_goal, empties_in_goal, budget
+        gi, rig, emp, left = phase, rounds_in_goal, empties_in_goal, budget
         snap_a, snap_t = snap
 
         def snapshot(row):
@@ -355,38 +555,55 @@ def _make_goal_machine(goals, dims: Dims, settings: OptimizerSettings):
                 snap_a[row].copy_(agg.assignment)
                 snap_t[row].copy_(agg.touch_tag)
 
-        while left > 0 and gi < n_goals:
-            goal, loop = goals[gi], loops[gi]
-            if not enabled[gi]:
+        while left > 0 and gi < n_phases:
+            polishing = gi >= n_goals
+            g = gi - n_goals if polishing else gi
+            goal, loop = goals[g], loops[g]
+            if not enabled[g]:
                 snapshot(gi)
                 gi, rig, emp = gi + 1, 0, 0
                 continue
-            if rig == 0:
+            if rig == 0 and not polishing:
                 # the JAX machine measures the entry state on every entry and
                 # records it on the first only (:986-1000)
                 gs_in = goal.prepare(static, agg, dims)
-                metrics.violated_before[gi] = _violated(goal, static, gs_in, agg)
-                metrics.cost_before[gi] = goal.cost(static, gs_in, agg)
+                metrics.violated_before[g] = _violated(goal, static, gs_in, agg)
+                metrics.cost_before[g] = goal.cost(static, gs_in, agg)
+            skip, stall = False, loop.empties_to_stall
+            if polishing:
+                skip = _polish_skip(agg, bool(metrics.converged[g]), metrics.state_fp[g])
+                cap, stall = (0 if skip else settings.polish_rounds), _polish_stall(loop)
+            elif settings.cost_scaled_rounds > 0:
+                cap = _scaled_cap(metrics.cost_before[g], metrics.violated_before[g],
+                                  _use_bulk(goal, dims, settings), settings.max_rounds_per_goal,
+                                  settings)
+            else:
+                cap = settings.max_rounds_per_goal
             agg, rounds, emp2 = loop(static, agg, tables, min(left, cap - rig), rnd_base=rig,
-                                     empties0=emp)
+                                     empties0=emp, stall_at=stall)
             rig2 = rig + rounds
-            stalled = emp2 >= loop.empties_to_stall
+            stalled = bool(metrics.converged[g]) if skip else emp2 >= stall
             done = stalled or rig2 >= cap
             gs_out = goal.prepare(static, agg, dims)
-            metrics.violated_after[gi] = _violated(goal, static, gs_out, agg)
-            metrics.cost_after[gi] = goal.cost(static, gs_out, agg)
-            metrics.rounds[gi] = rig2
-            metrics.converged[gi] = stalled
-            metrics.state_fp[gi] = state_fingerprint(agg)
+            metrics.violated_after[g] = _violated(goal, static, gs_out, agg)
+            metrics.cost_after[g] = goal.cost(static, gs_out, agg)
+            if polishing:
+                metrics.rounds[g] += rounds
+            else:
+                metrics.rounds[g] = rig2
+            metrics.converged[g] = stalled
+            metrics.state_fp[g] = state_fingerprint(agg)
             left -= rounds
             if done:
-                tables = goal.contribute_acceptance(static, gs_out, tables)
+                if not polishing:
+                    tables = goal.contribute_acceptance(static, gs_out, tables)
                 snapshot(gi)
                 gi, rig, emp = gi + 1, 0, 0
             else:
                 rig, emp = rig2, emp2
         return agg, tables, gi, rig, emp, metrics, budget - left, snap
 
+    machine.n_phases = n_phases
     return machine
 
 
@@ -483,7 +700,8 @@ class GoalOptimizer:
 
     def _run_chunked(self, goals, enabled: np.ndarray, dims: Dims, static, agg):
         """Drive the goal machine (optimizer.py:1553-1653): calls of at most
-        `chunk` rounds each, crossing goal boundaries. After each call the
+        `chunk` rounds each, crossing goal (and polish phase) boundaries, then,
+        after a polish pass, re-measure every goal's after-row. After each call the
         per-goal round counts are read back once, the call's wall time is
         attributed to goals by their share of its rounds, and the next
         budget follows the measured round rate (at most 8x the last, back to
@@ -495,8 +713,8 @@ class GoalOptimizer:
         n = len(goals)
         tables = empty_tables(dims, dev)
         metrics = empty_stack_metrics(n, dev)
-        snap = empty_prov_snapshots(n, dims, s.ledger, dev)
         machine = _make_goal_machine(goals, dims, s)
+        snap = empty_prov_snapshots(machine.n_phases, dims, s.ledger, dev)
         gi = rig = emp = 0
         chunk = s.chunk_rounds
         durs = np.zeros(n, np.float64)
@@ -513,7 +731,7 @@ class GoalOptimizer:
             if delta.sum() > 0:
                 durs += call_s * delta / delta.sum()
             rounds_seen = np.maximum(rounds_seen, rounds_h)
-            if gi >= n:
+            if gi >= machine.n_phases:
                 break
             if gi != last_gi:
                 chunk = s.chunk_rounds
@@ -521,6 +739,9 @@ class GoalOptimizer:
             elif spent > 0 and call_s > 0:
                 rate = spent / call_s
                 chunk = max(1, min(4096, int(rate * CHUNK_TARGET_S), chunk * 8))
+        if s.polish_rounds > 0:
+            viol, cost = measure(goals, dims, static, agg)
+            metrics = metrics._replace(violated_after=viol, cost_after=cost)
         host_snap = (snap[0].cpu().numpy(), snap[1].cpu().numpy()) if s.ledger else None
         return agg, _metrics_to_host(metrics), time.monotonic() - t_stack, durs, host_snap
 

@@ -12,6 +12,8 @@ PyTorch version.
                          and costs)
   K7 state_fingerprint   optimizer._state_fingerprint
   K8 cluster_stats       stats.compute_stats
+  K9 grid_shortlist      the greedy round's shortlist (optimizer.one_round
+                         :371-409), scoring with K3's per-candidate body
 
 A wrapper runs the plain version for CPU tensors and launches its kernel for
 CUDA tensors (or raises); it counts its launches in `<wrapper>.launches`.
@@ -28,6 +30,7 @@ def wrappers():
     from cruise_control_torch.kernels.apply_wave import apply_wave
     from cruise_control_torch.kernels.broker_topk import broker_topk
     from cruise_control_torch.kernels.cluster_stats import cluster_stats
+    from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
     from cruise_control_torch.kernels.pair_picks import pair_picks
     from cruise_control_torch.kernels.score_candidates import score_candidates
     from cruise_control_torch.kernels.score_swaps import score_swaps
@@ -45,6 +48,7 @@ def wrappers():
         "window_sum": window_sum,
         "state_fingerprint": state_fingerprint,
         "cluster_stats": cluster_stats,
+        "grid_shortlist": grid_shortlist,
     }
 
 

@@ -9,8 +9,8 @@ plain C interface, loaded with `ctypes`:
 `-fmad=false` (and no fast-math flag) keeps every add, multiply, divide and
 compare IEEE-identical to the plain PyTorch versions. Libraries land in
 `build/cruise_control_torch/` at the repository root, named by the hash of
-their source (and of `common.cuh`), so an edited source rebuilds and an
-unchanged one is reused. Builds happen at first use, never at import;
+their source (and of the shared headers `*.cuh`), so an edited source
+rebuilds and an unchanged one is reused. Builds happen at first use, never at import;
 `build_all()` starts one `nvcc` per source, all at once.
 """
 
@@ -30,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "cruise_control_torch"
 KERNEL_SOURCES = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
                   "score_swaps", "pair_picks", "window_sum", "state_fingerprint",
-                  "cluster_stats")
+                  "cluster_stats", "grid_shortlist")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
@@ -53,7 +53,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256()
-    for f in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for f in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

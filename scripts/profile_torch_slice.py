@@ -1,15 +1,18 @@
 """Where the time of the PyTorch port's solves goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_slice.py [--path hard|stack|service|all]
+    python3 scripts/profile_torch_slice.py [--path hard|stack|service|bench|greedy|all]
                                            [--out build/profile_torch_slice.json]
 
-Builds the CUDA kernels and, for each solve asked for (the six hard goals
-with SLICE_SETTINGS, the full 15-goal stack with STACK_SETTINGS, the same
-stack as the service runs it with SERVICE_SETTINGS: the chunked goal
-machine, the provenance ledger and the cluster statistics; all three by
-default), solves the smoke model of chip_smoke.py once as a warm-up, then:
+Builds the CUDA kernels and, for each solve asked for (on the smoke model of
+chip_smoke.py: the six hard goals with SLICE_SETTINGS, the full 15-goal
+stack with STACK_SETTINGS, the same stack as the service runs it with
+SERVICE_SETTINGS: the chunked goal machine, the provenance ledger and the
+cluster statistics; and chip_smoke.py's phases 8 and 9: BASELINE config 5
+with the bench's batched pass, BENCH_SETTINGS, and the bench's 520-broker
+parity model with its faithful-greedy pass, GREEDY_SETTINGS; all five by
+default), solves once as a warm-up, then:
   1. once more with a synchronize after every goal, for each goal's wall time
-     (the service solve: its per-goal times as `_run_chunked` measures
+     (the chunked solves: their per-goal times as `_run_chunked` measures
      them, each call's wall shared out by the goals' rounds);
   2. once under torch.profiler (CPU and CUDA activities), for the device's
      busy time by kernel, the idle share of the solve's wall time, the number
@@ -44,8 +47,11 @@ OWN_KERNELS = {
     "k_pair_init": "K6 pair_picks", "k_pair_bid": "K6 pair_picks",
     "k_pair_take": "K6 pair_picks", "k_window_sum": "window_sum",
     "k_state_fingerprint": "K7 state_fingerprint", "k_topic_spread": "K8 cluster_stats",
-    "k_broker_stats": "K8 cluster_stats",
+    "k_broker_stats": "K8 cluster_stats", "k_grid_bid": "K9 grid_shortlist",
+    "k_grid_take": "K9 grid_shortlist",
 }
+#: the chunked solves, whose per-goal times come from the solve itself
+CHUNKED = ("service", "bench", "greedy")
 
 
 def _is_device_event(evt) -> bool:
@@ -67,7 +73,8 @@ def _device_us(evt) -> float:
 
 
 def profile(path: str, model, opt) -> dict:
-    """The numbers of one solve (`path` "hard", "stack" or "service")."""
+    """The numbers of one solve (`path` "hard", "stack", "service", "bench"
+    or "greedy") of `model`."""
     from cruise_control_torch.analyzer.acceptance import empty_tables
     from cruise_control_torch.analyzer.context import build_static_ctx, compute_aggregates, dims_of
     from cruise_control_torch.analyzer.goals import HARD_GOAL_NAMES, goals_by_priority
@@ -75,7 +82,8 @@ def profile(path: str, model, opt) -> dict:
     from cruise_control_torch.config.balancing import BalancingConstraint
 
     settings = {"hard": opt.SLICE_SETTINGS, "stack": opt.STACK_SETTINGS,
-                "service": opt.SERVICE_SETTINGS}[path]
+                "service": opt.SERVICE_SETTINGS, "bench": opt.BENCH_SETTINGS,
+                "greedy": opt.GREEDY_SETTINGS}[path]
     names = HARD_GOAL_NAMES if path == "hard" else None
     optimizer = opt.GoalOptimizer(device="cuda", settings=settings)
 
@@ -104,12 +112,12 @@ def profile(path: str, model, opt) -> dict:
     setup_s = time.monotonic() - t0
     tables = empty_tables(dims, gpu.device)
     per_goal = {}
-    if path == "service":
+    if path in CHUNKED:
         per_goal = {g.name: {"wall_s": g.duration_s, "rounds": g.rounds,
                              "engine": opt.goal_engine(goals_by_priority([g.name])[0], dims,
                                                        settings)}
                     for g in res.goal_results}
-    for goal in goals_by_priority(names) if path != "service" else ():
+    for goal in goals_by_priority(names) if path not in CHUNKED else ():
         loop = opt._make_goal_loop(goal, dims, settings)
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -168,7 +176,8 @@ def profile(path: str, model, opt) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("hard", "stack", "service", "all"), default="all")
+    ap.add_argument("--path", choices=("hard", "stack", "service", "bench", "greedy", "all"),
+                    default="all")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_slice.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -183,11 +192,17 @@ def main() -> int:
     build.build_all()
     prop = dataclasses.replace(generators.BASELINE_CONFIGS[5], num_dead_brokers=26,
                                load_distribution="pareto", mean_utilization=0.5)
-    model = generators.random_cluster(42, prop)
-    paths = ("hard", "stack", "service") if args.path == "all" else (args.path,)
+    models = {"smoke": generators.random_cluster(42, prop),
+              "bench": generators.random_cluster(42, generators.BASELINE_CONFIGS[5]),
+              # bench.py:596-604, the config-5 parity model
+              "greedy": generators.random_cluster(47, generators.ClusterProperty(
+                  num_racks=52, num_brokers=520, num_topics=800, mean_partitions_per_topic=50.0,
+                  replication_factor=3, load_distribution="exponential"))}
+    paths = ("hard", "stack", "service", "bench", "greedy") if args.path == "all" else (
+        args.path,)
     out = {"card": card}
     for path in paths:
-        out[path] = profile(path, model, opt)
+        out[path] = profile(path, models.get(path, models["smoke"]), opt)
     path = pathlib.Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1))

@@ -35,6 +35,19 @@ from cruise_control_torch.kernels.score_candidates import score_candidates_plain
 from cruise_control_torch.kernels.segment_aggregates import segment_aggregates_plain
 from cruise_control_torch.models.flat_model import from_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on small tensors, where torch's intra-op
+    threads buy nothing, and the suite runs in several worker processes at
+    once: threads that outnumber the cores wait on each other (six 8-thread
+    processes on 8 cores ran a solve 30x slower than single-thread ones)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

@@ -400,3 +400,68 @@ def test_service_on_the_card_equals_the_cpu():
         assert res[0].provenance.digest(goals=names) == r.provenance.digest(goals=names)
     assert stats_to_dict(res[0].stats_after) == stats_to_dict(res[1].stats_after)
     assert stats_to_dict(res[0].stats_before) == stats_to_dict(res[1].stats_before)
+
+
+@pytest.mark.parametrize("gi", range(15), ids=STACK_IDS)
+@pytest.mark.parametrize("variant", ["grid", "no moves", "immovable"])
+def test_k9_grid_shortlist(pair, gi, variant):
+    """K9 against its plain version on every goal's grid under its priors'
+    tables, toward 4 rack-representative destinations: the same goal
+    without moves, and an all -inf grid (nothing movable)."""
+    import copy
+
+    from cruise_control_torch.kernels.grid_shortlist import grid_shortlist, grid_shortlist_plain
+
+    goals = goals_by_priority(None)
+    g = goals[gi]
+    if variant == "no moves":
+        g = copy.copy(g)
+        g.uses_moves = False
+    sc, sg = pair["sc"], pair["sg"]
+    if variant == "immovable":
+        sc = sc._replace(movable_partition=torch.zeros_like(sc.movable_partition))
+        sg = sg._replace(movable_partition=torch.zeros_like(sg.movable_partition))
+    tc = build_tables(goals[:gi], sc, pair["ac"], pair["dims"])
+    tg = build_tables(goals[:gi], sg, pair["ag"], pair["dims"])
+    gsc = g.prepare(sc, pair["ac"], pair["dims"])
+    gsg = g.prepare(sg, pair["ag"], pair["dims"])
+    cands = opt.dst_candidates(sc, gsc, pair["ac"], g, pair["dims"], 4, tc)
+    assert torch.equal(cands, opt.dst_candidates(sg, gsg, pair["ag"], g, pair["dims"], 4,
+                                                 tg).cpu())
+    want = grid_shortlist_plain(sc, pair["ac"], tc, g, gsc, cands)
+    got = grid_shortlist(sg, pair["ag"], tg, g, gsg, cands.cuda())
+    for w, x in zip(want, got):
+        assert _bits(w, x), (variant, want, got)
+    if variant == "immovable":
+        assert not torch.isfinite(want[0]).any()
+
+
+def test_greedy_and_polish_on_the_card_equal_the_cpu():
+    """The bench's greedy pass (GREEDY_SETTINGS, chunk budgets 64 and 3) and
+    its batched pass with 8 polish rounds (chunk budget 3, and fused) on the
+    card against the CPU: assignment, touch tags, goal rows, digest. The
+    greedy solve launches K9; the polish pass compares K7's fingerprints."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from cruise_control_torch import kernels
+
+    model = generators.random_cluster(42, FIXTURE_C)
+    polish = dataclasses.replace(opt.BENCH_SETTINGS, polish_rounds=8)
+    for settings in (opt.GREEDY_SETTINGS, dataclasses.replace(opt.GREEDY_SETTINGS, chunk_rounds=3),
+                     dataclasses.replace(polish, chunk_rounds=3),
+                     dataclasses.replace(polish, chunk_rounds=0)):
+        kernels.reset_launches()
+        res = [opt.GoalOptimizer(settings=settings, device=d).optimizations(
+            model, None, raise_on_hard_failure=False) for d in ("cpu", "cuda")]
+        launched = kernels.launches()
+        if settings.batch_k == 1:
+            assert launched["grid_shortlist"] > 0
+        else:
+            assert launched["state_fingerprint"] > 30
+        names = [g.name for g in res[0].goal_results]
+        assert np.array_equal(res[0].final_assignment, res[1].final_assignment)
+        assert np.array_equal(res[0].touch_tag, res[1].touch_tag)
+        assert res[0].provenance.digest(goals=names) == res[1].provenance.digest(goals=names)
+        for a, b in zip(res[0].goal_results, res[1].goal_results):
+            assert (a.violated_brokers_after, a.rounds, a.converged, a.cost_after) == (
+                b.violated_brokers_after, b.rounds, b.converged, b.cost_after)

@@ -33,6 +33,19 @@ from cruise_control_torch.analyzer.goals import goals_by_priority as tgoals
 from cruise_control_torch.config.balancing import BalancingConstraint as TConstraint
 from cruise_control_torch.models.flat_model import from_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on small tensors, where torch's intra-op
+    threads buy nothing, and the suite runs in several worker processes at
+    once: threads that outnumber the cores wait on each other (six 8-thread
+    processes on 8 cores ran a solve 30x slower than single-thread ones)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FIXTURE_C = jgen.ClusterProperty(num_racks=4, num_brokers=32, num_topics=80,
                                  mean_partitions_per_topic=10, replication_factor=3,
                                  num_dead_brokers=2, load_distribution="pareto",
@@ -166,3 +179,20 @@ def test_rank_paired_destinations_equals_jax():
         want = jctx.rank_paired_destinations(jnp.asarray(valid), jnp.asarray(key), off)
         got = tctx.rank_paired_destinations(torch.from_numpy(valid), torch.from_numpy(key), off)
         assert _bits_equal(want, got)
+
+
+@pytest.mark.parametrize("rnd", [0, 78, 79, 81, 127, 2070, 4095])
+def test_surplus_pair_rotation_wraps_like_int32(ctx, rnd):
+    """select_surplus_pairs' round rotations are int32 arithmetic in the
+    reference: (b + rnd * 104729) * 257 wraps from round 79 on at 32 brokers
+    (rnd * 7919 * 131 from round 2070), and the wrapped value orders the
+    pairs. The port's pairs equal the jitted reference's on both sides of
+    each wrap."""
+    jg, tg, jt, tt, jgs, tgs = _setup(ctx, "TopicReplicaDistributionGoal", 12)
+    jd = ctx["jd"]
+    fn = jax.jit(lambda *a: jdrain.select_surplus_pairs(*a, 16, jd.num_topics, jd.num_brokers))
+    want = fn(ctx["js"], ctx["ja"], jt, jgs, jnp.int32(rnd))
+    got = tdrain.select_surplus_pairs(ctx["ts"], ctx["ta"], tt, tgs, rnd, 16, jd.num_topics,
+                                      jd.num_brokers)
+    for w, g in zip(want, got):
+        assert _bits_equal(w, g), rnd

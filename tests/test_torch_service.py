@@ -23,6 +23,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from cruise_control_tpu.analyzer import optimizer as jopt
 from cruise_control_tpu.analyzer.provenance import RunLedger as JRunLedger
@@ -34,13 +35,26 @@ from cruise_control_torch.analyzer.provenance import RunLedger
 from cruise_control_torch.analyzer.stats import stats_to_dict
 from cruise_control_torch.models.flat_model import from_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on small tensors, where torch's intra-op
+    threads buy nothing, and the suite runs in several worker processes at
+    once: threads that outnumber the cores wait on each other (six 8-thread
+    processes on 8 cores ran a solve 30x slower than single-thread ones)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 FIXTURE_C = jgen.ClusterProperty(num_racks=4, num_brokers=32, num_topics=80,
                                  mean_partitions_per_topic=10, replication_factor=3,
                                  num_dead_brokers=2, load_distribution="pareto",
                                  mean_utilization=0.5)
-#: the JAX side of SERVICE_SETTINGS (the port has no field for the batch_k=1
-#: grid's width, which batch_k = 16 never reads)
+#: the JAX side of SERVICE_SETTINGS (with another batch_k=1 grid width,
+#: num_dst_candidates, which batch_k = 16 never reads)
 JAX_SERVICE = dict(batch_k=16, max_rounds_per_goal=64, drain_src=512, drain_per_broker=8,
                    drain_dst=64, apply_waves=8, bulk_waves=16, bulk_min_brokers=32,
                    num_swap_pairs=8, swap_candidates=8, swaps_per_broker=4, polish_rounds=0,
@@ -219,9 +233,10 @@ def test_the_fused_run_keeps_its_ledger_off_by_default():
     assert res.stats_before is not None and res.stats_after is not None
 
 
-@pytest.mark.parametrize("field,value", [("polish_rounds", 1), ("batch_k", 1),
-                                         ("bucket_brokers", True)])
+@pytest.mark.parametrize("field,value", [("bucket_partitions", True), ("bucket_brokers", True)])
 def test_what_the_slice_leaves_out_is_refused(field, value):
+    # the polish pass and the batch_k=1 grid are ported since
+    # (tests/test_torch_polish.py, tests/test_torch_grid.py)
     with pytest.raises(NotImplementedError):
         _port_run(dataclasses.replace(topt.SERVICE_SETTINGS, **{field: value}))
 
@@ -230,8 +245,10 @@ def test_what_the_slice_leaves_out_is_refused(field, value):
 def test_chip_smoke_jax_references_are_current():
     """chip_smoke.py's JAX references, recomputed: the JAX package's CPU runs
     of the smoke recipe (2,600 brokers, 199,518 partitions; minutes and a few
-    GB of memory), each solve's decision digest, per-goal move counts, final
-    assignment hash and goal rows."""
+    GB of memory), of BASELINE config 5 under the bench's batched settings and
+    of the bench's config-5 parity model under its greedy and batched
+    settings (bench.py:215-248, shape bucketing off): each solve's decision
+    digest, per-goal move counts, final assignment hash and goal rows."""
     import hashlib
 
     sys.path.insert(0, str(REPO))
@@ -241,19 +258,42 @@ def test_chip_smoke_jax_references_are_current():
     prop = dataclasses.replace(jgen.BASELINE_CONFIGS[5], num_dead_brokers=26,
                                load_distribution="pareto", mean_utilization=0.5)
     model = jgen.random_cluster(42, prop)
+    bench_model = jgen.random_cluster(42, jgen.BASELINE_CONFIGS[5])
+    parity_model = jgen.random_cluster(47, jgen.ClusterProperty(
+        num_racks=52, num_brokers=520, num_topics=800, mean_partitions_per_topic=50.0,
+        replication_factor=3, load_distribution="exponential"))
+    grid = dict(num_dst_candidates=16, num_swap_pairs=16, swap_candidates=16, swaps_per_broker=4,
+                bucket_partitions=False, bucket_brokers=False)
+    bench = dict(grid, batch_k=1024, max_rounds_per_goal=128, chunk_rounds=16, polish_rounds=48)
+    greedy = dict(grid, batch_k=1, max_rounds_per_goal=512, chunk_rounds=64,
+                  cost_scaled_rounds=1.5, rounds_ceiling=4096)
     base = dict(JAX_SERVICE, chunk_rounds=0)
-    recipes = {"hard goals": (dict(base, bulk_waves=0), JHARD),
-               "stack": (base, None), "service": (dict(base, chunk_rounds=32), None),
-               "service hard goals": (dict(base, chunk_rounds=32), JHARD)}
-    for label, (settings, names) in recipes.items():
+    stack_ref = chip_smoke.JAX_CPU_STACK_REFERENCE
+    recipes = {"hard goals": (model, dict(base, bulk_waves=0), JHARD, stack_ref),
+               "stack": (model, base, None, stack_ref),
+               "service": (model, dict(base, chunk_rounds=32), None, stack_ref),
+               "service hard goals": (model, dict(base, chunk_rounds=32), JHARD, stack_ref),
+               "bench batched": (bench_model, bench, None, chip_smoke.JAX_CPU_BENCH_REFERENCE),
+               "parity greedy": (parity_model, greedy, None,
+                                 chip_smoke.JAX_CPU_PARITY_GREEDY_REFERENCE),
+               "parity batched": (parity_model, bench, None,
+                                  chip_smoke.JAX_CPU_PARITY_BATCHED_REFERENCE)}
+    for label, (m, settings, names, ref) in recipes.items():
         res = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(**settings)).optimizations(
-            model, names, raise_on_hard_failure=False)
+            m, names, raise_on_hard_failure=False)
         goals = [g.name for g in res.goal_results]
         dg = res.provenance.digest(goals=goals)
         sha = hashlib.sha256(np.ascontiguousarray(res.final_assignment, dtype=np.int32)
                              .tobytes()).hexdigest()
         assert (dg["checksum"], dg["byGoal"], sha) == chip_smoke.JAX_CPU_DIGESTS[label], label
-        ref = chip_smoke.JAX_CPU_STACK_REFERENCE
         for g in res.goal_results:
             assert (g.violated_brokers_before, g.violated_brokers_after, g.rounds,
                     g.converged) == ref[g.name][:4], (label, g.name)
+    # bench.py's default, shape bucketing on, decides otherwise on config 5
+    res = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(**dict(
+        bench, bucket_partitions=True, bucket_brokers=True))).optimizations(
+        bench_model, None, raise_on_hard_failure=False)
+    dg = res.provenance.digest(goals=[g.name for g in res.goal_results])
+    sha = hashlib.sha256(np.ascontiguousarray(res.final_assignment, dtype=np.int32)
+                         .tobytes()).hexdigest()
+    assert (dg["checksum"], sha) == chip_smoke.JAX_CPU_BENCH_BUCKETED

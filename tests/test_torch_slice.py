@@ -14,6 +14,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from cruise_control_tpu.analyzer import optimizer as jopt
 from cruise_control_tpu.analyzer.goals import HARD_GOAL_NAMES
@@ -21,11 +22,24 @@ from cruise_control_tpu.models import generators as jgen
 from cruise_control_torch.analyzer import optimizer as topt
 from cruise_control_torch.models.flat_model import from_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on small tensors, where torch's intra-op
+    threads buy nothing, and the suite runs in several worker processes at
+    once: threads that outnumber the cores wait on each other (six 8-thread
+    processes on 8 cores ran a solve 30x slower than single-thread ones)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SLICE = dict(batch_k=16, max_rounds_per_goal=64, drain_src=512, drain_per_broker=8,
              drain_dst=64, apply_waves=8, bulk_waves=0, polish_rounds=0, chunk_rounds=0,
              bucket_partitions=False, bucket_brokers=False, ledger=False)
-#: the JAX side's settings: the same, plus the `batch_k=1` grid's width,
-#: which the port has no field for until it ports that grid
+#: the JAX side's settings: the same, with another `batch_k=1` grid width
+#: (num_dst_candidates), which batch_k = 16 never reads
 JAX_SLICE = dict(SLICE, num_dst_candidates=8)
 
 FIXTURES = {
@@ -124,15 +138,18 @@ def test_raise_on_hard_failure_matches(runs):
 
 
 @pytest.mark.parametrize("change, item", [
-    (dict(batch_k=1), "slice 2"),
+    # the batch_k=1 grid and the polish pass are ported
+    # (tests/test_torch_grid.py, tests/test_torch_polish.py); shape
+    # bucketing, also with them, is still refused
+    (dict(batch_k=1, bucket_brokers=True), "item 4"),
     # the chunked machine and the ledger are ported (tests/test_torch_service.py);
     # shape bucketing, also with them, is still refused
     (dict(bucket_brokers=True), "item 4"),
     (dict(bucket_partitions=True), "item 4"),
-    (dict(polish_rounds=4), "slice 2"),
+    (dict(polish_rounds=4, bucket_partitions=True), "item 4"),
     (dict(chunk_rounds=32, ledger=True, bucket_partitions=True, bucket_brokers=True), "item 4"),
     # the bulk planner in front of the batch_k=1 grid (the "bulk+grid" engine)
-    (dict(bulk_waves=16, bulk_min_brokers=2, batch_k=1), "slice 2"),
+    (dict(bulk_waves=16, bulk_min_brokers=2, batch_k=1, bucket_brokers=True), "item 4"),
 ])
 def test_settings_outside_the_slice_are_refused(change, item):
     tmodel = from_numpy({k: np.asarray(v) for k, v in jgen.rack_aware_violated()._asdict().items()})

@@ -13,18 +13,32 @@ another order inside the fused program).
 import jax
 import numpy as np
 import pytest
+import torch
 
 from cruise_control_tpu.analyzer import optimizer as jopt
 from cruise_control_tpu.models import generators as jgen
 from cruise_control_torch.analyzer import optimizer as topt
 from cruise_control_torch.models.flat_model import from_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on small tensors, where torch's intra-op
+    threads buy nothing, and the suite runs in several worker processes at
+    once: threads that outnumber the cores wait on each other (six 8-thread
+    processes on 8 cores ran a solve 30x slower than single-thread ones)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FIXTURE_C = jgen.ClusterProperty(num_racks=4, num_brokers=32, num_topics=80,
                                  mean_partitions_per_topic=10, replication_factor=3,
                                  num_dead_brokers=2, load_distribution="pareto",
                                  mean_utilization=0.5)
-#: the JAX side's settings: STACK_SETTINGS, plus the batch_k=1 grid's width,
-#: which the port has no field for until it ports that grid
+#: the JAX side's settings: STACK_SETTINGS, with another batch_k=1 grid
+#: width (num_dst_candidates), which batch_k = 16 never reads
 JAX_STACK = dict(batch_k=16, max_rounds_per_goal=64, drain_src=512, drain_per_broker=8,
                  drain_dst=64, apply_waves=8, bulk_waves=16, bulk_min_brokers=32,
                  num_swap_pairs=8, swap_candidates=8, swaps_per_broker=4, polish_rounds=0,

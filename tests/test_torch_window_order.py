@@ -27,6 +27,19 @@ from cruise_control_torch.config.balancing import BalancingConstraint as TConstr
 from cruise_control_torch.kernels.window_sum import window_sum, window_sum_plain, xla_sum
 from cruise_control_torch.models.flat_model import from_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on small tensors, where torch's intra-op
+    threads buy nothing, and the suite runs in several worker processes at
+    once: threads that outnumber the cores wait on each other (six 8-thread
+    processes on 8 cores ran a solve 30x slower than single-thread ones)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LENGTHS = (1, 31, 32, 33, 63, 65, 100, 766, 1025, 2600, 199518)
 MODEL_100 = dataclasses.replace(jgen.BASELINE_CONFIGS[2], num_dead_brokers=2,
                                 load_distribution="pareto", mean_utilization=0.5)
