@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the nine CUDA kernels from cruise_control_torch/csrc,
+  2. build: compile the eleven CUDA kernels from cruise_control_torch/csrc,
      one nvcc per source, all at once;
   3. kernels: run each kernel on the card at the shapes the solves give it,
      on the smoke model's own state, and hold it against its plain PyTorch
@@ -25,17 +25,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        greedy round's [199,518, 3, 16] move grid and [199,518, 2] promotion
        grid under a hard goal with dead brokers and under
        LeaderReplicaDistributionGoal, beside K3 on the materialized grid
-       followed by torch.argmax);
+       followed by torch.argmax) and K10 delta_scatter (a 64-row batch of
+       broker state changes, load spikes and partition adds, NOOP rows
+       included, into the smoke model's bucketed context, 212,992 partitions
+       by 3,072 brokers);
   4. hard goals: the self-healing proposal of the six hard goals through
      GoalOptimizer(device="cuda", settings=SLICE_SETTINGS + ledger);
   5. stack: the full 15-goal rebalance proposal through the fused stack,
      GoalOptimizer(device="cuda", settings=STACK_SETTINGS + ledger);
-  6. service: the same proposal as the service computes it,
-     GoalOptimizer(device="cuda", settings=SERVICE_SETTINGS): the chunked
-     goal machine with the provenance ledger and the cluster statistics;
-  7. service hard goals: a hard-goal request through the service's machine
-     (the full-stack machine with the six goals enabled), beside the fused
-     stack run of the same six goals under STACK_SETTINGS + ledger;
+  6. service: the same proposal through the service's chunked goal machine
+     with the provenance ledger and the cluster statistics at the exact
+     shape, GoalOptimizer(device="cuda", settings=SERVICE_EXACT_SETTINGS);
+  7. service hard goals: a hard-goal request through that machine (the
+     full-stack machine with the six goals enabled), beside the fused stack
+     run of the same six goals under STACK_SETTINGS + ledger;
   8. bench batched: BASELINE config 5 as bench.py builds it (2,600 brokers,
      199,518 partitions, exponential load, nothing cut) through the bench's
      batched pass, BENCH_SETTINGS: the chunked machine with 48 polish rounds
@@ -43,7 +46,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   9. parity: the bench's config-5 parity model (520 brokers, 52 racks, 800
      topics, RF 3, exponential load, seed 47) through the faithful-greedy
      pass, GREEDY_SETTINGS (the batch_k=1 grid, which must launch K9), and
-     through BENCH_SETTINGS, held to bench.py's parity gate.
+     through BENCH_SETTINGS, held to bench.py's parity gate;
+ 10. service bucketed: the smoke model as the service solves it by default,
+     SERVICE_SETTINGS, shape bucketing on (2,600 -> 3,072 brokers, 199,518 ->
+     212,992 partitions, 4,000 -> 4,096 topics), its bucket record held to
+     the JAX run's;
+ 11. bench bucketed: BASELINE config 5 under bench.py's default,
+     BENCH_BUCKETED_SETTINGS;
+ 12. lane: an IncrementalLane armed on phase 10's solve proposes (a) a 4x
+     load spike on one topic's partitions with 8 partitions added inside the
+     bucket, then (b) one more dead broker; each proposal must launch K10
+     and equal the JAX lane's digest, a scratch solve of the same goal subset
+     on the card, with no move on the goals left out, and the armed prep
+     entry must be unchanged after both. The lane's wall time is printed
+     beside the scratch solve's.
   Around each solve every kernel's launch count is set to 0 and read after;
   each kernel of the solve's path must have launched, and the result must
   hold: no replica left on a dead broker, no goal worse than before,
@@ -58,6 +74,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 The smoke model is BASELINE config 5's cluster (2,600 brokers, 52 racks,
 4,000 topics, ~200k partitions at RF 3) with config 3's pareto load at mean
 utilisation 0.5 and 26 dead brokers, from seed 42.
+
+Phases 4-11 are held to the JAX package's runs of the same mode: JAX's
+bucketed and exact runs differ on config 5 and on the smoke model. Every
+chunked solve, here and in the JAX references, runs one pinned call
+schedule (PINNED_TARGET_S).
 
 The last lines are the total run time, the card's name and power limit, a
 JSON object of per-kernel numbers and the final `{"ok": true, "device":
@@ -221,15 +242,117 @@ JAX_CPU_DIGESTS["parity batched"] = (
         "LeaderReplicaDistributionGoal": 398, "LeaderBytesInDistributionGoal": 320,
     },
     "957b2f746e3efc4771e72684cd26152e5a02c2b31fb9c806c8891c2c830fc0ec")
-#: bench.py's default, with shape bucketing, makes other decisions on config 5
-#: than the exact-shape run (LeaderReplicaDistributionGoal: 23 rounds, not
-#: 24; ROADMAP.md Queue 3): printed beside phase 8, which is held to the
-#: exact-shape run
-JAX_CPU_BENCH_BUCKETED = ("1457d341e23f5a8e",
-                          "806dd3fe8702428b368ec72e8cc5c0c90a1d23652ff2b6aa74748051647bbdf0")
+#: Phase 11: bench.py's default, with shape bucketing, makes other decisions
+#: on config 5 than the exact-shape run (LeaderReplicaDistributionGoal: 23
+#: rounds, not 24; ROADMAP.md Queue 3): each phase is held to its own mode
+JAX_CPU_DIGESTS["bench bucketed"] = (
+    "1457d341e23f5a8e", JAX_CPU_DIGESTS["bench batched"][1],
+    "806dd3fe8702428b368ec72e8cc5c0c90a1d23652ff2b6aa74748051647bbdf0")
+JAX_CPU_BENCH_BUCKETED_REFERENCE = dict(
+    JAX_CPU_BENCH_REFERENCE, LeaderReplicaDistributionGoal=(543, 5, 23, True, 1833, 11))
+JAX_CPU_BENCH_BUCKETED_MOVES = {"replica": 24356, "leadership": 1955}
 JAX_CPU_BENCH_MOVES = {"replica": 24356, "leadership": 1955}
 JAX_CPU_PARITY_GREEDY_MOVES = {"replica": 15916, "leadership": 313}
 JAX_CPU_PARITY_BATCHED_MOVES = {"replica": 15896, "leadership": 325}
+#: Phases 10 and 12: the smoke model under SERVICE_SETTINGS (shape bucketing
+#: on), then the lane armed on that solve: (a) lane_perturbations' load spike and partition adds, (b)
+#: one more dead broker. JAX's bucketed service run decides otherwise than
+#: its exact one (LeaderReplicaDistributionGoal: 36 rounds, not 38;
+#: ROADMAP.md Queue 3).
+JAX_CPU_SERVICE_BUCKETED_REFERENCE = {
+    "RackAwareGoal": (0, 0, 37, True, 0, 0),
+    "ReplicaCapacityGoal": (0, 0, 1, True, 0, 0),
+    "DiskCapacityGoal": (108, 30, 40, True, 5.69e+07, 3.202e+07),
+    "NetworkInboundCapacityGoal": (143, 28, 64, False, 6.852e+06, 3.834e+06),
+    "NetworkOutboundCapacityGoal": (11, 8, 13, True, 1.791e+06, 1.659e+06),
+    "CpuCapacityGoal": (144, 42, 64, False, 1.225e+04, 5751),
+    "ReplicaDistributionGoal": (759, 258, 64, False, 2.506e+04, 1.948e+04),
+    "PotentialNwOutGoal": (133, 41, 64, False, 7.651e+06, 5.661e+06),
+    "DiskUsageDistributionGoal": (1881, 512, 64, False, 186.8, 81.56),
+    "NetworkInboundUsageDistributionGoal": (1856, 905, 64, False, 191.2, 121.8),
+    "NetworkOutboundUsageDistributionGoal": (2108, 188, 64, False, 130, 46.38),
+    "CpuUsageDistributionGoal": (1847, 405, 64, False, 196.7, 85.11),
+    "TopicReplicaDistributionGoal": (2496, 1339, 64, False, 1.764e+04, 6968),
+    "LeaderReplicaDistributionGoal": (1437, 964, 36, True, 2.684e+04, 2.283e+04),
+    "LeaderBytesInDistributionGoal": (798, 610, 64, False, 7.065e+06, 6.108e+06),
+}
+JAX_CPU_DIGESTS["service bucketed"] = (
+    "f0af5bad00562541", {
+        "RackAwareGoal": 6006, "DiskCapacityGoal": 7813,
+        "NetworkInboundCapacityGoal": 6941, "NetworkOutboundCapacityGoal": 992,
+        "CpuCapacityGoal": 11225, "ReplicaDistributionGoal": 4979,
+        "PotentialNwOutGoal": 878, "DiskUsageDistributionGoal": 3228,
+        "NetworkInboundUsageDistributionGoal": 2056, "NetworkOutboundUsageDistributionGoal": 26245,
+        "CpuUsageDistributionGoal": 19736, "TopicReplicaDistributionGoal": 10668,
+        "LeaderReplicaDistributionGoal": 5664, "LeaderBytesInDistributionGoal": 2389,
+    },
+    "faad461ec077fed3e42668414d23d0ba01cfb77b956a5f370a8c70b1f81f9b04")
+JAX_CPU_SERVICE_BUCKETED_MOVES = {"replica": 50991, "leadership": 19745}
+JAX_CPU_SERVICE_BUCKETED_BLOCK = {
+    "exact": {"num_partitions": 199518, "max_rf": 3, "num_brokers": 2600, "num_racks": 52,
+              "num_hosts": 2600, "num_topics": 4000},
+    "padded": {"num_partitions": 212992, "max_rf": 3, "num_brokers": 3072, "num_racks": 52,
+               "num_hosts": 3072, "num_topics": 4096},
+    "bucket": "P212992-B3072-T4096-RF3", "paddedPartitions": 13474, "paddedBrokers": 472,
+}
+JAX_CPU_LANE_A_REFERENCE = {
+    "RackAwareGoal": (2, 0, 37, True, 2, 0),
+    "ReplicaCapacityGoal": (0, 0, 1, True, 0, 0),
+    "DiskCapacityGoal": (113, 30, 40, True, 5.784e+07, 3.202e+07),
+    "NetworkInboundCapacityGoal": (144, 24, 58, True, 6.872e+06, 3.83e+06),
+    "NetworkOutboundCapacityGoal": (11, 8, 12, True, 1.785e+06, 1.659e+06),
+    "CpuCapacityGoal": (147, 42, 64, False, 1.213e+04, 5738),
+    "ReplicaDistributionGoal": (738, 255, 64, False, 2.525e+04, 1.928e+04),
+    "PotentialNwOutGoal": (134, 42, 64, False, 7.628e+06, 5.638e+06),
+    "DiskUsageDistributionGoal": (1893, 775, 64, False, 186.8, 98.01),
+    "NetworkInboundUsageDistributionGoal": (1864, 1064, 64, False, 191.3, 128.1),
+    "NetworkOutboundUsageDistributionGoal": (2118, 187, 64, False, 129.4, 46.39),
+    "CpuUsageDistributionGoal": (1830, 373, 64, False, 194.3, 82.1),
+    "TopicReplicaDistributionGoal": (2495, 1500, 64, False, 1.768e+04, 7742),
+    "LeaderReplicaDistributionGoal": (1459, 1028, 49, True, 2.777e+04, 2.301e+04),
+    "LeaderBytesInDistributionGoal": (781, 605, 64, False, 7.202e+06, 6.267e+06),
+}
+JAX_CPU_DIGESTS["lane a"] = (
+    "8d45aa7713ab4923", {
+        "RackAwareGoal": 6007, "DiskCapacityGoal": 7874,
+        "NetworkInboundCapacityGoal": 6987, "NetworkOutboundCapacityGoal": 918,
+        "CpuCapacityGoal": 11436, "ReplicaDistributionGoal": 5270,
+        "PotentialNwOutGoal": 912, "DiskUsageDistributionGoal": 2683,
+        "NetworkInboundUsageDistributionGoal": 1784, "NetworkOutboundUsageDistributionGoal": 27082,
+        "CpuUsageDistributionGoal": 22328, "TopicReplicaDistributionGoal": 9936,
+        "LeaderReplicaDistributionGoal": 6808, "LeaderBytesInDistributionGoal": 2305,
+    },
+    "361ae1aac6bc035484a1d876ecef149240d5a630c29bca0fdfbd55bc6231bb42")
+JAX_CPU_LANE_A_MOVES = {"replica": 50064, "leadership": 21025}
+JAX_CPU_LANE_B_REFERENCE = {
+    "RackAwareGoal": (2, 0, 37, True, 2, 0),
+    "ReplicaCapacityGoal": (0, 0, 1, True, 0, 0),
+    "DiskCapacityGoal": (113, 30, 39, True, 5.78e+07, 3.202e+07),
+    "NetworkInboundCapacityGoal": (144, 24, 64, False, 6.898e+06, 3.83e+06),
+    "NetworkOutboundCapacityGoal": (11, 8, 12, True, 1.797e+06, 1.659e+06),
+    "CpuCapacityGoal": (144, 42, 64, False, 1.218e+04, 5744),
+    "ReplicaDistributionGoal": (719, 257, 64, False, 2.4e+04, 1.867e+04),
+    "PotentialNwOutGoal": (140, 45, 64, False, 7.594e+06, 5.716e+06),
+    "DiskUsageDistributionGoal": (1892, 762, 64, False, 185.1, 95.83),
+    "NetworkInboundUsageDistributionGoal": (1834, 1067, 64, False, 189.6, 131.6),
+    "NetworkOutboundUsageDistributionGoal": (2138, 185, 64, False, 129.6, 46.18),
+    "CpuUsageDistributionGoal": (1829, 370, 64, False, 193.8, 83.04),
+    "TopicReplicaDistributionGoal": (2499, 1473, 64, False, 1.761e+04, 7614),
+    "LeaderReplicaDistributionGoal": (1427, 990, 43, True, 2.636e+04, 2.21e+04),
+    "LeaderBytesInDistributionGoal": (763, 591, 64, False, 7.078e+06, 6.083e+06),
+}
+JAX_CPU_DIGESTS["lane b"] = (
+    "656c7c5086b42715", {
+        "RackAwareGoal": 6293, "DiskCapacityGoal": 7860,
+        "NetworkInboundCapacityGoal": 6967, "NetworkOutboundCapacityGoal": 1033,
+        "CpuCapacityGoal": 10838, "ReplicaDistributionGoal": 4743,
+        "PotentialNwOutGoal": 800, "DiskUsageDistributionGoal": 2740,
+        "NetworkInboundUsageDistributionGoal": 1605, "NetworkOutboundUsageDistributionGoal": 26333,
+        "CpuUsageDistributionGoal": 20086, "TopicReplicaDistributionGoal": 9995,
+        "LeaderReplicaDistributionGoal": 6294, "LeaderBytesInDistributionGoal": 2489,
+    },
+    "f34bf71fa6a72713ec7edb9cd332d84a68e46dbc0854c4a574d408e2480980d6")
+JAX_CPU_LANE_B_MOVES = {"replica": 48901, "leadership": 20175}
 #: the kernels of each solve's path
 HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
              "window_sum", "state_fingerprint", "cluster_stats")
@@ -238,14 +361,55 @@ STACK_PATH = HARD_PATH + ("score_swaps", "pair_picks")
 #: brokers, where the swaps run only if a drain round stalls
 BENCH_PATH = HARD_PATH + ("pair_picks",)
 GREEDY_PATH = BENCH_PATH + ("grid_shortlist",)
+#: the lane's proposals: a full-stack re-solve after K10's scatter
+LANE_PATH = STACK_PATH + ("delta_scatter",)
 #: the kernels of the JSON line, in the order of build.KERNEL_SOURCES
 ALL_KERNELS = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
                "score_swaps", "pair_picks", "window_sum", "state_fingerprint", "cluster_stats",
-               "grid_shortlist")
+               "grid_shortlist", "delta_scatter")
+#: partitions the lane phase's first proposal adds (inside the bucket)
+LANE_ADDS = 8
+#: `_run_chunked`'s target wall time per machine call in every solve:
+#: huge, so each call's budget is 8x the last (from `chunk_rounds`, up to
+#: 4,096) whatever the clock says. Where the calls end can move decisions, in
+#: the JAX package and the port alike (ROADMAP.md Queue 3), so both sides run
+#: this one schedule
+PINNED_TARGET_S = 1e9
 #: the bench's config-5 parity model (bench.py:596-604: 520 brokers, seed
 #: 42 + 5) and parity gate (bench.py:189-203, :546-580)
 PARITY_BROKERS = 520
 PARITY_COST_REL, PARITY_COST_FLOOR, PARITY_COUNT_SLACK = 0.05, 0.01, 3
+
+
+def lane_perturbations(fields: dict):
+    """The lane phase's two fresh models, as numpy field dicts of the smoke
+    model's fields (`FlatClusterModel._asdict()` as numpy arrays):
+      (a) every partition of the lowest topic id with 20 to 48 partitions
+          carries 4x its load, and LANE_ADDS new partitions of that topic,
+          each with the load of one of its spiked partitions, sit on three
+          distinct alive brokers drawn from a seeded generator;
+      (b) (a) with one more dead broker: the alive broker holding the most
+          replicas (the lowest id among equals)."""
+    a, pl, tid, state = (fields[k] for k in ("assignment", "part_load", "topic_id",
+                                             "broker_state"))
+    counts = np.bincount(tid)
+    topic = int(np.nonzero((counts >= 20) & (counts <= 48))[0][0])
+    rows = np.nonzero(tid == topic)[0]
+    spiked = pl.copy()
+    spiked[rows] *= np.float32(4.0)
+    rng = np.random.default_rng(SEED)
+    alive = np.nonzero(state != 3)[0]
+    new_a = np.stack([rng.choice(alive, size=a.shape[1], replace=False)
+                      for _ in range(LANE_ADDS)]).astype(a.dtype)
+    new_load = spiked[rows[np.arange(LANE_ADDS) % len(rows)]]
+    model_a = dict(fields, assignment=np.concatenate([a, new_a]),
+                   part_load=np.concatenate([spiked, new_load]),
+                   topic_id=np.concatenate([tid, np.full(LANE_ADDS, topic, tid.dtype)]))
+    per_broker = np.bincount(a[a >= 0], minlength=state.shape[0])
+    victim = int(np.argmax(np.where(state == 0, per_broker, -1)))
+    state_b = state.copy()
+    state_b[victim] = 3
+    return model_a, dict(model_a, broker_state=state_b)
 
 
 def fail(msg: str):
@@ -392,7 +556,7 @@ def main() -> int:
         segment_aggregates_plain,
     )
     from cruise_control_torch.models import generators
-    from cruise_control_torch.models.flat_model import sanity_check
+    from cruise_control_torch.models.flat_model import from_numpy, sanity_check
 
     # -- 1. device -----------------------------------------------------------
     smi = nvidia_smi_line()
@@ -446,6 +610,60 @@ def main() -> int:
             "library_ms": library_ms, "call_ms": call_ms, "note": note,
         }
         return rows[key]
+
+    # K10 first (the newest kernel): a 64-row batch into the smoke model's
+    # bucketed context, 212,992 partitions by 3,072 brokers, as the lane holds
+    # it. The batch: lane_perturbations' (a) (one topic's load spike and
+    # LANE_ADDS partition adds), a broker death, a revival and a demotion,
+    # then NOOP rows.
+    from cruise_control_torch.analyzer import incremental as inc
+    from cruise_control_torch.kernels.delta_scatter import delta_scatter, delta_scatter_plain
+
+    state_np = model_cpu.broker_state.numpy()
+    alive_np, dead_np = np.nonzero(state_np == 0)[0], np.nonzero(state_np == 3)[0]
+    lane_fields, _ = lane_perturbations({k: v.numpy() for k, v in model_cpu._asdict().items()})
+    deltas, reason = inc.derive_deltas(model_cpu, from_numpy(lane_fields))
+    if reason is not None:
+        fail(f"K10 delta_scatter: the lane's perturbation is not a delta batch ({reason})")
+    deltas += [inc.ModelDelta(kind=inc.DELTA_BROKER_DEATH, broker=int(alive_np[0]), state=3),
+               inc.ModelDelta(kind=inc.DELTA_BROKER_REVIVAL, broker=int(dead_np[0]), state=1),
+               inc.ModelDelta(kind=inc.DELTA_BROKER_STATE, broker=int(alive_np[1]), state=2)]
+    d10 = inc.IncrementalConfig().max_deltas
+    ctx10_g = opt.GoalOptimizer(device="cuda", settings=opt.SERVICE_SETTINGS)._build_ctx(model_cpu)
+    ctx10_c = opt.GoalOptimizer(device="cpu", settings=opt.SERVICE_SETTINGS)._build_ctx(model_cpu)
+    st10_g, st10_c = ctx10_g[3], ctx10_c[3]
+    b10, (p10, m10) = ctx10_g[2].num_brokers, tuple(st10_c.part_load.shape)
+    base10_c = torch.arange(b10) < model_cpu.num_brokers
+    base10_g = base10_c.to(dev)
+    batch10_c = inc.build_delta_batch(deltas, d10, m10)
+    batch10_g = inc.build_delta_batch(deltas, d10, m10, dev)
+    inputs10 = [t.clone() for t in st10_g]
+    out10_g = delta_scatter(st10_g, batch10_g, base10_g, base10_g)
+    torch.cuda.synchronize()
+    out10_c = delta_scatter_plain(st10_c, batch10_c, base10_c, base10_c)
+    for n_ in out10_c._fields:
+        if not bits_equal(getattr(out10_g, n_), getattr(out10_c, n_)):
+            fail(f"K10 delta_scatter: {n_} differs from the plain version")
+    if not all(torch.equal(x, y) for x, y in zip(inputs10, st10_g)):
+        fail("K10 delta_scatter: the input context changed")
+    changed = int((out10_c.part_load != st10_c.part_load).any(dim=1).sum())
+    # the batch once, the broker state, validity and two base masks, the
+    # part_load and topic_id columns, the count; out: the state and six
+    # masks, the two columns, the count. Per partition and broker a scan of
+    # the batch (two compares a row), per broker eight mask operations
+    k10_bytes = (d10 * (5 * 4 + m10 * 4) + b10 * (4 + 3) + 2 * p10 * (m10 * 4 + 4)
+                 + b10 * (4 + 6) + 2 * 4)
+    k10_ops = (p10 + b10) * d10 * 2 + b10 * 8
+    row("delta_scatter", "delta_scatter.cu", "cruise_control_tpu/analyzer/incremental.py:162",
+        max(max_abs_err(getattr(out10_g, n_), getattr(out10_c, n_)) for n_ in out10_c._fields),
+        lambda i: delta_scatter(st10_g, batch10_g, base10_g, base10_g),
+        lambda i: delta_scatter_plain(st10_g, batch10_g, base10_g, base10_g), k10_bytes, k10_ops,
+        f"{len(deltas)} deltas in a {d10}-row batch into [{p10}, {m10}] x {b10}: one thread per "
+        "partition row and broker scans the batch in shared memory; fresh outputs")
+    print(f"K10 delta_scatter: {len(deltas)} deltas ({changed} load rows changed) into the "
+          f"[{p10}, {m10}] x {b10} bucketed context, every field bit-equal to the plain version, "
+          "the input context unchanged")
+    del ctx10_g, ctx10_c, st10_g, out10_g, inputs10
 
     # K1
     k1_args_g = (model.assignment, st_g.part_load, st_g.topic_id, st_g.broker_rack,
@@ -966,31 +1184,21 @@ def main() -> int:
 
     solves = {}
     results = {}
-    for label, model_s, settings, goal_names, path, ref, ref_moves in (
-            ("hard goals", model_cpu, dataclasses.replace(opt.SLICE_SETTINGS, ledger=True),
-             HARD_GOAL_NAMES, HARD_PATH, JAX_CPU_REFERENCE, JAX_CPU_MOVES),
-            ("stack", model_cpu, dataclasses.replace(opt.STACK_SETTINGS, ledger=True), None,
-             STACK_PATH, JAX_CPU_STACK_REFERENCE, JAX_CPU_STACK_MOVES),
-            ("service", model_cpu, opt.SERVICE_SETTINGS, None, STACK_PATH,
-             JAX_CPU_STACK_REFERENCE, JAX_CPU_STACK_MOVES),
-            ("service hard goals", model_cpu, opt.SERVICE_SETTINGS, HARD_GOAL_NAMES, HARD_PATH,
-             JAX_CPU_REFERENCE, None),
-            ("stack hard goals", model_cpu, dataclasses.replace(opt.STACK_SETTINGS, ledger=True),
-             HARD_GOAL_NAMES, HARD_PATH, JAX_CPU_REFERENCE, None),
-            ("bench batched", bench_model, opt.BENCH_SETTINGS, None, BENCH_PATH,
-             JAX_CPU_BENCH_REFERENCE, JAX_CPU_BENCH_MOVES),
-            ("parity greedy", parity_model, opt.GREEDY_SETTINGS, None, GREEDY_PATH,
-             JAX_CPU_PARITY_GREEDY_REFERENCE, JAX_CPU_PARITY_GREEDY_MOVES),
-            ("parity batched", parity_model, opt.BENCH_SETTINGS, None, BENCH_PATH,
-             JAX_CPU_PARITY_BATCHED_REFERENCE, JAX_CPU_PARITY_BATCHED_MOVES)):
+
+    def run_and_check(label, model_s, solve, path, ref, ref_moves, polish=False):
+        """Run `solve()` (it returns an OptimizerResult) with every kernel's
+        launch count set to 0 just before and read just after, and check its
+        result: the kernels of its path launched, no goal worse, no replica
+        on a dead broker, sanity_check, the proposals replay, and the decision
+        digest and final assignment equal the JAX CPU run's. Returns the
+        result."""
         dead_ids = np.nonzero(model_s.broker_state.numpy() == 3)[0]
         polish_skips.update(tests=0, skipped=0, k7=0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.monotonic()
-        res = opt.GoalOptimizer(device="cuda", settings=settings).optimizations(
-            model_s, goal_names, raise_on_hard_failure=False)
+        res = solve()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = kernels.launches()
@@ -1039,35 +1247,28 @@ def main() -> int:
         dg = res.provenance.digest(goals=names)
         print(f"{label}: decision digest {dg['checksum']}, {dg['moves']} moves, by goal "
               f"{json.dumps(dg['byGoal'])}")
-        jref = JAX_CPU_DIGESTS.get(label)
-        if jref is not None:
-            print(f"{label}: JAX on a CPU: digest {jref[0]}, final assignment SHA-256 "
-                  f"{'equal' if jref[2] == digest else 'differs'}")
-            if dg["checksum"] != jref[0] or digest != jref[2]:
-                first = next((n for n in names if dg["byGoal"].get(n, 0) != jref[1].get(n, 0)),
-                             None)
-                print(f"{label}: the decision digest or the final assignment DIFFERS from the JAX "
-                      f"CPU run's; first goal whose move count differs: {first} "
-                      f"({dg['byGoal'].get(first, 0) if first else '-'} vs "
-                      f"{jref[1].get(first, 0) if first else '-'})")
-                fail(f"{label}: the decision digest or the final assignment differs from the JAX "
-                     "CPU run's")
-            print(f"{label}: the decision digest and the final assignment equal the JAX CPU run's")
-            if label == "bench batched":
-                print(f"{label}: JAX on a CPU with shape bucketing (bench.py's default): digest "
-                      f"{JAX_CPU_BENCH_BUCKETED[0]}, final assignment SHA-256 "
-                      f"{'equal' if JAX_CPU_BENCH_BUCKETED[1] == digest else 'differs'}")
-        if settings.polish_rounds > 0:
-            polish = [sg for sg in res.provenance.segments if sg.phase == "polish"]
-            if len(polish) != len(names) or polish_skips["tests"] < len(names) or \
+        jref = JAX_CPU_DIGESTS[label]
+        print(f"{label}: JAX on a CPU: digest {jref[0]}, final assignment SHA-256 "
+              f"{'equal' if jref[2] == digest else 'differs'}")
+        if dg["checksum"] != jref[0] or digest != jref[2]:
+            first = next((n for n in names if dg["byGoal"].get(n, 0) != jref[1].get(n, 0)), None)
+            print(f"{label}: the decision digest or the final assignment DIFFERS from the JAX "
+                  f"CPU run's; first goal whose move count differs: {first} "
+                  f"({dg['byGoal'].get(first, 0) if first else '-'} vs "
+                  f"{jref[1].get(first, 0) if first else '-'})")
+            fail(f"{label}: the decision digest or the final assignment differs from the JAX "
+                 "CPU run's")
+        print(f"{label}: the decision digest and the final assignment equal the JAX CPU run's")
+        if polish:
+            polish_segs = [sg for sg in res.provenance.segments if sg.phase == "polish"]
+            if len(polish_segs) != len(names) or polish_skips["tests"] < len(names) or \
                     polish_skips["k7"] == 0:
                 fail(f"{label}: the polish phases did not run their K7 skip tests "
-                     f"({len(polish)} polish segments, {polish_skips})")
-            print(f"{label}: {len(polish)} polish phases; {polish_skips['tests']} skip tests "
+                     f"({len(polish_segs)} polish segments, {polish_skips})")
+            print(f"{label}: {len(polish_segs)} polish phases; {polish_skips['tests']} skip tests "
                   f"launched K7 {polish_skips['k7']} times and skipped {polish_skips['skipped']} "
                   "phases")
-        stats_after = stats_to_dict(res.stats_after)
-        print(f"{label}: stats_after {json.dumps(stats_after)}")
+        print(f"{label}: stats_after {json.dumps(stats_to_dict(res.stats_after))}")
         solves[label] = {"wall_s": wall, "replica_moves": res.num_replica_moves,
                          "polish_skip_tests": dict(polish_skips),
                          "leadership_moves": res.num_leadership_moves, "peak_bytes": peak,
@@ -1077,9 +1278,102 @@ def main() -> int:
                                     g.rounds, g.converged, g.cost_before, g.cost_after]
                                    for g in res.goal_results]}
         results[label] = (digest, tags, dg["checksum"])
+        return res
+
+    optimizers = {}
+    pinned_service = dataclasses.replace(opt.SERVICE_SETTINGS, chunk_target_s=PINNED_TARGET_S)
+    for label, model_s, settings, goal_names, path, ref, ref_moves in (
+            ("hard goals", model_cpu, dataclasses.replace(opt.SLICE_SETTINGS, ledger=True),
+             HARD_GOAL_NAMES, HARD_PATH, JAX_CPU_REFERENCE, JAX_CPU_MOVES),
+            ("stack", model_cpu, dataclasses.replace(opt.STACK_SETTINGS, ledger=True), None,
+             STACK_PATH, JAX_CPU_STACK_REFERENCE, JAX_CPU_STACK_MOVES),
+            ("service", model_cpu, opt.SERVICE_EXACT_SETTINGS, None, STACK_PATH,
+             JAX_CPU_STACK_REFERENCE, JAX_CPU_STACK_MOVES),
+            ("service hard goals", model_cpu, opt.SERVICE_EXACT_SETTINGS, HARD_GOAL_NAMES,
+             HARD_PATH, JAX_CPU_REFERENCE, None),
+            ("stack hard goals", model_cpu, dataclasses.replace(opt.STACK_SETTINGS, ledger=True),
+             HARD_GOAL_NAMES, HARD_PATH, JAX_CPU_REFERENCE, None),
+            ("bench batched", bench_model, opt.BENCH_SETTINGS, None, BENCH_PATH,
+             JAX_CPU_BENCH_REFERENCE, JAX_CPU_BENCH_MOVES),
+            ("parity greedy", parity_model, opt.GREEDY_SETTINGS, None, GREEDY_PATH,
+             JAX_CPU_PARITY_GREEDY_REFERENCE, JAX_CPU_PARITY_GREEDY_MOVES),
+            ("parity batched", parity_model, opt.BENCH_SETTINGS, None, BENCH_PATH,
+             JAX_CPU_PARITY_BATCHED_REFERENCE, JAX_CPU_PARITY_BATCHED_MOVES),
+            ("service bucketed", model_cpu, opt.SERVICE_SETTINGS, None, STACK_PATH,
+             JAX_CPU_SERVICE_BUCKETED_REFERENCE, JAX_CPU_SERVICE_BUCKETED_MOVES),
+            ("bench bucketed", bench_model, opt.BENCH_BUCKETED_SETTINGS, None, BENCH_PATH,
+             JAX_CPU_BENCH_BUCKETED_REFERENCE, JAX_CPU_BENCH_BUCKETED_MOVES)):
+        settings = dataclasses.replace(settings, chunk_target_s=PINNED_TARGET_S)
+        optimizers[label] = o = opt.GoalOptimizer(device="cuda", settings=settings)
+        res = run_and_check(label, model_s,
+                            lambda o=o, m=model_s, g=goal_names: o.optimizations(
+                                m, g, raise_on_hard_failure=False),
+                            path, ref, ref_moves, polish=settings.polish_rounds > 0)
+        if settings.bucket_brokers:
+            print(f"{label}: bucketed {json.dumps(res.bucketed)}")
+            if res.bucketed["paddedBrokers"] <= 0 or res.bucketed["paddedPartitions"] <= 0:
+                fail(f"{label}: the solve did not pad both axes")
+        if label == "service bucketed" and res.bucketed != JAX_CPU_SERVICE_BUCKETED_BLOCK:
+            fail(f"{label}: the bucket record differs from the JAX CPU run's")
         if label.startswith("parity"):
             results[label] = res
+        if label != "service bucketed":
+            del optimizers[label]
         del res
+
+    # -- 12. the incremental lane, armed on the bucketed service solve ---------------
+    from cruise_control_torch.analyzer import incremental as inc
+    from cruise_control_torch.analyzer.context import OptimizationOptions
+
+    lane_opt, options = optimizers.pop("service bucketed"), OptimizationOptions()
+    all_names = [g.name for g in goals_by_priority(None)]
+    lane = inc.IncrementalLane(lane_opt)
+    if not lane.arm(model_cpu, options, all_names, generation=1):
+        fail("lane: the service solve left no prep-cache entry to arm from")
+    entry = lane_opt.prepared_entry(model_cpu, options)
+    armed_before = [t.clone() for t in (*entry[1], *entry[3])]
+    scratch_opt = opt.GoalOptimizer(device="cuda", settings=pinned_service)
+    lane_a, lane_b = lane_perturbations({k: v.numpy() for k, v in model_cpu._asdict().items()})
+    for label, fields_s, gen, ref, ref_moves in (
+            ("lane a", lane_a, 2, JAX_CPU_LANE_A_REFERENCE, JAX_CPU_LANE_A_MOVES),
+            ("lane b", lane_b, 3, JAX_CPU_LANE_B_REFERENCE, JAX_CPU_LANE_B_MOVES)):
+        fresh = from_numpy(fields_s)
+        outcome = {}
+
+        def propose(fresh=fresh, gen=gen, outcome=outcome):
+            outcome["out"] = out = lane.propose(fresh, generation=gen)
+            if not out.ok:
+                fail(f"lane: the proposal fell back ({out.fallback_reason})")
+            return out.result
+
+        res = run_and_check(label, fresh, propose, LANE_PATH, ref, ref_moves)
+        out = outcome["out"]
+        affected = list(out.affected)
+        unaffected = [n for n in all_names if n not in out.affected]
+        moved_out = res.provenance.digest(goals=unaffected)["moves"]
+        if moved_out:
+            fail(f"{label}: the unaffected goals made {moved_out} moves")
+        t0 = time.monotonic()
+        scratch = scratch_opt.optimizations(fresh, affected, raise_on_hard_failure=False)
+        torch.cuda.synchronize()
+        scratch_s = time.monotonic() - t0
+        same = (scratch.provenance.digest(goals=affected) == res.provenance.digest(goals=affected)
+                and np.array_equal(scratch.final_assignment, res.final_assignment))
+        solves[label].update(deltas=out.summary()["deltasByKind"], affected=affected,
+                             scratch_wall_s=scratch_s, incremental=res.bucketed.get("incremental"))
+        print(f"{label}: {len(out.deltas)} deltas {json.dumps(out.summary()['deltasByKind'])}, "
+              f"{len(affected)} goals affected, {len(unaffected)} left out with 0 moves; lane "
+              f"{solves[label]['wall_s']:.2f} s against the scratch solve of the same goals "
+              f"{scratch_s:.2f} s; K10 launched {solves[label]['launches']['delta_scatter']} "
+              f"time(s)")
+        if not same:
+            fail(f"{label}: the lane's proposal differs from the scratch solve of the same goals")
+        print(f"{label}: decision digest and final assignment equal the scratch solve's")
+        del res, scratch
+    if not all(torch.equal(x, y) for x, y in zip(armed_before, (*entry[1], *entry[3]))):
+        fail("lane: the armed prep-cache entry changed")
+    print("lane: the armed prep-cache entry is unchanged after both proposals")
+    del lane, lane_opt, scratch_opt, entry, armed_before
     opt._polish_skip = inner_skip
 
     if results["service"][:2] != results["stack"][:2]:
@@ -1097,13 +1391,13 @@ def main() -> int:
         fail("parity: the batched pass is worse than the greedy pass (bench.py's parity gate)")
     solves["parity batched"]["parity"] = gate
 
-    # `launches` is the count of the path each kernel carries: the service
-    # solve's (the main path), and for K9 the greedy pass's; every solve's
-    # count is kept beside it
+    # `launches` is the count of the path each kernel carries: the service's
+    # default solve's (bucketed, the main path), for K9 the greedy pass's and
+    # for K10 the lane's first proposal; every solve's count is kept beside it
+    main = {"grid_shortlist": "parity greedy", "delta_scatter": "lane a"}
     for key, v in rows.items():
-        v["launches"] = solves["parity greedy" if key == "grid_shortlist" else "service"][
-            "launches"][key]
-        for label in ("stack", "hard goals", "bench batched", "parity greedy", "parity batched"):
+        v["launches"] = solves[main.get(key, "service bucketed")]["launches"][key]
+        for label in solves:
             v["launches_" + label.replace(" ", "_")] = solves[label]["launches"][key]
     total_s = time.monotonic() - t_start
     print(json.dumps({"solves": solves, "build_s": build_s, "chip_smoke_s": total_s}))

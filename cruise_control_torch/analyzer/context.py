@@ -133,15 +133,20 @@ def build_static_ctx(
     model: FlatClusterModel,
     constraint: BalancingConstraint,
     dims: Dims,
+    valid_brokers: Optional[int] = None,
+    valid_partitions: Optional[int] = None,
 ) -> StaticCtx:
     """The run's static context on the model's device, under the default
     OptimizationOptions. The broker-sized arrays are derived on the CPU (the
     host CPU capacity sum then runs in broker order, as in the reference)
-    and moved once."""
+    and moved once. `valid_brokers` / `valid_partitions`: the counts of real
+    rows of a model padded to a shape bucket (the padding is appended, so a
+    prefix count suffices); None when every row is real. Padded brokers are
+    neither alive nor dead."""
     dev = model.device
     b = dims.num_brokers
     state = model.broker_state.cpu()
-    valid = torch.ones(b, dtype=torch.bool)
+    valid = torch.arange(b) < (b if valid_brokers is None else valid_brokers)
     alive = (state != BrokerState.DEAD) & valid
     demoted = (state == BrokerState.DEMOTED) & valid
 
@@ -171,7 +176,8 @@ def build_static_ctx(
         movable_partition=torch.ones(dims.num_partitions, dtype=torch.bool, device=dev),
         host_cpu_capacity_limit=(host_cpu_cap * cap_threshold[Resource.CPU]).to(dev),
         broker_valid=valid.to(dev),
-        num_valid_partitions=f32(dims.num_partitions),
+        num_valid_partitions=f32(dims.num_partitions if valid_partitions is None
+                                 else valid_partitions),
         resource_balance_pct=f32(constraint.resource_balance_percentage),
         low_utilization_threshold=f32(constraint.low_utilization_threshold),
         replica_balance_pct=f32(constraint.replica_balance_percentage),

@@ -9,9 +9,17 @@ pair drain and topic swaps, the leadership relays) in batched mode
 round caps (`GREEDY_SETTINGS`), and the polish pass (`BENCH_SETTINGS`), run
 either as the fused stack (`chunk_rounds = 0`) or through the chunked goal
 machine (`chunk_rounds > 0`, the service default, `SERVICE_SETTINGS`), with
-the provenance ledger and the before/after cluster statistics. Shape
-bucketing and non-default OptimizationOptions raise NotImplementedError
-naming the ROADMAP.md item that brings them.
+the provenance ledger and the before/after cluster statistics, at the exact
+shape or padded to a shape bucket (`bucket_partitions`, `bucket_brokers`).
+Non-default OptimizationOptions and the kafka-assigner goals raise
+NotImplementedError naming the ROADMAP.md item that brings them.
+
+The front half (`_prepare`) pads the model, builds the static context and
+keeps both in a two-entry cache keyed by the identity of the caller's model
+tensors and options (the JAX package's `_prep_cache`); the back half
+(`_solve_prepared`) runs the goals on a prepared model. The incremental
+lane (analyzer/incremental.py) arms from a cache entry and re-solves
+through `incremental_optimizations`, the same `_solve_prepared`.
 
 The JAX package runs each goal's rounds as a device `while_loop`; here the
 round loop is a host loop over device work that reads one device value per
@@ -25,6 +33,7 @@ fingerprint).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import List, NamedTuple, Optional, Sequence
@@ -65,6 +74,12 @@ from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
 from cruise_control_torch.kernels.score_candidates import score_candidates
 from cruise_control_torch.kernels.state_fingerprint import state_fingerprint
 from cruise_control_torch.models.flat_model import FlatClusterModel
+from cruise_control_torch.parallel.sharding import (
+    geom_bucket,
+    pad_brokers_to,
+    pad_partitions_to,
+    partition_bucket,
+)
 
 
 class OptimizationFailureException(Exception):
@@ -89,9 +104,22 @@ class OptimizerSettings:
     num_swap_pairs: int = 8
     swap_candidates: int = 8
     swaps_per_broker: int = 4
+    #: pad the partition and topic axes up the eighth-octave ladder
+    #: (parallel.sharding.partition_bucket)
     bucket_partitions: bool = True
+    #: pad the broker, host and rack axes up the geometric ladder of
+    #: `bucket_ratio` steps, exact up to `bucket_floor`; padded brokers are
+    #: invalid (zero capacity, neither alive nor dead)
     bucket_brokers: bool = True
+    bucket_ratio: float = 1.25
+    bucket_floor: int = 64
     chunk_rounds: int = 0
+    #: chunked mode: the target wall time of a machine call, from which later
+    #: calls' budgets follow the measured round rate. Where a goal's window,
+    #: re-derived at each call's entry, moves by an ulp, decisions depend on
+    #: where the calls end, and so on the clock (ROADMAP.md Queue 3); a huge
+    #: target makes the schedule 8x per call, whatever the clock says
+    chunk_target_s: float = 10.0
     apply_waves: int = 8
     drain_src: int = 512
     drain_per_broker: int = 8
@@ -116,21 +144,30 @@ SLICE_SETTINGS = OptimizerSettings(
 STACK_SETTINGS = dataclasses.replace(SLICE_SETTINGS, bulk_waves=16, bulk_min_brokers=32,
                                      num_swap_pairs=8, swap_candidates=8, swaps_per_broker=4)
 
-#: What the service runs: STACK_SETTINGS through the chunked goal machine
-#: (`optimizer.chunk.rounds` = 32, cruise_config.py:112) with the provenance
-#: ledger (`optimizer.provenance.ledger`, cruise_config.py:426): the service
-#: defaults but shape bucketing.
-SERVICE_SETTINGS = dataclasses.replace(STACK_SETTINGS, chunk_rounds=32, ledger=True)
+#: STACK_SETTINGS through the chunked goal machine (`optimizer.chunk.rounds`
+#: = 32, cruise_config.py:112) with the provenance ledger
+#: (`optimizer.provenance.ledger`, cruise_config.py:426), at the exact shape:
+#: the service defaults but shape bucketing.
+SERVICE_EXACT_SETTINGS = dataclasses.replace(STACK_SETTINGS, chunk_rounds=32, ledger=True)
+
+#: What the service runs: its defaults, shape bucketing on
+#: (`optimizer.bucket.partitions` / `.brokers`, ratio 1.25, floor 64).
+SERVICE_SETTINGS = dataclasses.replace(SERVICE_EXACT_SETTINGS, bucket_partitions=True,
+                                       bucket_brokers=True)
 
 #: The bench's batched pass (bench.py:215-227 at its defaults: 128 rounds a
-#: goal, swaps 16x16x4, chunk 16, 48 polish rounds), without shape bucketing,
-#: which the port does not have yet (the JAX package's bucketed and
-#: exact-shape runs of config 5 differ: ROADMAP.md Queue 3).
+#: goal, swaps 16x16x4, chunk 16, 48 polish rounds) at the exact shape (the
+#: JAX package's bucketed and exact-shape runs of config 5 differ: ROADMAP.md
+#: Queue 3).
 BENCH_SETTINGS = OptimizerSettings(
     batch_k=1024, max_rounds_per_goal=128, num_dst_candidates=16, num_swap_pairs=16,
     swap_candidates=16, swaps_per_broker=4, chunk_rounds=16, polish_rounds=48,
     bucket_partitions=False, bucket_brokers=False,
 )
+
+#: bench.py's default batched pass: BENCH_SETTINGS with shape bucketing.
+BENCH_BUCKETED_SETTINGS = dataclasses.replace(BENCH_SETTINGS, bucket_partitions=True,
+                                              bucket_brokers=True)
 
 #: The bench's faithful-greedy parity pass (bench.py:242-248 at its defaults:
 #: batch_k=1, cost-scaled caps of 1.5 rounds per cost unit up to 4,096, chunk
@@ -140,12 +177,6 @@ GREEDY_SETTINGS = OptimizerSettings(
     swap_candidates=16, swaps_per_broker=4, chunk_rounds=64, cost_scaled_rounds=1.5,
     rounds_ceiling=4096, bucket_partitions=False, bucket_brokers=False,
 )
-
-
-#: chunked mode: the target wall time of a machine call, from which later
-#: calls' budgets follow the measured round rate (the JAX package's
-#: `chunk_target_s` default)
-CHUNK_TARGET_S = 10.0
 
 
 def _use_bulk(goal, dims: Dims, settings: OptimizerSettings) -> bool:
@@ -178,17 +209,20 @@ def check_supported(goals, settings: OptimizerSettings, options: OptimizationOpt
     def refuse(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
-    q4 = "ROADMAP.md Queue 1 item 4, production solve plumbing"
     for g in goals:
         if isinstance(g, UnportedGoal):
-            refuse(f"goal {g.name}", q4)
-    if settings.bucket_partitions or settings.bucket_brokers:
-        refuse("shape bucketing (bucket_partitions / bucket_brokers)", q4)
+            refuse(f"goal {g.name}", "ROADMAP.md Queue 1 item 6, the remaining goals")
     # every option defaults to None or False; the port takes the defaults only
     for field in dataclasses.fields(options):
         value = getattr(options, field.name)
         if value is not None and value is not False:
-            refuse(f"the option {field.name}", q4)
+            refuse(f"the option {field.name}",
+                   "ROADMAP.md Queue 1 item 4, OptimizationOptions other than the defaults")
+
+
+def bucket_label(dims: Dims) -> str:
+    """The shape bucket's name (optimizer.py:1282): the padded axis sizes."""
+    return f"P{dims.num_partitions}-B{dims.num_brokers}-T{dims.num_topics}-RF{dims.max_rf}"
 
 
 def _swap_width(num_brokers: int, num_swap_pairs: int) -> int:
@@ -652,6 +686,9 @@ class OptimizerResult:
     #: the run's decision-provenance ledger (analyzer/provenance.py
     #: RunLedger), also recorded in provenance.LEDGER; None with the ledger off
     provenance: Optional[object] = None
+    #: the exact and padded shapes (`exact`, `padded`, `bucket`,
+    #: `paddedPartitions`, `paddedBrokers`; `incremental` on a lane solve)
+    bucketed: Optional[dict] = None
 
     @property
     def violated_goals_before(self) -> List[str]:
@@ -660,6 +697,10 @@ class OptimizerResult:
     @property
     def violated_goals_after(self) -> List[str]:
         return [g.name for g in self.goal_results if g.violated_brokers_after]
+
+
+#: entries of the prep cache (the JAX package's two-entry LRU)
+_PREP_CACHE_SIZE = 2
 
 
 class GoalOptimizer:
@@ -671,6 +712,126 @@ class GoalOptimizer:
         self._constraint = constraint or BalancingConstraint.default()
         self._settings = settings
         self._device = torch.device(device)
+        #: _prepare_key -> (p_orig, pmodel, dims, static, static_canon,
+        #: bucketed, model, options); the last two pin the key's objects
+        self._prep_cache: "collections.OrderedDict" = collections.OrderedDict()
+
+    # -- the front half: pad, bucket, build the static context ---------------
+
+    def _prepare(self, model: FlatClusterModel, goal_names: Optional[Sequence[str]],
+                 options: OptimizationOptions):
+        """(goals, p_orig, padded model, dims, static, agg, bucketed)
+        (optimizer.py:1655). The padded model and static context come from
+        the prep cache when the caller passes the same model tensors and
+        options again; the aggregates are computed anew, since the solve
+        writes them in place."""
+        goals = goals_by_priority(goal_names)
+        check_supported(goals, self._settings, options)
+        key = self._prepare_key(model, options)
+        hit = self._prep_cache.get(key)
+        if hit is not None:
+            self._prep_cache.move_to_end(key)
+        else:
+            hit = (*self._build_ctx(model), model, options)
+            self._prep_cache[key] = hit
+            while len(self._prep_cache) > _PREP_CACHE_SIZE:
+                self._prep_cache.popitem(last=False)
+        p_orig, pmodel, dims, static, static_canon, bucketed = hit[:6]
+        agg = self._initial_aggregates(pmodel, dims, static, static_canon)
+        return goals, p_orig, pmodel, dims, static, agg, bucketed
+
+    def _initial_aggregates(self, pmodel: FlatClusterModel, dims: Dims, static, static_canon):
+        """K1 on the padded model's assignment (optimizer.py:1693), shared by
+        `_prepare` and the incremental lane. There is no mesh, so the
+        canonical context is the context."""
+        return compute_aggregates(static_canon, pmodel.assignment, dims)
+
+    def prepared_entry(self, model: FlatClusterModel, options: OptimizationOptions):
+        """(p_orig, pmodel, dims, static, static_canon, bucketed) of the prep
+        cache's entry for (model, options), or None (optimizer.py:1714): the
+        incremental lane's seam."""
+        hit = self._prep_cache.get(self._prepare_key(model, options))
+        return None if hit is None else hit[:6]
+
+    @staticmethod
+    def _prepare_key(model: FlatClusterModel, options: OptimizationOptions):
+        """The identity of the model's tensors and the options' contents
+        (optimizer.py:1726): array fields by object identity (the entry holds
+        the objects, so a live id cannot alias a new one), scalar and tuple
+        fields by value. Take it on the caller's model, before any copy."""
+
+        def kid(v):
+            return ("id", id(v)) if v is not None and not isinstance(
+                v, (bool, int, float, str, tuple)) else v
+
+        return tuple(id(f) for f in model) + tuple(
+            kid(getattr(options, f.name)) for f in dataclasses.fields(options))
+
+    def _build_ctx(self, model: FlatClusterModel):
+        """The prep cache's miss path (optimizer.py:1742-1858): bucket every
+        axis up its ladder, pad the model on the host, move it to the device
+        once and build the static context with the real counts. Returns
+        (p_orig, pmodel, dims, static, static_canon, bucketed)."""
+        s = self._settings
+        host = model.to("cpu")
+        p_orig, b_orig = host.num_partitions, host.num_brokers
+        exact = dims_of(host)
+        target_p = partition_bucket(p_orig) if s.bucket_partitions else p_orig
+        host = pad_partitions_to(host, target_p)
+        num_topics = partition_bucket(exact.num_topics) if s.bucket_partitions else exact.num_topics
+        num_racks, num_hosts, target_b = exact.num_racks, exact.num_hosts, b_orig
+        if s.bucket_brokers:
+            target_b = geom_bucket(b_orig, s.bucket_ratio, s.bucket_floor)
+            num_racks = geom_bucket(exact.num_racks, s.bucket_ratio, s.bucket_floor)
+            num_hosts = geom_bucket(exact.num_hosts, s.bucket_ratio, s.bucket_floor)
+            host = pad_brokers_to(host, target_b, num_racks, num_hosts)
+        dims = Dims(num_partitions=host.num_partitions, max_rf=exact.max_rf,
+                    num_brokers=target_b, num_racks=num_racks, num_hosts=num_hosts,
+                    num_topics=num_topics)
+        pmodel = host.to(self._device)
+        static = build_static_ctx(pmodel, self._constraint, dims, valid_brokers=b_orig,
+                                  valid_partitions=p_orig)
+        bucketed = {
+            "exact": dataclasses.asdict(exact),
+            "padded": dataclasses.asdict(dims),
+            "bucket": bucket_label(dims),
+            "paddedPartitions": dims.num_partitions - p_orig,
+            "paddedBrokers": dims.num_brokers - b_orig,
+        }
+        return p_orig, pmodel, dims, static, static, bucketed
+
+    def warmup(self, model: FlatClusterModel, goal_names: Optional[Sequence[str]] = None,
+               options: OptimizationOptions = OptimizationOptions()) -> float:
+        """Pay the first-use costs outside a timed solve (optimizer.py:1860):
+        build the kernels (on the card), prepare the model (the prep cache's
+        entry), compute its statistics, then make one budget-1 machine call
+        and, with the polish pass, the final re-measure; the fused stack has
+        no short call, so it runs whole. Returns the seconds spent."""
+        t0 = time.monotonic()
+        if self._device.type == "cuda":
+            from cruise_control_torch.kernels import build
+
+            build.build_all()
+        goals, _, pmodel, dims, static, agg, _ = self._prepare(model, goal_names, options)
+        compute_stats(pmodel, dims.num_topics)
+        names = tuple(g.name for g in goals)
+        if self._settings.chunk_rounds > 0:
+            machine_names, enabled, _ = _machine_goal_plan(names)
+            machine = _make_goal_machine(goals_by_priority(machine_names), dims, self._settings)
+            out = machine(static, agg, empty_tables(dims, agg.assignment.device), 0, 0, 0,
+                          empty_stack_metrics(len(machine_names), agg.assignment.device), 1,
+                          enabled, empty_prov_snapshots(machine.n_phases, dims,
+                                                        self._settings.ledger,
+                                                        agg.assignment.device))
+            if self._settings.polish_rounds > 0:
+                measure(goals_by_priority(machine_names), dims, static, out[0])
+        else:
+            run_stack(goals, dims, self._settings, static, agg)
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        return time.monotonic() - t0
+
+    # -- the entry points ------------------------------------------------------
 
     def optimizations(
         self,
@@ -681,21 +842,27 @@ class GoalOptimizer:
     ) -> OptimizerResult:
         """Run the requested goal stack and diff initial vs final placement."""
         t0 = time.monotonic()
+        goals, p_orig, pmodel, dims, static, agg, bucketed = self._prepare(
+            model, goal_names, options)
+        return self._solve_prepared(goals, p_orig, pmodel, dims, static, agg, bucketed,
+                                    raise_on_hard_failure, t0)
+
+    def incremental_optimizations(self, pmodel: FlatClusterModel, dims: Dims, static,
+                                  static_canon, bucketed, p_orig: int,
+                                  goal_names: Optional[Sequence[str]] = None,
+                                  raise_on_hard_failure: bool = False) -> OptimizerResult:
+        """Solve an already prepared padded model (optimizer.py:1972): the
+        incremental lane's entry point. `static` is the lane's delta-updated
+        context of the armed bucket, `pmodel` its padded model (host or
+        device tensors), `goal_names` the affected subset. Only the initial
+        aggregates are computed; the solve is `_solve_prepared`, the code the
+        scratch lane runs."""
+        t0 = time.monotonic()
         goals = goals_by_priority(goal_names)
-        model = model.to(self._device)
-        dims = dims_of(model)
-        check_supported(goals, self._settings, options)
-        static = build_static_ctx(model, self._constraint, dims)
-        init_np = model.assignment.cpu().numpy()
-        part_load_np = model.part_load.cpu().numpy()
-        if not goals:
-            stats = stats_to_host(compute_stats(model, dims.num_topics))
-            return OptimizerResult(
-                proposals=[], goal_results=[], stats_before=stats, stats_after=stats,
-                final_assignment=init_np, num_replica_moves=0, num_leadership_moves=0,
-                data_to_move_mb=0.0, duration_s=time.monotonic() - t0,
-            )
-        return self._solve_prepared(goals, dims, static, model, init_np, part_load_np,
+        check_supported(goals, self._settings, OptimizationOptions())
+        pmodel = pmodel.to(self._device)
+        agg = self._initial_aggregates(pmodel, dims, static, static_canon)
+        return self._solve_prepared(goals, p_orig, pmodel, dims, static, agg, bucketed,
                                     raise_on_hard_failure, t0)
 
     def _run_chunked(self, goals, enabled: np.ndarray, dims: Dims, static, agg):
@@ -704,10 +871,12 @@ class GoalOptimizer:
         after a polish pass, re-measure every goal's after-row. After each call the
         per-goal round counts are read back once, the call's wall time is
         attributed to goals by their share of its rounds, and the next
-        budget follows the measured round rate (at most 8x the last, back to
-        `chunk_rounds` at a goal boundary). Decisions do not depend on where
-        the calls end. Returns (agg, host metrics, stack seconds, per-goal
-        seconds, host snapshots or None); rows follow `goals`."""
+        budget follows the measured round rate toward `chunk_target_s` (at
+        most 8x the last, back to `chunk_rounds` at a goal boundary). A goal
+        re-derives its window when a call resumes it, as the JAX machine
+        does, so where the calls end can move a knife-edge decision
+        (`chunk_target_s`). Returns (agg, host metrics, stack seconds,
+        per-goal seconds, host snapshots or None); rows follow `goals`."""
         s = self._settings
         dev = agg.assignment.device
         n = len(goals)
@@ -738,17 +907,29 @@ class GoalOptimizer:
                 last_gi = gi
             elif spent > 0 and call_s > 0:
                 rate = spent / call_s
-                chunk = max(1, min(4096, int(rate * CHUNK_TARGET_S), chunk * 8))
+                chunk = max(1, min(4096, int(rate * s.chunk_target_s), chunk * 8))
         if s.polish_rounds > 0:
             viol, cost = measure(goals, dims, static, agg)
             metrics = metrics._replace(violated_after=viol, cost_after=cost)
         host_snap = (snap[0].cpu().numpy(), snap[1].cpu().numpy()) if s.ledger else None
         return agg, _metrics_to_host(metrics), time.monotonic() - t_stack, durs, host_snap
 
-    def _solve_prepared(self, goals, dims, static, model, init_np, part_load_np,
-                        raise_on_hard_failure: bool, t0: float) -> OptimizerResult:
+    def _solve_prepared(self, goals, p_orig: int, model: FlatClusterModel, dims: Dims, static,
+                        agg, bucketed, raise_on_hard_failure: bool, t0: float) -> OptimizerResult:
+        """The back half (optimizer.py:2033): run the goals on a prepared
+        (padded) model and diff the placements, cut to the `p_orig` real
+        partitions. The scratch lane and the incremental lane both run it:
+        their digest contract rests on that."""
+        if not goals:
+            stats = stats_to_host(compute_stats(model, dims.num_topics))
+            return OptimizerResult(
+                proposals=[], goal_results=[], stats_before=stats, stats_after=stats,
+                final_assignment=model.assignment[:p_orig].cpu().numpy(), num_replica_moves=0,
+                num_leadership_moves=0, data_to_move_mb=0.0, duration_s=time.monotonic() - t0,
+                bucketed=bucketed,
+            )
+        init_full = model.assignment.cpu().numpy()
         stats_before = compute_stats(model, dims.num_topics)
-        agg = compute_aggregates(static, model.assignment, dims)
         names = tuple(g.name for g in goals)
         ledger_names, ledger_enabled, goal_durs = names, None, None
         if self._settings.chunk_rounds > 0:
@@ -764,8 +945,8 @@ class GoalOptimizer:
             metrics_full = metrics
             stack_s = time.monotonic() - t_stack
         stats_after = compute_stats(model._replace(assignment=agg.assignment), dims.num_topics)
-        final_np = agg.assignment.cpu().numpy()
-        touch_np = agg.touch_tag.cpu().numpy()
+        final_np = agg.assignment[:p_orig].cpu().numpy()
+        touch_np = agg.touch_tag[:p_orig].cpu().numpy()
         stats_before, stats_after = stats_to_host(stats_before), stats_to_host(stats_after)
 
         total_rounds = max(1, int(metrics.rounds.sum()))
@@ -793,13 +974,14 @@ class GoalOptimizer:
                 f"hard goal {first_hard_failure.name} still violated on "
                 f"{first_hard_failure.violated_brokers_after} broker(s)"
             )
-        proposals = proposal_diff(init_np, final_np, part_load_np)
+        proposals = proposal_diff(init_full[:p_orig], final_np,
+                                  model.part_load[:p_orig].cpu().numpy())
         n_moves = sum(len(pr.replicas_to_add) for pr in proposals)
         n_leader = sum(
             1 for pr in proposals if pr.new_leader != pr.old_leader and not pr.replicas_to_add
         )
         provenance = self._build_ledger(ledger_names, ledger_enabled, metrics_full, prov,
-                                        init_np, dims, len(proposals))
+                                        init_full, p_orig, dims, bucketed, len(proposals))
         return OptimizerResult(
             proposals=proposals,
             goal_results=goal_results,
@@ -812,10 +994,12 @@ class GoalOptimizer:
             duration_s=time.monotonic() - t0,
             touch_tag=touch_np,
             provenance=provenance,
+            bucketed=bucketed,
         )
 
     def _build_ledger(self, ledger_names, enabled, metrics_full: StackMetrics, prov,
-                      init_assignment: np.ndarray, dims: Dims, num_proposals: int):
+                      init_assignment: np.ndarray, p_orig: int, dims: Dims, bucketed,
+                      num_proposals: int):
         """Diff the per-phase snapshots into this run's RunLedger and record
         it in provenance.LEDGER (optimizer.py:2208-2275). Phases the enabled
         mask switched off are dropped and the kept ones renumbered, so a
@@ -843,8 +1027,9 @@ class GoalOptimizer:
             })
         ledger = build_run_ledger(
             new_run_id(), phases, init_assignment, prov[0], prov[1],
-            valid_partitions=dims.num_partitions,
-            meta={"bucket": None, "numProposals": num_proposals, "goals": list(ledger_names)},
+            valid_partitions=p_orig,
+            meta={"bucket": (bucketed or {}).get("bucket"), "numProposals": num_proposals,
+                  "goals": list(ledger_names)},
         )
         if enabled is not None:
             keep = [i for i in range(n_phases) if bool(enabled[i % g])]

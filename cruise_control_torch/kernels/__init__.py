@@ -14,6 +14,8 @@ PyTorch version.
   K8 cluster_stats       stats.compute_stats
   K9 grid_shortlist      the greedy round's shortlist (optimizer.one_round
                          :371-409), scoring with K3's per-candidate body
+  K10 delta_scatter      incremental.apply_delta_batch, the incremental
+                         lane's scatter into the static context
 
 A wrapper runs the plain version for CPU tensors and launches its kernel for
 CUDA tensors (or raises); it counts its launches in `<wrapper>.launches`.
@@ -30,6 +32,7 @@ def wrappers():
     from cruise_control_torch.kernels.apply_wave import apply_wave
     from cruise_control_torch.kernels.broker_topk import broker_topk
     from cruise_control_torch.kernels.cluster_stats import cluster_stats
+    from cruise_control_torch.kernels.delta_scatter import delta_scatter
     from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
     from cruise_control_torch.kernels.pair_picks import pair_picks
     from cruise_control_torch.kernels.score_candidates import score_candidates
@@ -49,6 +52,7 @@ def wrappers():
         "state_fingerprint": state_fingerprint,
         "cluster_stats": cluster_stats,
         "grid_shortlist": grid_shortlist,
+        "delta_scatter": delta_scatter,
     }
 
 

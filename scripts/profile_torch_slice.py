@@ -7,7 +7,9 @@ Builds the CUDA kernels and, for each solve asked for (on the smoke model of
 chip_smoke.py: the six hard goals with SLICE_SETTINGS, the full 15-goal
 stack with STACK_SETTINGS, the same stack as the service runs it with
 SERVICE_SETTINGS: the chunked goal machine, the provenance ledger and the
-cluster statistics; and chip_smoke.py's phases 8 and 9: BASELINE config 5
+cluster statistics on the model padded to its shape bucket (the second
+solve reuses the first's prep-cache entry); and chip_smoke.py's phases 8
+and 9: BASELINE config 5
 with the bench's batched pass, BENCH_SETTINGS, and the bench's 520-broker
 parity model with its faithful-greedy pass, GREEDY_SETTINGS; all five by
 default), solves once as a warm-up, then:

@@ -511,3 +511,61 @@ def test_k6_pair_picks_equal_jax(ctx):
         for x, y in zip(want, got):
             assert _bits_equal(x, y)
         assert np.asarray(want[2]).any() and not np.asarray(want[2]).all()
+
+
+# -- K10 ------------------------------------------------------------------------
+
+
+def _random_delta_batch(rng, d, n_live, b, p, m):
+    """A DeltaBatch as numpy columns: `n_live` rows of mixed kinds, then NOOP
+    rows (zeros, as build_delta_batch pads). Targets repeat (the later row
+    lands), and some fall outside the axis on either side."""
+    cols = {k: np.zeros(d, np.int32) for k in ("kind", "broker", "state", "row", "topic")}
+    cols["kind"][:n_live] = rng.integers(1, 4, n_live)
+    cols["broker"][:n_live] = rng.integers(-b - 2, b + 2, n_live)
+    cols["state"][:n_live] = rng.integers(0, 4, n_live)
+    cols["row"][:n_live] = np.where(rng.random(n_live) < 0.7, rng.integers(0, 6, n_live),
+                                    rng.integers(-p - 2, p + 2, n_live))
+    cols["topic"][:n_live] = rng.integers(0, 60, n_live)
+    load = np.zeros((d, m), np.float32)
+    load[:n_live] = rng.random((n_live, m), dtype=np.float32)
+    return cols, load
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_k10_delta_scatter_equals_jax(ctx, seed):
+    """Every kind, NOOP rows, repeated targets and indices outside the axes
+    against the jitted JAX scatter; every field of the context exact, and the
+    input context left as it was."""
+    from cruise_control_tpu.analyzer import incremental as jinc
+    from cruise_control_torch.analyzer.incremental import DeltaBatch
+    from cruise_control_torch.kernels.delta_scatter import delta_scatter_plain
+
+    rng = np.random.default_rng(seed)
+    b, (p, m) = ctx["td"].num_brokers, ctx["arrays"]["part_load"].shape
+    cols, load = _random_delta_batch(rng, 64, 40, b, p, m)
+    base_rep, base_lead = rng.random(b) < 0.8, rng.random(b) < 0.8
+    jout = jax.jit(jinc.apply_delta_batch)(
+        ctx["js"], jinc.DeltaBatch(**{k: jnp.asarray(v) for k, v in cols.items()},
+                                   load=jnp.asarray(load)),
+        jnp.asarray(base_rep), jnp.asarray(base_lead))
+    before = [t.clone() for t in ctx["ts"]]
+    tout = delta_scatter_plain(
+        ctx["ts"], DeltaBatch(**{k: torch.from_numpy(v) for k, v in cols.items()},
+                              load=torch.from_numpy(load)),
+        torch.from_numpy(base_rep), torch.from_numpy(base_lead))
+    for f in tout._fields:
+        assert _bits_equal(jout._asdict()[f], tout._asdict()[f]), f
+    assert all(torch.equal(x, y) for x, y in zip(before, ctx["ts"]))
+    assert not _bits_equal(tout.part_load, ctx["ts"].part_load)
+
+
+def test_k10_delta_scatter_of_noops_is_the_input(ctx):
+    from cruise_control_torch.analyzer.incremental import build_delta_batch
+    from cruise_control_torch.kernels.delta_scatter import delta_scatter_plain
+
+    ts = ctx["ts"]
+    out = delta_scatter_plain(ts, build_delta_batch([], 64, ts.part_load.shape[1]),
+                              ts.replica_dst_ok.clone(), ts.leadership_dst_ok.clone())
+    for f in ts._fields:
+        assert _bits_equal(getattr(ts, f), getattr(out, f)), f

@@ -376,15 +376,15 @@ def test_stack_on_the_card_equals_the_cpu():
 
 def test_service_on_the_card_equals_the_cpu():
     """The chunked goal machine with the ledger and the statistics
-    (SERVICE_SETTINGS, chunk budget 3 so that goals pause and resume) on the
-    card against the CPU, and against the fused run on the card."""
+    (SERVICE_EXACT_SETTINGS, chunk budget 3 so that goals pause and resume)
+    on the card against the CPU, and against the fused run on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     from cruise_control_torch import kernels
     from cruise_control_torch.analyzer.stats import stats_to_dict
 
     model = generators.random_cluster(42, FIXTURE_C)
-    settings = dataclasses.replace(opt.SERVICE_SETTINGS, chunk_rounds=3)
+    settings = dataclasses.replace(opt.SERVICE_EXACT_SETTINGS, chunk_rounds=3)
     kernels.reset_launches()
     res = [opt.GoalOptimizer(settings=settings, device=d).optimizations(
         model, None, raise_on_hard_failure=False) for d in ("cpu", "cuda")]
@@ -465,3 +465,105 @@ def test_greedy_and_polish_on_the_card_equal_the_cpu():
         for a, b in zip(res[0].goal_results, res[1].goal_results):
             assert (a.violated_brokers_after, a.rounds, a.converged, a.cost_after) == (
                 b.violated_brokers_after, b.rounds, b.converged, b.cost_after)
+
+
+def _k10_batch(rng, d, n_live, b, p, m, unique, device):
+    """A DeltaBatch of `n_live` rows of mixed kinds, then NOOP rows. With
+    `unique`, no two landing rows share a target; without, targets repeat
+    and some fall outside the axes."""
+    from cruise_control_torch.analyzer.incremental import DeltaBatch
+
+    cols = {k: np.zeros(d, np.int32) for k in ("kind", "broker", "state", "row", "topic")}
+    cols["kind"][:n_live] = rng.integers(1, 4, n_live)
+    if unique:
+        # at most one state row per broker: the rest become load rows
+        states = np.nonzero(cols["kind"] == 1)[0]
+        cols["kind"][states[b:]] = 2
+        cols["broker"][states[:b]] = rng.permutation(b)[:len(states[:b])]
+        cols["row"][:n_live] = rng.permutation(p)[:n_live]
+    else:
+        cols["broker"][:n_live] = rng.integers(-b - 2, b + 2, n_live)
+        cols["row"][:n_live] = np.where(rng.random(n_live) < 0.7, rng.integers(0, 8, n_live),
+                                        rng.integers(-p - 2, p + 2, n_live))
+    cols["state"][:n_live] = rng.integers(0, 4, n_live)
+    cols["topic"][:n_live] = rng.integers(0, 50, n_live)
+    load = np.zeros((d, m), np.float32)
+    load[:n_live] = rng.random((n_live, m), dtype=np.float32)
+    return DeltaBatch(**{k: torch.from_numpy(v).to(device) for k, v in cols.items()},
+                      load=torch.from_numpy(load).to(device))
+
+
+@pytest.mark.parametrize("size", ["small", "full"])
+@pytest.mark.parametrize("unique", [True, False], ids=["distinct-targets", "repeated-targets"])
+def test_k10_delta_scatter(size, unique):
+    """K10 against its plain version on random batches, at the small
+    cluster's bucketed shape and at the smoke model's (212,992 x 3,072):
+    every field exact, the input context unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from cruise_control_torch.kernels.delta_scatter import delta_scatter, delta_scatter_plain
+
+    prop = PROP if size == "small" else dataclasses.replace(
+        generators.BASELINE_CONFIGS[5], num_dead_brokers=26, load_distribution="pareto",
+        mean_utilization=0.5)
+    model = generators.random_cluster(42, prop)
+    ctx_c = opt.GoalOptimizer(settings=opt.SERVICE_SETTINGS, device="cpu")._build_ctx(model)
+    ctx_g = opt.GoalOptimizer(settings=opt.SERVICE_SETTINGS, device="cuda")._build_ctx(model)
+    sc, sg = ctx_c[3], ctx_g[3]
+    b, (p, m) = ctx_c[2].num_brokers, tuple(sc.part_load.shape)
+    rng = np.random.default_rng(7 if unique else 8)
+    for n_live in (0, 1, 20, 64):
+        batch = _k10_batch(rng, 64, n_live, b, p, m, unique, "cpu")
+        base_rep, base_lead = (torch.from_numpy(rng.random(b) < 0.9) for _ in range(2))
+        want = delta_scatter_plain(sc, batch, base_rep, base_lead)
+        before = [t.clone() for t in sg]
+        got = delta_scatter(sg, type(batch)(*(t.cuda() for t in batch)), base_rep.cuda(),
+                            base_lead.cuda())
+        torch.cuda.synchronize()
+        for f in want._fields:
+            assert _bits(getattr(got, f), getattr(want, f)), (n_live, f)
+        assert all(torch.equal(x, y) for x, y in zip(before, sg))
+
+
+def test_bucketed_service_and_lane_on_the_card_equal_the_cpu():
+    """The service's bucketed solve (SERVICE_SETTINGS) of a 70-broker cluster
+    (padded to 80) and a lane proposal on it (a load spike, a broker death
+    and a partition add) on the card against the CPU: assignment, touch tags,
+    digest; the lane launches K10 once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from cruise_control_torch import kernels
+    from cruise_control_torch.analyzer import incremental as inc
+    from cruise_control_torch.analyzer.context import OptimizationOptions
+
+    model = generators.random_cluster(7, generators.ClusterProperty(
+        num_racks=7, num_brokers=70, num_topics=20, mean_partitions_per_topic=10.0,
+        replication_factor=2, num_dead_brokers=1))
+    pl = model.part_load.clone()
+    pl[model.topic_id == 3] *= 4.0
+    st = model.broker_state.clone()
+    st[5] = 3
+    a = model.assignment
+    fresh = model._replace(
+        assignment=torch.cat([a, torch.tensor([[0, 1], [2, 3]], dtype=a.dtype)]),
+        part_load=torch.cat([pl, torch.full((2, pl.shape[1]), 0.03)]),
+        topic_id=torch.cat([model.topic_id, torch.tensor([4, 4], dtype=torch.int32)]),
+        broker_state=st)
+    out = []
+    for d in ("cpu", "cuda"):
+        o = opt.GoalOptimizer(settings=opt.SERVICE_SETTINGS, device=d)
+        full = o.optimizations(model, None, raise_on_hard_failure=False)
+        lane = inc.IncrementalLane(o)
+        assert lane.arm(model, OptimizationOptions(), [g.name for g in full.goal_results], 1)
+        kernels.reset_launches()
+        prop_ = lane.propose(fresh, 2)
+        assert prop_.ok, prop_.fallback_reason
+        if d == "cuda":
+            assert kernels.launches()["delta_scatter"] == 1
+        out.append((full, prop_.result))
+    for cpu_res, gpu_res in zip(*out):
+        names = [g.name for g in cpu_res.goal_results]
+        assert np.array_equal(cpu_res.final_assignment, gpu_res.final_assignment)
+        assert np.array_equal(cpu_res.touch_tag, gpu_res.touch_tag)
+        assert cpu_res.provenance.digest(goals=names) == gpu_res.provenance.digest(goals=names)
+        assert cpu_res.bucketed == gpu_res.bucketed

@@ -15,8 +15,8 @@ against the JAX package's chunked polish run, on fixture C (32 brokers,
   (on fixture C no polish phase needs more than 5 rounds).
 - The JAX package's fused polish program traces every goal twice; its
   comparison is in the slow lane.
-- check_supported still refuses shape bucketing and options, and no longer
-  refuses the grid or the polish pass.
+- check_supported still refuses options, and no longer refuses the grid,
+  the polish pass or shape bucketing.
 """
 
 import dataclasses
@@ -186,9 +186,13 @@ def test_fused_polish_run_equals_jax_fused_run():
     dict(bucket_partitions=True), dict(bucket_brokers=True),
 ])
 def test_bucketing_is_still_refused(settings):
-    with pytest.raises(NotImplementedError, match="bucketing"):
-        topt.check_supported([], dataclasses.replace(topt.BENCH_SETTINGS, **settings),
-                             OptimizationOptions())
+    """Bucketing was refused until the slice that ported it
+    (tests/test_torch_bucketing.py): the bench's settings with it pass, and
+    with an option other than the defaults the refusal names the option."""
+    bucketed = dataclasses.replace(topt.BENCH_SETTINGS, **settings)
+    topt.check_supported([], bucketed, OptimizationOptions())
+    with pytest.raises(NotImplementedError, match="only_move_immigrants"):
+        topt.check_supported([], bucketed, OptimizationOptions(only_move_immigrants=True))
 
 
 def test_options_are_still_refused():

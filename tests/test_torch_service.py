@@ -1,5 +1,5 @@
 """The service's proposal path: the port's chunked goal machine with the
-provenance ledger and the cluster statistics (`SERVICE_SETTINGS`) against
+provenance ledger and the cluster statistics (`SERVICE_EXACT_SETTINGS`) against
 the JAX package's chunked ledger run of the same settings, on fixture C
 (32 brokers in 4 racks, 80 topics, 766 partitions at RF 3, pareto load,
 2 dead brokers), at chunk budgets of 32 and 3 rounds (with 3, goals pause
@@ -53,7 +53,7 @@ FIXTURE_C = jgen.ClusterProperty(num_racks=4, num_brokers=32, num_topics=80,
                                  mean_partitions_per_topic=10, replication_factor=3,
                                  num_dead_brokers=2, load_distribution="pareto",
                                  mean_utilization=0.5)
-#: the JAX side of SERVICE_SETTINGS (with another batch_k=1 grid width,
+#: the JAX side of SERVICE_EXACT_SETTINGS (with another batch_k=1 grid width,
 #: num_dst_candidates, which batch_k = 16 never reads)
 JAX_SERVICE = dict(batch_k=16, max_rounds_per_goal=64, drain_src=512, drain_per_broker=8,
                    drain_dst=64, apply_waves=8, bulk_waves=16, bulk_min_brokers=32,
@@ -101,7 +101,8 @@ def runs():
         seen = _capturing(jo)
         jres = jo.optimizations(_model(), None, raise_on_hard_failure=False)
         jagg, jmetrics = seen[0][0], jax.device_get(seen[0][1])
-        tres, tmetrics = _port_run(dataclasses.replace(topt.SERVICE_SETTINGS, chunk_rounds=chunk))
+        tres, tmetrics = _port_run(dataclasses.replace(topt.SERVICE_EXACT_SETTINGS,
+                                                       chunk_rounds=chunk))
         out[chunk] = (jres, jmetrics, np.asarray(jax.device_get(jagg.touch_tag)), tres, tmetrics)
     out["fused"] = _port_run(dataclasses.replace(topt.STACK_SETTINGS, ledger=True))[0]
     return out
@@ -112,9 +113,14 @@ def _all_goals(res):
 
 
 def test_service_settings_are_the_service_defaults_but_bucketing():
-    s = topt.SERVICE_SETTINGS
+    """SERVICE_EXACT_SETTINGS are the service defaults but bucketing;
+    SERVICE_SETTINGS, the service's own, add it (tests/test_torch_bucketing.py
+    holds the bucketed run)."""
+    s = topt.SERVICE_EXACT_SETTINGS
     assert (s.chunk_rounds, s.ledger, s.polish_rounds, s.batch_k) == (32, True, 0, 16)
     assert not s.bucket_partitions and not s.bucket_brokers
+    assert topt.SERVICE_SETTINGS == dataclasses.replace(s, bucket_partitions=True,
+                                                        bucket_brokers=True)
     assert dataclasses.replace(s, chunk_rounds=0, ledger=False) == topt.STACK_SETTINGS
     for k, v in JAX_SERVICE.items():
         if k != "num_dst_candidates":
@@ -190,7 +196,7 @@ def test_chunked_run_equals_fused_run(runs):
 
 
 def test_hard_goal_subset_through_the_machine_equals_its_fused_run():
-    machine, _ = _port_run(topt.SERVICE_SETTINGS, HARD_GOAL_NAMES)
+    machine, _ = _port_run(topt.SERVICE_EXACT_SETTINGS, HARD_GOAL_NAMES)
     fused, _ = _port_run(dataclasses.replace(topt.STACK_SETTINGS, ledger=True), HARD_GOAL_NAMES)
     assert [g.name for g in machine.goal_results] == list(HARD_GOAL_NAMES)
     assert np.array_equal(machine.final_assignment, fused.final_assignment)
@@ -235,10 +241,18 @@ def test_the_fused_run_keeps_its_ledger_off_by_default():
 
 @pytest.mark.parametrize("field,value", [("bucket_partitions", True), ("bucket_brokers", True)])
 def test_what_the_slice_leaves_out_is_refused(field, value):
-    # the polish pass and the batch_k=1 grid are ported since
-    # (tests/test_torch_polish.py, tests/test_torch_grid.py)
-    with pytest.raises(NotImplementedError):
-        _port_run(dataclasses.replace(topt.SERVICE_SETTINGS, **{field: value}))
+    """Shape bucketing is ported (tests/test_torch_bucketing.py), as are the
+    polish pass and the batch_k=1 grid (tests/test_torch_polish.py,
+    tests/test_torch_grid.py); an option other than the defaults, also under
+    bucketing, is still refused."""
+    from cruise_control_torch.analyzer.context import OptimizationOptions
+
+    settings = dataclasses.replace(topt.SERVICE_EXACT_SETTINGS, **{field: value})
+    topt.check_supported(topt.goals_by_priority(None), settings, OptimizationOptions())
+    tmodel = from_numpy({k: np.asarray(v) for k, v in _model()._asdict().items()})
+    with pytest.raises(NotImplementedError, match="item 4"):
+        topt.GoalOptimizer(settings=settings, device="cpu").optimizations(
+            tmodel, None, OptimizationOptions(only_move_immigrants=True))
 
 
 @pytest.mark.slow
@@ -247,12 +261,16 @@ def test_chip_smoke_jax_references_are_current():
     of the smoke recipe (2,600 brokers, 199,518 partitions; minutes and a few
     GB of memory), of BASELINE config 5 under the bench's batched settings and
     of the bench's config-5 parity model under its greedy and batched
-    settings (bench.py:215-248, shape bucketing off): each solve's decision
-    digest, per-goal move counts, final assignment hash and goal rows."""
+    settings (bench.py:215-248), each at the exact shape and, for the service
+    and the bench, bucketed; then the JAX lane armed on the bucketed service
+    solve and its two proposals (chip_smoke.lane_perturbations): each solve's
+    decision digest, per-goal move counts, final assignment hash and goal
+    rows, and the bucketed service solve's bucket record."""
     import hashlib
 
     sys.path.insert(0, str(REPO))
     import chip_smoke
+    from cruise_control_tpu.analyzer import incremental as jinc
     from cruise_control_tpu.analyzer.goals import HARD_GOAL_NAMES as JHARD
 
     prop = dataclasses.replace(jgen.BASELINE_CONFIGS[5], num_dead_brokers=26,
@@ -264,6 +282,7 @@ def test_chip_smoke_jax_references_are_current():
         replication_factor=3, load_distribution="exponential"))
     grid = dict(num_dst_candidates=16, num_swap_pairs=16, swap_candidates=16, swaps_per_broker=4,
                 bucket_partitions=False, bucket_brokers=False)
+    bucketed = dict(bucket_partitions=True, bucket_brokers=True)
     bench = dict(grid, batch_k=1024, max_rounds_per_goal=128, chunk_rounds=16, polish_rounds=48)
     greedy = dict(grid, batch_k=1, max_rounds_per_goal=512, chunk_rounds=64,
                   cost_scaled_rounds=1.5, rounds_ceiling=4096)
@@ -277,10 +296,15 @@ def test_chip_smoke_jax_references_are_current():
                "parity greedy": (parity_model, greedy, None,
                                  chip_smoke.JAX_CPU_PARITY_GREEDY_REFERENCE),
                "parity batched": (parity_model, bench, None,
-                                  chip_smoke.JAX_CPU_PARITY_BATCHED_REFERENCE)}
-    for label, (m, settings, names, ref) in recipes.items():
-        res = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(**settings)).optimizations(
-            m, names, raise_on_hard_failure=False)
+                                  chip_smoke.JAX_CPU_PARITY_BATCHED_REFERENCE),
+               # the service's and bench.py's defaults, shape bucketing on:
+               # JAX decides otherwise than at the exact shape on both models
+               "service bucketed": (model, dict(base, chunk_rounds=32, **bucketed), None,
+                                    chip_smoke.JAX_CPU_SERVICE_BUCKETED_REFERENCE),
+               "bench bucketed": (bench_model, dict(bench, **bucketed), None,
+                                  chip_smoke.JAX_CPU_BENCH_BUCKETED_REFERENCE)}
+
+    def check(label, res, ref):
         goals = [g.name for g in res.goal_results]
         dg = res.provenance.digest(goals=goals)
         sha = hashlib.sha256(np.ascontiguousarray(res.final_assignment, dtype=np.int32)
@@ -289,11 +313,24 @@ def test_chip_smoke_jax_references_are_current():
         for g in res.goal_results:
             assert (g.violated_brokers_before, g.violated_brokers_after, g.rounds,
                     g.converged) == ref[g.name][:4], (label, g.name)
-    # bench.py's default, shape bucketing on, decides otherwise on config 5
-    res = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(**dict(
-        bench, bucket_partitions=True, bucket_brokers=True))).optimizations(
-        bench_model, None, raise_on_hard_failure=False)
-    dg = res.provenance.digest(goals=[g.name for g in res.goal_results])
-    sha = hashlib.sha256(np.ascontiguousarray(res.final_assignment, dtype=np.int32)
-                         .tobytes()).hexdigest()
-    assert (dg["checksum"], sha) == chip_smoke.JAX_CPU_BENCH_BUCKETED
+
+    for label, (m, settings, names, ref) in recipes.items():
+        # `_run_chunked`'s call schedule follows the clock, and can move
+        # decisions (ROADMAP.md Queue 3): every recipe runs chip_smoke's pinned
+        # schedule
+        opt = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(
+            **settings, chunk_target_s=chip_smoke.PINNED_TARGET_S))
+        res = opt.optimizations(m, names, raise_on_hard_failure=False)
+        check(label, res, ref)
+        if label == "service bucketed":
+            assert res.bucketed == chip_smoke.JAX_CPU_SERVICE_BUCKETED_BLOCK
+            service_opt, goals = opt, [g.name for g in res.goal_results]
+    lane = jinc.IncrementalLane(service_opt)
+    assert lane.arm(model, jopt.OptimizationOptions(), goals, generation=1)
+    lane_a, lane_b = chip_smoke.lane_perturbations(
+        {k: np.asarray(v) for k, v in model._asdict().items()})
+    for label, fields, gen, ref in (("lane a", lane_a, 2, chip_smoke.JAX_CPU_LANE_A_REFERENCE),
+                                    ("lane b", lane_b, 3, chip_smoke.JAX_CPU_LANE_B_REFERENCE)):
+        out = lane.propose(model._replace(**fields), generation=gen)
+        assert out.ok and list(out.affected) == goals, (label, out.fallback_reason)
+        check(label, out.result, ref)

@@ -138,12 +138,11 @@ def test_raise_on_hard_failure_matches(runs):
 
 
 @pytest.mark.parametrize("change, item", [
-    # the batch_k=1 grid and the polish pass are ported
-    # (tests/test_torch_grid.py, tests/test_torch_polish.py); shape
-    # bucketing, also with them, is still refused
+    # the batch_k=1 grid, the polish pass, the chunked machine, the ledger
+    # and shape bucketing are ported (tests/test_torch_grid.py,
+    # _polish.py, _service.py, _bucketing.py); an option other than the
+    # defaults, also with them, is still refused
     (dict(batch_k=1, bucket_brokers=True), "item 4"),
-    # the chunked machine and the ledger are ported (tests/test_torch_service.py);
-    # shape bucketing, also with them, is still refused
     (dict(bucket_brokers=True), "item 4"),
     (dict(bucket_partitions=True), "item 4"),
     (dict(polish_rounds=4, bucket_partitions=True), "item 4"),
@@ -152,11 +151,15 @@ def test_raise_on_hard_failure_matches(runs):
     (dict(bulk_waves=16, bulk_min_brokers=2, batch_k=1, bucket_brokers=True), "item 4"),
 ])
 def test_settings_outside_the_slice_are_refused(change, item):
+    from cruise_control_torch.analyzer.context import OptimizationOptions
+
     tmodel = from_numpy({k: np.asarray(v) for k, v in jgen.rack_aware_violated()._asdict().items()})
     settings = topt.OptimizerSettings(**{**SLICE, **change})
+    goals = ["RackAwareGoal", "ReplicaCapacityGoal"]
+    topt.check_supported(topt.goals_by_priority(goals), settings, OptimizationOptions())
     with pytest.raises(NotImplementedError, match=item):
         topt.GoalOptimizer(settings=settings, device="cpu").optimizations(
-            tmodel, ["RackAwareGoal", "ReplicaCapacityGoal"])
+            tmodel, goals, OptimizationOptions(is_triggered_by_goal_violation=True))
 
 
 def test_soft_goals_resolve_but_are_refused():
@@ -164,7 +167,7 @@ def test_soft_goals_resolve_but_are_refused():
     soft goal still resolves by name and is refused."""
     tmodel = from_numpy({k: np.asarray(v) for k, v in jgen.unbalanced()._asdict().items()})
     name = "KafkaAssignerDiskUsageDistributionGoal"
-    with pytest.raises(NotImplementedError, match=f"{name} .*item 4"):
+    with pytest.raises(NotImplementedError, match=f"{name} .*item 6"):
         topt.GoalOptimizer(device="cpu").optimizations(tmodel, [name])
 
 
