@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the eleven CUDA kernels from cruise_control_torch/csrc,
+  2. build: compile the twelve CUDA kernels from cruise_control_torch/csrc,
      one nvcc per source, all at once;
   3. kernels: run each kernel on the card at the shapes the solves give it,
      on the smoke model's own state, and hold it against its plain PyTorch
@@ -28,7 +28,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        followed by torch.argmax) and K10 delta_scatter (a 64-row batch of
        broker state changes, load spikes and partition adds, NOOP rows
        included, into the smoke model's bucketed context, 212,992 partitions
-       by 3,072 brokers);
+       by 3,072 brokers), K3 and K9 with goal case 15
+       (KafkaAssignerEvenRackAwareGoal) and with the only_move_immigrants
+       flag set, and K11 elect_preferred (the smoke model's 199,518 rows with
+       the demote phase's 26 demoted brokers and its 26 dead ones);
   4. hard goals: the self-healing proposal of the six hard goals through
      GoalOptimizer(device="cuda", settings=SLICE_SETTINGS + ledger);
   5. stack: the full 15-goal rebalance proposal through the fused stack,
@@ -60,6 +63,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      on the card, with no move on the goals left out, and the armed prep
      entry must be unchanged after both. The lane's wall time is printed
      beside the scratch solve's.
+ 13-17. the options, each a JAX facade flow on the smoke model under
+     SERVICE_SETTINGS (option_recipes): 13 self-healing (goal-violation
+     options, the multiplier at 2.5), 14 decommission (26 more brokers dead,
+     only immigrants move, 100 topics excluded), 15 demote (26 brokers
+     demoted and excluded from leadership, LeaderReplicaDistributionGoal,
+     then K11 on the initial and the final assignment, each output's
+     SHA-256 held to JAX's), 16 destinations (26 NEW brokers the only
+     destinations, 26 others excluded from replica moves), 17 kafka-assigner
+     (the two kafka-assigner goals; K3's case 15 must launch). Replicas of
+     excluded partitions may stay on dead brokers.
   Around each solve every kernel's launch count is set to 0 and read after;
   each kernel of the solve's path must have launched, and the result must
   hold: no replica left on a dead broker, no goal worse than before,
@@ -75,7 +88,7 @@ The smoke model is BASELINE config 5's cluster (2,600 brokers, 52 racks,
 4,000 topics, ~200k partitions at RF 3) with config 3's pareto load at mean
 utilisation 0.5 and 26 dead brokers, from seed 42.
 
-Phases 4-11 are held to the JAX package's runs of the same mode: JAX's
+Phases 4-17 are held to the JAX package's runs of the same mode: JAX's
 bucketed and exact runs differ on config 5 and on the smoke model. Every
 chunked solve, here and in the JAX references, runs one pinned call
 schedule (PINNED_TARGET_S).
@@ -353,6 +366,115 @@ JAX_CPU_DIGESTS["lane b"] = (
     },
     "f34bf71fa6a72713ec7edb9cd332d84a68e46dbc0854c4a574d408e2480980d6")
 JAX_CPU_LANE_B_MOVES = {"replica": 48901, "leadership": 20175}
+#: the option phases (13-17): JAX's CPU runs of option_recipes under the
+#: pinned SERVICE_SETTINGS: each goal's row, the moves, the decision digest
+#: with per-goal move counts and the final assignment's SHA-256
+JAX_CPU_OPTION_REFERENCE = {
+    "self-healing": {
+        "RackAwareGoal": (0, 0, 37, True, 0, 0),
+        "ReplicaCapacityGoal": (0, 0, 1, True, 0, 0),
+        "DiskCapacityGoal": (108, 30, 40, True, 5.69e+07, 3.202e+07),
+        "NetworkInboundCapacityGoal": (143, 28, 64, False, 6.852e+06, 3.834e+06),
+        "NetworkOutboundCapacityGoal": (11, 8, 13, True, 1.791e+06, 1.659e+06),
+        "CpuCapacityGoal": (144, 42, 64, False, 1.225e+04, 5751),
+        "ReplicaDistributionGoal": (126, 97, 9, True, 1.465e+04, 1.44e+04),
+        "PotentialNwOutGoal": (135, 41, 64, False, 7.65e+06, 5.414e+06),
+        "DiskUsageDistributionGoal": (771, 91, 64, False, 96.02, 57.38),
+        "NetworkInboundUsageDistributionGoal": (744, 129, 64, False, 103.8, 67.34),
+        "NetworkOutboundUsageDistributionGoal": (1407, 174, 64, False, 91.43, 41.6),
+        "CpuUsageDistributionGoal": (837, 161, 64, False, 106, 62.7),
+        "TopicReplicaDistributionGoal": (2493, 94, 64, False, 1.776e+04, 267),
+        "LeaderReplicaDistributionGoal": (480, 250, 25, True, 1.348e+04, 1.227e+04),
+        "LeaderBytesInDistributionGoal": (483, 149, 53, True, 5.575e+06, 3.691e+06),
+    },
+    "decommission": {
+        "RackAwareGoal": (0, 0, 38, True, 0, 0),
+        "ReplicaCapacityGoal": (0, 0, 1, True, 0, 0),
+        "DiskCapacityGoal": (108, 108, 1, True, 5.67e+07, 5.67e+07),
+        "NetworkInboundCapacityGoal": (136, 136, 1, True, 6.722e+06, 6.722e+06),
+        "NetworkOutboundCapacityGoal": (11, 11, 1, True, 1.797e+06, 1.797e+06),
+        "CpuCapacityGoal": (138, 138, 1, True, 1.192e+04, 1.192e+04),
+        "ReplicaDistributionGoal": (423, 423, 1, True, 3837, 3837),
+        "PotentialNwOutGoal": (131, 131, 1, True, 7.536e+06, 7.536e+06),
+        "DiskUsageDistributionGoal": (1861, 1861, 1, True, 207.2, 207.2),
+        "NetworkInboundUsageDistributionGoal": (1825, 1825, 1, True, 215.1, 215.1),
+        "NetworkOutboundUsageDistributionGoal": (2136, 2136, 1, True, 125.8, 125.8),
+        "CpuUsageDistributionGoal": (1838, 1838, 1, True, 211.7, 211.7),
+        "TopicReplicaDistributionGoal": (2547, 2547, 8, True, 1.727e+04, 1.727e+04),
+        "LeaderReplicaDistributionGoal": (975, 975, 8, True, 5334, 5334),
+        "LeaderBytesInDistributionGoal": (573, 573, 8, True, 6.696e+06, 6.696e+06),
+    },
+    "demote": {
+        "LeaderReplicaDistributionGoal": (952, 0, 37, True, 5118, 0),
+    },
+    "destinations": {
+        "RackAwareGoal": (0, 0, 54, True, 0, 0),
+        "ReplicaCapacityGoal": (0, 0, 1, True, 0, 0),
+        "DiskCapacityGoal": (128, 126, 2, True, 6.189e+07, 6.185e+07),
+        "NetworkInboundCapacityGoal": (157, 157, 2, True, 7.15e+06, 7.137e+06),
+        "NetworkOutboundCapacityGoal": (11, 8, 22, True, 1.806e+06, 1.66e+06),
+        "CpuCapacityGoal": (160, 83, 31, True, 1.288e+04, 9448),
+        "ReplicaDistributionGoal": (452, 452, 1, True, 8274, 8274),
+        "PotentialNwOutGoal": (142, 142, 1, True, 7.841e+06, 7.841e+06),
+        "DiskUsageDistributionGoal": (1968, 1968, 1, True, 234.6, 234.6),
+        "NetworkInboundUsageDistributionGoal": (1953, 1953, 2, True, 240.5, 240.5),
+        "NetworkOutboundUsageDistributionGoal": (2142, 207, 46, True, 133.5, 48.72),
+        "CpuUsageDistributionGoal": (1956, 1393, 32, True, 223.7, 162.2),
+        "TopicReplicaDistributionGoal": (2572, 2572, 8, True, 1.721e+04, 1.721e+04),
+        "LeaderReplicaDistributionGoal": (1607, 1582, 19, True, 2.744e+04, 2.678e+04),
+        "LeaderBytesInDistributionGoal": (723, 723, 19, True, 7.747e+06, 7.739e+06),
+    },
+    "kafka-assigner": {
+        "KafkaAssignerEvenRackAwareGoal": (2433, 350, 54, True, 3.044e+04, 532),
+        "KafkaAssignerDiskUsageDistributionGoal": (1948, 1313, 64, False, 220.6, 124.9),
+    },
+}
+JAX_CPU_OPTION_MOVES = {
+    "self-healing": {"replica": 54257, "leadership": 10868},
+    "decommission": {"replica": 11709, "leadership": 0},
+    "demote": {"replica": 7952, "leadership": 376},
+    "destinations": {"replica": 6016, "leadership": 31499},
+    "kafka-assigner": {"replica": 20115, "leadership": 0},
+}
+JAX_CPU_DIGESTS["self-healing"] = (
+    "0b8f866932149477", {
+        "RackAwareGoal": 6006, "DiskCapacityGoal": 7813, "NetworkInboundCapacityGoal": 6941,
+        "NetworkOutboundCapacityGoal": 992, "CpuCapacityGoal": 11225,
+        "ReplicaDistributionGoal": 249, "PotentialNwOutGoal": 1469,
+        "DiskUsageDistributionGoal": 2477, "NetworkInboundUsageDistributionGoal": 2354,
+        "NetworkOutboundUsageDistributionGoal": 17998, "CpuUsageDistributionGoal": 5701,
+        "TopicReplicaDistributionGoal": 17742, "LeaderReplicaDistributionGoal": 2158,
+        "LeaderBytesInDistributionGoal": 4793,
+    },
+    "6bfeee8582bac7e7eff44c33732ee3b856ae0926e438d3292e6ae6e72d2e53b8")
+JAX_CPU_DIGESTS["decommission"] = (
+    "6602e47d3f7c3723", {
+        "RackAwareGoal": 11709,
+    },
+    "c49b1a171f8ea3bd48c827b5687b871bbf7c4b2f7ab6da9e26c01005e4403502")
+JAX_CPU_DIGESTS["demote"] = (
+    "c0acc01fcacbf536", {
+        "LeaderReplicaDistributionGoal": 8711,
+    },
+    "b465ee127bcae76116c264c109211f2a95cebbfee30be7009c1ff4b0dae949ac")
+JAX_CPU_DIGESTS["destinations"] = (
+    "8ced8bc115318c3d", {
+        "RackAwareGoal": 6006, "DiskCapacityGoal": 3, "NetworkInboundCapacityGoal": 3,
+        "NetworkOutboundCapacityGoal": 1380, "CpuCapacityGoal": 15402,
+        "NetworkInboundUsageDistributionGoal": 2, "NetworkOutboundUsageDistributionGoal": 29069,
+        "CpuUsageDistributionGoal": 21430, "LeaderReplicaDistributionGoal": 1268,
+        "LeaderBytesInDistributionGoal": 52,
+    },
+    "b7af77753a1d8ac438e8a9014421056a57ab7fcb8f32298be9bff3bee1d69efd")
+JAX_CPU_DIGESTS["kafka-assigner"] = (
+    "bd5a0e7c80733647", {
+        "KafkaAssignerEvenRackAwareGoal": 18374, "KafkaAssignerDiskUsageDistributionGoal": 1844,
+    },
+    "b13cbc19d0b02545f331968060b38218a1d8b3f5ef81b2e6ad4a95b005c9049e")
+#: K11 in the demote phase: the SHA-256 of JAX's elect_preferred_leaders
+#: of the demoted model's initial and final assignments
+JAX_CPU_K11_SHA256 = {"initial": "796f7442ade0f78ec4b88d3e030d73a9b31bd911643f13623e79f6312f8df3b0",
+                      "final": "e8db5ea8b9a078bd47b4d7f2f9ffe555a2ac7fefd202061d7a2a5fec47b30a6b"}
 #: the kernels of each solve's path
 HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
              "window_sum", "state_fingerprint", "cluster_stats")
@@ -363,10 +485,22 @@ BENCH_PATH = HARD_PATH + ("pair_picks",)
 GREEDY_PATH = BENCH_PATH + ("grid_shortlist",)
 #: the lane's proposals: a full-stack re-solve after K10's scatter
 LANE_PATH = STACK_PATH + ("delta_scatter",)
+#: the option phases' paths: every machine solve's kernels; the swaps (K5)
+#: where the usage goals run with moves (self-healing, destinations,
+#: kafka-assigner); K11 in the demote phase
+_MACHINE_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
+                 "state_fingerprint", "cluster_stats")
+OPTION_PATH = {
+    "self-healing": _MACHINE_PATH + ("window_sum", "score_swaps"),
+    "decommission": _MACHINE_PATH + ("window_sum",),
+    "demote": _MACHINE_PATH + ("elect_preferred",),
+    "destinations": _MACHINE_PATH + ("window_sum", "score_swaps"),
+    "kafka-assigner": _MACHINE_PATH + ("window_sum", "score_swaps"),
+}
 #: the kernels of the JSON line, in the order of build.KERNEL_SOURCES
 ALL_KERNELS = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
                "score_swaps", "pair_picks", "window_sum", "state_fingerprint", "cluster_stats",
-               "grid_shortlist", "delta_scatter")
+               "grid_shortlist", "delta_scatter", "elect_preferred")
 #: partitions the lane phase's first proposal adds (inside the bucket)
 LANE_ADDS = 8
 #: `_run_chunked`'s target wall time per machine call in every solve:
@@ -410,6 +544,61 @@ def lane_perturbations(fields: dict):
     state_b = state.copy()
     state_b[victim] = 3
     return model_a, dict(model_a, broker_state=state_b)
+
+
+#: the kafka-assigner request of the option phases
+KAFKA_ASSIGNER_NAMES = ("KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal")
+#: the self-healing phase's goal.violation.distribution.threshold.multiplier
+SELF_HEALING_MULTIPLIER = 2.5
+#: the decommission phase's excluded topics: topic-100 .. topic-199
+DECOMMISSION_TOPIC_PATTERN = r"topic-1\d\d"
+
+
+def option_recipes(fields: dict):
+    """The option phases' recipes on the smoke model, each a JAX facade flow:
+    {label: (model fields, goal names or None, OptimizationOptions keyword
+    arguments, threshold multiplier)}. `fields` are the smoke model's numpy
+    fields. The broker groups are every 100th alive broker from four
+    offsets (26 brokers each):
+      self-healing  rebalance(options=is_triggered_by_goal_violation), the
+                    constraint's multiplier at SELF_HEALING_MULTIPLIER;
+      decommission  the offset-0 group marked DEAD, only_move_immigrants, the
+                    topics matching DECOMMISSION_TOPIC_PATTERN excluded;
+      demote        the offset-50 group marked DEMOTED and excluded from
+                    leadership, LeaderReplicaDistributionGoal alone;
+      destinations  the offset-25 group marked NEW and named as the only
+                    destinations, the offset-10 group excluded from replica
+                    moves;
+      kafka-assigner the two kafka-assigner goals, default options.
+    The masks are numpy bool arrays; the symbolic fields (the topic pattern,
+    the destination ids) are resolved by `resolve_options`."""
+    state = fields["broker_state"]
+    alive = np.nonzero(state != 3)[0]
+    group = {k: alive[k::100][:26] for k in (0, 10, 25, 50)}
+
+    def mask(ids):
+        m = np.zeros(state.shape[0], dtype=bool)
+        m[ids] = True
+        return m
+
+    def with_state(ids, value):
+        s = state.copy()
+        s[ids] = value
+        return dict(fields, broker_state=s)
+
+    return {
+        "self-healing": (fields, None, dict(is_triggered_by_goal_violation=True),
+                         SELF_HEALING_MULTIPLIER),
+        "decommission": (with_state(group[0], 3), None,
+                         dict(only_move_immigrants=True,
+                              excluded_topic_pattern=DECOMMISSION_TOPIC_PATTERN), 1.0),
+        "demote": (with_state(group[50], 2), ("LeaderReplicaDistributionGoal",),
+                   dict(excluded_brokers_for_leadership=mask(group[50])), 1.0),
+        "destinations": (with_state(group[25], 1), None,
+                         dict(destination_broker_ids=tuple(int(b) for b in group[25]),
+                              excluded_brokers_for_replica_move=mask(group[10])), 1.0),
+        "kafka-assigner": (fields, KAFKA_ASSIGNER_NAMES, {}, 1.0),
+    }
 
 
 def fail(msg: str):
@@ -527,7 +716,11 @@ def main() -> int:
         select_surplus_pairs,
         top_k,
     )
-    from cruise_control_torch.analyzer.goals import HARD_GOAL_NAMES, goals_by_priority
+    from cruise_control_torch.analyzer.goals import (
+        HARD_GOAL_NAMES,
+        elect_preferred_leaders,
+        goals_by_priority,
+    )
     from cruise_control_torch.analyzer.swaps import swap_grid
     from cruise_control_torch.config.balancing import BalancingConstraint
     from cruise_control_torch.kernels import build
@@ -618,6 +811,7 @@ def main() -> int:
     # then NOOP rows.
     from cruise_control_torch.analyzer import incremental as inc
     from cruise_control_torch.kernels.delta_scatter import delta_scatter, delta_scatter_plain
+    from cruise_control_torch.kernels.elect_preferred import elect_preferred, elect_preferred_plain
 
     state_np = model_cpu.broker_state.numpy()
     alive_np, dead_np = np.nonzero(state_np == 0)[0], np.nonzero(state_np == 3)[0]
@@ -696,9 +890,12 @@ def main() -> int:
     by_name = {g.name: g for g in goals}
     disk_goal, cpu_goal = by_name["DiskCapacityGoal"], by_name["CpuCapacityGoal"]
 
+    ka_goals = goals_by_priority(KAFKA_ASSIGNER_NAMES)
+
     def priors(goal, st, agg):
-        """The merged tables of the goals before `goal` in the stack."""
-        return build_tables(goals[:goals.index(goal)], st, agg, dims)
+        """The merged tables of the goals before `goal` in its stack."""
+        stack = goals if goal in goals else ka_goals
+        return build_tables(stack[:stack.index(goal)], st, agg, dims)
 
     def drain_contrib(goal, st, agg):
         gs = goal.prepare(st, agg, dims)
@@ -1152,7 +1349,90 @@ def main() -> int:
               f"{rw['k3_argmax_ms']:.4f} ms, bound {rw['bound_ms']:.6f} ms by {rw['bound_by']}")
         if key != "grid_shortlist":
             rows.pop(key)
+    # K3 and K9 with goal case 15 (KafkaAssignerEvenRackAwareGoal, its
+    # [512, 8, 64] drain grid and its greedy grid) and with the
+    # only_move_immigrants flag set (the hard goal's grids), each bit-equal to
+    # its plain version on the smoke model's state, and timed
+    ka_even = ka_goals[0]
+    imm_g = st_g._replace(only_move_immigrants=torch.tensor(True, device=dev))
+    imm_c = st_c._replace(only_move_immigrants=torch.tensor(True))
+    for kname, label, make, sg, sc in (
+            ("K3", "case 15", lambda st, agg: drain_grid(ka_even, st, agg), st_g, st_c),
+            ("K3", "immigrant flag", lambda st, agg: drain_grid(disk_goal, st, agg), imm_g, imm_c),
+            ("K9", "case 15", lambda st, agg: grid_args(ka_even, st, agg), st_g, st_c),
+            ("K9", "immigrant flag", lambda st, agg: grid_args(disk_goal, st, agg), imm_g,
+             imm_c)):
+        args_g, args_c = make(sg, agg_g), make(sc, agg_c)
+        if kname == "K3":
+            fn, plain_fn, key = score_candidates, score_candidates_plain, "score_candidates"
+            out_g, out_c = fn(*args_g).cpu(), plain_fn(*args_c)
+            fin = torch.isfinite(out_c)
+            if not torch.equal(torch.isfinite(out_g), fin) or not bits_equal(out_g[fin], out_c[fin]):
+                fail(f"K3 score_candidates ({label}): differs from the plain version")
+            idx = args_c[5:]
+            parts = torch.unique(idx[0].expand(out_c.shape).reshape(-1)).numel()
+            nbytes = (sum(t.numel() * 4 for t in idx if t.dim()) + out_c.numel() * 4
+                      + parts * (r * 4 + 24 + 4 + 8) + min(dims.num_brokers, 512 + 64) * 168)
+            cells, err = out_c.numel(), max_abs_err(out_g, out_c)
+            what = f"{int(fin.sum())} finite of {cells}"
+            src = "score_candidates.cu"
+            replaces = "cruise_control_tpu/analyzer/acceptance.py:330"
+        else:
+            fn, plain_fn, key = grid_shortlist, grid_shortlist_plain, "grid_shortlist"
+            out_g, out_c = fn(*args_g), plain_fn(*args_c)
+            for n_, a_, b_ in zip(("score", "p", "kind", "slot", "dst"), out_g, out_c):
+                if not bits_equal(a_, b_):
+                    fail(f"K9 grid_shortlist ({label}): {n_} differs from the plain version")
+            kk = args_c[5].shape[0]
+            cells = p_count * r * kk
+            nbytes = (p_count * (r * 4 + 24 + 4 + 1 + 2 * (kk + r) * 4) + dims.num_brokers * 168
+                      + 20)
+            err = max(max_abs_err(a_, b_) for a_, b_ in zip(out_g, out_c))
+            what = (f"p {int(out_c[1])} kind {int(out_c[2])} slot {int(out_c[3])} score "
+                    f"{float(out_c[0]):.6g}")
+            src = "grid_shortlist.cu"
+            replaces = "cruise_control_tpu/analyzer/optimizer.py:357"
+        if kname == "K3" and label == "immigrant flag":
+            p_, sl_ = (t.expand(out_c.shape).long() for t in (args_c[5], args_c[7]))
+            if not bool(sc.dead[agg_c.assignment[p_, sl_][fin].long()].all()):
+                fail("K3 score_candidates (immigrant flag): a finite cell's source is alive")
+        rw = row(f"{key} {label}", src, replaces, err, lambda i, a=args_g, f=fn: f(*a),
+                 lambda i, a=args_g, f=plain_fn: f(*a), nbytes, 100 * cells,
+                 f"{kname} with {label}, {cells} cells")
+        rows.pop(f"{key} {label}")
+        print(f"{kname} {key} with {label}: {what}, bit-equal to the plain version; "
+              f"{rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per call, plain "
+              f"{rw['plain_ms']:.4f} ms, bound {rw['bound_ms']:.6f} ms by {rw['bound_by']}")
     del agg_g, agg_c
+
+    # K11 on the demote phase's model: the smoke model with 26 brokers demoted
+    # (option_recipes), its 26 dead brokers, every partition's row
+    demote_fields = option_recipes({k: v.numpy() for k, v in model_cpu._asdict().items()})[
+        "demote"][0]
+    m11_c = from_numpy(demote_fields)
+    m11_g = m11_c.to(dev)
+    st11_c, st11_g = build_static_ctx(m11_c, constraint, dims), build_static_ctx(m11_g, constraint,
+                                                                                dims)
+    o11_g = elect_preferred(m11_g.assignment, st11_g.demoted, st11_g.dead)
+    torch.cuda.synchronize()
+    o11_c = elect_preferred_plain(m11_c.assignment, st11_c.demoted, st11_c.dead)
+    if not bits_equal(o11_g, o11_c):
+        fail("K11 elect_preferred: differs from the plain version")
+    if not torch.equal(m11_g.assignment.cpu(), m11_c.assignment):
+        fail("K11 elect_preferred: the input assignment changed")
+    moved11 = int((o11_c[:, 0] != m11_c.assignment[:, 0]).sum())
+    # the assignment read once and written once, the two masks; per slot a
+    # few compares and selects
+    row("elect_preferred", "elect_preferred.cu",
+        "cruise_control_tpu/analyzer/goals/preferred.py:22", max_abs_err(o11_g, o11_c),
+        lambda i: elect_preferred(m11_g.assignment, st11_g.demoted, st11_g.dead),
+        lambda i: elect_preferred_plain(m11_g.assignment, st11_g.demoted, st11_g.dead),
+        2 * p_count * r * 4 + 2 * dims.num_brokers, 4 * p_count * r,
+        f"one thread per partition over its {r} slots, a fresh [{p_count}, {r}] output; "
+        f"{moved11} leaders moved")
+    print(f"K11 elect_preferred: {moved11} of {p_count} leaders moved off demoted or dead "
+          "brokers, bit-equal to the plain version, the input unchanged")
+    del m11_g, st11_g, o11_g
 
     # -- 4.-7. the solves -------------------------------------------------------
     from cruise_control_torch.analyzer.stats import stats_to_dict
@@ -1185,13 +1465,14 @@ def main() -> int:
     solves = {}
     results = {}
 
-    def run_and_check(label, model_s, solve, path, ref, ref_moves, polish=False):
+    def run_and_check(label, model_s, solve, path, ref, ref_moves, polish=False, excluded=None):
         """Run `solve()` (it returns an OptimizerResult) with every kernel's
         launch count set to 0 just before and read just after, and check its
-        result: the kernels of its path launched, no goal worse, no replica
-        on a dead broker, sanity_check, the proposals replay, and the decision
-        digest and final assignment equal the JAX CPU run's. Returns the
-        result."""
+        result: the kernels of its path launched, no goal worse (unless the
+        JAX run's row is worse too), no replica on a dead broker (but those of
+        the `excluded` partitions, bool[P], which may not move),
+        sanity_check, the proposals replay, and the decision digest and final
+        assignment equal the JAX CPU run's. Returns the result."""
         dead_ids = np.nonzero(model_s.broker_state.numpy() == 3)[0]
         polish_skips.update(tests=0, skipped=0, k7=0)
         torch.cuda.synchronize()
@@ -1223,13 +1504,18 @@ def main() -> int:
                   f"{g.rounds:6d} {str(g.converged):>5s} {g.cost_before:13.6g} -> "
                   f"{g.cost_after:<12.6g}   | {rf[0]}->{rf[1]} r{rf[2]} {rf[3]} {rf[4]:.6g} -> "
                   f"{rf[5]:.6g}{'' if same else '   DIFFERS'}")
-            if g.violated_brokers_after > g.violated_brokers_before:
+            jax_worse = rf[1] > rf[0] or rf[5] > rf[4] * (1 + 1e-3)
+            if g.violated_brokers_after > g.violated_brokers_before and not jax_worse:
                 fail(f"{label}: {g.name}: violated brokers grew")
-            if g.cost_after > g.cost_before * (1 + 1e-6):
+            if g.cost_after > g.cost_before * (1 + 1e-6) and not jax_worse:
                 fail(f"{label}: {g.name}: cost grew")
-        on_dead = int(np.isin(final[final >= 0], dead_ids).sum())
-        if on_dead:
-            fail(f"{label}: {on_dead} replicas left on dead brokers")
+        movable = np.ones(final.shape[0], bool) if excluded is None else ~np.asarray(excluded)
+        on_dead = np.isin(final, dead_ids) & (final >= 0)
+        if on_dead[movable].any():
+            fail(f"{label}: {int(on_dead[movable].sum())} replicas left on dead brokers")
+        if excluded is not None:
+            print(f"{label}: {int(on_dead[~movable].sum())} replicas of the "
+                  f"{int((~movable).sum())} excluded partitions stay on dead brokers")
         sanity_check(model_s._replace(assignment=torch.from_numpy(final)))
         replay = model_s.assignment.numpy().copy()
         for pr in res.proposals:
@@ -1376,6 +1662,62 @@ def main() -> int:
     del lane, lane_opt, scratch_opt, entry, armed_before
     opt._polish_skip = inner_skip
 
+    # -- 13.-17. the options, each a JAX facade flow (option_recipes) -------------
+    from cruise_control_torch.analyzer.context import resolve_options
+    from cruise_control_torch.models.generators import topic_names
+
+    recipes = option_recipes({k: v.numpy() for k, v in model_cpu._asdict().items()})
+    for label, (fields_s, goal_names, okw, mult) in recipes.items():
+        model_s = from_numpy(fields_s)
+        options = resolve_options(OptimizationOptions(**okw), model_s, topic_names(model_s))
+        constraint_s = dataclasses.replace(
+            BalancingConstraint.default(), goal_violation_distribution_threshold_multiplier=mult)
+        o = opt.GoalOptimizer(constraint=constraint_s, device="cuda", settings=pinned_service)
+        k11_out = {}
+
+        def solve(o=o, m=model_s, g=goal_names, options=options, label=label, c=constraint_s,
+                  k11_out=k11_out):
+            res = o.optimizations(m, g, options, raise_on_hard_failure=False)
+            if label == "demote":
+                # the demote flow's preferred-leader election (K11) on the
+                # demoted model's initial and final assignments
+                m_g = m.to(dev)
+                st = build_static_ctx(m_g, c, dims_of(m))
+                k11_out["initial"] = elect_preferred_leaders(st, m_g.assignment)
+                k11_out["final"] = elect_preferred_leaders(
+                    st, torch.from_numpy(res.final_assignment).to(dev))
+            return res
+
+        res = run_and_check(label, model_s, solve, OPTION_PATH[label],
+                            JAX_CPU_OPTION_REFERENCE[label], JAX_CPU_OPTION_MOVES[label],
+                            excluded=options.excluded_partitions)
+        print(f"{label}: options {sorted(okw)}; bucketed {json.dumps(res.bucketed)}")
+        if res.bucketed != JAX_CPU_SERVICE_BUCKETED_BLOCK:
+            fail(f"{label}: the bucket record differs from the JAX CPU run's")
+        if label == "kafka-assigner":
+            cases = dict(score_candidates.cases)
+            solves[label]["k3_cases"] = cases
+            if cases.get(15, 0) == 0:
+                fail(f"{label}: K3's goal case 15 never launched")
+            print(f"{label}: K3 launches by goal case {cases}")
+        if label == "demote":
+            st_c11 = build_static_ctx(model_s, constraint_s, dims_of(model_s))
+            for which, a_ in (("initial", model_s.assignment),
+                              ("final", torch.from_numpy(res.final_assignment))):
+                out = k11_out[which].cpu()
+                if not bits_equal(out, elect_preferred_plain(a_, st_c11.demoted, st_c11.dead)):
+                    fail(f"{label}: K11 on the {which} assignment differs from the plain version")
+                sha = hashlib.sha256(np.ascontiguousarray(out.numpy(), dtype=np.int32)
+                                     .tobytes()).hexdigest()
+                if sha != JAX_CPU_K11_SHA256[which]:
+                    fail(f"{label}: K11 on the {which} assignment differs from JAX's "
+                         "elect_preferred_leaders")
+                moved = int((out[:, 0] != a_[:, 0]).sum())
+                solves[label][f"k11_{which}_leaders_moved"] = moved
+                print(f"{label}: K11 on the {which} assignment moved {moved} leaders, SHA-256 "
+                      "equal to JAX's elect_preferred_leaders")
+        del res, o
+
     if results["service"][:2] != results["stack"][:2]:
         fail("service: the chunked solve's final assignment or touch tags differ from the "
              "fused stack solve's")
@@ -1394,7 +1736,8 @@ def main() -> int:
     # `launches` is the count of the path each kernel carries: the service's
     # default solve's (bucketed, the main path), for K9 the greedy pass's and
     # for K10 the lane's first proposal; every solve's count is kept beside it
-    main = {"grid_shortlist": "parity greedy", "delta_scatter": "lane a"}
+    main = {"grid_shortlist": "parity greedy", "delta_scatter": "lane a",
+            "elect_preferred": "demote"}
     for key, v in rows.items():
         v["launches"] = solves[main.get(key, "service bucketed")]["launches"][key]
         for label in solves:

@@ -154,13 +154,15 @@ def tables_acceptance(static: StaticCtx, tables: AcceptanceTables, agg: Aggregat
 
 def structural_mask(static: StaticCtx, agg: Aggregates, act: ActionBatch) -> torch.Tensor:
     """Checks every action must pass regardless of goals (GoalUtils.legitMove
-    + OptimizationOptions filtering; the port takes the default options, so
-    the reference's only_move_immigrants term is always true)."""
+    + OptimizationOptions filtering, acceptance.py:314): a movable partition,
+    an eligible destination that does not already host the partition, and,
+    under only_move_immigrants, a dead source."""
     is_move = act.kind == KIND_MOVE
     dst = act.dst.long()
     ok = act.valid & static.movable_partition[act.p.long()]
     ok = ok & torch.where(is_move, static.replica_dst_ok[dst], static.leadership_dst_ok[dst])
     ok = ok & ~(is_move & dst_hosts_partition(agg, act.p, act.dst))
+    ok = ok & (~static.only_move_immigrants | static.dead[act.src.long()])
     return ok
 
 

@@ -12,7 +12,8 @@ the JAX package's functional copies are not needed.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+import re
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,19 +32,57 @@ from cruise_control_torch.models.flat_model import FlatClusterModel
 @dataclasses.dataclass(frozen=True)
 class OptimizationOptions:
     """Mask-encoded request options (cc/analyzer/OptimizationOptions.java:14),
-    with the JAX package's fields. The port takes the default options only:
-    `optimizer.check_supported` refuses any other value, so the static
-    context is built as the defaults give it (every partition movable, every
-    alive broker a destination, the constraint as given)."""
+    with the JAX package's fields. The `*_pattern` / `*_ids` fields are
+    symbolic: `resolve_options` turns them into masks once the model exists."""
 
+    #: replicas of these partitions may not move (excluded topics)
     excluded_partitions: Optional[np.ndarray] = None  # bool[P]
+    #: these brokers may not receive leadership
     excluded_brokers_for_leadership: Optional[np.ndarray] = None  # bool[B]
+    #: these brokers may not receive replicas
     excluded_brokers_for_replica_move: Optional[np.ndarray] = None  # bool[B]
+    #: if set, only these brokers receive replicas
     requested_destination_brokers: Optional[np.ndarray] = None  # bool[B]
+    #: self-healing: only replicas on dead brokers move
     only_move_immigrants: bool = False
+    #: triggered by the goal-violation detector: the distribution goals'
+    #: margins widen by the constraint's multiplier
     is_triggered_by_goal_violation: bool = False
+    #: regex over topic names; the matching topics' partitions may not move
     excluded_topic_pattern: Optional[str] = None
+    #: broker ids that are the only destinations
     destination_broker_ids: Optional[tuple] = None
+
+
+def resolve_options(options: OptimizationOptions, model: FlatClusterModel,
+                    topic_names: Optional[Sequence[str]] = None) -> OptimizationOptions:
+    """The options with their symbolic fields turned into masks for this
+    model's axes (context.py:58): `excluded_topic_pattern` (full matches
+    against `topic_names`, indexed by topic id; `generators.topic_names`
+    names a generated model's topics) into `excluded_partitions`, OR-ed with
+    any given, and `destination_broker_ids` into
+    `requested_destination_brokers`, AND-ed with any given."""
+    out = options
+    if options.excluded_topic_pattern is not None:
+        if topic_names is None:
+            raise ValueError("excluded_topic_pattern requires topic names (monitor-built model)")
+        rx = re.compile(options.excluded_topic_pattern)
+        excluded_topics = np.array([bool(rx.fullmatch(name)) for name in topic_names], dtype=bool)
+        mask = excluded_topics[model.topic_id.cpu().numpy()]
+        if options.excluded_partitions is not None:
+            mask = mask | np.asarray(options.excluded_partitions, dtype=bool)
+        out = dataclasses.replace(out, excluded_partitions=mask, excluded_topic_pattern=None)
+    if options.destination_broker_ids is not None:
+        bad = [b for b in options.destination_broker_ids if b < 0 or b >= model.num_brokers]
+        if bad:
+            raise ValueError(f"destination_broker_ids out of range [0, {model.num_brokers}): {bad}")
+        dst = np.zeros(model.num_brokers, dtype=bool)
+        dst[list(options.destination_broker_ids)] = True
+        if out.requested_destination_brokers is not None:
+            dst = dst & np.asarray(out.requested_destination_brokers, dtype=bool)
+        out = dataclasses.replace(out, requested_destination_brokers=dst,
+                                  destination_broker_ids=None)
+    return out
 
 
 class StaticCtx(NamedTuple):
@@ -72,6 +111,7 @@ class StaticCtx(NamedTuple):
     leader_replica_balance_pct: torch.Tensor  # f32[]
     topic_replica_balance_pct: torch.Tensor  # f32[]
     max_replicas_per_broker: torch.Tensor  # i32[]
+    only_move_immigrants: torch.Tensor  # bool[]
 
 
 class Aggregates(NamedTuple):
@@ -133,13 +173,15 @@ def build_static_ctx(
     model: FlatClusterModel,
     constraint: BalancingConstraint,
     dims: Dims,
+    options: OptimizationOptions = OptimizationOptions(),
     valid_brokers: Optional[int] = None,
     valid_partitions: Optional[int] = None,
 ) -> StaticCtx:
-    """The run's static context on the model's device, under the default
-    OptimizationOptions. The broker-sized arrays are derived on the CPU (the
-    host CPU capacity sum then runs in broker order, as in the reference)
-    and moved once. `valid_brokers` / `valid_partitions`: the counts of real
+    """The run's static context on the model's device (context.py:195). The
+    broker-sized arrays are derived on the CPU (the host CPU capacity sum
+    then runs in broker order, as in the reference) and moved once. The
+    options' masks must be resolved (`resolve_options`) and as long as the
+    model's axes. `valid_brokers` / `valid_partitions`: the counts of real
     rows of a model padded to a shape bucket (the padding is appended, so a
     prefix count suffices); None when every row is real. Padded brokers are
     neither alive nor dead."""
@@ -150,8 +192,26 @@ def build_static_ctx(
     alive = (state != BrokerState.DEAD) & valid
     demoted = (state == BrokerState.DEMOTED) & valid
 
+    def mask(arr, default: bool) -> torch.Tensor:
+        if arr is None:
+            return torch.full((b,), default)
+        return torch.as_tensor(np.asarray(arr, dtype=bool))
+
+    replica_dst_ok = alive & ~mask(options.excluded_brokers_for_replica_move, False)
+    if options.requested_destination_brokers is not None:
+        replica_dst_ok = replica_dst_ok & mask(options.requested_destination_brokers, True)
+    leadership_dst_ok = alive & ~demoted & ~mask(options.excluded_brokers_for_leadership, False)
+    if options.excluded_partitions is None:
+        movable = torch.ones(dims.num_partitions, dtype=torch.bool)
+    else:
+        movable = ~torch.as_tensor(np.asarray(options.excluded_partitions, dtype=bool))
+
+    effective = constraint
+    if options.is_triggered_by_goal_violation:
+        effective = constraint.with_multiplier_applied()
+
     capacity = model.broker_capacity.cpu()
-    cap_threshold = torch.as_tensor(np.asarray(constraint.capacity_threshold, dtype=np.float32))
+    cap_threshold = torch.as_tensor(np.asarray(effective.capacity_threshold, dtype=np.float32))
     capacity_limit = capacity * cap_threshold[None, :]
     host_cpu_cap = torch.zeros(dims.num_hosts, dtype=torch.float32).index_add_(
         0, model.broker_host.cpu().long(), capacity[:, Resource.CPU])
@@ -171,20 +231,21 @@ def build_static_ctx(
         dead=((state == BrokerState.DEAD) & valid).to(dev),
         new=((state == BrokerState.NEW) & valid).to(dev),
         demoted=demoted.to(dev),
-        replica_dst_ok=alive.to(dev),
-        leadership_dst_ok=(alive & ~demoted).to(dev),
-        movable_partition=torch.ones(dims.num_partitions, dtype=torch.bool, device=dev),
+        replica_dst_ok=replica_dst_ok.to(dev),
+        leadership_dst_ok=leadership_dst_ok.to(dev),
+        movable_partition=movable.to(dev),
         host_cpu_capacity_limit=(host_cpu_cap * cap_threshold[Resource.CPU]).to(dev),
         broker_valid=valid.to(dev),
         num_valid_partitions=f32(dims.num_partitions if valid_partitions is None
                                  else valid_partitions),
-        resource_balance_pct=f32(constraint.resource_balance_percentage),
-        low_utilization_threshold=f32(constraint.low_utilization_threshold),
-        replica_balance_pct=f32(constraint.replica_balance_percentage),
-        leader_replica_balance_pct=f32(constraint.leader_replica_balance_percentage),
-        topic_replica_balance_pct=f32(constraint.topic_replica_balance_percentage),
-        max_replicas_per_broker=torch.tensor(int(constraint.max_replicas_per_broker),
+        resource_balance_pct=f32(effective.resource_balance_percentage),
+        low_utilization_threshold=f32(effective.low_utilization_threshold),
+        replica_balance_pct=f32(effective.replica_balance_percentage),
+        leader_replica_balance_pct=f32(effective.leader_replica_balance_percentage),
+        topic_replica_balance_pct=f32(effective.topic_replica_balance_percentage),
+        max_replicas_per_broker=torch.tensor(int(effective.max_replicas_per_broker),
                                              dtype=torch.int32, device=dev),
+        only_move_immigrants=torch.tensor(bool(options.only_move_immigrants), device=dev),
     )
 
 

@@ -386,6 +386,7 @@ def topic_swap_validate(static: StaticCtx, agg: Aggregates, tables, gs, p1, s1, 
     still = (a[p1, s1] == b) & (a[p2, s2] == d) & (b != d) & (p1 != p2)
     still = still & static.movable_partition[p1] & static.movable_partition[p2]
     still = still & static.replica_dst_ok[d] & static.replica_dst_ok[b]
+    still = still & ~static.only_move_immigrants
     still = still & ~torch.any(a[p1] == d[..., None], dim=-1)
     still = still & ~torch.any(a[p2] == b[..., None], dim=-1)
     still = still & (_rack_safe(static, agg, p1, b, p2, d) | ~tables.rack_enabled)
@@ -527,6 +528,7 @@ def relay_validate(static: StaticCtx, agg: Aggregates, tables, gs, p1, s1, b, p2
     still = still & (b != d) & (d != e) & (p1 != p2) & (s1 >= 1) & (s2 >= 1)
     still = still & static.movable_partition[p1] & static.movable_partition[p2]
     still = still & static.leadership_dst_ok[d] & static.leadership_dst_ok[e]
+    still = still & ~static.only_move_immigrants
     kind = torch.tensor(KIND_LEADERSHIP, dtype=torch.int32, device=a.device)
     act1 = build_selected(static.part_load, a, p1, kind, s1, d)
     act2 = build_selected(static.part_load, a, p2, kind, s2, e)

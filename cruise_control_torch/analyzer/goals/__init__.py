@@ -1,22 +1,27 @@
 """Goal registry: name -> singleton goal instance, in reference priority order.
 
 Mirrors the default goal stack of cc/config/KafkaCruiseControlConfig.java:1287-1322
-and the name resolution of KafkaCruiseControl.goalsByPriority (:1218). All
-fifteen goals of the default stack are ported; the kafka-assigner goals
-resolve by name as `UnportedGoal`s, which the optimizer refuses (ROADMAP.md,
-Queue 1 item 4).
+and the name resolution of KafkaCruiseControl.goalsByPriority (:1218): the
+fifteen goals of the default stack, the two kafka-assigner goals (a
+KafkaAssigner-prefixed request switches modes) and the preferred-leader
+election of the demote flow (`elect_preferred_leaders`, K11).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
-from cruise_control_torch.analyzer.goals.base import Goal, UnportedGoal
+from cruise_control_torch.analyzer.goals.base import Goal
 from cruise_control_torch.analyzer.goals.hard import (
     CapacityGoal,
     RackAwareGoal,
     ReplicaCapacityGoal,
 )
+from cruise_control_torch.analyzer.goals.kafka_assigner import (
+    KafkaAssignerDiskUsageDistributionGoal,
+    KafkaAssignerEvenRackAwareGoal,
+)
+from cruise_control_torch.analyzer.goals.preferred import elect_preferred_leaders
 from cruise_control_torch.analyzer.goals.soft import (
     LeaderBytesInDistributionGoal,
     LeaderReplicaDistributionGoal,
@@ -46,10 +51,12 @@ DEFAULT_GOAL_ORDER: List[Goal] = [
     LeaderBytesInDistributionGoal(),
 ]
 
-#: kafka-assigner mode goals: resolvable by name, excluded from the default stack
+#: kafka-assigner mode goals: resolvable by name, excluded from the default
+#: stack; a KafkaAssigner-prefixed request switches modes
+#: (cc/KafkaCruiseControlUtils.java:193)
 KAFKA_ASSIGNER_GOALS: List[Goal] = [
-    UnportedGoal("KafkaAssignerEvenRackAwareGoal", is_hard=True),
-    UnportedGoal("KafkaAssignerDiskUsageDistributionGoal"),
+    KafkaAssignerEvenRackAwareGoal(),
+    KafkaAssignerDiskUsageDistributionGoal(),
 ]
 
 GOAL_REGISTRY: Dict[str, Goal] = {g.name: g for g in DEFAULT_GOAL_ORDER + KAFKA_ASSIGNER_GOALS}
@@ -71,7 +78,10 @@ def get_goal(name: str) -> Goal:
 
 
 def goals_by_priority(names: Sequence[str] | None = None) -> List[Goal]:
-    """Requested goals in default-priority order; None = the full stack."""
+    """Requested goals in default-priority order; None = the full stack.
+
+    KafkaAssigner-prefixed requests switch to kafka-assigner mode: those
+    goals run in their own order, rack awareness first."""
     if names is None:
         return list(DEFAULT_GOAL_ORDER)
     wanted = {get_goal(n).name for n in names}
@@ -93,4 +103,5 @@ __all__ = [
     "SOFT_GOAL_NAMES",
     "get_goal",
     "goals_by_priority",
+    "elect_preferred_leaders",
 ]

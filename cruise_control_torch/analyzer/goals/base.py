@@ -141,12 +141,3 @@ def distribution_score(before_src, before_dst, after_src, after_dst, lower, uppe
     endpoint_ok = (i_src1 <= i_src0 + SCORE_EPS) & (i_dst1 <= i_dst0 + SCORE_EPS)
     score = fma(1e-3, xla_tanh(tiebreak), red)
     return torch.where((red > SCORE_EPS) & endpoint_ok, score, torch.zeros_like(score))
-
-
-class UnportedGoal(Goal):
-    """A goal the port names but cannot optimize yet (the kafka-assigner
-    goals): it resolves in the registry, and the optimizer refuses it."""
-
-    def __init__(self, name: str, is_hard: bool = False):
-        self.name = name
-        self.is_hard = is_hard

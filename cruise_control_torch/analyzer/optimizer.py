@@ -10,9 +10,9 @@ round caps (`GREEDY_SETTINGS`), and the polish pass (`BENCH_SETTINGS`), run
 either as the fused stack (`chunk_rounds = 0`) or through the chunked goal
 machine (`chunk_rounds > 0`, the service default, `SERVICE_SETTINGS`), with
 the provenance ledger and the before/after cluster statistics, at the exact
-shape or padded to a shape bucket (`bucket_partitions`, `bucket_brokers`).
-Non-default OptimizationOptions and the kafka-assigner goals raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+shape or padded to a shape bucket (`bucket_partitions`, `bucket_brokers`),
+under any OptimizationOptions, for the default stack or a subset of it, or
+for the kafka-assigner goals (their own machine).
 
 The front half (`_prepare`) pads the model, builds the static context and
 keeps both in a two-entry cache keyed by the identity of the caller's model
@@ -52,6 +52,7 @@ from cruise_control_torch.analyzer.context import (
     dims_of,
     make_touch_tag,
     replicas_on_dead,
+    resolve_options,
 )
 from cruise_control_torch.analyzer.drain import (
     make_drain_round,
@@ -62,8 +63,12 @@ from cruise_control_torch.analyzer.drain import (
     table_demoted_pref,
     top_k,
 )
-from cruise_control_torch.analyzer.goals import DEFAULT_GOAL_ORDER, goals_by_priority
-from cruise_control_torch.analyzer.goals.base import SCORE_EPS, UnportedGoal
+from cruise_control_torch.analyzer.goals import (
+    DEFAULT_GOAL_ORDER,
+    KAFKA_ASSIGNER_GOALS,
+    goals_by_priority,
+)
+from cruise_control_torch.analyzer.goals.base import SCORE_EPS
 from cruise_control_torch.analyzer.proposals import ExecutionProposal, proposal_diff
 from cruise_control_torch.analyzer.provenance import LEDGER, build_run_ledger, new_run_id
 from cruise_control_torch.analyzer.stats import ClusterModelStats, compute_stats, stats_to_host
@@ -90,7 +95,7 @@ class OptimizationFailureException(Exception):
 @dataclasses.dataclass(frozen=True)
 class OptimizerSettings:
     """Tuning knobs, with the JAX package's names and defaults (the fields the
-    port reads or refuses). check_supported lists what it refuses."""
+    port reads)."""
 
     batch_k: int = 64
     max_rounds_per_goal: int = 64
@@ -204,20 +209,14 @@ def goal_engine(goal, dims: Dims, settings: OptimizerSettings) -> str:
 
 
 def check_supported(goals, settings: OptimizerSettings, options: OptimizationOptions) -> None:
-    """Raise NotImplementedError for anything outside the ported slices."""
-
-    def refuse(what: str, item: str):
-        raise NotImplementedError(f"{what} is not ported yet ({item})")
-
-    for g in goals:
-        if isinstance(g, UnportedGoal):
-            refuse(f"goal {g.name}", "ROADMAP.md Queue 1 item 6, the remaining goals")
-    # every option defaults to None or False; the port takes the defaults only
-    for field in dataclasses.fields(options):
-        value = getattr(options, field.name)
-        if value is not None and value is not False:
-            refuse(f"the option {field.name}",
-                   "ROADMAP.md Queue 1 item 4, OptimizationOptions other than the defaults")
+    """Refuse what the JAX package refuses: a goal list that mixes the
+    kafka-assigner goals with regular ones (goals/__init__.py:78-83, the
+    ValueError `goals_by_priority` raises for such names). Every option and
+    every setting of OptimizerSettings is ported."""
+    assigner = {g.name for g in KAFKA_ASSIGNER_GOALS}
+    regular = sorted(g.name for g in goals if g.name not in assigner)
+    if regular and len(regular) < len(goals):
+        raise ValueError(f"cannot mix kafka-assigner and regular goals: {regular}")
 
 
 def bucket_label(dims: Dims) -> str:
@@ -732,7 +731,7 @@ class GoalOptimizer:
         if hit is not None:
             self._prep_cache.move_to_end(key)
         else:
-            hit = (*self._build_ctx(model), model, options)
+            hit = (*self._build_ctx(model, options), model, options)
             self._prep_cache[key] = hit
             while len(self._prep_cache) > _PREP_CACHE_SIZE:
                 self._prep_cache.popitem(last=False)
@@ -767,17 +766,28 @@ class GoalOptimizer:
         return tuple(id(f) for f in model) + tuple(
             kid(getattr(options, f.name)) for f in dataclasses.fields(options))
 
-    def _build_ctx(self, model: FlatClusterModel):
-        """The prep cache's miss path (optimizer.py:1742-1858): bucket every
-        axis up its ladder, pad the model on the host, move it to the device
-        once and build the static context with the real counts. Returns
-        (p_orig, pmodel, dims, static, static_canon, bucketed)."""
+    def _build_ctx(self, model: FlatClusterModel,
+                   options: OptimizationOptions = OptimizationOptions()):
+        """The prep cache's miss path (optimizer.py:1742-1858): resolve the
+        options' broker ids (a topic pattern needs the caller's topic names,
+        so `resolve_options` raises for it here, as in the JAX package),
+        bucket every axis up its ladder, pad the model on the host with the
+        option masks (padded partitions excluded, padded brokers in no
+        broker mask), move it to the device once and build the static
+        context with the real counts. Returns (p_orig, pmodel, dims, static,
+        static_canon, bucketed)."""
         s = self._settings
         host = model.to("cpu")
+        if options.destination_broker_ids is not None or options.excluded_topic_pattern is not None:
+            options = resolve_options(options, host)
         p_orig, b_orig = host.num_partitions, host.num_brokers
         exact = dims_of(host)
         target_p = partition_bucket(p_orig) if s.bucket_partitions else p_orig
         host = pad_partitions_to(host, target_p)
+        if target_p != p_orig and options.excluded_partitions is not None:
+            options = dataclasses.replace(options, excluded_partitions=np.concatenate(
+                [np.asarray(options.excluded_partitions, dtype=bool),
+                 np.ones(target_p - p_orig, dtype=bool)]))
         num_topics = partition_bucket(exact.num_topics) if s.bucket_partitions else exact.num_topics
         num_racks, num_hosts, target_b = exact.num_racks, exact.num_hosts, b_orig
         if s.bucket_brokers:
@@ -785,11 +795,22 @@ class GoalOptimizer:
             num_racks = geom_bucket(exact.num_racks, s.bucket_ratio, s.bucket_floor)
             num_hosts = geom_bucket(exact.num_hosts, s.bucket_ratio, s.bucket_floor)
             host = pad_brokers_to(host, target_b, num_racks, num_hosts)
+
+            def pad_mask(arr):
+                return None if arr is None else np.concatenate(
+                    [np.asarray(arr, dtype=bool), np.zeros(target_b - b_orig, dtype=bool)])
+
+            options = dataclasses.replace(
+                options,
+                excluded_brokers_for_leadership=pad_mask(options.excluded_brokers_for_leadership),
+                excluded_brokers_for_replica_move=pad_mask(
+                    options.excluded_brokers_for_replica_move),
+                requested_destination_brokers=pad_mask(options.requested_destination_brokers))
         dims = Dims(num_partitions=host.num_partitions, max_rf=exact.max_rf,
                     num_brokers=target_b, num_racks=num_racks, num_hosts=num_hosts,
                     num_topics=num_topics)
         pmodel = host.to(self._device)
-        static = build_static_ctx(pmodel, self._constraint, dims, valid_brokers=b_orig,
+        static = build_static_ctx(pmodel, self._constraint, dims, options, valid_brokers=b_orig,
                                   valid_partitions=p_orig)
         bucketed = {
             "exact": dataclasses.asdict(exact),

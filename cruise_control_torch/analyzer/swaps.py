@@ -92,7 +92,8 @@ def replica_swap_grid(static: StaticCtx, agg: Aggregates, tables, gs, res: int, 
     h0, h1 = _dist(u_h, gs), _dist(u_h - delta / cap[hot], gs)
     c0, c1 = _dist(u_c, gs), _dist(u_c + delta / cap[cold], gs)
     endpoint_ok = (h1 <= h0 + SCORE_EPS) & (c1 <= c0 + SCORE_EPS)
-    ok = ok & endpoint_ok & gs.active & ~masked
+    # a swap moves non-immigrants: off under only_move_immigrants (swaps.py:98-103)
+    ok = ok & endpoint_ok & gs.active & ~masked & ~static.only_move_immigrants
     return torch.where(ok, h0 + c0 - h1 - c1, torch.tensor(-torch.inf, device=dev))
 
 

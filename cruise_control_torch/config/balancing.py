@@ -67,3 +67,20 @@ class BalancingConstraint:
             capacity_threshold=np.full(NUM_RESOURCES, 0.80, dtype=np.float32),
             low_utilization_threshold=np.zeros(NUM_RESOURCES, dtype=np.float32),
         )
+
+    def with_multiplier_applied(self) -> "BalancingConstraint":
+        """Thresholds relaxed for a run triggered by a goal violation: each
+        distribution goal's balance margin widened by
+        `goal.violation.distribution.threshold.multiplier`
+        (cc/analyzer/goals/ResourceDistributionGoal.java
+        balancePercentageWithMargin). The resource percentages stay float32
+        arrays; the three scalar percentages are Python floats."""
+        m = self.goal_violation_distribution_threshold_multiplier
+        return dataclasses.replace(
+            self,
+            resource_balance_percentage=np.float32(1.0)
+            + (self.resource_balance_percentage - np.float32(1.0)) * np.float32(m),
+            replica_balance_percentage=1.0 + (self.replica_balance_percentage - 1.0) * m,
+            leader_replica_balance_percentage=1.0 + (self.leader_replica_balance_percentage - 1.0) * m,
+            topic_replica_balance_percentage=1.0 + (self.topic_replica_balance_percentage - 1.0) * m,
+        )

@@ -8,7 +8,10 @@
 // Every float sum is taken in XLA:CPU's order (block_xla_sum, common.cuh):
 // the masked sums over the B brokers, the per-topic sums along the broker
 // axis of the [T, B] count table and the sum over the T topics, so the
-// result is bit-equal to the jitted reference. The squared deviations are
+// result is bit-equal to the jitted reference. Over 32 or fewer topics the
+// reference's sum is a loop that LLVM vectorizes: the wrapper passes the
+// lane count it chose (kernels/cluster_stats.py TOPIC_LANES), and
+// topic_lane_sum adds in that order. The squared deviations are
 // rounded before they are added (XLA:CPU does not contract them into an FMA
 // there; -fmad=false keeps it so). Integer sums, min and max do not depend
 // on the order.
@@ -124,11 +127,28 @@ __device__ void masked_stats(V v, const bool* alive, int b, float n, float* s_a,
   }
 }
 
+// The sum of v[0..t) with `lanes` vector lanes (t <= 32): lane j adds the
+// topics j, j + lanes, ... of the whole vectors in order, the lanes are added
+// by halves, then the remaining topics one by one; 0 lanes adds in index
+// order (kernels/cluster_stats.py topic_sum).
+__device__ float topic_lane_sum(const float* v, int t, int lanes) {
+  float acc[32];
+  const int width = lanes > 0 ? lanes : 1;
+  const int whole = lanes > 0 ? t - t % lanes : 0;
+  for (int j = 0; j < width; ++j) acc[j] = 0.0f;
+  for (int i = 0; i < whole; ++i) acc[i % lanes] = __fadd_rn(acc[i % lanes], v[i]);
+  for (int h = width / 2; h >= 1; h /= 2)
+    for (int j = 0; j < h; ++j) acc[j] = __fadd_rn(acc[j], acc[j + h]);
+  float s = acc[0];
+  for (int i = whole; i < t; ++i) s = __fadd_rn(s, v[i]);
+  return s;
+}
+
 __global__ void k_broker_stats(const float* load, const float* capacity, const bool* alive,
                                const int* replica_count, const int* leader_count,
                                const float* pnw, const float* topic_std,
-                               const int* topic_nonempty, int b, int t, float* out,
-                               int* out_i) {
+                               const int* topic_nonempty, int b, int t, int lanes,
+                               float* out, int* out_i) {
   extern __shared__ float smem[];
   const int nmax = b > t ? b : t;
   float* s_a = smem;
@@ -157,8 +177,10 @@ __global__ void k_broker_stats(const float* load, const float* capacity, const b
                out + S_LEAD_MEAN, out + S_LEAD_STD, nullptr, nullptr);
   masked_stats([&](int i) { return pnw[i]; }, alive, b, n, s_a, s_b, out + S_PNW_MEAN, nullptr,
                nullptr, out + S_PNW_MAX);
-  float topic_sum = block_xla_sum([&](int i) { return topic_std[i]; }, t, s_a, s_b);
+  float topic_sum = lanes < 0 ? block_xla_sum([&](int i) { return topic_std[i]; }, t, s_a, s_b)
+                              : 0.0f;
   if (threadIdx.x == 0) {
+    if (lanes >= 0) topic_sum = topic_lane_sum(topic_std, t, lanes);
     out[S_TOPIC_STD] = __fdiv_rn(topic_sum, fmaxf((float)nonempty, 1.0f));
     out_i[0] = alive_n;
     out_i[1] = reps;
@@ -170,10 +192,11 @@ __global__ void k_broker_stats(const float* load, const float* capacity, const b
 //       replica_count i32[B], leader_count i32[B], potential_nw_out f32[B],
 //       topic_replica_count i32[T, B], scratch topic_std f32[T],
 //       scratch topic_nonempty i32[T], out f32[25], out_i i32[3]
-// ints: B, T
+// ints: B, T, lanes (-1: XLA:CPU's windows, else the lanes of the sum over
+//   T <= 32 topics, 0..32)
 CC_EXPORT int cluster_stats(const long long* ptrs, const long long* ints, cudaStream_t stream) {
-  int b = (int)ints[0], t = (int)ints[1];
-  if (b <= 0) return cudaErrorInvalidValue;
+  int b = (int)ints[0], t = (int)ints[1], lanes = (int)ints[2];
+  if (b <= 0 || lanes > 32 || (lanes >= 0 && t > 32)) return cudaErrorInvalidValue;
   float* topic_std = (float*)ptrs[7];
   int* topic_nonempty = (int*)ptrs[8];
   if (t > 0) {
@@ -189,6 +212,6 @@ CC_EXPORT int cluster_stats(const long long* ptrs, const long long* ints, cudaSt
   k_broker_stats<<<1, 1024, smem_b, stream>>>(
       (const float*)ptrs[0], (const float*)ptrs[1], (const bool*)ptrs[2], (const int*)ptrs[3],
       (const int*)ptrs[4], (const float*)ptrs[5], topic_std, topic_nonempty, b, t,
-      (float*)ptrs[9], (int*)ptrs[10]);
+      lanes, (float*)ptrs[9], (int*)ptrs[10]);
   return cudaGetLastError();
 }

@@ -5,12 +5,16 @@
 //
 // Replaces: cruise_control_tpu/analyzer/acceptance.py score_batch (:330) with
 // structural_mask (:314), tables_acceptance (:164), band_move_acceptance
-// (:116), the goal's acceptance / action_score (goals/hard.py, goals/soft.py),
-// for one action built as actions.build_selected (:189) builds it.
+// (:116), the goal's acceptance / action_score (goals/hard.py, goals/soft.py,
+// goals/kafka_assigner.py), for one action built as actions.build_selected
+// (:189) builds it.
 //
-// A switch over the fifteen goals' ids (goal.kernel_id: 0-5 the hard goals,
-// 6-14 the soft goals, whose window scalars, or per-topic arrays, come in as
-// `w_lower`, `w_upper`, `w_active`). Every float operation is the
+// A switch over the goals' ids (goal.kernel_id: 0-5 the hard goals, 6-14
+// the soft goals, whose window scalars, or per-topic arrays, come in as
+// `w_lower`, `w_upper`, `w_active`, and 15 KafkaAssignerEvenRackAwareGoal,
+// goals/kafka_assigner.py; KafkaAssignerDiskUsageDistributionGoal is case
+// 11). The structural block reads `only_immigrants`, the run's
+// only_move_immigrants flag, on the device. Every float operation is the
 // reference's, in its order (built with -fmad=false, no fast math). Where XLA
 // fuses a multiply into an add the code calls fmaf, and every tanh is
 // xla_tanhf (common/xla_math.py). An action that is not valid (empty slot,
@@ -46,6 +50,7 @@ struct ScoreCtx {
   const int* max_replicas;
   const float *w_lower, *w_upper;  // the soft goal's window: f32[] or f32[T]
   const unsigned char* w_active;
+  const unsigned char* only_immigrants;  // bool[]: only replicas on dead brokers move
   int R, NR, B, goal;
 };
 
@@ -58,7 +63,7 @@ struct ScoreCtx {
 //   host_cpu_load, hi_load, lo_load, band_hi, band_lo, band_on, hi_rep,
 //   lo_rep, hi_lead, lo_lead, hi_pnw, hi_lnw, hi_lnw_waive_dead, hi_topic,
 //   lo_topic, hi_host_cpu, rack_enabled, limit, max_replicas_per_broker,
-//   w_lower, w_upper, w_active
+//   w_lower, w_upper, w_active, only_move_immigrants
 // and from `ints`: R, NR, B, goal. Returns the index past the last pointer.
 static inline int read_score_ctx(ScoreCtx& g, const long long* ptrs, int k, const long long* ints) {
   g.assignment = (const int*)ptrs[k++];
@@ -101,6 +106,7 @@ static inline int read_score_ctx(ScoreCtx& g, const long long* ptrs, int k, cons
   g.w_lower = (const float*)ptrs[k++];
   g.w_upper = (const float*)ptrs[k++];
   g.w_active = (const unsigned char*)ptrs[k++];
+  g.only_immigrants = (const unsigned char*)ptrs[k++];
   g.R = (int)ints[0];
   g.NR = (int)ints[1];
   g.B = (int)ints[2];
@@ -146,6 +152,8 @@ __device__ __forceinline__ float score_action(const ScoreCtx& g, int p, int kind
     for (int s = 0; s < g.R; ++s)
       if (g.assignment[(long long)p * g.R + s] == dst) ok = false;
   const bool dead_src = g.dead[src];
+  // only_move_immigrants: the source must be dead (acceptance.py:323)
+  if (g.only_immigrants[0] && !dead_src) ok = false;
 
   // tables_acceptance: hard load box
   for (int r = 0; r < 4; ++r) {
@@ -206,13 +214,23 @@ __device__ __forceinline__ float score_action(const ScoreCtx& g, int p, int kind
   // the goal's own acceptance and score
   float score = 0.0f;
   switch (g.goal) {
-    case 0: {  // RackAwareGoal
+    case 0:     // RackAwareGoal
+    case 15: {  // KafkaAssignerEvenRackAwareGoal: the rack-aware case, plus
+                // the even window [floor(avg), ceil(avg)] on replica counts
       if (is_move && count_dst != 0) ok = false;
       bool dup = g.rack_count[(long long)p * g.NR + rs] > 1;
       float m = -INFINITY;
       for (int r = 0; r < 4; ++r) m = fmaxf(m, g.broker_load[pd + r] / fmaxf(g.capacity[pd + r], 1e-9f));
       float tiebreak = 1e-3f * (1.0f - xla_tanhf(m));
       score = (is_move && dup) ? 1.0f + tiebreak : 0.0f;
+      if (g.goal == 15) {
+        const float lo = g.w_lower[0], hi = g.w_upper[0];
+        if (is_move && !((float)(g.replica_count[dst] + 1) <= hi)) ok = false;
+        const float cs = (float)g.replica_count[src], cd = (float)g.replica_count[dst];
+        score = score + (is_move ? distribution_score(cs, cd, cs - 1.0f, cd + 1.0f, lo, hi,
+                                                      (cs - cd) * 1e-2f)
+                                 : 0.0f);
+      }
       break;
     }
     case 1: {  // ReplicaCapacityGoal

@@ -22,6 +22,8 @@
 // its two rows and brokers and keeps the net in registers. A negative p1,
 // p2, b or d marks a cell the caller masked (a missing pick, a stale
 // nomination); it is -inf before anything is gathered with its indices.
+// Under only_move_immigrants (a device flag) no swap or relay is ok, where
+// the JAX package puts the term: the replica-swap grid and both validates.
 // Every float operation is the reference's, in its order (-fmad=false, no
 // fast math), so the results are bit-equal to the plain versions.
 #include "common.cuh"
@@ -50,6 +52,7 @@ struct SwapArgs {
   const unsigned char* rack_enabled;
   const float *w_lower, *w_upper;  // the goal's window: f32[] or f32[T]
   const unsigned char* w_active;
+  const unsigned char* only_immigrants;  // bool[]: only replicas on dead brokers move
   int R, NR, B, kind, res, wave;
 };
 
@@ -168,7 +171,8 @@ __device__ float replica_swap(const SwapArgs& g, int p1, int s1, int hot, int p2
     ok = ok && swap_tables_ok(g, m1, m2);
     return ok ? improve : -INFINITY;
   }
-  bool ok = delta > 1e-6f && hot != cold && p1 != p2 && g.w_active[0];
+  // the round-start grid is off under only_move_immigrants (swaps.py:98-103)
+  bool ok = delta > 1e-6f && hot != cold && p1 != p2 && g.w_active[0] && !g.only_immigrants[0];
   // the picks come from these brokers, so the legs' sources are hot / cold
   ok = ok && m1.src >= 0 && m2.src >= 0 && swap_tables_ok(g, m1, m2);
   ok = ok && !row_holds(g, p1, cold) && !row_holds(g, p2, hot);
@@ -200,6 +204,7 @@ __device__ float topic_swap(const SwapArgs& g, int p1, int s1, int b, int p2, in
   bool still = a[(long long)p1 * g.R + s1] == b && a[(long long)p2 * g.R + s2] == d && b != d &&
                p1 != p2;
   still = still && g.movable[p1] && g.movable[p2] && g.replica_dst_ok[d] && g.replica_dst_ok[b];
+  still = still && !g.only_immigrants[0];
   still = still && !row_holds(g, p1, d) && !row_holds(g, p2, b);
   still = still && rack_safe_or_off(g, p1, b, p2, d);
   still = still && (s1 != 0 || g.leadership_dst_ok[d]) && (s2 != 0 || g.leadership_dst_ok[b]);
@@ -250,6 +255,7 @@ __device__ float relay(const SwapArgs& g, int p1, int s1, int b, int p2, int s2,
   still = still && b != d && d != e && p1 != p2 && s1 >= 1 && s2 >= 1;
   still = still && g.movable[p1] && g.movable[p2] && g.leadership_dst_ok[d] &&
           g.leadership_dst_ok[e];
+  still = still && !g.only_immigrants[0];
   if (!still) return -INFINITY;
   const Action a1 = build_action(a, g.R, g.part_load, p1, KIND_LEADERSHIP, s1, d);
   const Action a2 = build_action(a, g.R, g.part_load, p2, KIND_LEADERSHIP, s2, e);
@@ -314,7 +320,8 @@ __global__ void k_score_swaps(SwapArgs g) {
 //   leader_count, potential_nw_out, leader_nw_in, rack_replica_count,
 //   topic_replica_count, host_cpu_load, hi_load, lo_load, band_hi, band_lo,
 //   band_on, hi_lead, lo_lead, hi_pnw, hi_lnw, hi_topic, lo_topic,
-//   hi_host_cpu, rack_enabled, w_lower, w_upper, w_active
+//   hi_host_cpu, rack_enabled, w_lower, w_upper, w_active,
+//   only_move_immigrants
 // ints: d0..d4, strides of p1, s1, b, p2, s2, d (5 each), R, NR, B, kind,
 //   resource, wave, per_topic
 CC_EXPORT int score_swaps(const long long* ptrs, const long long* ints, cudaStream_t stream) {
@@ -360,6 +367,7 @@ CC_EXPORT int score_swaps(const long long* ptrs, const long long* ints, cudaStre
   g.w_lower = (const float*)ptrs[k++];
   g.w_upper = (const float*)ptrs[k++];
   g.w_active = (const unsigned char*)ptrs[k++];
+  g.only_immigrants = (const unsigned char*)ptrs[k++];
   int q = 0;
   g.numel = 1;
   for (int j = 0; j < 5; ++j) {

@@ -16,9 +16,13 @@ PyTorch version.
                          :371-409), scoring with K3's per-candidate body
   K10 delta_scatter      incremental.apply_delta_batch, the incremental
                          lane's scatter into the static context
+  K11 elect_preferred    goals/preferred.elect_preferred_leaders, the
+                         preferred-leader election off demoted and dead
+                         brokers
 
 A wrapper runs the plain version for CPU tensors and launches its kernel for
-CUDA tensors (or raises); it counts its launches in `<wrapper>.launches`.
+CUDA tensors (or raises); it counts its launches in `<wrapper>.launches`
+(K3 also by goal case, in `score_candidates.cases`).
 Sources are in `cruise_control_torch/csrc/`, built by `kernels.build` at
 first use.
 """
@@ -33,6 +37,7 @@ def wrappers():
     from cruise_control_torch.kernels.broker_topk import broker_topk
     from cruise_control_torch.kernels.cluster_stats import cluster_stats
     from cruise_control_torch.kernels.delta_scatter import delta_scatter
+    from cruise_control_torch.kernels.elect_preferred import elect_preferred
     from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
     from cruise_control_torch.kernels.pair_picks import pair_picks
     from cruise_control_torch.kernels.score_candidates import score_candidates
@@ -53,12 +58,15 @@ def wrappers():
         "cluster_stats": cluster_stats,
         "grid_shortlist": grid_shortlist,
         "delta_scatter": delta_scatter,
+        "elect_preferred": elect_preferred,
     }
 
 
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "cases"):
+            fn.cases.clear()
 
 
 def launches() -> dict:

@@ -9,6 +9,17 @@ csrc/cluster_stats.cu; `cluster_stats_plain` is the numpy version. Every
 float sum of both is taken in XLA:CPU's order (kernels/window_sum.py), so
 both are bit-equal to the jitted reference.
 
+The sum over 32 or fewer topics is the exception. XLA:CPU fuses it with the
+per-topic square roots into one loop, which LLVM's loop vectorizer
+compiles: with `TOPIC_LANES[t - 1]` lanes, lane j adds the topics j, j +
+lanes, ... of the whole vectors in order, the lanes are added by halves
+(lane j and lane j + lanes / 2, repeatedly), and the remaining topics are
+added one by one after them; with 0 lanes the topics are added in index
+order. The vectorizer's choice depends on the topic count and on whether
+the broker axis is longer than 32 (the per-topic sums are then windowed);
+the table was read from the LLVM IR that XLA:CPU emits on an x86-64 host
+with AVX-512 and probed with crafted values (tests/test_torch_stats.py).
+
 Outputs are packed: f32[25] in ClusterModelStats order (STAT_SLOTS) and
 i32[3] (alive brokers, replicas, leaders).
 """
@@ -31,6 +42,35 @@ NUM_F32 = sum(w for _, w in STAT_SLOTS)
 INT_SLOTS = ("num_alive_brokers", "num_replicas", "num_leaders")
 
 _F = np.float32
+
+#: lanes of the vectorized sum over t <= 32 topics, by t - 1: broker axes of
+#: at most 32 brokers, and longer ones (module docstring)
+TOPIC_LANES = {
+    False: (0, 0, 0, 4, 0, 0, 0, 8, 0, 0, 0, 0, 0, 0, 0, 8,
+            8, 8, 8, 4, 4, 4, 4, 8, 8, 8, 8, 8, 8, 8, 8, 8),
+    True: (0, 2, 0, 4, 0, 0, 0, 8, 0, 0, 0, 0, 0, 0, 0, 8,
+           8, 8, 8, 4, 4, 4, 4, 8, 8, 8, 8, 4, 4, 4, 4, 8),
+}
+
+
+def topic_sum(values: np.ndarray, num_brokers: int) -> np.float32:
+    """The f32 sum of the per-topic deviations in XLA:CPU's order: windowed
+    above 32 topics (`xla_sum`), else vectorized as TOPIC_LANES says."""
+    t = values.shape[0]
+    if t > 32 or t == 1:
+        return _F(xla_sum(values))
+    lanes = TOPIC_LANES[num_brokers > 32][t - 1]
+    acc = np.zeros(max(lanes, 1), dtype=_F)
+    main = t - t % lanes if lanes else 0
+    for i in range(main):
+        acc[i % lanes] = acc[i % lanes] + values[i]
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    s = acc[0]
+    for i in range(main, t):
+        s = _F(s + values[i])
+    return _F(s)
 
 
 def _masked_stats(values: np.ndarray, mask: np.ndarray, n: np.float32):
@@ -65,8 +105,8 @@ def cluster_stats_plain(broker_load, capacity, alive, replica_count, leader_coun
     t_var = xla_sum(np.where(alive_m[None, :], d * d, _F(0.0)).T) / n
     t_nonempty = tc.astype(np.int64).sum(axis=1) > 0
     t_std = np.where(t_nonempty, np.sqrt(t_var), _F(0.0)).astype(_F)
-    topic_std = _F(xla_sum(t_std) / np.maximum(_F(t_nonempty.sum()), _F(1.0))) \
-        if t_std.shape[0] else _F(0.0)
+    n_topics = np.maximum(_F(t_nonempty.sum()), _F(1.0))
+    topic_std = _F(topic_sum(t_std, load.shape[0]) / n_topics) if t_std.shape[0] else _F(0.0)
     out = np.array([*(x[0] for x in res), *(x[1] for x in res), *(x[2] for x in res),
                     *(x[3] for x in res), r_mean, r_std, r_min, r_max, l_mean, l_std, topic_std,
                     p_mean, p_max], dtype=_F)
@@ -106,7 +146,7 @@ def cluster_stats(broker_load, capacity, alive, replica_count, leader_count, pot
     code = lib.cluster_stats(
         build.ptrs(broker_load, capacity, alive, replica_count, leader_count, potential_nw_out,
                    topic_replica_count, topic_std, topic_nonempty, out, out_i),
-        build.ints(b, t), build.stream())
+        build.ints(b, t, TOPIC_LANES[b > 32][t - 1] if 1 < t <= 32 else -1), build.stream())
     build.check(lib, code, "cluster_stats")
     cluster_stats.launches += 1
     return out, out_i

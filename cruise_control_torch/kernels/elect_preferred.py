@@ -1,0 +1,63 @@
+"""K11: preferred-leader election off demoted and dead brokers.
+
+Replaces cruise_control_tpu/analyzer/goals/preferred.py
+elect_preferred_leaders (:22): for each partition whose slot-0 broker is
+demoted or dead, slot 0 is exchanged with the first slot on an alive,
+non-demoted broker; partitions with no such replica keep their row. The
+CUDA kernel is csrc/elect_preferred.cu; `elect_preferred_plain` is the
+PyTorch version. Both write a fresh [P, R] output.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cruise_control_torch.kernels import build
+
+
+def elect_preferred_plain(assignment: torch.Tensor, demoted: torch.Tensor,
+                          dead: torch.Tensor) -> torch.Tensor:
+    """i32[P, R]: the assignment with leadership moved off demoted and dead
+    brokers. Empty (-1) slots read broker 0's flags, masked by validity."""
+    p, _ = assignment.shape
+    valid = assignment >= 0
+    holder = torch.where(valid, assignment, 0).long()
+    ineligible = demoted | dead
+    slot_ok = valid & ~ineligible[holder]
+    leader_bad = ineligible[holder[:, 0]] & valid[:, 0]
+    # the first eligible slot (argmax over bool: the lowest index of a max)
+    best = torch.argmax(slot_ok.to(torch.int8), dim=1)
+    swap = leader_bad & torch.any(slot_ok, dim=1) & (best != 0)
+    rows = torch.arange(p, device=assignment.device)
+    old_leader = assignment[:, 0]
+    new_leader = assignment[rows, best]
+    out = assignment.clone()
+    out[:, 0] = torch.where(swap, new_leader, old_leader)
+    out[rows, best] = torch.where(swap, old_leader, new_leader)
+    return out
+
+
+def elect_preferred(assignment: torch.Tensor, demoted: torch.Tensor,
+                    dead: torch.Tensor) -> torch.Tensor:
+    """`elect_preferred_plain` for CPU tensors, the CUDA kernel for CUDA
+    ones."""
+    if assignment.device.type == "cpu":
+        return elect_preferred_plain(assignment, demoted, dead)
+    dev = assignment.device
+    build.require(assignment, torch.int32, 2, "assignment", dev)
+    b = demoted.shape[0]
+    for name, t in (("demoted", demoted), ("dead", dead)):
+        build.require(t, torch.bool, 1, name, dev)
+        if t.shape[0] != b:
+            raise ValueError(f"elect_preferred: {name} has {t.shape[0]} brokers, expected {b}")
+    p, r = assignment.shape
+    out = torch.empty_like(assignment)
+    lib = build.load("elect_preferred")
+    code = lib.elect_preferred(build.ptrs(assignment, demoted, dead, out), build.ints(p, r),
+                               build.stream())
+    build.check(lib, code, "elect_preferred")
+    elect_preferred.launches += 1
+    return out
+
+
+elect_preferred.launches = 0

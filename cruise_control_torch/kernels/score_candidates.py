@@ -9,6 +9,8 @@ PyTorch version.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from cruise_control_torch.analyzer.acceptance import score_batch
@@ -59,6 +61,7 @@ def score_context(static, agg, tables, goal, gs, what: str):
         agg.broker_load, agg.replica_count, agg.leader_count, agg.potential_nw_out,
         agg.leader_nw_in, agg.rack_replica_count, agg.topic_replica_count, agg.host_cpu_load,
         *tables, limit, static.max_replicas_per_broker, w_lower, w_upper, w_active,
+        static.only_move_immigrants,
     )
     for t in tensors:
         if t.device != dev or not t.is_contiguous():
@@ -94,7 +97,10 @@ def score_candidates(static, agg, tables, goal, gs, p, kind, slot, dst):
         build.stream())
     build.check(lib, code, "score_candidates")
     score_candidates.launches += 1
+    score_candidates.cases[goal.kernel_id] += 1
     return out.reshape(shape)
 
 
 score_candidates.launches = 0
+#: the launches by goal case (goal.kernel_id)
+score_candidates.cases = collections.Counter()

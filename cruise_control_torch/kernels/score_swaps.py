@@ -79,6 +79,7 @@ def score_swaps(kind, static, agg, tables, gs, p1, s1, b, p2, s2, d, resource: i
         tables.hi_load, tables.lo_load, tables.band_hi, tables.band_lo, tables.band_on,
         tables.hi_lead, tables.lo_lead, tables.hi_pnw, tables.hi_lnw, tables.hi_topic,
         tables.lo_topic, tables.hi_host_cpu, tables.rack_enabled, lower, upper, active,
+        static.only_move_immigrants,
     )
     for t in tensors:
         if t.device != dev or not t.is_contiguous():

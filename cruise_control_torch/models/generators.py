@@ -303,6 +303,13 @@ def random_cluster(
     return make_model(assignment, load, topic_id, cap, rack_of_broker, broker_state=state)
 
 
+def topic_names(model: FlatClusterModel) -> tuple:
+    """The topic names of a generated model, `topic-<t>` for each topic id,
+    as the JAX package's `metadata_for` names them (generators.py:281):
+    what `resolve_options` matches an excluded-topic pattern against."""
+    return tuple(f"topic-{t}" for t in range(model.num_topics))
+
+
 # -- benchmark configs (BASELINE.md) ------------------------------------------
 
 BASELINE_CONFIGS = {

@@ -185,14 +185,7 @@ def test_bucketed_proposals_and_stats_equal_jax(solves):
 
     assert key(tres.proposals) == key(jres.proposals) and tres.proposals
     assert stats_to_dict(tres.stats_before) == jstats_to_dict(jres.stats_before)
-    after, jafter = stats_to_dict(tres.stats_after), jstats_to_dict(jres.stats_after)
-    # topicReplicasStd: K8 sums the 20 per-topic deviations in index order,
-    # where the jitted reference's fused reduce accumulates in vector lanes;
-    # the two differ in the last bits on this state, at the exact shape too
-    # (an open fault, ROADMAP.md Queue 3). Every other field is exact.
-    t, j = np.float32(after.pop("topicReplicasStd")), np.float32(jafter.pop("topicReplicasStd"))
-    assert abs(t - j) <= 2 * np.spacing(j)
-    assert after == jafter
+    assert stats_to_dict(tres.stats_after) == jstats_to_dict(jres.stats_after)
 
 
 @pytest.mark.parametrize("other", ["hit", "again"])

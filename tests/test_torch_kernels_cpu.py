@@ -569,3 +569,118 @@ def test_k10_delta_scatter_of_noops_is_the_input(ctx):
                               ts.replica_dst_ok.clone(), ts.leadership_dst_ok.clone())
     for f in ts._fields:
         assert _bits_equal(getattr(ts, f), getattr(out, f)), f
+
+
+# -- the immigrant term (K3, K5) and K11 -----------------------------------------------
+
+
+def _immigrant(static, flag: bool):
+    if isinstance(static, tctx.StaticCtx):
+        return static._replace(only_move_immigrants=torch.tensor(flag))
+    return static._replace(only_move_immigrants=jnp.asarray(flag))
+
+
+@pytest.mark.parametrize("gi", [0, 2, 8, 13], ids=[STACK_IDS[i] for i in (0, 2, 8, 13)])
+def test_k3_immigrant_term_equals_jax(ctx, gi):
+    """K3's plain version with only_move_immigrants set: the move and
+    promotion grids' scores equal the jitted score_batch's, every finite
+    cell's source is dead, and the flag masks cells it leaves finite when
+    off."""
+    jgoal, tgoal = jgoals(None)[gi], tgoals(None)[gi]
+    jt, tt = _stack_tables(ctx, gi)
+    jgs = jgoal.prepare(ctx["js"], ctx["ja"], ctx["jd"])
+    tgs = tgoal.prepare(ctx["ts"], ctx["ta"], ctx["td"])
+    dead = ctx["arrays"]["broker_state"] == 3
+    finite = {}
+    for flag in (False, True):
+        js, ts = _immigrant(ctx["js"], flag), _immigrant(ctx["ts"], flag)
+        jscore = jax.jit(lambda act, gs, t: jacc.score_batch(js, ctx["ja"], act, jgoal, gs, t))
+        n = 0
+        for seed in (1, 2, 3):
+            p, slot, dst = _grid_inputs(ctx, seed)
+            act = jact.build_selected(js.part_load, ctx["ja"].assignment, jnp.asarray(p),
+                                      jnp.int32(jact.KIND_MOVE), jnp.asarray(slot),
+                                      jnp.asarray(dst))
+            want = jscore(act, jgs, jt)
+            got = score_candidates_plain(ts, ctx["ta"], tt, tgoal, tgs, torch.from_numpy(p),
+                                         KIND_MOVE, torch.from_numpy(slot), torch.from_numpy(dst))
+            n += _compare_scores(jgoal.name, want, got)
+            if flag:
+                src = np.broadcast_to(np.asarray(act.src), got.shape)
+                assert dead[src[np.isfinite(got.numpy())]].all()
+        lb = jact.make_leadership_batch(js.part_load, ctx["ja"].assignment)
+        n += _compare_scores(jgoal.name, jnp.broadcast_to(jscore(lb, jgs, jt), lb.dst.shape),
+                             score_candidates_plain(ts, ctx["ta"], tt, tgoal, tgs,
+                                                    *leadership_grid(ctx["ta"].assignment)))
+        finite[flag] = n
+    # the hard goals' finite cells are mostly the dead brokers' evacuations
+    # already; the soft goals' are not
+    assert finite[True] > 0 and finite[False] >= finite[True]
+    assert gi < 6 or finite[False] > finite[True]
+
+
+def test_k5_immigrant_term_equals_jax(ctx):
+    """K5's plain topic-swap and relay validations with only_move_immigrants
+    set: every cell is rejected, as in the JAX validates (drain.py:494,
+    :704), on cells that pass with the flag off; the replica-swap grid too
+    (swaps.py:98-103)."""
+    from cruise_control_torch.analyzer.drain import relay_validate, topic_swap_validate
+    from cruise_control_torch.analyzer.swaps import replica_swap_grid
+
+    rng = np.random.default_rng(24)
+    a = ctx["arrays"]["assignment"]
+    b_count = ctx["jd"].num_brokers
+    n = 4000
+    b = rng.integers(0, b_count, n).astype(np.int32)
+    d = rng.integers(0, b_count, n).astype(np.int32)
+    cells = [np.zeros(n, np.int32) for _ in range(4)]
+    for i in range(n):
+        cells[0][i], cells[1][i] = (x[0] for x in _slots_on(a, b[i], rng, 1))
+        cells[2][i], cells[3][i] = (x[0] for x in _slots_on(a, d[i], rng, 1))
+    swap_cells = (cells[0], cells[1], b, cells[2], cells[3], d)
+    rows = [(p1, s1, a[p1, 0], p2, s2, a[p1, s1])
+            for p1 in range(a.shape[0]) for s1 in range(1, a.shape[1])
+            if a[p1, s1] >= 0 and a[p1, 0] >= 0
+            for p2 in np.nonzero(a[:, 0] == a[p1, s1])[0][:3] for s2 in range(1, a.shape[1])]
+    relay_cells = tuple(np.ascontiguousarray(c) for c in np.asarray(rows, dtype=np.int32).T)
+    for gi, make, tvalidate, grid, n_priors in (
+            (12, lambda g: jdrain.make_topic_swap_round(g, ctx["jd"], 24, 8, 8, 8),
+             topic_swap_validate, swap_cells, 12),
+            (14, lambda g: jdrain.make_leadership_relay_round(g, ctx["jd"], 24, 4, 8, 8),
+             relay_validate, relay_cells, 0)):
+        jgoal, tgoal = jgoals(None)[gi], tgoals(None)[gi]
+        jfn = _closure(make(jgoal), "validate")
+        jgs = jgoal.prepare(ctx["js"], ctx["ja"], ctx["jd"])
+        tgs = tgoal.prepare(ctx["ts"], ctx["ta"], ctx["td"])
+        saved = ctx["js"], ctx["ts"]
+        assert _k5_compare(jfn, tvalidate, ctx, jgs, tgs, grid, n_priors) > 0
+        ctx["js"], ctx["ts"] = _immigrant(saved[0], True), _immigrant(saved[1], True)
+        try:
+            assert _k5_compare(jfn, tvalidate, ctx, jgs, tgs, grid, n_priors) == 0
+        finally:
+            ctx["js"], ctx["ts"] = saved
+    disk = tgoals(None)[8]
+    gs = disk.prepare(ctx["ts"], ctx["ta"], ctx["td"])
+    tt = tacc.empty_tables(ctx["td"], "cpu")
+    grid = tuple(torch.from_numpy(x) for x in swap_cells)
+    off = replica_swap_grid(ctx["ts"], ctx["ta"], tt, gs, disk.resource, *grid)
+    on = replica_swap_grid(_immigrant(ctx["ts"], True), ctx["ta"], tt, gs, disk.resource, *grid)
+    assert torch.isfinite(off).any() and not torch.isfinite(on).any()
+
+
+def test_k11_elect_preferred_plain_equals_jax(ctx):
+    """K11's plain version on the cluster's rows, with demoted and dead
+    leaders and -1 slots, against the jitted elect_preferred_leaders."""
+    from cruise_control_tpu.analyzer.goals.preferred import elect_preferred_leaders as jelect
+    from cruise_control_torch.kernels.elect_preferred import elect_preferred_plain
+
+    rng = np.random.default_rng(25)
+    a = ctx["arrays"]["assignment"].copy()
+    a[rng.random(a.shape) < 0.1] = -1
+    st = ctx["arrays"]["broker_state"].copy()
+    st[rng.choice(np.nonzero(st == 0)[0], 4, replace=False)] = 2
+    js = ctx["js"]._replace(demoted=jnp.asarray(st == 2), dead=jnp.asarray(st == 3))
+    want = np.asarray(jax.jit(jelect)(js, jnp.asarray(a)))
+    got = elect_preferred_plain(torch.from_numpy(a), torch.from_numpy(st == 2),
+                                torch.from_numpy(st == 3)).numpy()
+    assert np.array_equal(want, got) and (got != a).any()

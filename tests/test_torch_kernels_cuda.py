@@ -567,3 +567,191 @@ def test_bucketed_service_and_lane_on_the_card_equal_the_cpu():
         assert np.array_equal(cpu_res.touch_tag, gpu_res.touch_tag)
         assert cpu_res.provenance.digest(goals=names) == gpu_res.provenance.digest(goals=names)
         assert cpu_res.bucketed == gpu_res.bucketed
+
+
+# -- the immigrant term, goal case 15, K11, K8 over few topics -------------------------
+
+
+def _flagged(static, flag: bool):
+    return static._replace(only_move_immigrants=torch.tensor(flag, device=static.dead.device))
+
+
+KA_NAMES = ["KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal"]
+CASE_GOALS = KA_NAMES + ["RackAwareGoal", "CpuUsageDistributionGoal"]
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["flag-off", "immigrants"])
+@pytest.mark.parametrize("name", CASE_GOALS)
+def test_k3_case_15_and_the_immigrant_flag(pair, name, flag):
+    """K3 with goal case 15 (and the kafka-assigner disk goal's case 11
+    under case 15's tables) and the default stack's goals, with the
+    only_move_immigrants flag off and on: finite masks and scores exact."""
+    stack = goals_by_priority(KA_NAMES if name in KA_NAMES else None)
+    g = next(x for x in stack if x.name == name)
+    priors = stack[:stack.index(g)]
+    sc, sg = _flagged(pair["sc"], flag), _flagged(pair["sg"], flag)
+    tc = build_tables(priors, sc, pair["ac"], pair["dims"])
+    tg = build_tables(priors, sg, pair["ag"], pair["dims"])
+    gsc, gsg = g.prepare(sc, pair["ac"], pair["dims"]), g.prepare(sg, pair["ag"], pair["dims"])
+    a = pair["ac"].assignment
+    p = torch.arange(a.shape[0], dtype=torch.int32)[:, None, None]
+    s = torch.arange(a.shape[1], dtype=torch.int32)[None, :, None]
+    d = torch.arange(24, dtype=torch.int32)[None, None, :]
+    kind = torch.tensor(KIND_MOVE, dtype=torch.int32)
+    finite = 0
+    for idx_c in ((p, kind, s, d), leadership_grid(a)):
+        idx_g = tuple(t.cuda() for t in idx_c)
+        want = score_candidates_plain(sc, pair["ac"], tc, g, gsc, *idx_c)
+        got = score_candidates(sg, pair["ag"], tg, g, gsg, *idx_g).cpu()
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got))
+        assert _bits(want[fin], got[fin])
+        finite += int(fin.sum())
+    assert finite > 0
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["flag-off", "immigrants"])
+@pytest.mark.parametrize("name", KA_NAMES + ["DiskCapacityGoal"])
+def test_k9_case_15_and_the_immigrant_flag(pair, name, flag):
+    from cruise_control_torch.kernels.grid_shortlist import grid_shortlist, grid_shortlist_plain
+
+    stack = goals_by_priority(KA_NAMES if name in KA_NAMES else None)
+    g = next(x for x in stack if x.name == name)
+    priors = stack[:stack.index(g)]
+    sc, sg = _flagged(pair["sc"], flag), _flagged(pair["sg"], flag)
+    tc = build_tables(priors, sc, pair["ac"], pair["dims"])
+    tg = build_tables(priors, sg, pair["ag"], pair["dims"])
+    gsc, gsg = g.prepare(sc, pair["ac"], pair["dims"]), g.prepare(sg, pair["ag"], pair["dims"])
+    cands = opt.dst_candidates(sc, gsc, pair["ac"], g, pair["dims"], 4, tc)
+    want = grid_shortlist_plain(sc, pair["ac"], tc, g, gsc, cands)
+    got = grid_shortlist(sg, pair["ag"], tg, g, gsg, cands.cuda())
+    for w, x in zip(want, got):
+        assert _bits(w, x), (name, flag, want, got)
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["flag-off", "immigrants"])
+def test_k5_with_the_immigrant_flag(pair, flag):
+    """K5's three kinds on random cells (the replica-swap grid and its wave
+    form, topic swaps, relays) with the flag off and on; with it on, the
+    grid, the topic swaps and the relays reject every cell."""
+    from cruise_control_torch.kernels.score_swaps import (
+        LEADERSHIP_RELAY,
+        REPLICA_SWAP,
+        TOPIC_SWAP,
+        score_swaps,
+        score_swaps_plain,
+    )
+
+    rng = np.random.default_rng(17)
+    a = pair["ac"].assignment.numpy()
+    goals = goals_by_priority(None)
+    sc, sg = _flagged(pair["sc"], flag), _flagged(pair["sg"], flag)
+    n = 4000
+    held = np.argwhere(a >= 0)
+    c1, c2 = held[rng.integers(0, len(held), n)], held[rng.integers(0, len(held), n)]
+    cells = [c1[:, 0], c1[:, 1], a[c1[:, 0], c1[:, 1]], c2[:, 0], c2[:, 1], a[c2[:, 0], c2[:, 1]]]
+    swap = tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)) for x in cells)
+    lead = np.nonzero(a[:, 0] >= 0)[0]
+    p1 = lead[rng.integers(0, len(lead), n)]
+    s1 = rng.integers(1, a.shape[1], n)
+    dd = a[p1, s1]
+    p2 = np.array([np.nonzero(a[:, 0] == x)[0][0] if (a[:, 0] == x).any() else 0 for x in dd])
+    relay = tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)) for x in (
+        p1, s1, a[p1, 0], p2, rng.integers(1, a.shape[1], n), dd))
+    for kind, gi, idx, wave in ((REPLICA_SWAP, 8, swap, False), (REPLICA_SWAP, 8, swap, True),
+                                (TOPIC_SWAP, 12, swap, False),
+                                (LEADERSHIP_RELAY, 14, relay, False)):
+        g = goals[gi]
+        tc = build_tables(goals[:gi], sc, pair["ac"], pair["dims"])
+        tg = build_tables(goals[:gi], sg, pair["ag"], pair["dims"])
+        gsc, gsg = g.prepare(sc, pair["ac"], pair["dims"]), g.prepare(sg, pair["ag"], pair["dims"])
+        res = getattr(g, "resource", 0)
+        want = score_swaps_plain(kind, sc, pair["ac"], tc, gsc, *idx, resource=res, wave=wave)
+        got = score_swaps(kind, sg, pair["ag"], tg, gsg, *(t.cuda() for t in idx), resource=res,
+                          wave=wave).cpu()
+        assert torch.equal(torch.isfinite(want), torch.isfinite(got)), (kind, wave)
+        assert _bits(torch.where(torch.isfinite(want), want, 0.0),
+                     torch.where(torch.isfinite(got), got, 0.0))
+        if flag and not wave:
+            assert not torch.isfinite(want).any(), kind
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 3), (5000, 3), (199, 4)])
+def test_k11_elect_preferred(shape):
+    """K11 against its plain version: random rows with -1 slots anywhere,
+    random demoted and dead masks; a fresh output, the input unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from cruise_control_torch.kernels.elect_preferred import elect_preferred, elect_preferred_plain
+
+    rng = np.random.default_rng(shape[0])
+    b = 30
+    a = torch.from_numpy(rng.integers(0, b, shape).astype(np.int32))
+    a[torch.from_numpy(rng.random(shape) < 0.2)] = -1
+    dead = torch.from_numpy(rng.random(b) < 0.2)
+    demoted = torch.from_numpy(rng.random(b) < 0.3) & ~dead
+    want = elect_preferred_plain(a, demoted, dead)
+    ag = a.cuda()
+    got = elect_preferred(ag, demoted.cuda(), dead.cuda())
+    assert got.data_ptr() != ag.data_ptr()
+    assert _bits(want, got) and torch.equal(ag.cpu(), a)
+
+
+@pytest.mark.parametrize("b", [24, 40])
+@pytest.mark.parametrize("t", [1, 2, 7, 20, 28, 32, 33])
+def test_k8_cluster_stats_over_few_topics(t, b):
+    """K8's mean over 32 or fewer topics in the vectorized order (TOPIC_LANES,
+    both broker-axis classes), and windowed above: bit-equal to the plain
+    version on random count tables with per-topic scales."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(t * 100 + b)
+    counts = rng.integers(0, rng.integers(2, 24, (t, 1)) + 1, (t, b)).astype(np.int32)
+    counts[rng.random(t) < 0.5, rng.integers(0, b)] += 1000
+    load = rng.pareto(1.5, (b, 4)).astype(np.float32)
+    args = (torch.from_numpy(load), torch.full((b, 4), 100.0),
+            torch.from_numpy(rng.random(b) < 0.9), torch.from_numpy(counts.sum(0, dtype=np.int32)),
+            torch.from_numpy(counts.sum(0, dtype=np.int32) // 2),
+            torch.from_numpy(load[:, 2].copy()),
+            torch.from_numpy(counts))
+    out_c = cluster_stats_plain(*args)
+    out_g = cluster_stats(*(x.cuda() for x in args))
+    torch.cuda.synchronize()
+    for x, y in zip(out_c, out_g):
+        assert _bits(x, y)
+
+
+def test_options_and_kafka_assigner_on_the_card_equal_the_cpu():
+    """The service path (SERVICE_SETTINGS, bucketed) on the card against the
+    CPU: under only_move_immigrants with two more dead brokers and a tenth of
+    the partitions excluded, under the goal-violation multiplier, and the
+    kafka-assigner request; assignment, touch tags and digest equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from cruise_control_torch import kernels
+    from cruise_control_torch.analyzer.context import OptimizationOptions
+    from cruise_control_torch.kernels.score_candidates import score_candidates as k3
+
+    model = generators.random_cluster(42, FIXTURE_C)
+    st = model.broker_state.clone()
+    st[torch.tensor([3, 17])] = 3
+    p = model.num_partitions
+    relaxed = dataclasses.replace(BalancingConstraint.default(),
+                                  goal_violation_distribution_threshold_multiplier=2.5)
+    for m, goals, options, constraint in (
+            (model._replace(broker_state=st), None,
+             OptimizationOptions(only_move_immigrants=True,
+                                 excluded_partitions=np.arange(p) % 10 == 0), None),
+            (model, None, OptimizationOptions(is_triggered_by_goal_violation=True), relaxed),
+            (model, KA_NAMES, OptimizationOptions(), None)):
+        kernels.reset_launches()
+        res = [opt.GoalOptimizer(constraint=constraint, settings=opt.SERVICE_SETTINGS,
+                                 device=d).optimizations(m, goals, options,
+                                                         raise_on_hard_failure=False)
+               for d in ("cpu", "cuda")]
+        if goals == KA_NAMES:
+            assert k3.cases[15] > 0
+        names = [g.name for g in res[0].goal_results]
+        assert np.array_equal(res[0].final_assignment, res[1].final_assignment)
+        assert np.array_equal(res[0].touch_tag, res[1].touch_tag)
+        assert res[0].provenance.digest(goals=names) == res[1].provenance.digest(goals=names)

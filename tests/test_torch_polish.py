@@ -15,8 +15,9 @@ against the JAX package's chunked polish run, on fixture C (32 brokers,
   (on fixture C no polish phase needs more than 5 rounds).
 - The JAX package's fused polish program traces every goal twice; its
   comparison is in the slow lane.
-- check_supported still refuses options, and no longer refuses the grid,
-  the polish pass or shape bucketing.
+- check_supported refuses none of the options, the grid, the polish pass or
+  shape bucketing; it refuses a goal list that mixes the kafka-assigner goals
+  with regular ones, as the JAX package does.
 """
 
 import dataclasses
@@ -187,19 +188,27 @@ def test_fused_polish_run_equals_jax_fused_run():
 ])
 def test_bucketing_is_still_refused(settings):
     """Bucketing was refused until the slice that ported it
-    (tests/test_torch_bucketing.py): the bench's settings with it pass, and
-    with an option other than the defaults the refusal names the option."""
+    (tests/test_torch_bucketing.py), and the options until theirs
+    (tests/test_torch_options.py): the bench's settings with it pass, with
+    an option other than the defaults too."""
     bucketed = dataclasses.replace(topt.BENCH_SETTINGS, **settings)
     topt.check_supported([], bucketed, OptimizationOptions())
-    with pytest.raises(NotImplementedError, match="only_move_immigrants"):
-        topt.check_supported([], bucketed, OptimizationOptions(only_move_immigrants=True))
+    topt.check_supported(topt.goals_by_priority(None), bucketed,
+                         OptimizationOptions(only_move_immigrants=True))
 
 
 def test_options_are_still_refused():
-    field = dataclasses.fields(OptimizationOptions)[0].name
-    options = dataclasses.replace(OptimizationOptions(), **{field: True})
-    with pytest.raises(NotImplementedError, match=field):
+    """Every option field is accepted now; what check_supported still refuses
+    is what the JAX package refuses, a kafka-assigner goal beside a regular
+    one."""
+    from cruise_control_torch.analyzer.goals import DEFAULT_GOAL_ORDER, KAFKA_ASSIGNER_GOALS
+
+    for field in dataclasses.fields(OptimizationOptions):
+        options = dataclasses.replace(OptimizationOptions(), **{field.name: True})
         topt.check_supported([], topt.GREEDY_SETTINGS, options)
+    with pytest.raises(ValueError, match="cannot mix"):
+        topt.check_supported([KAFKA_ASSIGNER_GOALS[1], DEFAULT_GOAL_ORDER[8]],
+                             topt.GREEDY_SETTINGS, OptimizationOptions())
 
 
 @pytest.mark.parametrize("settings", ["GREEDY_SETTINGS", "BENCH_SETTINGS"])

@@ -243,16 +243,22 @@ def test_the_fused_run_keeps_its_ledger_off_by_default():
 def test_what_the_slice_leaves_out_is_refused(field, value):
     """Shape bucketing is ported (tests/test_torch_bucketing.py), as are the
     polish pass and the batch_k=1 grid (tests/test_torch_polish.py,
-    tests/test_torch_grid.py); an option other than the defaults, also under
-    bucketing, is still refused."""
+    tests/test_torch_grid.py) and the options (tests/test_torch_options.py):
+    an option other than the defaults under bucketing is accepted, and the
+    prepared context carries it (padded partitions excluded)."""
     from cruise_control_torch.analyzer.context import OptimizationOptions
 
     settings = dataclasses.replace(topt.SERVICE_EXACT_SETTINGS, **{field: value})
     topt.check_supported(topt.goals_by_priority(None), settings, OptimizationOptions())
     tmodel = from_numpy({k: np.asarray(v) for k, v in _model()._asdict().items()})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        topt.GoalOptimizer(settings=settings, device="cpu").optimizations(
-            tmodel, None, OptimizationOptions(only_move_immigrants=True))
+    p = tmodel.num_partitions
+    options = OptimizationOptions(only_move_immigrants=True,
+                                  excluded_partitions=np.arange(p) % 7 == 0)
+    static = topt.GoalOptimizer(settings=settings, device="cpu")._prepare(
+        tmodel, None, options)[4]
+    assert bool(static.only_move_immigrants)
+    movable = static.movable_partition.numpy()
+    assert np.array_equal(movable[:p], np.arange(p) % 7 != 0) and not movable[p:].any()
 
 
 @pytest.mark.slow
@@ -334,3 +340,32 @@ def test_chip_smoke_jax_references_are_current():
         out = lane.propose(model._replace(**fields), generation=gen)
         assert out.ok and list(out.affected) == goals, (label, out.fallback_reason)
         check(label, out.result, ref)
+    # the option phases: each facade flow of chip_smoke.option_recipes under
+    # the bucketed service settings, the options resolved against the
+    # generator's topic names; the demote flow's K11 on its initial and final
+    # assignments
+    from cruise_control_tpu.analyzer.context import build_static_ctx, dims_of, resolve_options
+    from cruise_control_tpu.analyzer.goals.preferred import elect_preferred_leaders
+    from cruise_control_tpu.config.balancing import BalancingConstraint as JConstraint
+
+    names = jgen.metadata_for(model).topic_names
+    recipes = chip_smoke.option_recipes({k: np.asarray(v) for k, v in model._asdict().items()})
+    for label, (fields, goal_names, okw, mult) in recipes.items():
+        m = model._replace(**fields)
+        constraint = dataclasses.replace(JConstraint.default(),
+                                         goal_violation_distribution_threshold_multiplier=mult)
+        opt = jopt.GoalOptimizer(constraint=constraint, settings=jopt.OptimizerSettings(
+            **dict(base, chunk_rounds=32, **bucketed), chunk_target_s=chip_smoke.PINNED_TARGET_S))
+        res = opt.optimizations(m, goal_names,
+                                resolve_options(jopt.OptimizationOptions(**okw), m, names),
+                                raise_on_hard_failure=False)
+        check(label, res, chip_smoke.JAX_CPU_OPTION_REFERENCE[label])
+        assert res.bucketed == chip_smoke.JAX_CPU_SERVICE_BUCKETED_BLOCK, label
+        assert {"replica": res.num_replica_moves, "leadership": res.num_leadership_moves} == \
+            chip_smoke.JAX_CPU_OPTION_MOVES[label], label
+        if label == "demote":
+            st = build_static_ctx(m, constraint, dims_of(m))
+            for which, a in (("initial", m.assignment), ("final", res.final_assignment)):
+                out = np.asarray(jax.jit(elect_preferred_leaders)(st, np.asarray(a)))
+                assert hashlib.sha256(np.ascontiguousarray(out, dtype=np.int32).tobytes()) \
+                    .hexdigest() == chip_smoke.JAX_CPU_K11_SHA256[which], which

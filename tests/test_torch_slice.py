@@ -140,8 +140,8 @@ def test_raise_on_hard_failure_matches(runs):
 @pytest.mark.parametrize("change, item", [
     # the batch_k=1 grid, the polish pass, the chunked machine, the ledger
     # and shape bucketing are ported (tests/test_torch_grid.py,
-    # _polish.py, _service.py, _bucketing.py); an option other than the
-    # defaults, also with them, is still refused
+    # _polish.py, _service.py, _bucketing.py), and so are the options
+    # (tests/test_torch_options.py); item names the ROADMAP.md item of each
     (dict(batch_k=1, bucket_brokers=True), "item 4"),
     (dict(bucket_brokers=True), "item 4"),
     (dict(bucket_partitions=True), "item 4"),
@@ -151,45 +151,81 @@ def test_raise_on_hard_failure_matches(runs):
     (dict(bulk_waves=16, bulk_min_brokers=2, batch_k=1, bucket_brokers=True), "item 4"),
 ])
 def test_settings_outside_the_slice_are_refused(change, item):
+    """A goal-violation run under each of these settings is accepted; at the
+    default multiplier (1.0) its relaxed constraint is the constraint, so it
+    decides as the default options do."""
     from cruise_control_torch.analyzer.context import OptimizationOptions
 
     tmodel = from_numpy({k: np.asarray(v) for k, v in jgen.rack_aware_violated()._asdict().items()})
     settings = topt.OptimizerSettings(**{**SLICE, **change})
     goals = ["RackAwareGoal", "ReplicaCapacityGoal"]
-    topt.check_supported(topt.goals_by_priority(goals), settings, OptimizationOptions())
-    with pytest.raises(NotImplementedError, match=item):
-        topt.GoalOptimizer(settings=settings, device="cpu").optimizations(
-            tmodel, goals, OptimizationOptions(is_triggered_by_goal_violation=True))
+    options = OptimizationOptions(is_triggered_by_goal_violation=True)
+    topt.check_supported(topt.goals_by_priority(goals), settings, options)
+    o = topt.GoalOptimizer(settings=settings, device="cpu")
+    relaxed = o.optimizations(tmodel, goals, options, raise_on_hard_failure=False)
+    plain = o.optimizations(tmodel, goals, raise_on_hard_failure=False)
+    assert np.array_equal(relaxed.final_assignment, plain.final_assignment), item
+    assert [(g.name, g.violated_brokers_after, g.rounds) for g in relaxed.goal_results] == [
+        (g.name, g.violated_brokers_after, g.rounds) for g in plain.goal_results]
 
 
 def test_soft_goals_resolve_but_are_refused():
-    """The default stack's soft goals are ported; the kafka-assigner mode's
-    soft goal still resolves by name and is refused."""
+    """The default stack's soft goals are ported, and so is the
+    kafka-assigner mode's soft goal: it resolves by name and runs alone
+    (tests/test_torch_kafka_assigner.py holds it to the JAX package)."""
     tmodel = from_numpy({k: np.asarray(v) for k, v in jgen.unbalanced()._asdict().items()})
     name = "KafkaAssignerDiskUsageDistributionGoal"
-    with pytest.raises(NotImplementedError, match=f"{name} .*item 6"):
-        topt.GoalOptimizer(device="cpu").optimizations(tmodel, [name])
+    res = topt.GoalOptimizer(device="cpu").optimizations(tmodel, [name],
+                                                         raise_on_hard_failure=False)
+    assert [g.name for g in res.goal_results] == [name]
 
 
 @pytest.mark.parametrize("option, value", [
-    ("excluded_partitions", np.zeros(1, dtype=bool)),
-    ("excluded_brokers_for_leadership", np.zeros(1, dtype=bool)),
-    ("excluded_brokers_for_replica_move", np.zeros(1, dtype=bool)),
-    ("requested_destination_brokers", np.ones(1, dtype=bool)),
+    ("excluded_partitions", None),
+    ("excluded_brokers_for_leadership", None),
+    ("excluded_brokers_for_replica_move", None),
+    ("requested_destination_brokers", None),
     ("only_move_immigrants", True),
     ("is_triggered_by_goal_violation", True),
-    ("excluded_topic_pattern", "t.*"),
-    ("destination_broker_ids", (0,)),
+    ("excluded_topic_pattern", "topic-1.*"),
+    ("destination_broker_ids", (0, 2)),
 ])
 def test_options_other_than_the_defaults_are_refused(option, value):
-    """The port takes the default OptimizationOptions only; any other value
-    is refused by name, not applied untested."""
-    from cruise_control_torch.analyzer.context import OptimizationOptions
+    """Every option is accepted: the static context the optimizer prepares
+    under it equals the JAX package's `build_static_ctx` under the same
+    resolved option (a mask option: a seeded mask of the model's length). A
+    topic pattern needs the topic names: without them both packages raise
+    the same ValueError."""
+    from cruise_control_tpu.analyzer import context as jctx
+    from cruise_control_tpu.config.balancing import BalancingConstraint as JConstraint
+    from cruise_control_torch.analyzer.context import OptimizationOptions, resolve_options
+    from cruise_control_torch.models.generators import topic_names
 
     assert {f.name for f in dataclasses.fields(OptimizationOptions)} == {
         f.name for f in dataclasses.fields(jopt.OptimizationOptions)}
-    tmodel = from_numpy({k: np.asarray(v) for k, v in jgen.rack_aware_violated()._asdict().items()})
+    jmodel = jgen.rack_aware_violated()
+    tmodel = from_numpy({k: np.asarray(v) for k, v in jmodel._asdict().items()})
+    if value is None:
+        n = jmodel.num_partitions if option == "excluded_partitions" else jmodel.num_brokers
+        value = np.random.default_rng(3).random(n) < 0.5
+    goals = ["RackAwareGoal", "ReplicaCapacityGoal"]
+    o = topt.GoalOptimizer(device="cpu", settings=topt.OptimizerSettings(**SLICE))
     options = OptimizationOptions(**{option: value})
-    with pytest.raises(NotImplementedError, match=f"option {option} .*item 4"):
-        topt.GoalOptimizer(device="cpu").optimizations(
-            tmodel, ["RackAwareGoal", "ReplicaCapacityGoal"], options)
+    if option == "excluded_topic_pattern":
+        with pytest.raises(ValueError) as te:
+            o.optimizations(tmodel, goals, options)
+        with pytest.raises(ValueError) as je:
+            jopt.GoalOptimizer(settings=jopt.OptimizerSettings(**JAX_SLICE)).optimizations(
+                jmodel, goals, jopt.OptimizationOptions(**{option: value}))
+        assert str(te.value) == str(je.value)
+        options = resolve_options(options, tmodel, topic_names(tmodel))
+    static = o._prepare(tmodel, goals, options)[4]
+    jopts = jctx.resolve_options(jopt.OptimizationOptions(**{option: value}), jmodel,
+                                 topic_names(tmodel))
+    js = jctx.build_static_ctx(jmodel, JConstraint.default(), jctx.dims_of(jmodel), jopts)
+    assert static._fields == js._fields
+    for field in js._fields:
+        assert np.array_equal(np.asarray(getattr(js, field)),
+                              getattr(static, field).numpy()), field
+    res = o.optimizations(tmodel, goals, options, raise_on_hard_failure=False)
+    assert [g.name for g in res.goal_results] == goals

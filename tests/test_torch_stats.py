@@ -129,3 +129,99 @@ def test_state_fingerprint_sees_a_sign_flip():
     fa, fb = _port_fp(a), _port_fp(b)
     assert fa != fb
     assert (fa, fb) == (int(_jit_fp(_FpAgg(**a))), int(_jit_fp(_FpAgg(**b))))
+
+
+def _crafted_counts_model(t: int, b: int, seed: int) -> dict:
+    """Fields of a model whose [t, b] topic table is random, with a random
+    count range per topic, about a tenth of the brokers dead and of the
+    topics empty: the per-topic deviations take many values of many
+    magnitudes (half the topics have one broker with hundreds or thousands of
+replicas). RF 1, padded to a fixed 131,072 partitions with empty rows,
+    so every seed of one (t, b) shares one jitted program."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, rng.integers(2, 24, (t, 1)) + 1, (t, b))
+    heavy = np.nonzero(rng.random(t) < 0.5)[0]
+    counts[heavy, rng.integers(0, b, heavy.size)] += rng.integers(100, 3000, heavy.size)
+    counts[rng.random(t) < 0.1] = 0
+    t_idx, b_idx = np.nonzero(counts)
+    reps = counts[t_idx, b_idx]
+    p = 131072
+    topic = np.repeat(t_idx, reps).astype(np.int32)
+    broker = np.repeat(b_idx, reps).astype(np.int32)
+    state = np.where(rng.random(b) < 0.1, 3, 0).astype(np.int32)
+    return dict(assignment=np.concatenate([broker, np.full(p - topic.size, -1, np.int32)])[:, None],
+                part_load=np.ones((p, 8), np.float32),
+                topic_id=np.concatenate([topic, np.zeros(p - topic.size, np.int32)]),
+                broker_capacity=np.ones((b, 4), np.float32),
+                broker_rack=(np.arange(b) % 3).astype(np.int32),
+                broker_host=np.arange(b, dtype=np.int32), broker_state=state)
+
+
+def _lane_sum(values, lanes: int):
+    """The topics' sum with `lanes` vector lanes added by halves and the
+    rest one by one (0: index order). `values` may hold float32 numbers, or
+    names, when the result is the order's expression tree (an add of +0.0
+    first drops out)."""
+
+    def add(x, y):
+        if x is None:
+            return y
+        return np.float32(x + y) if isinstance(x, np.float32) else (x, y)
+
+    t = len(values)
+    acc = [None] * max(lanes, 1)
+    main = t - t % lanes if lanes else 0
+    for i in range(main):
+        acc[i % lanes] = add(acc[i % lanes], values[i])
+    while len(acc) > 1:
+        h = len(acc) // 2
+        acc = [add(acc[j], acc[j + h]) for j in range(h)]
+    s = acc[0]
+    for i in range(main, t):
+        s = add(s, values[i])
+    return s
+
+
+def _window_tree(t: int):
+    """The expression tree of xla_sum over t names."""
+    if t <= 32:
+        return _lane_sum(list(range(t)), 0)
+    m = -(-t // 32) * 32
+    names = [None] * ((m - t) // 2) + list(range(t)) + [None] * (m - t - (m - t) // 2)
+    windows = [_lane_sum([x for x in names[w:w + 32] if x is not None], 0)
+               for w in range(0, m, 32)]
+    return _lane_sum(windows, 0)
+
+
+@pytest.mark.parametrize("b", (32, 70))
+@pytest.mark.parametrize("t", (1, 7, 20, 32, 33))
+def test_topic_spread_equals_jitted_jax_in_its_own_order(t, b, monkeypatch):
+    # K8's mean over the topics: at t <= 32 in the vectorized order XLA:CPU
+    # compiles (TOPIC_LANES), above in windows of 32. Eight crafted tables
+    # per shape: the port equals jitted JAX on each, and every other order
+    # among index order, 2, 4, 8 or 16 lanes and windows misses on at least
+    # one of them
+    from cruise_control_torch.kernels import cluster_stats as k8
+
+    inner, seen = k8.topic_sum, []
+    monkeypatch.setattr(k8, "topic_sum", lambda v, nb: seen.append(v.copy()) or inner(v, nb))
+    lanes = k8.TOPIC_LANES[b > 32][t - 1] if t <= 32 else None
+    truth_tree = _window_tree(t) if lanes is None else _lane_sum(list(range(t)), lanes)
+    others = {tree: name for name, tree in (
+        [(f"{n} lanes", _lane_sum(list(range(t)), n)) for n in (0, 2, 4, 8, 16)]
+        + [("windows", _window_tree(t))]) if tree != truth_tree}
+    missed = set()
+    for seed in range(8):
+        f = _crafted_counts_model(t, b, seed)
+        j = jax.device_get(_jit_stats(jfm.FlatClusterModel(**f), t)).topic_replica_std
+        p = stats_to_host(compute_stats(tfm.from_numpy(f), t)).topic_replica_std
+        assert _same(j, p), seed
+        v = seen[-1]
+        truth = inner(v, b)
+        for name in others.values():
+            alt = k8.xla_sum(v) if name == "windows" else _lane_sum(
+                [np.float32(x) for x in v], int(name.split()[0]))
+            if not _same(alt, truth):
+                missed.add(name)
+    assert missed == set(others.values()), sorted(set(others.values()) - missed)
+    assert t > 1 or not others
