@@ -14,9 +14,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      per call from CUDA events, and its plain version from CUDA events:
        K1 segment_aggregates, K2 broker_topk, K3 score_candidates (a hard
        goal's [512, 8, 64] drain grid, the [P, 2] promotion grid and a soft
-       goal's drain grid), K4 apply_wave (a 1,024-entry drain wave and a
-       2,600-entry two-leg relay wave), K5 score_swaps (the [128, 128, 8, 8]
-       replica-swap grid and the [512, 4, 2, 8, 2] relay grid), K6 pair_picks
+       goal's drain grid), K4 apply_wave (a 1,024-entry drain wave, a
+       2,600-entry two-leg relay wave and the bulk planner's wave, one entry
+       per broker of the bucketed service context: 3,072), K5 score_swaps
+       (the [128, 128, 8, 8] replica-swap grid and the [512, 4, 2, 8, 2]
+       relay grid), K6 pair_picks
        (512 surplus pairs), window_sum in XLA:CPU's order (the brokers'
        leader bytes-in, the [2,600, 4] broker loads and the 199,518
        partitions' leader bytes-in), K7 state_fingerprint (the aggregates)
@@ -513,6 +515,84 @@ PINNED_TARGET_S = 1e9
 #: 42 + 5) and parity gate (bench.py:189-203, :546-580)
 PARITY_BROKERS = 520
 PARITY_COST_REL, PARITY_COST_FLOOR, PARITY_COUNT_SLACK = 0.05, 0.01, 3
+
+
+#: entries of chip_smoke's two-leg relay wave for K4
+K4_RELAY_ENTRIES = 2600
+
+
+def k4_relay_wave(a_np: np.ndarray, num_brokers: int, n: int = K4_RELAY_ENTRIES):
+    """K4's two-leg wave in the relay form (two promotions per entry, three
+    brokers, two hosts and two partitions claimed), seeded on the assignment
+    `a_np` with integer scores to force ties. As in every relay, leg 2
+    promotes a partition led by leg 1's destination d. Returns CPU tensors
+    (p, kind, slot, dst, p2, kind2, slot2, dst2, score, ok)."""
+    rng = np.random.default_rng(SEED)
+    p_count, r = a_np.shape
+    led_by = np.argsort(a_np[:, 0], kind="stable")
+    first = np.searchsorted(a_np[led_by, 0], np.arange(num_brokers + 1))
+    lp1, ls1 = rng.integers(0, p_count, n), rng.integers(1, r, n)
+    d_np = a_np[lp1, ls1]
+    d0 = np.maximum(d_np, 0)
+    n_led = first[d0 + 1] - first[d0]
+    lp2 = led_by[np.minimum(first[d0] + (rng.random(n) * n_led).astype(np.int64), p_count - 1)]
+    ls2 = rng.integers(1, r, n)
+    e_np = a_np[lp2, ls2]
+    ok_np = ((d_np >= 0) & (n_led > 0) & (a_np[lp2, 0] == d_np) & (e_np >= 0)
+             & (a_np[lp1, 0] >= 0) & (a_np[lp1, 0] != d_np) & (lp1 != lp2)
+             & (rng.random(n) < 0.9))
+    lead = np.full(n, 1, dtype=np.int32)
+    wave = [torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+            for x in (lp1, lead, ls1, d_np, lp2, lead, ls2, e_np)]
+    return wave + [torch.from_numpy(rng.integers(0, 8, n).astype(np.float32)),
+                   torch.from_numpy(ok_np)]
+
+
+def k4_relay_apply(fn, st, agg, w):
+    """Apply k4_relay_wave's wave `w` with `fn` (apply_wave or its plain version)."""
+    return fn(st, agg, *w[:4], w[8], w[9], 7, leg2=tuple(w[4:8]), brokers3=True)
+
+
+def k4_bulk_wave(model_cpu, device: str):
+    """The bulk count planner's first wave (one leg, one entry per broker)
+    for ReplicaDistributionGoal on the smoke model's bucketed service
+    context, as `GoalOptimizer(settings=SERVICE_SETTINGS)` prepares it on
+    `device`: the priors' tables of the goals before it, its drain
+    contributions, the first round. Returns (static, agg, args): the context
+    before the wave and apply_wave's arguments after the two context ones."""
+    from cruise_control_torch.analyzer import bulk
+    from cruise_control_torch.analyzer import optimizer as opt
+    from cruise_control_torch.analyzer.acceptance import build_tables
+    from cruise_control_torch.analyzer.context import compute_aggregates
+    from cruise_control_torch.analyzer.goals import goals_by_priority
+
+    settings = opt.SERVICE_SETTINGS
+    _, pmodel, dims, static, _, _ = opt.GoalOptimizer(device=device,
+                                                      settings=settings)._build_ctx(model_cpu)
+    agg = compute_aggregates(static, pmodel.assignment, dims)
+    goals = goals_by_priority(None)
+    goal = next(g for g in goals if g.name == "ReplicaDistributionGoal")
+    tables = build_tables(goals[:goals.index(goal)], static, agg, dims)
+    gs = goal.prepare(static, agg, dims)
+    round_fn = bulk.make_bulk_count_round(goal, dims, settings.drain_per_broker,
+                                          settings.bulk_waves)
+    recorded = []
+    real = bulk.apply_wave
+
+    def record(st, ag, *args):
+        if not recorded:
+            recorded.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return real(st, ag, *args)
+
+    bulk.apply_wave = record
+    try:
+        round_fn(static, type(agg)(*(t.clone() for t in agg)), tables, gs,
+                 goal.drain_contrib(static, gs, agg), 0)
+    finally:
+        bulk.apply_wave = real
+    if not recorded:
+        fail("K4 bulk wave: the bulk planner made no wave on the bucketed smoke model")
+    return static, agg, recorded[0]
 
 
 def lane_perturbations(fields: dict):
@@ -1056,47 +1136,25 @@ def main() -> int:
     k4_bytes = 1024 * (4 * 4 + 4 + 1 + 1) + 1024 * (r * 4 * 2 + 24) + n_sel * (2 * r * 4 * 2 + 2 * 56)
     # per entry: the four selection stages' scatter-max / scatter-min and
     # group claims, and its share of the applies
-    rw = row("apply_wave drain wave", "apply_wave.cu", "cruise_control_tpu/analyzer/context.py:425",
-             k4_err, k4_call(apply_wave), k4_call(apply_wave_plain), k4_bytes, 1024 * 60,
-             "one block of 1,024 threads: dependent O(N^2) stages with barriers")
+    k4_drain = row("apply_wave drain wave", "apply_wave.cu",
+                   "cruise_control_tpu/analyzer/context.py:425", k4_err, k4_call(apply_wave),
+                   k4_call(apply_wave_plain), k4_bytes, 1024 * 60,
+                   "one block of 1,024 threads: O(N) stages over per-group tables")
     rows.pop("apply_wave drain wave")
     pool.clear()
     print(f"K4 apply_wave: 1,024-entry drain wave, {n_sel} selected, selection and every "
-          f"aggregate bit-equal; {rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per "
-          f"call, plain {rw['plain_ms']:.4f} ms, bound {rw['bound_ms']:.6f} ms")
+          f"aggregate bit-equal; {k4_drain['ms']:.4f} ms on the device, "
+          f"{k4_drain['call_ms']:.4f} ms per call, plain {k4_drain['plain_ms']:.4f} ms, bound "
+          f"{k4_drain['bound_ms']:.6f} ms")
 
-    # K4 on a 2,600-entry two-leg wave in the relay form (two promotions per
-    # entry, three brokers, two hosts and two partitions claimed), seeded on
-    # the smoke state with integer scores to force ties. As in every relay,
-    # leg 2 promotes a partition led by leg 1's destination d.
-    rng = np.random.default_rng(SEED)
-    a_np = model_cpu.assignment.numpy()
-    n4 = 2600
-    led_by = np.argsort(a_np[:, 0], kind="stable")
-    first = np.searchsorted(a_np[led_by, 0], np.arange(dims.num_brokers + 1))
-    lp1, ls1 = rng.integers(0, p_count, n4), rng.integers(1, r, n4)
-    d_np = a_np[lp1, ls1]
-    d0 = np.maximum(d_np, 0)
-    n_led = first[d0 + 1] - first[d0]
-    lp2 = led_by[np.minimum(first[d0] + (rng.random(n4) * n_led).astype(np.int64), p_count - 1)]
-    ls2 = rng.integers(1, r, n4)
-    e_np = a_np[lp2, ls2]
-    ok_np = ((d_np >= 0) & (n_led > 0) & (a_np[lp2, 0] == d_np) & (e_np >= 0)
-             & (a_np[lp1, 0] >= 0) & (a_np[lp1, 0] != d_np) & (lp1 != lp2)
-             & (rng.random(n4) < 0.9))
-    lead = np.full(n4, 1, dtype=np.int32)
-    relay_c = [torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
-               for x in (lp1, lead, ls1, d_np, lp2, lead, ls2, e_np)]
-    relay_c += [torch.from_numpy(rng.integers(0, 8, n4).astype(np.float32)),
-                torch.from_numpy(ok_np)]
+    # K4 on a 2,600-entry two-leg wave in the relay form
+    n4 = K4_RELAY_ENTRIES
+    relay_c = k4_relay_wave(model_cpu.assignment.numpy(), dims.num_brokers)
     relay_g = [t.to(dev) for t in relay_c]
 
-    def relay_wave(fn, st, agg, w):
-        return fn(st, agg, *w[:4], w[8], w[9], 7, leg2=tuple(w[4:8]), brokers3=True)
-
     a4_g, a4_c = clone(agg_g), clone(agg_c)
-    sel_g = relay_wave(apply_wave, st_g, a4_g, relay_g)
-    sel_c = relay_wave(apply_wave_plain, st_c, a4_c, relay_c)
+    sel_g = k4_relay_apply(apply_wave, st_g, a4_g, relay_g)
+    sel_c = k4_relay_apply(apply_wave_plain, st_c, a4_c, relay_c)
     torch.cuda.synchronize()
     if not bits_equal(sel_g, sel_c):
         fail("K4 apply_wave (two-leg): selection differs from the plain version")
@@ -1111,7 +1169,7 @@ def main() -> int:
             if i == 0:
                 pool[:] = [clone(agg_g) for _ in range(WARMUP + REPS)]
                 torch.cuda.synchronize()
-            return relay_wave(fn, st_g, pool[i], relay_g)
+            return k4_relay_apply(fn, st_g, pool[i], relay_g)
         return call
 
     # entries: 8 index words, a score and two flags; per selected entry both
@@ -1120,13 +1178,57 @@ def main() -> int:
         2 * r * 4 * 2 + 2 * 56)
     row("apply_wave", "apply_wave.cu", "cruise_control_tpu/analyzer/context.py:425", k4_err,
         k4_relay_call(apply_wave), k4_relay_call(apply_wave_plain), k4_bytes, n4 * 90,
-        "2,600-entry two-leg relay wave: one block of 1,024 threads, each owning up to three "
-        "entries, dependent O(N^2) stages with barriers; latency, not bytes or operations, "
-        "sets its time")
+        "2,600-entry two-leg relay wave: one block of 1,024 threads, each owning up to four "
+        "entries, O(N) stages of shared-memory atomics over per-group tables (the partitions' "
+        "in a global workspace), the host-CPU updates host by host; latency, not bytes or "
+        "operations, sets its time")
     pool.clear()
     print(f"K4 apply_wave: 2,600-entry two-leg relay wave, {n_sel} selected, selection and every "
           f"aggregate bit-equal")
     del a4_g, a4_c
+
+    # K4 on the bulk planner's wave: one entry per broker of the smoke
+    # model's bucketed service context (3,072)
+    st_b_g, agg_b_g, bulk_g = k4_bulk_wave(model_cpu, "cuda")
+    _, pm_b_c, dims_b, st_b_c, _, _ = opt.GoalOptimizer(
+        device="cpu", settings=opt.SERVICE_SETTINGS)._build_ctx(model_cpu)
+    agg_b_c = compute_aggregates(st_b_c, pm_b_c.assignment, dims_b)
+    bulk_c = tuple(a.cpu() if torch.is_tensor(a) else a for a in bulk_g)
+    nb = bulk_g[0].shape[0]
+    a4_g, a4_c = clone(agg_b_g), clone(agg_b_c)
+    sel_g = apply_wave(st_b_g, a4_g, *bulk_g)
+    sel_c = apply_wave_plain(st_b_c, a4_c, *bulk_c)
+    torch.cuda.synchronize()
+    if not bits_equal(sel_g, sel_c):
+        fail("K4 apply_wave (bulk wave): selection differs from the plain version")
+    for n_, a_, b_ in zip(a4_c._fields, a4_g, a4_c):
+        if not bits_equal(a_, b_):
+            fail(f"K4 apply_wave (bulk wave): applied {n_} differs from the plain version")
+    n_sel, n_ok = int(sel_c.sum()), int(bulk_c[5].sum())
+    if n_sel == 0:
+        fail("K4 apply_wave (bulk wave): the wave selected nothing")
+    k4_err = max([max_abs_err(sel_g, sel_c)] + [max_abs_err(a_, b_) for a_, b_ in zip(a4_g, a4_c)])
+
+    def k4_bulk_call(fn):
+        def call(i):
+            if i == 0:
+                pool[:] = [clone(agg_b_g) for _ in range(WARMUP + REPS)]
+                torch.cuda.synchronize()
+            return fn(st_b_g, pool[i], *bulk_g)
+        return call
+
+    k4_bytes = nb * (4 * 4 + 4 + 1 + 1) + nb * (r * 4 * 2 + 24) + n_sel * (2 * r * 4 * 2 + 2 * 56)
+    k4_bulk = row("apply_wave bulk wave", "apply_wave.cu",
+                  "cruise_control_tpu/analyzer/context.py:425", k4_err, k4_bulk_call(apply_wave),
+                  k4_bulk_call(apply_wave_plain), k4_bytes, nb * 60,
+                  f"the bulk planner's {nb}-entry wave, one leg")
+    rows.pop("apply_wave bulk wave")
+    pool.clear()
+    print(f"K4 apply_wave: the bulk planner's {nb}-entry wave (ReplicaDistributionGoal, "
+          f"{dims_b.num_brokers} brokers, {n_ok} flagged), {n_sel} selected, selection and every "
+          f"aggregate bit-equal; {k4_bulk['ms']:.4f} ms on the device, {k4_bulk['call_ms']:.4f} "
+          f"ms per call, plain {k4_bulk['plain_ms']:.4f} ms, bound {k4_bulk['bound_ms']:.6f} ms")
+    del a4_g, a4_c, agg_b_g, agg_b_c, st_b_g, st_b_c, pm_b_c
 
     # K5 on DiskUsageDistributionGoal's [128, 128, 8, 8] replica-swap grid and
     # LeaderBytesInDistributionGoal's [512, 4, 2, 8, 2] relay grid, each
@@ -1738,6 +1840,12 @@ def main() -> int:
     # for K10 the lane's first proposal; every solve's count is kept beside it
     main = {"grid_shortlist": "parity greedy", "delta_scatter": "lane a",
             "elect_preferred": "demote"}
+    n_k4 = solves["service bucketed"]["launches"]["apply_wave"]
+    print(f"K4 apply_wave on the service bucketed solve: {n_k4} launches x "
+          f"{k4_bulk['ms']:.4f} ms (bulk wave) = {n_k4 * k4_bulk['ms'] / 1e3:.3f} s, x "
+          f"{k4_drain['ms']:.4f} ms (drain wave) = {n_k4 * k4_drain['ms'] / 1e3:.3f} s, x "
+          f"{rows['apply_wave']['ms']:.4f} ms (relay wave) = "
+          f"{n_k4 * rows['apply_wave']['ms'] / 1e3:.3f} s of device time")
     for key, v in rows.items():
         v["launches"] = solves[main.get(key, "service bucketed")]["launches"][key]
         for label in solves:

@@ -10,50 +10,84 @@
 // drain.py:862-867.
 //
 // Bound on this card: latency. A wave holds at most 4,096 entries (the bulk
-// planner's waves hold one per broker, 2,600 on the smoke model; a drain wave
-// 512 nominations + 512 promotions); the bytes are a few hundred KB at most
-// and the pairwise selection about 6 x N^2 = 40M shared-memory compares at
-// N = 2,600, tens of microseconds spread over one block. What costs is the
-// launch, the dependent stages with their barriers, and the one thread that
-// applies the host-CPU updates in order.
+// planner's waves hold one per broker, 3,072 on the bucketed smoke model; a
+// drain wave 512 nominations + 512 promotions); its bytes are a few hundred
+// KB at most. What costs is the launch and the chain of dependent stages,
+// each a round of shared-memory atomics ended by a barrier.
 //
-// Design: one block of up to 1,024 threads; each thread owns entries i,
-// i + blockDim, ... (up to four). The entries' claims live in dynamic shared
-// memory (50 bytes an entry, 200 KB at 4,096), and the stages of wave_select
-// run in the reference's order with __syncthreads() between them, each as
-// O(N^2) pairwise compares: no table sized by B, H or P, nothing to clear
-// between waves, and no atomics whose order would matter. Per-group tables
-// with order-preserving atomics (scatter-max of the score bits, scatter-min of
-// the index) would be O(N); at these N the pairwise form is simpler and its
-// time is not what bounds the round.
-//   1. an entry is a candidate iff its score is >= that of every valid entry
-//      sharing a broker endpoint with it (the per-broker scatter-max);
-//   2. it survives iff no lower-index candidate shares a broker (the
-//      scatter-min of the index);
-//   3. relays only: unique_per_group over the union of (src, dst, third
-//      broker): best score among the selected entries sharing any of them,
-//      ties to the lowest index;
-//   4. the same over the destination hosts (leg 1's, and leg 2's);
-//   5. the same over the partitions (leg 1's, and leg 2's).
-// The selected entries are then broker-, host- and partition-disjoint, so
-// each thread applies its own entries with plain loads and stores (for two
-// legs this needs leg 2 to leave the broker leg 1 enters, as every swap and
-// relay does; the claims cover no other broker): leg 1,
-// then leg 2, both built from the pre-wave assignment (an entry's two rows
-// are its own). A broker shared by an entry's two legs (a swap's ends, a
-// relay's e == b) thus takes (x + leg1) + leg2, rounded twice as in the
-// reference. The one shared aggregate is host_cpu_load, whose source hosts
-// may repeat: one thread applies it in the reference's order (leg 1's source
-// subtractions in entry order, then its destination additions, then leg 2's
-// likewise). Entries whose flag is set but whose action is not valid (an
-// empty slot or src == dst) are treated as unflagged; the scoring kernels
-// never give such an entry a finite score, so the reference never flags one.
+// The first design ran every selection stage as an O(N^2) pairwise
+// scan over shared memory in one block, and one thread applied the host-CPU
+// updates of the whole wave: 4.0 ms for a 2,600-entry two-leg relay wave and
+// 0.33 ms for a 1,024-entry drain wave on an H100, 48% of the device's busy
+// time in the service solve. Stamped with clock64() (scripts/k4_stage_split.py),
+// the relay wave's 4.0 ms went 89% to the five pairwise stages, 10% to
+// thread 0's serial host-CPU passes and 1% to the claims and the apply
+// (PERF.md). This design keeps one block of 1,024 threads (each stage is a
+// few shared-memory atomics per entry at N <= 4,096, about a microsecond:
+// too little work to spread over a cluster) and makes every stage O(N):
+//   - Each stage of wave_select is one unique_per_group (context.py:460) over
+//     a per-group table: an atomicMax of an order-preserving uint32 key of
+//     the entry's score into every group it claims, a barrier, the float
+//     compare s >= max at each claim (so -0.0 and +0.0 tie, and a NaN score
+//     poisons its groups as the reference's scatter-max does), an atomicMin
+//     of the index of the entries that pass, a barrier, and the entry
+//     survives iff it holds the minimum at every claim. The stages run in the
+//     reference's order: brokers over (src, dst) among the valid entries
+//     (its gmax / imin stages), brokers over (src, dst, third broker) for
+//     relays, destination hosts, partitions. The max and the min are not
+//     folded into one 64-bit (score, ~index) max: an equal-score entry of a
+//     lower index that is not a candidate (it loses its other broker) would
+//     then shadow the one the reference selects.
+//   - Broker and host tables live in shared memory (max(B, H) <= 8,192 slots
+//     of two words). The partition table does not fit (212,992 partitions on
+//     the bucketed smoke model): it is a global workspace of [2, P] words that
+//     the wrapper allocates once at the sentinels, and each stage resets
+//     exactly the slots its entries touched before the block moves on, so no
+//     table costs an O(B) or O(P) clear from the host.
+//   - The selected entries are then broker-, host- and partition-disjoint, so
+//     each thread applies its own entries with plain loads and stores (for
+//     two legs this needs leg 2 to leave the broker leg 1 enters, as every
+//     swap and relay does; the claims cover no other broker): leg 1, then
+//     leg 2, both built from the pre-wave assignment (an entry's two rows are
+//     its own). A broker shared by an entry's two legs (a swap's ends, a
+//     relay's e == b) thus takes (x + leg1) + leg2, rounded twice as in the
+//     reference.
+//   - host_cpu_load is the one aggregate whose source hosts may repeat in a
+//     wave. The phases run as the reference's scatter-adds do, with a
+//     barrier between them: leg 1's subtractions, leg 1's additions
+//     (destination hosts are unique in a wave), then leg 2's likewise. Where
+//     no source host repeats within a leg (one broker a host, as on the
+//     generated clusters), each entry subtracts its own; else a stable block
+//     radix sort (CUB) orders the selected entries by (leg, source host) and
+//     one thread per run subtracts its run in entry order. Hosts run in
+//     parallel; the bits equal the sequential order.
+// Entries whose flag is set but whose action is not valid (an empty slot, src
+// == dst, or a destination outside the brokers) are treated as unflagged; the
+// scoring kernels never give such an entry a finite score, so the reference
+// never flags one.
+#include <cub/block/block_radix_sort.cuh>
+
 #include "common.cuh"
 
 #define MAX_N 4096
-#define MAX_THREADS 1024
-// bytes of dynamic shared memory per entry: 9 ints, 3 floats, 2 flags
-#define SMEM_PER_ENTRY (9 * 4 + 3 * 4 + 2)
+#define THREADS 1024
+// the entries a thread owns: i = threadIdx.x + k * THREADS
+#define PER_THREAD (MAX_N / THREADS)
+// the groups (brokers or hosts) a shared-memory table holds
+#define MAX_GROUPS 8192
+#define SMEM_LIMIT 232448
+// a u16 claim that is not there (one leg, no third broker)
+#define NO_CLAIM 0xFFFFu
+// table sentinels: below every score's key, above every index
+#define KEY_NONE 0u
+#define IDX_NONE 0x7FFFFFFF
+// host_cpu sort keys: leg << 26 | source host << 12 | entry; the sort orders
+// bits 12-26 (stable, so entries stay in index order within a run)
+#define SORT_ITEMS (2 * MAX_N / THREADS)
+#define HOST_NONE 0x3FFFu
+#define RUN(key) ((key) >> 12)
+
+typedef cub::BlockRadixSort<unsigned, THREADS, SORT_ITEMS> HostSort;
 
 struct WaveArgs {
   const int *p, *kind, *slot, *dst;
@@ -70,76 +104,161 @@ struct WaveArgs {
   int *rack_count, *topic_count;
   float* host_cpu;
   int* touch_tag;
-  int n, R, NR, B, tag, legs, brokers3;
+  unsigned* part_key;  // the partition workspace: [P] score keys, then [P] indices
+  int* part_idx;
+  int n, R, NR, B, tag, legs, brokers3, groups;
 };
 
+// Dynamic shared memory, three regions:
+//   selection (dead once the selection is made; the host sort's storage and
+//     its sorted keys reuse it): score, q1, q2, src, dst, b3;
+//   tables: [groups] score keys and [groups] indices;
+//   apply: dc1, dc2, h1, h2, hs1, hs2, sel.
 struct Shared {
-  int *src, *dst, *b3, *h1, *h2, *q1, *q2, *hs1, *hs2;
-  float *score, *dc1, *dc2;
-  unsigned char *fa, *fb;
+  float* score;
+  int *q1, *q2;
+  unsigned short *src, *dst, *b3;
+  unsigned char* sort_storage;
+  unsigned* sorted;
+  unsigned* tkey;
+  int* tidx;
+  float *dc1, *dc2;
+  unsigned short *h1, *h2, *hs1, *hs2;
+  unsigned char* sel;
 };
 
-__device__ __forceinline__ Shared carve(unsigned char* base, int n) {
+__host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+__host__ __device__ __forceinline__ size_t selection_bytes(int n) {
+  size_t entries = (size_t)n * (3 * 4 + 3 * 2);
+  size_t sort = sizeof(HostSort::TempStorage);
+  return align16(entries > sort ? entries : sort);
+}
+
+__host__ __device__ __forceinline__ size_t smem_bytes(int n, int groups) {
+  return selection_bytes(n) + align16((size_t)groups * 8) + align16((size_t)n * (2 * 4 + 4 * 2 + 1));
+}
+
+__device__ __forceinline__ Shared carve(unsigned char* base, int n, int groups) {
   Shared s;
-  int* ip = (int*)base;
-  s.src = ip;
-  s.dst = ip + n;
-  s.b3 = ip + 2 * n;
-  s.h1 = ip + 3 * n;
-  s.h2 = ip + 4 * n;
-  s.q1 = ip + 5 * n;
-  s.q2 = ip + 6 * n;
-  s.hs1 = ip + 7 * n;
-  s.hs2 = ip + 8 * n;
-  float* fp = (float*)(ip + 9 * n);
-  s.score = fp;
-  s.dc1 = fp + n;
-  s.dc2 = fp + 2 * n;
-  s.fa = (unsigned char*)(fp + 3 * n);
-  s.fb = s.fa + n;
+  s.score = (float*)base;
+  s.q1 = (int*)(s.score + n);
+  s.q2 = s.q1 + n;
+  s.src = (unsigned short*)(s.q2 + n);
+  s.dst = s.src + n;
+  s.b3 = s.dst + n;
+  s.sort_storage = base;
+  s.sorted = (unsigned*)base;
+  unsigned char* t = base + selection_bytes(n);
+  s.tkey = (unsigned*)t;
+  s.tidx = (int*)(s.tkey + groups);
+  unsigned char* a = t + align16((size_t)groups * 8);
+  s.dc1 = (float*)a;
+  s.dc2 = s.dc1 + n;
+  s.h1 = (unsigned short*)(s.dc2 + n);
+  s.h2 = s.h1 + n;
+  s.hs1 = s.h2 + n;
+  s.hs2 = s.hs1 + n;
+  s.sel = (unsigned char*)(s.hs2 + n);
   return s;
 }
 
-// does any non-negative claim of x equal any claim of y?
-__device__ __forceinline__ bool shares(int x0, int x1, int x2, int y0, int y1, int y2) {
-  return (x0 >= 0 && (x0 == y0 || x0 == y1 || x0 == y2)) ||
-         (x1 >= 0 && (x1 == y0 || x1 == y1 || x1 == y2)) ||
-         (x2 >= 0 && (x2 == y0 || x2 == y1 || x2 == y2));
+// order-preserving key of a float (a NaN above every other value)
+__device__ __forceinline__ unsigned score_key(float f) {
+  if (f != f) return 0xFFFFFFFFu;
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// unique_per_group (context.py:460) over the claims c0/c1/c2 (-1 = none):
-// reads the selection from fb, leaves it in fb; fa is scratch.
-__device__ void unique_per_group(const Shared& s, const int* c0, const int* c1, const int* c2,
-                                 int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    bool keep = s.fb[i];
-    if (keep) {
-      const int x0 = c0[i], x1 = c1 ? c1[i] : -1, x2 = c2 ? c2[i] : -1;
-      for (int j = 0; j < n; ++j) {
-        if (!s.fb[j]) continue;
-        if (shares(x0, x1, x2, c0[j], c1 ? c1[j] : -1, c2 ? c2[j] : -1) &&
-            !(s.score[i] >= s.score[j])) {
-          keep = false;
-          break;
+__device__ __forceinline__ float key_score(unsigned k) {
+  if (k == 0xFFFFFFFFu) return __uint_as_float(0x7FC00000u);
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// the partition table is read past L1, where its atomics land
+template <bool GLOBAL, typename T>
+__device__ __forceinline__ T read_slot(const T* p) {
+  if constexpr (GLOBAL) return __ldcg(p);
+  else return *p;
+}
+
+// unique_per_group (context.py:460) over the C claims claim(i, c) (-1 = none)
+// of the entries in `keep`, which it narrows: an entry survives iff its score
+// is >= the best score in every group it claims and its index is the lowest
+// among the entries that pass that test in every group. The tables are at
+// their sentinels on entry and again on return.
+template <int C, bool GLOBAL, typename Claim>
+__device__ __forceinline__ void unique_per_group(bool keep[PER_THREAD], const float* score, Claim claim, int n,
+                                 unsigned* tkey, int* tidx) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    if (i >= n || !keep[k]) continue;
+    const unsigned key = score_key(score[i]);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int g = claim(i, c);
+      if (g >= 0) atomicMax(&tkey[g], key);
+    }
+  }
+  __syncthreads();
+  bool best[PER_THREAD];
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    best[k] = i < n && keep[k];
+    if (!best[k]) continue;
+    const float s = score[i];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int g = claim(i, c);
+      if (g >= 0 && !(s >= key_score(read_slot<GLOBAL>(&tkey[g])))) best[k] = false;
+    }
+    if (!best[k]) continue;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int g = claim(i, c);
+      if (g >= 0) atomicMin(&tidx[g], i);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    if (!best[k]) continue;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int g = claim(i, c);
+      if (g >= 0 && read_slot<GLOBAL>(&tidx[g]) != i) best[k] = false;
+    }
+  }
+  __syncthreads();
+  // reset exactly the slots this stage touched
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    if (i < n && keep[k]) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int g = claim(i, c);
+        if (g < 0) continue;
+        if constexpr (GLOBAL) {
+          __stcg(&tkey[g], KEY_NONE);
+          __stcg(&tidx[g], IDX_NONE);
+        } else {
+          tkey[g] = KEY_NONE;
+          tidx[g] = IDX_NONE;
         }
       }
     }
-    s.fa[i] = keep;
+    keep[k] = best[k];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    bool keep = s.fa[i];
-    if (keep) {
-      const int x0 = c0[i], x1 = c1 ? c1[i] : -1, x2 = c2 ? c2[i] : -1;
-      for (int j = 0; j < i; ++j)
-        if (s.fa[j] && shares(x0, x1, x2, c0[j], c1 ? c1[j] : -1, c2 ? c2[j] : -1)) {
-          keep = false;
-          break;
-        }
-    }
-    s.fb[i] = keep;
-  }
-  __syncthreads();
+}
+
+__device__ __forceinline__ int claim16(const unsigned short* a, int i) {
+  return a[i] == NO_CLAIM ? -1 : (int)a[i];
 }
 
 __device__ void apply_action(const WaveArgs& w, const Action& act) {
@@ -175,81 +294,99 @@ __device__ void apply_action(const WaveArgs& w, const Action& act) {
   }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS) k_apply_wave(WaveArgs w) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n = w.n;
-  const bool two = w.legs == 2;
-  Shared s = carve(smem, n);
+// One leg's subtractions of the selected entries' CPU loads from their
+// source hosts: each entry its own where no host repeats, else one thread
+// per run of the sorted (leg, source host) keys, in entry order.
+__device__ __forceinline__ void subtract_sources(const WaveArgs& w, const Shared& s,
+                                                 const bool keep[PER_THREAD], unsigned leg,
+                                                 const unsigned short* hs, const float* dc,
+                                                 bool sorted) {
+  if (!sorted) {
+#pragma unroll
+    for (int k = 0; k < PER_THREAD; ++k) {
+      const int i = threadIdx.x + k * THREADS;
+      if (i < w.n && keep[k]) w.host_cpu[hs[i]] = w.host_cpu[hs[i]] - dc[i];
+    }
+    return;
+  }
+  const int m = 2 * w.n;
+  for (int r = threadIdx.x; r < m; r += THREADS) {
+    const unsigned key = s.sorted[r];
+    const unsigned host = (key >> 12) & HOST_NONE;
+    if ((key >> 26) != leg || host == HOST_NONE) continue;
+    if (r > 0 && RUN(s.sorted[r - 1]) == RUN(key)) continue;
+    float x = w.host_cpu[host];
+    for (int q = r; q < m && RUN(s.sorted[q]) == RUN(key); ++q) x = x - dc[s.sorted[q] & 0xFFFu];
+    w.host_cpu[host] = x;
+  }
+}
 
+__global__ void __launch_bounds__(THREADS) k_apply_wave(WaveArgs w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = w.n, tid = threadIdx.x;
+  const bool two = w.legs == 2;
+  Shared s = carve(smem, n, w.groups);
+
+  for (int g = tid; g < w.groups; g += THREADS) {
+    s.tkey[g] = KEY_NONE;
+    s.tidx[g] = IDX_NONE;
+  }
   // claims of every entry, from the pre-wave assignment
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  bool keep[PER_THREAD];
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    keep[k] = false;
+    if (i >= n) continue;
     bool v = w.ok[i] && w.p[i] >= 0 && (!two || w.p2[i] >= 0);
     Action a1, a2;
     if (v) {
       a1 = build_action(w.assignment, w.R, w.part_load, w.p[i], w.kind[i], w.slot[i], w.dst[i]);
-      v = a1.valid;
+      v = a1.valid && a1.dst < w.B;
     }
     if (v && two) {
       a2 = build_action(w.assignment, w.R, w.part_load, w.p2[i], w.kind2[i], w.slot2[i], w.dst2[i]);
-      v = a2.valid;
+      v = a2.valid && a2.dst < w.B;
     }
-    s.score[i] = v ? w.score[i] : -INFINITY;
-    s.src[i] = v ? a1.src : -1;
-    s.dst[i] = v ? a1.dst : -1;
-    s.b3[i] = (v && w.brokers3) ? a2.dst : -1;
-    s.h1[i] = v ? w.broker_host[a1.dst] : -1;
-    s.h2[i] = (v && two) ? w.broker_host[a2.dst] : -1;
-    s.q1[i] = v ? a1.p : -1;
-    s.q2[i] = (v && two) ? a2.p : -1;
-    s.hs1[i] = v ? w.broker_host[a1.src] : -1;
-    s.hs2[i] = (v && two) ? w.broker_host[a2.src] : -1;
-    s.dc1[i] = v ? a1.dload[RES_CPU] : 0.0f;
-    s.dc2[i] = (v && two) ? a2.dload[RES_CPU] : 0.0f;
+    keep[k] = v;
+    if (!v) continue;
+    s.score[i] = w.score[i];
+    s.src[i] = (unsigned short)a1.src;
+    s.dst[i] = (unsigned short)a1.dst;
+    s.b3[i] = w.brokers3 ? (unsigned short)a2.dst : NO_CLAIM;
+    s.h1[i] = (unsigned short)w.broker_host[a1.dst];
+    s.h2[i] = two ? (unsigned short)w.broker_host[a2.dst] : NO_CLAIM;
+    s.hs1[i] = (unsigned short)w.broker_host[a1.src];
+    s.hs2[i] = two ? (unsigned short)w.broker_host[a2.src] : NO_CLAIM;
+    s.q1[i] = a1.p;
+    s.q2[i] = two ? a2.p : -1;
+    s.dc1[i] = a1.dload[RES_CPU];
+    s.dc2[i] = two ? a2.dload[RES_CPU] : 0.0f;
   }
   __syncthreads();
 
-  // 1. max score on each of the entry's broker endpoints
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int a = s.src[i], b = s.dst[i];
-    bool cand = a >= 0;
-    if (cand) {
-      for (int j = 0; j < n; ++j) {
-        const int x = s.src[j], y = s.dst[j];
-        if (x < 0) continue;
-        if ((x == a || y == a || x == b || y == b) && !(s.score[i] >= s.score[j])) {
-          cand = false;
-          break;
-        }
-      }
-    }
-    s.fa[i] = cand;
-  }
-  __syncthreads();
-  // 2. lowest index among the maxima
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    bool sel = s.fa[i];
-    if (sel) {
-      const int a = s.src[i], b = s.dst[i];
-      for (int j = 0; j < i; ++j) {
-        if (!s.fa[j]) continue;
-        const int x = s.src[j], y = s.dst[j];
-        if (x == a || y == a || x == b || y == b) {
-          sel = false;
-          break;
-        }
-      }
-    }
-    s.fb[i] = sel;
-  }
-  __syncthreads();
-  // 3.-5. the group claims, in the reference's order
-  if (w.brokers3) unique_per_group(s, s.src, s.dst, s.b3, n);
-  unique_per_group(s, s.h1, two ? s.h2 : nullptr, nullptr, n);
-  unique_per_group(s, s.q1, two ? s.q2 : nullptr, nullptr, n);
+  // the stages of wave_select, in the reference's order
+  unique_per_group<2, false>(keep, s.score, [&](int i, int c) {
+    return (int)(c == 0 ? s.src[i] : s.dst[i]); }, n, s.tkey, s.tidx);
+  if (w.brokers3)
+    unique_per_group<3, false>(keep, s.score, [&](int i, int c) {
+      return (int)(c == 0 ? s.src[i] : (c == 1 ? s.dst[i] : s.b3[i])); }, n, s.tkey, s.tidx);
+  unique_per_group<2, false>(keep, s.score, [&](int i, int c) {
+    return claim16(c == 0 ? s.h1 : s.h2, i); }, n, s.tkey, s.tidx);
+  unique_per_group<2, true>(keep, s.score, [&](int i, int c) {
+    return c == 0 ? s.q1[i] : s.q2[i]; }, n, w.part_key, w.part_idx);
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    w.sel_out[i] = s.fb[i];
-    if (!s.fb[i]) continue;
+  // apply the selected entries, and count them by source host (leg 1 in
+  // the low half of the word, leg 2 in the high half; the table is at 0)
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    if (i >= n) continue;
+    w.sel_out[i] = keep[k];
+    s.sel[i] = keep[k];
+    if (!keep[k]) continue;
+    any = true;
     // an entry's rows are its own (partition claims), so rebuilding its
     // legs now reads the pre-wave rows even while other entries apply
     Action a1 = build_action(w.assignment, w.R, w.part_load, w.p[i], w.kind[i], w.slot[i], w.dst[i]);
@@ -258,18 +395,58 @@ __global__ void __launch_bounds__(MAX_THREADS) k_apply_wave(WaveArgs w) {
       a2 = build_action(w.assignment, w.R, w.part_load, w.p2[i], w.kind2[i], w.slot2[i], w.dst2[i]);
     apply_action(w, a1);
     if (two) apply_action(w, a2);
+    atomicAdd(&s.tkey[s.hs1[i]], 1u);
+    if (two) atomicAdd(&s.tkey[s.hs2[i]], 1u << 16);
   }
-  if (threadIdx.x == 0) {
-    for (int j = 0; j < n; ++j)
-      if (s.fb[j]) w.host_cpu[s.hs1[j]] = w.host_cpu[s.hs1[j]] - s.dc1[j];
-    for (int j = 0; j < n; ++j)
-      if (s.fb[j]) w.host_cpu[s.h1[j]] = w.host_cpu[s.h1[j]] + s.dc1[j];
-    if (two) {
-      for (int j = 0; j < n; ++j)
-        if (s.fb[j]) w.host_cpu[s.hs2[j]] = w.host_cpu[s.hs2[j]] - s.dc2[j];
-      for (int j = 0; j < n; ++j)
-        if (s.fb[j]) w.host_cpu[s.h2[j]] = w.host_cpu[s.h2[j]] + s.dc2[j];
+  if (!__syncthreads_or(any)) return;
+
+  // host_cpu_load. Where no source host repeats within a leg (one broker a
+  // host, as the generated clusters have), each entry subtracts its own;
+  // else the selected entries are sorted by (leg, source host) and one
+  // thread per run subtracts the run in entry order.
+  bool repeat = false;
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    if (i < n && keep[k])
+      repeat = repeat || (s.tkey[s.hs1[i]] & 0xFFFFu) > 1 || (two && (s.tkey[s.hs2[i]] >> 16) > 1);
+  }
+  const bool sorted = __syncthreads_or(repeat);
+  if (sorted) {
+    unsigned keys[SORT_ITEMS];
+#pragma unroll
+    for (int j = 0; j < SORT_ITEMS; ++j) {
+      const int r = tid * SORT_ITEMS + j;
+      const unsigned leg = r >= n ? 1u : 0u;
+      const int i = r - (int)leg * n;
+      unsigned host = HOST_NONE;
+      if (r < 2 * n && (!leg || two) && s.sel[i]) host = leg ? s.hs2[i] : s.hs1[i];
+      keys[j] = r < 2 * n ? (leg << 26) | (host << 12) | (unsigned)i : 0xFFFFFFFFu;
     }
+    HostSort(*reinterpret_cast<HostSort::TempStorage*>(s.sort_storage)).Sort(keys, 12, 27);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < SORT_ITEMS; ++j) {
+      const int r = tid * SORT_ITEMS + j;
+      if (r < 2 * n) s.sorted[r] = keys[j];
+    }
+    __syncthreads();
+  }
+  subtract_sources(w, s, keep, 0, s.hs1, s.dc1, sorted);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    if (i < n && keep[k]) w.host_cpu[s.h1[i]] = w.host_cpu[s.h1[i]] + s.dc1[i];
+  }
+  if (!two) return;
+  __syncthreads();
+  subtract_sources(w, s, keep, 1, s.hs2, s.dc2, sorted);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    if (i < n && keep[k]) w.host_cpu[s.h2[i]] = w.host_cpu[s.h2[i]] + s.dc2[i];
   }
 }
 
@@ -277,8 +454,9 @@ __global__ void __launch_bounds__(MAX_THREADS) k_apply_wave(WaveArgs w) {
 //       when legs == 1), score f32[N], ok u8[N], sel_out u8[N],
 //       assignment, part_load, topic_id, broker_rack, broker_host, broker_load,
 //       replica_count, leader_count, potential, leader_nw_in, rack_count,
-//       topic_count, host_cpu, touch_tag
-// ints: N, R, NR, B, tag, legs (1 or 2), brokers3 (0 or 1)
+//       topic_count, host_cpu, touch_tag, workspace i32[2, >= P] (score keys,
+//       then indices; at 0 and INT32_MAX, as the kernel leaves it)
+// ints: N, R, NR, B, tag, legs (1 or 2), brokers3 (0 or 1), H, workspace row
 CC_EXPORT int apply_wave(const long long* ptrs, const long long* ints, cudaStream_t stream) {
   WaveArgs w;
   int k = 0;
@@ -307,6 +485,7 @@ CC_EXPORT int apply_wave(const long long* ptrs, const long long* ints, cudaStrea
   w.topic_count = (int*)ptrs[k++];
   w.host_cpu = (float*)ptrs[k++];
   w.touch_tag = (int*)ptrs[k++];
+  w.part_key = (unsigned*)ptrs[k++];
   w.n = (int)ints[0];
   w.R = (int)ints[1];
   w.NR = (int)ints[2];
@@ -314,19 +493,22 @@ CC_EXPORT int apply_wave(const long long* ptrs, const long long* ints, cudaStrea
   w.tag = (int)ints[4];
   w.legs = (int)ints[5];
   w.brokers3 = (int)ints[6];
+  const int hosts = (int)ints[7];
+  w.part_idx = (int*)(w.part_key + ints[8]);
+  w.groups = w.B > hosts ? w.B : hosts;
   if (w.n <= 0) return cudaSuccess;
-  if (w.n > MAX_N || w.legs < 1 || w.legs > 2 || (w.brokers3 && w.legs != 2))
+  if (w.n > MAX_N || w.legs < 1 || w.legs > 2 || (w.brokers3 && w.legs != 2) ||
+      w.groups > MAX_GROUPS)
     return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(k_apply_wave, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         MAX_N * SMEM_PER_ENTRY);
+    cudaError_t e =
+        cudaFuncSetAttribute(k_apply_wave, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  int threads = ((w.n + 31) / 32) * 32;
-  if (threads > MAX_THREADS) threads = MAX_THREADS;
-  size_t smem = (size_t)w.n * SMEM_PER_ENTRY;
-  k_apply_wave<<<1, threads, smem, stream>>>(w);
+  const size_t smem = smem_bytes(w.n, w.groups);
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  k_apply_wave<<<1, THREADS, smem, stream>>>(w);
   return cudaGetLastError();
 }

@@ -17,8 +17,13 @@ from cruise_control_torch.common.resources import Resource
 from cruise_control_torch.kernels import build
 
 #: the most entries one wave may hold (one CUDA block; the bulk planner's
-#: waves hold one entry per broker, 2,600 on the smoke model)
+#: waves hold one entry per broker, 3,072 on the bucketed smoke model)
 MAX_WAVE = 4096
+#: the most brokers, and hosts, the kernel's shared-memory tables hold
+MAX_GROUPS = 8192
+#: per device, the kernel's partition table: i32[2, >= P], score keys at 0
+#: and indices at INT32_MAX, the state every launch leaves it in
+_WORKSPACE = {}
 
 
 def _unique_per_group(sel, s, claims, n_groups: int):
@@ -166,7 +171,9 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
     `p`, `kind`, `slot`, `dst` i32[N] (and each of `leg2`'s), `score` f32[N],
     `ok` bool[N]. A flagged two-leg entry's second leg must leave the broker
     its first leg enters (every swap and relay does): the kernel claims no
-    other broker, and applies each entry's legs without atomics."""
+    other broker, and applies each entry's legs without atomics. The
+    kernel's partition table is allocated once per device (again only for a
+    model with more partitions) and shared by launches on one stream."""
     if score.device.type == "cpu":
         return apply_wave_plain(static, agg, p, kind, slot, dst, score, ok, tag, leg2, brokers3)
     dev = score.device
@@ -189,13 +196,22 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
     for t in tensors:
         if t.device != dev or not t.is_contiguous():
             raise ValueError("apply_wave: context tensors must be contiguous and on " + str(dev))
+    num_brokers, num_hosts = agg.broker_load.shape[0], agg.host_cpu_load.shape[0]
+    if max(num_brokers, num_hosts) > MAX_GROUPS:
+        raise ValueError(f"apply_wave: {num_brokers} brokers and {num_hosts} hosts, the kernel "
+                         f"takes at most {MAX_GROUPS} of each")
+    ws = _WORKSPACE.get(dev)
+    if ws is None or ws.shape[1] < agg.assignment.shape[0]:
+        ws = torch.zeros((2, agg.assignment.shape[0]), dtype=torch.int32, device=dev)
+        ws[1] = torch.iinfo(torch.int32).max
+        _WORKSPACE[dev] = ws
     sel = torch.empty(n, dtype=torch.bool, device=dev)
     lib = build.load("apply_wave")
     code = lib.apply_wave(
-        build.ptrs(*legs, score, ok, sel, *tensors),
-        build.ints(n, agg.assignment.shape[1], agg.rack_replica_count.shape[1],
-                   agg.broker_load.shape[0], tag, 2 if leg2 is not None else 1,
-                   1 if brokers3 else 0),
+        build.ptrs(*legs, score, ok, sel, *tensors, ws),
+        build.ints(n, agg.assignment.shape[1], agg.rack_replica_count.shape[1], num_brokers,
+                   tag, 2 if leg2 is not None else 1, 1 if brokers3 else 0, num_hosts,
+                   ws.shape[1]),
         build.stream())
     build.check(lib, code, "apply_wave")
     apply_wave.launches += 1

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import wave_cases
 
 from cruise_control_torch.analyzer import optimizer as opt
 from cruise_control_torch.analyzer.acceptance import build_tables
@@ -25,6 +26,7 @@ from cruise_control_torch.analyzer.actions import KIND_MOVE, leadership_grid
 from cruise_control_torch.analyzer.context import build_static_ctx, compute_aggregates, dims_of
 from cruise_control_torch.analyzer.goals import HARD_GOAL_NAMES, goals_by_priority
 from cruise_control_torch.config.balancing import BalancingConstraint
+from cruise_control_torch.kernels import apply_wave as k4
 from cruise_control_torch.kernels.apply_wave import apply_wave, apply_wave_plain
 from cruise_control_torch.kernels.broker_topk import broker_topk, broker_topk_plain
 from cruise_control_torch.kernels.pair_picks import pair_picks, pair_picks_plain
@@ -37,6 +39,7 @@ from cruise_control_torch.kernels.state_fingerprint import (
 )
 from cruise_control_torch.kernels.window_sum import window_sum, window_sum_plain
 from cruise_control_torch.models import generators
+from cruise_control_torch.models.flat_model import from_numpy
 
 pytestmark = pytest.mark.cuda
 
@@ -208,6 +211,162 @@ def test_k4_apply_wave_large_and_two_legs(pair, legs):
     assert _bits(sel_c, sel_g) and int(sel_c.sum()) > 0
     for f in ac._fields:
         assert _bits(ac._asdict()[f], ag._asdict()[f]), f
+
+
+@pytest.fixture(scope="module")
+def waves():
+    """tests/wave_cases.py's cluster (three brokers a host) on both sides,
+    and its crafted K4 waves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    arrays = wave_cases.cluster_arrays()
+    cpu = from_numpy(arrays)
+    gpu = cpu.to("cuda")
+    dims = dims_of(cpu)
+    sc = build_static_ctx(cpu, BalancingConstraint.default(), dims)
+    sg = build_static_ctx(gpu, BalancingConstraint.default(), dims)
+    ac = compute_aggregates(sc, cpu.assignment, dims)
+    return dict(arrays=arrays, sc=sc, sg=sg, ac=ac, ag=compute_aggregates(sg, gpu.assignment, dims),
+                cases=wave_cases.cases(arrays, ac.host_cpu_load.numpy()))
+
+
+def _k4_both(sc, sg, ac, ag, w, tag=5):
+    """Apply wave `w` (a wave_cases dict) with the plain version to `ac` and
+    with the kernel to `ag`, in place; the two selections."""
+    legs = [tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in leg) for leg in w["legs"]]
+    score, ok = torch.from_numpy(w["score"]), torch.from_numpy(w["ok"])
+    sel_c = apply_wave_plain(sc, ac, *legs[0], score, ok, tag,
+                             legs[1] if len(legs) > 1 else None, w["brokers3"])
+    gl = [tuple(t.cuda() for t in leg) for leg in legs]
+    sel_g = apply_wave(sg, ag, *gl[0], score.cuda(), ok.cuda(), tag,
+                       gl[1] if len(gl) > 1 else None, w["brokers3"])
+    torch.cuda.synchronize()
+    return sel_c, sel_g
+
+
+def _fresh(agg):
+    return type(agg)(*(t.clone() for t in agg))
+
+
+def _workspace_at_sentinels():
+    ws = k4._WORKSPACE[torch.device("cuda", torch.cuda.current_device())]
+    return bool((ws[0] == 0).all()) and bool((ws[1] == torch.iinfo(torch.int32).max).all())
+
+
+@pytest.mark.parametrize("case", ["not_a_candidate", "signed_zeros", "shared_source_hosts",
+                                  "relays_e_is_b", "bulk_width"])
+def test_k4_crafted_waves(waves, case):
+    """tests/test_torch_wave_select.py's waves, which the CPU tests hold the
+    plain version to JAX on: the kernel's selection and every aggregate
+    bit-equal to the plain version's, and the case occurs."""
+    w = waves["cases"][case]
+    ac, ag = _fresh(waves["ac"]), _fresh(waves["ag"])
+    before = k4.apply_wave.launches
+    sel_c, sel_g = _k4_both(waves["sc"], waves["sg"], ac, ag, w)
+    assert k4.apply_wave.launches == before + 1
+    assert _bits(sel_c, sel_g) and w["occurs"](sel_c.numpy())
+    for f in ac._fields:
+        assert _bits(ac._asdict()[f], ag._asdict()[f]), f
+    assert _workspace_at_sentinels()
+
+
+@pytest.mark.parametrize("legs", [1, 2])
+def test_k4_wave_of_4096_entries(waves, legs):
+    """The most entries a wave may hold, over 24 brokers (heavy conflicts,
+    four entries a thread): random moves and promotions, or relays."""
+    rng = np.random.default_rng(40 + legs)
+    a = waves["arrays"]["assignment"]
+    n, b = k4.MAX_WAVE, wave_cases.NUM_BROKERS
+    p = rng.integers(0, a.shape[0], n).astype(np.int32)
+    if legs == 1:
+        kind = (rng.random(n) < 0.4).astype(np.int32)
+        slot = np.where(kind == 1, rng.integers(1, 3, n), rng.integers(0, 3, n)).astype(np.int32)
+        dst = np.where(kind == 1, a[p, slot], rng.integers(0, b, n)).astype(np.int32)
+        wave_legs = [(p, kind, slot, dst)]
+    else:
+        # relays: leg 2 promotes a follower of a partition that d leads
+        lead = np.ones(n, np.int32)
+        s1 = rng.integers(1, 3, n).astype(np.int32)
+        d = a[p, s1]
+        led = [np.nonzero(a[:, 0] == x)[0] for x in range(b)]
+        p2 = np.asarray([led[x][rng.integers(0, len(led[x]))] if x >= 0 and len(led[x]) else 0
+                         for x in d], dtype=np.int32)
+        s2 = rng.integers(1, 3, n).astype(np.int32)
+        wave_legs = [(p, lead, s1, d.astype(np.int32)), (p2, lead, s2, a[p2, s2].astype(np.int32))]
+    w = {"legs": wave_legs, "score": rng.integers(0, 8, n).astype(np.float32),
+         "ok": rng.random(n) < 0.9, "brokers3": legs == 2}
+    w = wave_cases.flag_valid(w, a)
+    if legs == 2:
+        w["ok"] &= (a[wave_legs[1][0], 0] == wave_legs[0][3]) & (wave_legs[1][0] != p)
+    ac, ag = _fresh(waves["ac"]), _fresh(waves["ag"])
+    sel_c, sel_g = _k4_both(waves["sc"], waves["sg"], ac, ag, w)
+    assert _bits(sel_c, sel_g) and int(sel_c.sum()) >= 2
+    for f in ac._fields:
+        assert _bits(ac._asdict()[f], ag._asdict()[f]), f
+
+
+def test_k4_wave_over_3072_brokers():
+    """One entry per broker of a 3,072-broker cluster (the bucketed smoke
+    model's width), as the bulk planner's waves hold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    cpu = generators.random_cluster(9, generators.ClusterProperty(
+        num_racks=32, num_brokers=3072, num_topics=600, mean_partitions_per_topic=20.0,
+        replication_factor=3, load_distribution="pareto", mean_utilization=0.5))
+    dims = dims_of(cpu)
+    sc = build_static_ctx(cpu, BalancingConstraint.default(), dims)
+    sg = build_static_ctx(cpu.to("cuda"), BalancingConstraint.default(), dims)
+    ac = compute_aggregates(sc, cpu.assignment, dims)
+    ag = compute_aggregates(sg, cpu.assignment.cuda(), dims)
+    w = wave_cases.flag_valid(
+        wave_cases.bulk_width(cpu.assignment.numpy(), np.random.default_rng(10), 3072),
+        cpu.assignment.numpy())
+    sel_c, sel_g = _k4_both(sc, sg, ac, ag, w)
+    assert sel_c.shape[0] == 3072 and int(sel_c.sum()) >= 100
+    assert _bits(sel_c, sel_g)
+    for f in ac._fields:
+        assert _bits(ac._asdict()[f], ag._asdict()[f]), f
+
+
+def test_k4_wave_with_no_valid_entry(waves):
+    """Nothing flagged but actions that are not valid (src == dst, an empty
+    slot): nothing selected, nothing written."""
+    a = waves["arrays"]["assignment"]
+    n = 64
+    p = np.arange(n, dtype=np.int32)
+    slot = np.zeros(n, np.int32)
+    dst = a[p, 0].astype(np.int32)  # every move onto its own broker
+    w = {"legs": [(p, np.zeros(n, np.int32), slot, dst)],
+         "score": np.arange(n, dtype=np.float32), "ok": np.ones(n, bool), "brokers3": False}
+    ac, ag = _fresh(waves["ac"]), _fresh(waves["ag"])
+    sel_c, sel_g = _k4_both(waves["sc"], waves["sg"], ac, ag, wave_cases.flag_valid(w, a))
+    assert _bits(sel_c, sel_g) and not bool(sel_g.any())
+    sel_g = apply_wave(waves["sg"], ag, *(torch.from_numpy(x).cuda() for x in w["legs"][0]),
+                       torch.from_numpy(w["score"]).cuda(), torch.ones(n, dtype=torch.bool,
+                                                                      device="cuda"), 5)
+    assert not bool(sel_g.any())
+    for f in ac._fields:
+        assert _bits(waves["ac"]._asdict()[f], ag._asdict()[f]), f
+
+
+def test_k4_two_waves_in_a_row(waves):
+    """The relay wave, then the bulk-width wave, on one context: the second
+    equals the plain version after the first, and the same wave on a fresh
+    context; the partition workspace is back at its sentinels after each
+    launch."""
+    first, second = waves["cases"]["relays_e_is_b"], waves["cases"]["bulk_width"]
+    ac, ag = _fresh(waves["ac"]), _fresh(waves["ag"])
+    _k4_both(waves["sc"], waves["sg"], ac, ag, first)
+    assert _workspace_at_sentinels()
+    sel_c, sel_g = _k4_both(waves["sc"], waves["sg"], ac, ag, second)
+    assert _bits(sel_c, sel_g) and _workspace_at_sentinels()
+    for f in ac._fields:
+        assert _bits(ac._asdict()[f], ag._asdict()[f]), f
+    fc, fg = _fresh(waves["ac"]), _fresh(waves["ag"])
+    sel_fc, sel_fg = _k4_both(waves["sc"], waves["sg"], fc, fg, second)
+    assert _bits(sel_fc, sel_fg)
+    for f in fc._fields:
+        assert _bits(fc._asdict()[f], fg._asdict()[f]), f
 
 
 def test_k6_pair_picks(pair):
