@@ -11,8 +11,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      version run on a CPU copy of the same inputs (integers exact, floats
      bit-equal, finite masks exact); time each on the card over a run of
      back-to-back calls, as device time from a profiler trace and as time
-     per call from CUDA events, and its plain version from CUDA events:
-       K1 segment_aggregates, K2 broker_topk, K3 score_candidates (a hard
+     per call from CUDA events, and its plain version from CUDA events (K2
+     and window_sum beside the previous design's times, PREVIOUS_MS):
+       K1 segment_aggregates, K2 broker_topk (DiskCapacityGoal's drain
+       priorities heaviest and lightest first, the relay's leadership-masked
+       weights, and the bulk planner's priorities on the bucketed service
+       context's 3,072 brokers), K3 score_candidates (a hard
        goal's [512, 8, 64] drain grid, the [P, 2] promotion grid and a soft
        goal's drain grid), K4 apply_wave (a 1,024-entry drain wave, a
        2,600-entry two-leg relay wave and the bulk planner's wave, one entry
@@ -20,8 +24,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        (the [128, 128, 8, 8] replica-swap grid and the [512, 4, 2, 8, 2]
        relay grid), K6 pair_picks
        (512 surplus pairs), window_sum in XLA:CPU's order (the brokers'
-       leader bytes-in, the [2,600, 4] broker loads and the 199,518
-       partitions' leader bytes-in), K7 state_fingerprint (the aggregates)
+       leader bytes-in, the [2,600, 4] broker loads, the 199,518
+       partitions' leader bytes-in and the bucketed context's 3,072 brokers'
+       leader bytes-in, each beside torch.sum), K7 state_fingerprint (the
+       aggregates)
        K8 cluster_stats (the statistics of the smoke model, whose
        [4,000, 2,600] topic table is the work) and K9 grid_shortlist (the
        greedy round's [199,518, 3, 16] move grid and [199,518, 2] promotion
@@ -681,6 +687,21 @@ def option_recipes(fields: dict):
     }
 
 
+#: K2's and window_sum's device and call ms at chip_smoke's rows in the
+#: designs they replaced (K2: one atomicMax pass per k; window_sum: one block
+#: per column), as PERF.md section 6 records them, printed beside the new
+#: times
+PREVIOUS_MS = {"disk drain": (0.143, 0.170), "leader bytes-in": (0.0034, 0.0284),
+               "broker loads": (0.0035, 0.0271), "partition leader bytes-in": (0.1087, 0.1112)}
+
+
+def previous(label: str) -> str:
+    if label not in PREVIOUS_MS:
+        return "no row of the previous design"
+    ms, call_ms = PREVIOUS_MS[label]
+    return f"previous design {ms:.4f} ms on the device, {call_ms:.4f} ms per call (PERF.md)"
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -988,21 +1009,60 @@ def main() -> int:
         return drain_contrib(disk_goal, st, agg)
 
     con_g, con_c = disk_contrib(st_g, agg_g), disk_contrib(st_c, agg_c)
-    k2_g = broker_topk(con_g, agg_g.assignment, st_g.movable_partition, 8, dims.num_brokers)
-    k2_c = broker_topk_plain(con_c, agg_c.assignment, st_c.movable_partition, 8, dims.num_brokers)
-    for n_, a_, b_ in zip(("p", "slot", "valid"), k2_g, k2_c):
-        if not bits_equal(a_, b_):
-            fail(f"K2 broker_topk: {n_} differs from the plain version")
-    # per pass and slot: one compare and one select
-    row("broker_topk", "broker_topk.cu", "cruise_control_tpu/analyzer/drain.py:74",
-        max(max_abs_err(a_, b_) for a_, b_ in zip(k2_g, k2_c)),
-        lambda i: broker_topk(con_g, agg_g.assignment, st_g.movable_partition, 8,
-                              dims.num_brokers),
-        lambda i: broker_topk_plain(con_g, agg_g.assignment, st_g.movable_partition, 8,
-                                    dims.num_brokers),
-        p_count * r * 8 + p_count + dims.num_brokers * 8 * 9, 8 * p_count * r * 2,
-        "k = 8 passes, each an atomicMax bid per slot and a decode per broker")
-    print("K2 broker_topk: exact")
+
+    def k2_row(label, key, cg, cc, ag, ac, mg, mc, k, nb, heaviest):
+        """Hold K2 on (cg, ag, mg) to its plain version on (cc, ac, mc), time
+        it, print it beside the previous design's times where PREVIOUS_MS has
+        them, and return its row."""
+        out_g = broker_topk(cg, ag, mg, k, nb, heaviest)
+        torch.cuda.synchronize()
+        out_c = broker_topk_plain(cc, ac, mc, k, nb, heaviest)
+        for n_, a_, b_ in zip(("p", "slot", "valid"), out_g, out_c):
+            if not bits_equal(a_, b_):
+                fail(f"K2 broker_topk ({label}): {n_} differs from the plain version")
+        n_slots = ac.numel()
+        # each input read once, the [B, k] outputs written once; per slot
+        # and pass of the reference, one compare and one select
+        rw = row(key, "broker_topk.cu", "cruise_control_tpu/analyzer/drain.py:74",
+                 max(max_abs_err(a_, b_) for a_, b_ in zip(out_g, out_c)),
+                 lambda i: broker_topk(cg, ag, mg, k, nb, heaviest),
+                 lambda i: broker_topk_plain(cg, ag, mg, k, nb, heaviest),
+                 n_slots * 8 + mc.numel() + nb * k * 9, k * n_slots * 2,
+                 f"{label}: k = {k} of {n_slots} slots over {nb} brokers; blocks of 4,096 slots "
+                 "write their keys sorted by broker as runs, a warp per broker selects from "
+                 "its runs")
+        print(f"K2 broker_topk ({label}, k = {k}, {nb} brokers, {int(out_c[2].sum())} of "
+              f"{out_c[2].numel()} valid): bit-equal to the plain version; {rw['ms']:.4f} ms on "
+              f"the device, {rw['call_ms']:.4f} ms per call, plain {rw['plain_ms']:.4f} ms, bound "
+              f"{rw['bound_ms']:.6f} ms; {previous(label)}")
+        return rw
+
+    # the JSON row: DiskCapacityGoal's drain priorities (1e9 on the dead
+    # brokers' replicas), k = 8; then the same lightest first, and the
+    # relay's leadership-masked weights (drain.py relay_grid: only leaders
+    # compete, the round's jitter, k2 = 8 halved, lightest first)
+    k2_row("disk drain", "broker_topk", con_g, con_c, agg_g.assignment, agg_c.assignment,
+           st_g.movable_partition, st_c.movable_partition, 8, dims.num_brokers, True)
+    k2_row("disk drain, lightest", "broker_topk lightest", con_g, con_c, agg_g.assignment,
+           agg_c.assignment, st_g.movable_partition, st_c.movable_partition, 8,
+           dims.num_brokers, False)
+
+    def lead_weights(st, agg):
+        from cruise_control_torch.analyzer.drain import round_jitter
+        from cruise_control_torch.common.resources import PartMetric
+
+        dev_ = agg.assignment.device
+        is_leader = (torch.arange(r, device=dev_) == 0)[None, :]
+        rot = round_jitter(p_count, 0, dev_)
+        w_all = st.part_load[:, PartMetric.NW_IN_LEADER]
+        neg_inf = torch.tensor(-torch.inf, dtype=torch.float32, device=dev_)
+        return (torch.where(is_leader, w_all[:, None], neg_inf) * rot[:, None]).contiguous()
+
+    k2_row("leadership-masked", "broker_topk leadership", lead_weights(st_g, agg_g),
+           lead_weights(st_c, agg_c), agg_g.assignment, agg_c.assignment,
+           st_g.movable_partition, st_c.movable_partition, 4, dims.num_brokers, False)
+    for key in ("broker_topk lightest", "broker_topk leadership"):
+        rows.pop(key)
 
     # K3 on DiskCapacityGoal's first-round [512, 8, 64] move grid and the
     # [P, 2] promotion grid under CpuCapacityGoal
@@ -1228,7 +1288,7 @@ def main() -> int:
           f"{dims_b.num_brokers} brokers, {n_ok} flagged), {n_sel} selected, selection and every "
           f"aggregate bit-equal; {k4_bulk['ms']:.4f} ms on the device, {k4_bulk['call_ms']:.4f} "
           f"ms per call, plain {k4_bulk['plain_ms']:.4f} ms, bound {k4_bulk['bound_ms']:.6f} ms")
-    del a4_g, a4_c, agg_b_g, agg_b_c, st_b_g, st_b_c, pm_b_c
+    del a4_g, a4_c
 
     # K5 on DiskUsageDistributionGoal's [128, 128, 8, 8] replica-swap grid and
     # LeaderBytesInDistributionGoal's [512, 4, 2, 8, 2] relay grid, each
@@ -1323,25 +1383,51 @@ def main() -> int:
                  ("broker loads", agg_g.broker_load, agg_c.broker_load),
                  ("partition leader bytes-in", st_g.part_load[:, 2].contiguous(),
                   st_c.part_load[:, 2].contiguous()))
-    for label, x_g, x_c in ws_inputs:
+    def ws_row(label, x_g, x_c):
+        """Hold window_sum on x_g to its plain version on x_c, time it beside
+        torch.sum and the previous design, and return its row."""
         ws_g = window_sum(x_g)
         torch.cuda.synchronize()
         ws_c = window_sum_plain(x_c)
         if not bits_equal(ws_g, ws_c):
             fail(f"window_sum ({label}, {tuple(x_c.shape)}) differs from the plain version")
         n_terms = x_c.numel()
-        rw = row("window_sum", "window_sum.cu", "cruise_control_tpu/analyzer/goals/soft.py:462",
-                 max_abs_err(ws_g, ws_c), lambda i, x=x_g: window_sum(x),
-                 lambda i, x=x_g: window_sum_plain(x), n_terms * 4 + ws_c.numel() * 4, n_terms,
-                 f"{tuple(x_c.shape)}: one block per column, one thread per window of 32, "
-                 "levels in shared memory", library=lambda i, x=x_g: torch.sum(x, dim=0))
+        rw = row("window_sum " + label, "window_sum.cu",
+                 "cruise_control_tpu/analyzer/goals/soft.py:462", max_abs_err(ws_g, ws_c),
+                 lambda i: window_sum(x_g), lambda i: window_sum_plain(x_g),
+                 n_terms * 4 + ws_c.numel() * 4, n_terms,
+                 f"{tuple(x_c.shape)}: one launch, level 1 over blocks of 256 (window, column) "
+                 "pairs staged in shared memory, the last block of a column tile runs the "
+                 "later levels", library=lambda i: torch.sum(x_g, dim=0))
+        rows.pop("window_sum " + label)
         print(f"window_sum ({label}, {tuple(x_c.shape)}): bit-equal to the plain version; "
-              f"{rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per call, plain "
-              f"{rw['plain_ms']:.4f} ms, torch.sum {rw['library_ms']:.4f} ms, bound "
-              f"{rw['bound_ms']:.6f} ms")
-        if label == "leader bytes-in":
-            ws_row = rw
-    rows["window_sum"] = ws_row
+              f"{rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per call, torch.sum "
+              f"{rw['library_ms']:.4f} ms per call, plain {rw['plain_ms']:.4f} ms, bound "
+              f"{rw['bound_ms']:.6f} ms; {previous(label)}")
+        return rw
+
+    ws_rows = [ws_row(*args) for args in ws_inputs]
+    rows["window_sum"] = dict(ws_rows[0], name="window_sum")
+
+    # on the smoke model's bucketed service context (3,072 brokers, the
+    # last 472 empty): window_sum on the brokers' leader bytes-in, and K2 on
+    # the bulk planner's drain priorities (ReplicaDistributionGoal's, 1e9 on
+    # the dead brokers' replicas, bulk.py) with its k
+    ws_row("bucketed leader bytes-in", agg_b_g.leader_nw_in, agg_b_c.leader_nw_in)
+    rep_goal = by_name["ReplicaDistributionGoal"]
+
+    def bulk_contrib(st, agg):
+        gs = rep_goal.prepare(st, agg, dims_b)
+        c = rep_goal.drain_contrib(st, gs, agg)
+        return torch.where(replicas_on_dead(st, agg.assignment),
+                           torch.tensor(1e9, dtype=torch.float32, device=c.device), c).contiguous()
+
+    k2_row("bulk planner, bucketed", "broker_topk bulk", bulk_contrib(st_b_g, agg_b_g),
+           bulk_contrib(st_b_c, agg_b_c), agg_b_g.assignment, agg_b_c.assignment,
+           st_b_g.movable_partition, st_b_c.movable_partition,
+           opt.SERVICE_SETTINGS.drain_per_broker, dims_b.num_brokers, True)
+    rows.pop("broker_topk bulk")
+    del agg_b_g, agg_b_c, st_b_g, st_b_c, pm_b_c
 
     # K7 on the smoke state's aggregates
     fp_g = state_fingerprint(agg_g)

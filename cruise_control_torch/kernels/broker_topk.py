@@ -11,6 +11,16 @@ import torch
 
 from cruise_control_torch.kernels import build
 
+#: the most brokers the kernel takes: a block's counters of them and its
+#: CHUNK keys live in shared memory (128 KB and 32 KB)
+MAX_BROKERS = 32_768
+#: slots a block of the kernel's first launch takes
+CHUNK = 4096
+#: per device: (runs, keys) scratch of the kernel, grown on demand; nothing
+#: in it outlives a call. Calls on one stream use it in turn.
+_SCRATCH = {}
+_ARGTYPES = (build.PTR,) * 8 + (build.INT,) * 6 + (build.PTR,)
+
 
 def broker_topk_plain(contrib, assignment, movable_partition, k: int, num_brokers: int,
                       heaviest: bool = True):
@@ -46,6 +56,27 @@ def broker_topk_plain(contrib, assignment, movable_partition, k: int, num_broker
     return torch.stack(ps, dim=1), torch.stack(ss, dim=1), torch.stack(ok, dim=1)
 
 
+def _refuse(contrib, assignment, movable_partition):
+    """Raise the first reason the kernel does not take these inputs."""
+    dev = contrib.device
+    build.require(contrib, torch.float32, 2, "contrib", dev)
+    build.require(assignment, torch.int32, 2, "assignment", dev)
+    build.require(movable_partition, torch.bool, 1, "movable_partition", dev)
+    raise ValueError("broker_topk: contrib, assignment and movable_partition disagree")
+
+
+def _scratch(dev: int, b: int, blocks: int):
+    """The device's (runs, keys) scratch, grown to these sizes."""
+    ws = _SCRATCH.get(dev)
+    if ws is None or ws[0].numel() < blocks * b or ws[1].numel() < blocks * CHUNK:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        cuda = torch.device("cuda", dev)
+        ws = (torch.empty(max(blocks * b, old[0]), dtype=torch.int32, device=cuda),
+              torch.empty(max(blocks * CHUNK, old[1]), dtype=torch.int64, device=cuda))
+        _SCRATCH[dev] = ws
+    return ws
+
+
 def broker_topk(contrib, assignment, movable_partition, k: int, num_brokers: int,
                 heaviest: bool = True):
     """`broker_topk_plain` for CPU tensors, the CUDA kernel for CUDA tensors."""
@@ -53,25 +84,34 @@ def broker_topk(contrib, assignment, movable_partition, k: int, num_brokers: int
         return broker_topk_plain(contrib, assignment, movable_partition, k, num_brokers,
                                  heaviest)
     dev = contrib.device
-    build.require(contrib, torch.float32, 2, "contrib", dev)
-    build.require(assignment, torch.int32, 2, "assignment", dev)
-    build.require(movable_partition, torch.bool, 1, "movable_partition", dev)
+    if not (contrib.is_cuda and contrib.dtype == torch.float32 and assignment.dtype == torch.int32
+            and movable_partition.dtype == torch.bool and contrib.dim() == 2
+            and movable_partition.dim() == 1 and contrib.shape == assignment.shape
+            and movable_partition.shape[0] == assignment.shape[0]
+            and assignment.device == dev and movable_partition.device == dev
+            and contrib.is_contiguous() and assignment.is_contiguous()
+            and movable_partition.is_contiguous()):
+        _refuse(contrib, assignment, movable_partition)
     p_count, r = assignment.shape
-    if contrib.shape != assignment.shape or movable_partition.shape[0] != p_count:
-        raise ValueError("broker_topk: contrib, assignment and movable_partition disagree")
-    if k < 1 or p_count * r >= 2**32:
+    n = p_count * r
+    if k < 1 or n >= 2**32:
         raise ValueError("broker_topk: needs k >= 1 and fewer than 2**32 slots")
-    keys = torch.empty(num_brokers, dtype=torch.int64, device=dev)
-    taken = torch.empty(p_count * r, dtype=torch.uint8, device=dev)
-    out_p = torch.empty((num_brokers, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((num_brokers, k), dtype=torch.int32, device=dev)
+    if num_brokers > MAX_BROKERS:
+        raise ValueError(f"broker_topk: {num_brokers} brokers, the kernel takes at most "
+                         f"{MAX_BROKERS}")
+    blocks = max(1, -(-n // CHUNK))
+    idx = contrib.get_device()
+    runs, keys = _scratch(idx, num_brokers, blocks)
+    out = torch.empty((2, num_brokers, k), dtype=torch.int32, device=dev)
     out_ok = torch.empty((num_brokers, k), dtype=torch.bool, device=dev)
-    lib = build.load("broker_topk")
-    code = lib.broker_topk(
-        build.ptrs(contrib, assignment, movable_partition, keys, taken, out_p, out_s, out_ok),
-        build.ints(p_count, r, num_brokers, k, 1 if heaviest else 0), build.stream())
-    build.check(lib, code, "broker_topk")
+    code = build.entry("broker_topk", _ARGTYPES)(
+        contrib.data_ptr(), assignment.data_ptr(), movable_partition.data_ptr(), runs.data_ptr(),
+        keys.data_ptr(), out.data_ptr(), out.data_ptr() + 4 * num_brokers * k, out_ok.data_ptr(),
+        p_count, r, num_brokers, k, 1 if heaviest else 0, blocks, build.raw_stream(idx))
+    if code:
+        build.check(build.load("broker_topk"), code, "broker_topk")
     broker_topk.launches += 1
+    out_p, out_s = out.unbind(0)
     return out_p, out_s, out_ok
 
 

@@ -12,6 +12,11 @@ compare IEEE-identical to the plain PyTorch versions. Libraries land in
 their source (and of the shared headers `*.cuh`), so an edited source
 rebuilds and an unchanged one is reused. Builds happen at first use, never at import;
 `build_all()` starts one `nvcc` per source, all at once.
+
+A wrapper calls its entry point with `ptrs`/`ints` argument arrays and
+`stream()`, or, where the host's share of a call matters (window_sum, K2),
+through `entry()`, whose argument types are set once, with
+`raw_stream()`.
 """
 
 from __future__ import annotations
@@ -137,3 +142,33 @@ def stream() -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+#: argument types of a fast entry point: a device address or a stream, an integer
+PTR, INT = ctypes.c_void_p, ctypes.c_longlong
+_ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def entry(name: str, argtypes: Sequence) -> "ctypes._CFuncPtr":
+    """The C entry point `name` of kernel library `name`, taking its
+    arguments one by one (`argtypes`, each PTR or INT) and returning a
+    cudaError_t. Set up once: a call converts each Python int straight to its
+    C type, with no argument arrays built, and keeps the GIL (the entry point
+    only launches, so releasing and taking back the lock would cost more than
+    the call)."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        load(name)
+        fn = getattr(ctypes.PyDLL(str(_lib_path(name))), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn
+
+
+def raw_stream(index: int) -> int:
+    """The address of device `index`'s current CUDA stream, read without
+    building a torch Stream object."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)

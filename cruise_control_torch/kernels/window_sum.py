@@ -28,9 +28,15 @@ from cruise_control_torch.kernels import build
 
 #: XLA:CPU's tree-reduction window
 WINDOW = 32
-#: the longest column the kernel takes: its window sums live in 227 KB of
-#: shared memory
-MAX_TERMS = 1_800_000
+#: the longest column the kernel takes (the port's longest is the bucketed
+#: partition axis, 212,992): its window sums take (n / 16 + 8) floats of the
+#: scratch per column
+MAX_TERMS = 1 << 24
+#: per device: the kernel's scratch (f32, every level's window sums) and its
+#: column tiles' tickets (int32, 0 between launches), grown on demand, with
+#: their addresses. Calls on one stream use them in turn.
+_SCRATCH = {}
+_ARGTYPES = (build.PTR,) * 4 + (build.INT, build.INT, build.PTR)
 
 
 def xla_sum(a: np.ndarray) -> np.ndarray:
@@ -60,24 +66,42 @@ def window_sum_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.array(xla_sum(x.detach().cpu().numpy()), dtype=np.float32))
 
 
+def _scratch(dev: int, floats: int, tiles: int):
+    """(scratch, tickets, their addresses) of device `dev`, grown to these sizes."""
+    ws = _SCRATCH.get(dev)
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < tiles:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        cuda = torch.device("cuda", dev)
+        scratch = torch.empty(max(floats, old[0], 1 << 16), dtype=torch.float32, device=cuda)
+        tickets = torch.zeros(max(tiles, old[1], 64), dtype=torch.int32, device=cuda)
+        ws = _SCRATCH[dev] = (scratch, tickets, scratch.data_ptr(), tickets.data_ptr())
+    return ws
+
+
 def window_sum(x: torch.Tensor) -> torch.Tensor:
     """`window_sum_plain` for a CPU tensor, the CUDA kernel for a CUDA one.
     `x` is f32[n] or f32[n, cols]; returns f32[] or f32[cols]."""
     if x.dtype != torch.float32 or x.dim() not in (1, 2):
         raise TypeError(f"window_sum: expected f32 of rank 1 or 2, got {x.dtype} {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return window_sum_plain(x)
-    if x.shape[0] > MAX_TERMS:
-        raise ValueError(f"window_sum: {x.shape[0]} terms, the kernel takes at most {MAX_TERMS}")
-    x = x.contiguous()
-    cols = 1 if x.dim() == 1 else x.shape[1]
-    build.require(x.reshape(x.shape[0], cols), torch.float32, 2, "x", x.device)
-    out = torch.empty(cols, dtype=torch.float32, device=x.device)
-    lib = build.load("window_sum")
-    code = lib.window_sum(build.ptrs(x, out), build.ints(x.shape[0], cols), build.stream())
-    build.check(lib, code, "window_sum")
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return window_sum_plain(x)
+        raise ValueError(f"window_sum: expected a CPU or CUDA tensor, got {x.device}")
+    n = x.shape[0]
+    if n > MAX_TERMS:
+        raise ValueError(f"window_sum: {n} terms, the kernel takes at most {MAX_TERMS}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    cols = x.shape[1] if x.dim() == 2 else 1
+    dev = x.get_device()
+    ws = _scratch(dev, (n // 16 + 8) * cols, (cols + 31) // 32)
+    out = x.new_empty((cols,) if x.dim() == 2 else ())
+    code = build.entry("window_sum", _ARGTYPES)(x.data_ptr(), out.data_ptr(), ws[2], ws[3], n,
+                                                cols, build.raw_stream(dev))
+    if code:
+        build.check(build.load("window_sum"), code, "window_sum")
     window_sum.launches += 1
-    return out.reshape(x.shape[1:])
+    return out
 
 
 window_sum.launches = 0

@@ -43,14 +43,16 @@ import torch  # noqa: E402
 #: our kernels' __global__ functions (csrc/*.cu), by kernel
 OWN_KERNELS = {
     "k_broker_sums": "K1 segment_aggregates", "k_counts": "K1 segment_aggregates",
-    "k_host_cpu": "K1 segment_aggregates", "k_bid": "K2 broker_topk",
-    "k_take": "K2 broker_topk", "k_score": "K3 score_candidates",
+    "k_host_cpu": "K1 segment_aggregates", "k_topk_runs": "K2 broker_topk",
+    "k_topk_select": "K2 broker_topk",
+    "k_score": "K3 score_candidates",
     "k_apply_wave": "K4 apply_wave", "k_score_swaps": "K5 score_swaps",
     "k_pair_init": "K6 pair_picks", "k_pair_bid": "K6 pair_picks",
     "k_pair_take": "K6 pair_picks", "k_window_sum": "window_sum",
     "k_state_fingerprint": "K7 state_fingerprint", "k_topic_spread": "K8 cluster_stats",
     "k_broker_stats": "K8 cluster_stats", "k_grid_bid": "K9 grid_shortlist",
-    "k_grid_take": "K9 grid_shortlist",
+    "k_grid_take": "K9 grid_shortlist", "k_delta_scatter": "K10 delta_scatter",
+    "k_elect_preferred": "K11 elect_preferred",
 }
 #: the chunked solves, whose per-goal times come from the solve itself
 CHUNKED = ("service", "bench", "greedy")

@@ -7,11 +7,13 @@ fused multiply-adds and tanh reproduced by common/xla_math.py.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import topk_cases
 import torch
 
 from cruise_control_tpu.analyzer import acceptance as jacc
@@ -145,6 +147,33 @@ def test_k2_broker_topk_equals_jax(ctx, heaviest):
                                      torch.from_numpy(movable), k, jd.num_brokers, heaviest)
     assert not np.asarray(jok).all()
     for x, y in ((jp, tp), (jsl, tsl), (jok, tok)):
+        assert _bits_equal(x, y)
+
+
+K2_CASES = topk_cases.NAMES + tuple(f"k={k}" for k in topk_cases.KS)
+
+
+@pytest.mark.parametrize("name", K2_CASES)
+def test_k2_crafted_cases_equal_jitted_jax(name):
+    """tests/topk_cases.py, which the card tests hold the kernel to the plain
+    version on: ties, signed zeros, brokers with nothing eligible, k beyond a
+    broker's count, a broker over 2,048 slots, ascending order, leadership
+    masks, 1e9 runs, 3,072 bucketed brokers, k in KS; every output exact
+    against jitted JAX."""
+    c = topk_cases.case(name)
+    k, b, heaviest = c["k"], c["num_brokers"], c["heaviest"]
+
+    @jax.jit
+    def jax_side(movable, a, contrib):
+        return jdrain.broker_top_replicas(types.SimpleNamespace(movable_partition=movable),
+                                          types.SimpleNamespace(assignment=a), contrib, k, b,
+                                          heaviest)
+
+    want = jax_side(c["movable"], c["assignment"], c["contrib"])
+    got = broker_topk_plain(torch.from_numpy(c["contrib"]), torch.from_numpy(c["assignment"]),
+                            torch.from_numpy(c["movable"]), k, b, heaviest)
+    assert topk_cases.occurs(name, c, np.asarray(want[2]))
+    for x, y in zip(want, got):
         assert _bits_equal(x, y)
 
 

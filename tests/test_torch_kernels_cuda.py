@@ -17,6 +17,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import topk_cases
 import torch
 import wave_cases
 
@@ -27,6 +28,7 @@ from cruise_control_torch.analyzer.context import build_static_ctx, compute_aggr
 from cruise_control_torch.analyzer.goals import HARD_GOAL_NAMES, goals_by_priority
 from cruise_control_torch.config.balancing import BalancingConstraint
 from cruise_control_torch.kernels import apply_wave as k4
+from cruise_control_torch.kernels import window_sum as ws
 from cruise_control_torch.kernels.apply_wave import apply_wave, apply_wave_plain
 from cruise_control_torch.kernels.broker_topk import broker_topk, broker_topk_plain
 from cruise_control_torch.kernels.pair_picks import pair_picks, pair_picks_plain
@@ -399,6 +401,119 @@ def test_window_sum_is_sequential():
         assert _bits(want, got), shape
     z = torch.full((100,), -0.0)
     assert _bits(window_sum_plain(z), window_sum(z.cuda()))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+
+
+def _window_tickets_clean():
+    return not bool(ws._SCRATCH[torch.cuda.current_device()][1].any())
+
+
+def _k2_both(c):
+    args = [torch.from_numpy(c[f]) for f in ("contrib", "assignment", "movable")]
+    rest = (c["k"], c["num_brokers"], c["heaviest"])
+    want = broker_topk_plain(*args, *rest)
+    got = broker_topk(*(t.cuda() for t in args), *rest)
+    torch.cuda.synchronize()
+    return want, got
+
+
+@pytest.mark.parametrize("name", topk_cases.NAMES + tuple(f"k={k}" for k in topk_cases.KS))
+def test_k2_crafted_cases(name):
+    """tests/topk_cases.py at the card's sizes (the CPU tests hold the plain
+    version to JAX on them): every output bit-equal, twice on the same
+    scratch (K2 keeps no state between calls: the kernel writes every word
+    of its scratch it reads)."""
+    _card()
+    c = topk_cases.case(name, full=True)
+    want, got = _k2_both(c)
+    assert topk_cases.occurs(name, c, want[2].numpy())
+    for x, y in zip(want, got):
+        assert _bits(x, y)
+    _, again = _k2_both(c)
+    for x, y in zip(want, again):
+        assert _bits(x, y)
+
+
+@pytest.mark.parametrize("k", topk_cases.KS)
+@pytest.mark.parametrize("heaviest", [True, False])
+def test_k2_bucketed_at_full_size(k, heaviest):
+    """199,518 x 3 slots over 2,600 brokers padded to 3,072."""
+    _card()
+    c = dict(topk_cases.case("bucketed_3072", full=True), k=k, heaviest=heaviest)
+    want, got = _k2_both(c)
+    for x, y in zip(want, got):
+        assert _bits(x, y)
+
+
+def test_k2_leadership_and_light_calls_in_turn(pair):
+    """drain.py's call pattern: heaviest=False then True on one leadership
+    mask, brokers of both directions sharing the scratch."""
+    _card()
+    rng = np.random.default_rng(3)
+    a = pair["ac"].assignment
+    w = torch.from_numpy(rng.pareto(1.5, a.shape[0]).astype(np.float32))
+    lead = torch.where(torch.arange(a.shape[1]) == 0, w[:, None], torch.tensor(-torch.inf))
+    mov_c, mov_g = pair["sc"].movable_partition, pair["sg"].movable_partition
+    for heaviest, k in ((False, 2), (True, 2), (False, 5), (True, 1)):
+        want = broker_topk_plain(lead, a, mov_c, k, 24, heaviest)
+        got = broker_topk(lead.cuda(), pair["ag"].assignment, mov_g, k, 24, heaviest)
+        for x, y in zip(want, got):
+            assert _bits(x, y)
+
+
+WS_LENGTHS = (1, 31, 32, 33, 1023, 1024, 1025, 32767, 32768, 32769, 199518, 1048577,
+              ws.MAX_TERMS)
+
+
+@pytest.mark.parametrize("n", WS_LENGTHS)
+def test_window_sum_lengths(n):
+    """Every level boundary up to the longest column the kernel takes; the
+    tickets back at 0 after each call."""
+    _card()
+    rng = np.random.default_rng(n)
+    x = (rng.pareto(1.5, n) * rng.choice([-1.0, 1.0], n)).astype(np.float32)
+    got = window_sum(torch.from_numpy(x).cuda())
+    torch.cuda.synchronize()
+    assert _bits(window_sum_plain(torch.from_numpy(x)), got), n
+    assert _window_tickets_clean()
+
+
+@pytest.mark.parametrize("cols", (1, 4, 1100))
+@pytest.mark.parametrize("n", (1, 33, 1025, 32769))
+def test_window_sum_columns(n, cols):
+    """[n, cols] matrices; column 0 all -0.0, column 1 +inf and -inf (NaN),
+    column 2 +inf, column 3 a NaN, as the plain version has them."""
+    _card()
+    rng = np.random.default_rng(n + cols)
+    x = (rng.pareto(1.5, (n, cols)) * rng.choice([-1.0, 1.0], (n, cols))).astype(np.float32)
+    x[:, 0] = -0.0
+    if cols >= 4:
+        x[n // 2, 1], x[n - 1, 1] = np.inf, -np.inf
+        x[0, 2] = np.inf
+        x[n // 3, 3] = np.nan
+    got = window_sum(torch.from_numpy(x).cuda()).cpu()
+    want = window_sum_plain(torch.from_numpy(x))
+    # a NaN is compared as a NaN: the card's adds give its canonical NaN
+    # (0x7fffffff) where x86's give 0xffc00000 or pass an input NaN's bits on
+    nan = torch.isnan(want)
+    assert torch.equal(nan, torch.isnan(got)), (n, cols)
+    assert _bits(torch.where(nan, 0.0, want), torch.where(nan, 0.0, got)), (n, cols)
+    assert _window_tickets_clean()
+
+
+def test_window_sum_bucketed_broker_axis():
+    """3,072 brokers, the last 472 padding at 0.0, and the [3,072, 4] loads."""
+    _card()
+    rng = np.random.default_rng(5)
+    x = rng.pareto(1.5, (3072, 4)).astype(np.float32)
+    x[2600:] = 0.0
+    for t in (torch.from_numpy(x[:, 1].copy()), torch.from_numpy(x)):
+        assert _bits(window_sum_plain(t), window_sum(t.cuda()))
+    assert _window_tickets_clean()
 
 
 def test_k7_state_fingerprint(pair):

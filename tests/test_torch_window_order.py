@@ -75,6 +75,31 @@ def test_both_axes_of_a_matrix(n):
     assert np.array_equal(_bits(xla_sum(y.T)), _bits(_jsum1(y)))
 
 
+#: the lengths where the tree gains a level or a window: the card tests
+#: hold the kernel to the plain version at these too
+BOUNDARIES = (1, 31, 32, 33, 1023, 1024, 1025, 32767, 32768, 32769)
+
+
+@pytest.mark.parametrize("cols", (None, 4), ids=["vector", "n-by-4"])
+@pytest.mark.parametrize("n", BOUNDARIES)
+def test_level_boundaries_are_bit_equal_to_jitted_jnp_sum(n, cols):
+    """At each boundary, over a column of -0.0 and over NaN and infinities
+    (column 1: +inf and -inf, so NaN; column 2: +inf; column 3: a NaN)."""
+    rng = np.random.default_rng(n)
+    x = _pareto(rng, n if cols is None else (n, cols))
+    want = _jsum(x) if cols is None else _jsum0(x)
+    assert np.array_equal(_bits(window_sum_plain(torch.from_numpy(x))), _bits(want))
+    if cols is None:
+        return
+    x[:, 0] = -0.0
+    x[n // 2, 1], x[n - 1, 1] = np.inf, -np.inf
+    x[0, 2] = np.inf
+    x[n // 3, 3] = np.nan
+    got = window_sum_plain(torch.from_numpy(x)).numpy()
+    assert np.array_equal(_bits(got), _bits(_jsum0(x)))
+    assert np.isposinf(got[2]) and np.isnan(got[3]) and (n == 1 or np.isnan(got[1]))
+
+
 @pytest.mark.parametrize("n", (1, 2, 33, 100))
 def test_negative_zeros(n):
     # the padding and the start value are +0.0: XLA's sum of -0.0s is +0.0,
