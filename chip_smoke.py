@@ -16,9 +16,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        K1 segment_aggregates, K2 broker_topk (DiskCapacityGoal's drain
        priorities heaviest and lightest first, the relay's leadership-masked
        weights, and the bulk planner's priorities on the bucketed service
-       context's 3,072 brokers), K3 score_candidates (a hard
-       goal's [512, 8, 64] drain grid, the [P, 2] promotion grid and a soft
-       goal's drain grid), K4 apply_wave (a 1,024-entry drain wave, a
+       context's 3,072 brokers), K3 score_candidates (each called with a
+       round's packed ScoreContext: a hard goal's [512, 8, 64] drain grid,
+       the [P, 2] promotion grid, a soft goal's drain grid, a drain wave's
+       512-cell re-score and the grid round's all-broker re-score of 16
+       entries against the bucketed context's 3,072 brokers, which take
+       K3's factored, promotion, factored, general and promotion paths), K4
+       apply_wave (a 1,024-entry drain wave, a
        2,600-entry two-leg relay wave and the bulk planner's wave, one entry
        per broker of the bucketed service context: 3,072), K5 score_swaps
        (the [128, 128, 8, 8] replica-swap grid and the [512, 4, 2, 8, 2]
@@ -81,7 +85,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      destinations, 26 others excluded from replica moves), 17 kafka-assigner
      (the two kafka-assigner goals; K3's case 15 must launch). Replicas of
      excluded partitions may stay on dead brokers.
-  Around each solve every kernel's launch count is set to 0 and read after;
+  Around each solve every kernel's launch count is set to 0 and read after
+  (K3's also by path; the service bucketed solve must take all three);
   each kernel of the solve's path must have launched, and the result must
   hold: no replica left on a dead broker, no goal worse than before,
   sanity_check, the proposals replay to the final assignment. Each solve's
@@ -842,6 +847,7 @@ def main() -> int:
     )
     from cruise_control_torch.kernels.window_sum import window_sum, window_sum_plain
     from cruise_control_torch.kernels.score_candidates import (
+        ScoreContext,
         score_candidates,
         score_candidates_plain,
     )
@@ -958,7 +964,7 @@ def main() -> int:
     print(f"K10 delta_scatter: {len(deltas)} deltas ({changed} load rows changed) into the "
           f"[{p10}, {m10}] x {b10} bucketed context, every field bit-equal to the plain version, "
           "the input context unchanged")
-    del ctx10_g, ctx10_c, st10_g, out10_g, inputs10
+    del st10_g, out10_g, inputs10
 
     # K1
     k1_args_g = (model.assignment, st_g.part_load, st_g.topic_id, st_g.broker_rack,
@@ -1090,6 +1096,13 @@ def main() -> int:
         gs = cpu_goal.prepare(st, agg, dims)
         return (st, agg, tables, cpu_goal, gs, *leadership_grid(agg.assignment))
 
+    def k3_path(args):
+        """The K3 path the wrapper takes for these arguments."""
+        from cruise_control_torch.kernels import score_candidates as k3m
+
+        _, shape3, strides = k3m.layout(*args[5:])
+        return k3m.PATH_NAMES[k3m.choose_path(shape3, strides, args[1].assignment.shape[1])]
+
     k3_rows = []
     for label, make, grid_goal in (("move grid", disk_grid, disk_goal),
                                    ("promotion grid", lead_grid, cpu_goal),
@@ -1114,25 +1127,97 @@ def main() -> int:
             fail("K3 score_candidates (soft move grid): the priors' usage bands are off")
         nbytes = (sum(t.numel() * 4 for t in idx if t.dim()) + s_c.numel() * 4
                   + parts * (r * 4 + 24 + 4 + 8) + brokers * 168)
-        # ~100 operations per candidate (csrc/score_candidates.cu)
+        # ~100 operations per candidate (csrc/score_candidates.cu); the
+        # kernel called with a context packed once, as a round calls it
         k3_rows.append(dict(label=label, err=max_abs_err(s_g_c, s_c),
-                            call=lambda i, a=args_g: score_candidates(*a),
+                            call=lambda i, a=args_g, c=ScoreContext(*args_g[:5]):
+                            score_candidates(*a, ctx=c),
                             plain=lambda i, a=args_g: score_candidates_plain(*a),
-                            nbytes=nbytes, nops=100 * s_c.numel(), cells=s_c.numel()))
+                            nbytes=nbytes, nops=100 * s_c.numel(), cells=s_c.numel(),
+                            path=k3_path(args_g)))
         print(f"K3 score_candidates ({label}, {tuple(shape)}): {int(fin.sum())} finite of "
               f"{s_c.numel()}, masks exact")
+    # K3's general path on a drain wave's 512-cell re-score (drain.py's first
+    # wave under DiskCapacityGoal: each row's best candidate toward its
+    # rotated destination column) and its promotion path (a thread a cell:
+    # 49,152 cells are below the factored tiles' floor) on the grid round's
+    # all-broker re-score (optimizer.py) of 16 entries, replicas on dead
+    # brokers, against the bucketed context's 3,072 brokers
+    grid_c = disk_grid(st_c, agg_c)
+    s_grid = score_candidates_plain(*grid_c)
+    v3, k3c, c3 = s_grid.shape
+    rows3 = torch.arange(v3)
+    ci3 = torch.argmax(s_grid[rows3, :, rows3 % c3], dim=1) * c3 + rows3 % c3
+
+    def wave_cells(args):
+        cp3, cs3, dst3 = args[5], args[7], args[8]
+        d = cp3.device
+        ci, r0 = ci3.to(d), rows3.to(d)
+        return (*args[:5], cp3[r0, ci // c3, 0].contiguous(),
+                torch.full((v3,), KIND_MOVE, dtype=torch.int32, device=d),
+                cs3[r0, ci // c3, 0].contiguous(), dst3.reshape(-1)[ci % c3].contiguous())
+
+    p10_c, st10_c_, dims10 = ctx10_c[1], ctx10_c[3], ctx10_c[2]
+    on_dead10 = (p10_c.assignment >= 0) & st10_c_.dead[p10_c.assignment.clamp(min=0).long()]
+    sel10 = torch.nonzero(on_dead10)[:16].to(torch.int32)
+
+    def all_broker_cells(ctx10):
+        pm, d10, s10 = ctx10[1], ctx10[2], ctx10[3]
+        a10 = compute_aggregates(s10, pm.assignment, d10)
+        d = pm.assignment.device
+        sel = sel10.to(d)
+        return (s10, a10, build_tables(goals[:goals.index(disk_goal)], s10, a10, d10), disk_goal,
+                disk_goal.prepare(s10, a10, d10), sel[:, :1].contiguous(),
+                torch.full((len(sel), 1), KIND_MOVE, dtype=torch.int32, device=d),
+                sel[:, 1:].contiguous(),
+                torch.arange(d10.num_brokers, dtype=torch.int32, device=d)[None, :])
+
+    for label, args_g, args_c in (("wave re-score", wave_cells(disk_grid(st_g, agg_g)),
+                                   wave_cells(grid_c)),
+                                  ("all-broker re-score", all_broker_cells(ctx10_g),
+                                   all_broker_cells(ctx10_c))):
+        s_g = score_candidates(*args_g).cpu()
+        s_c = score_candidates_plain(*args_c)
+        fin = torch.isfinite(s_c)
+        if not torch.equal(torch.isfinite(s_g), fin) or not bits_equal(s_g[fin], s_c[fin]):
+            fail(f"K3 score_candidates ({label}): differs from the plain version")
+        if not bool(fin.any()):
+            fail(f"K3 score_candidates ({label}): no finite cell")
+        idx = args_c[5:]
+        parts = torch.unique(idx[0].expand(s_c.shape).reshape(-1)).numel()
+        if label == "wave re-score":
+            a_ = args_c[1].assignment
+            brokers = torch.unique(torch.cat([a_[idx[0].long(), idx[2].long()], idx[3]])).numel()
+        else:
+            brokers = args_c[1].broker_load.shape[0]
+        nbytes = (sum(t.numel() * 4 for t in idx if t.dim()) + s_c.numel() * 4
+                  + parts * (r * 4 + 24 + 4 + 8) + brokers * 168)
+        k3_rows.append(dict(label=label, err=max_abs_err(s_g, s_c),
+                            call=lambda i, a=args_g, c=ScoreContext(*args_g[:5]):
+                            score_candidates(*a, ctx=c),
+                            plain=lambda i, a=args_g: score_candidates_plain(*a),
+                            nbytes=nbytes, nops=100 * s_c.numel(), cells=s_c.numel(),
+                            path=k3_path(args_g)))
+        print(f"K3 score_candidates ({label}, {tuple(s_c.shape)}, the {k3_rows[-1]['path']} "
+              f"path): {int(fin.sum())} finite of {s_c.numel()}, bit-equal to the plain version")
+    del ctx10_g, ctx10_c
+
     # the JSON row carries the hard goal's move grid; the others are printed
     err3 = max(x["err"] for x in k3_rows)
     for x, key in zip(k3_rows, ("score_candidates", "score_candidates promotion grid",
-                                "score_candidates soft move grid")):
+                                "score_candidates soft move grid",
+                                "score_candidates wave re-score",
+                                "score_candidates all-broker re-score")):
         rw = row(key, "score_candidates.cu", "cruise_control_tpu/analyzer/acceptance.py:330",
                  err3, x["call"], x["plain"], x["nbytes"], x["nops"],
-                 f"one thread per candidate, {x['label']} of {x['cells']} cells")
+                 f"the {x['path']} path (source and destination halves, score_goal.cuh), "
+                 f"{x['label']} of {x['cells']} cells")
         if key != "score_candidates":
             rows.pop(key)
-            print(f"K3 score_candidates on the {x['label']}: {rw['ms']:.4f} ms on the device, "
-                  f"{rw['call_ms']:.4f} ms per call, plain {rw['plain_ms']:.4f} ms, bound "
-                  f"{rw['bound_ms']:.6f} ms by {rw['bound_by']}")
+            print(f"K3 score_candidates on the {x['label']} ({x['path']} path): "
+                  f"{rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per call, plain "
+                  f"{rw['plain_ms']:.4f} ms, bound {rw['bound_ms']:.6f} ms by {rw['bound_by']}")
+    del k3_rows, x, args_g, args_c
 
     # K4 on a 1,024-entry wave: each move-grid row's best cell (512) and the
     # 512 best promotions of the CPU grid
@@ -1516,7 +1601,8 @@ def main() -> int:
         # ~100 operations per cell (csrc/score_goal.cuh)
         k9_rows.append(dict(label=label, cells=cells, nbytes=nbytes, nops=100 * cells,
                             err=max(max_abs_err(a_, b_) for a_, b_ in zip(o9_g, o9_c)),
-                            call=lambda i, a=args_g: grid_shortlist(*a),
+                            call=lambda i, a=args_g, c=ScoreContext(*args_g[:5]):
+                            grid_shortlist(*a, ctx=c),
                             plain=lambda i, a=args_g: grid_shortlist_plain(*a),
                             unfused=lambda i, a=args_g: k3_argmax(*a)))
         print(f"K9 grid_shortlist ({label}, [{p_count}, {r}, {kk}] moves"
@@ -1528,9 +1614,9 @@ def main() -> int:
     for x, key in zip(k9_rows, ("grid_shortlist", "grid_shortlist leader count goal")):
         rw = row(key, "grid_shortlist.cu", "cruise_control_tpu/analyzer/optimizer.py:357", err9,
                  x["call"], x["plain"], x["nbytes"], x["nops"],
-                 f"one thread per partition over its {x['cells'] // p_count} cells (K3's "
-                 "score_action), a 64-bit atomicMax bid, one thread re-scores the winner; the "
-                 f"{x['label']} grid of {x['cells']} cells")
+                 f"a warp per group of partitions, {x['cells'] // p_count} cells each (K3's "
+                 "source and destination halves, staged at once), one record per block, a "
+                 f"second launch takes the best; the {x['label']} grid of {x['cells']} cells")
         rw["k3_argmax_ms"] = time_ms(x["unfused"])
         print(f"K9 grid_shortlist on the {x['label']} grid: {rw['ms']:.4f} ms on the device, "
               f"{rw['call_ms']:.4f} ms per call, plain {rw['plain_ms']:.4f} ms, K3 + argmax "
@@ -1584,7 +1670,8 @@ def main() -> int:
             p_, sl_ = (t.expand(out_c.shape).long() for t in (args_c[5], args_c[7]))
             if not bool(sc.dead[agg_c.assignment[p_, sl_][fin].long()].all()):
                 fail("K3 score_candidates (immigrant flag): a finite cell's source is alive")
-        rw = row(f"{key} {label}", src, replaces, err, lambda i, a=args_g, f=fn: f(*a),
+        rw = row(f"{key} {label}", src, replaces, err,
+                 lambda i, a=args_g, f=fn, c=ScoreContext(*args_g[:5]): f(*a, ctx=c),
                  lambda i, a=args_g, f=plain_fn: f(*a), nbytes, 100 * cells,
                  f"{kname} with {label}, {cells} cells")
         rows.pop(f"{key} {label}")
@@ -1624,6 +1711,9 @@ def main() -> int:
 
     # -- 4.-7. the solves -------------------------------------------------------
     from cruise_control_torch.analyzer.stats import stats_to_dict
+
+    kernel_rows_s = time.monotonic() - t_start
+    print(f"kernel rows: {kernel_rows_s:.1f} s from the start, the build included")
 
     # the bench's config-5 model (bench.py:642) and its parity model
     # (bench.py:596-604)
@@ -1671,10 +1761,15 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = kernels.launches()
+        k3_paths = dict(score_candidates.paths)
         peak = torch.cuda.max_memory_allocated()
         for key in path:
             if counts[key] == 0:
                 fail(f"{label}: the solve never launched kernel {key}")
+        print(f"{label}: K3 launches by path {k3_paths}")
+        if label == "service bucketed" and min(
+                k3_paths.get(x, 0) for x in ("factored", "promotion", "general")) == 0:
+            fail(f"{label}: K3 did not take each of its three paths ({k3_paths})")
         print(f"{label}: {wall:.2f} s wall (kernel builds excluded), peak device memory "
               f"{peak / 2**20:.1f} MiB, launches {counts}")
         if ref_moves is not None:
@@ -1748,6 +1843,7 @@ def main() -> int:
                          "leadership_moves": res.num_leadership_moves, "peak_bytes": peak,
                          "final_assignment_sha256": digest, "touch_tag_sha256": tags,
                          "decision_digest": dg["checksum"], "launches": counts,
+                         "k3_paths": k3_paths,
                          "goals": [[g.name, g.violated_brokers_before, g.violated_brokers_after,
                                     g.rounds, g.converged, g.cost_before, g.cost_after]
                                    for g in res.goal_results]}
@@ -1937,7 +2033,8 @@ def main() -> int:
         for label in solves:
             v["launches_" + label.replace(" ", "_")] = solves[label]["launches"][key]
     total_s = time.monotonic() - t_start
-    print(json.dumps({"solves": solves, "build_s": build_s, "chip_smoke_s": total_s}))
+    print(json.dumps({"solves": solves, "build_s": build_s, "kernel_rows_s": kernel_rows_s,
+                      "chip_smoke_s": total_s}))
     for k, v in rows.items():
         print(f"{k:20s} {v['ms']:9.4f} ms on the device per call, {v['call_ms']:9.4f} ms per "
               f"call (plain {v['plain_ms']:9.4f} ms, bound {v['bound_ms']:.6f} ms by "

@@ -31,7 +31,7 @@ from cruise_control_torch.analyzer.context import (
     replicas_on_dead,
 )
 from cruise_control_torch.kernels.broker_topk import broker_topk
-from cruise_control_torch.kernels.score_candidates import score_candidates
+from cruise_control_torch.kernels.score_candidates import ScoreContext, score_candidates
 
 
 def make_bulk_count_round(goal, dims, k_cand: int, max_waves: int):
@@ -60,6 +60,7 @@ def make_bulk_count_round(goal, dims, k_cand: int, max_waves: int):
         kind_move = torch.tensor(KIND_MOVE, dtype=torch.int32, device=dev)
         kind_lead = torch.tensor(KIND_LEADERSHIP, dtype=torch.int32, device=dev)
         slots = torch.arange(1, r, dtype=torch.int32, device=dev)[None, None, :]
+        ctx = ScoreContext(static, agg, tables, goal, gs)
         applied = False
         for w in range(waves_dyn):
             counts = goal.bulk_counts(static, gs, agg)
@@ -69,12 +70,12 @@ def make_bulk_count_round(goal, dims, k_cand: int, max_waves: int):
             a = agg.assignment
             live = cand_ok & ~done & valid_src[:, None]
             s_mv = score_candidates(static, agg, tables, goal, gs, cand_p, kind_move, cand_s,
-                                    paired[:, None])
+                                    paired[:, None], ctx=ctx)
             s_mv = torch.where(live, s_mv, neg_inf)
             if use_leadership:
                 p3 = cand_p[:, :, None]
                 s_ld = score_candidates(static, agg, tables, goal, gs, p3, kind_lead, slots,
-                                        a[p3.long(), slots.long()])
+                                        a[p3.long(), slots.long()], ctx=ctx)
                 s_ld = torch.where(live[:, :, None], s_ld, neg_inf)
                 cells = torch.cat([s_mv[:, :, None], s_ld], dim=2).reshape(b_count, k * fam)
             else:

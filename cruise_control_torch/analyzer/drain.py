@@ -44,7 +44,7 @@ from cruise_control_torch.common.resources import PartMetric
 from cruise_control_torch.common.xla_math import fma
 from cruise_control_torch.kernels.broker_topk import broker_topk
 from cruise_control_torch.kernels.pair_picks import pair_picks
-from cruise_control_torch.kernels.score_candidates import score_candidates
+from cruise_control_torch.kernels.score_candidates import ScoreContext, score_candidates
 from cruise_control_torch.kernels.score_swaps import LEADERSHIP_RELAY, TOPIC_SWAP, score_swaps
 from cruise_control_torch.kernels.window_sum import window_sum
 
@@ -137,6 +137,7 @@ def make_drain_round(goal, dims, n_src: int, k_rep: int, c_dst: int, apply_waves
     def drain_round(static: StaticCtx, agg: Aggregates, tables, gs, contrib, rnd: int = -1):
         dev = agg.assignment.device
         neg_inf = torch.tensor(-torch.inf, dtype=torch.float32, device=dev)
+        ctx = ScoreContext(static, agg, tables, goal, gs)
         rank = goal.src_rank(static, gs, agg)
         rank = torch.where(static.dead, torch.tensor(torch.inf, device=dev), rank)
         _, hot = top_k(rank, v)
@@ -156,12 +157,12 @@ def make_drain_round(goal, dims, n_src: int, k_rep: int, c_dst: int, apply_waves
         dsts = dst_lazy.expand(v, k, c)
         kind_move = torch.tensor(KIND_MOVE, dtype=torch.int32, device=dev)
         s_mv = score_candidates(static, agg, tables, goal, gs, cand_p[:, :, None], kind_move,
-                                cand_s[:, :, None], dst_lazy)
+                                cand_s[:, :, None], dst_lazy, ctx=ctx)
         cells = torch.where(cand_ok[:, :, None], s_mv, neg_inf).expand(v, k, c).reshape(v, k * c)
 
         if use_leadership:
             lp, lkind, lslot, ldst = leadership_grid(agg.assignment)
-            sl = score_candidates(static, agg, tables, goal, gs, lp, lkind, lslot, ldst)
+            sl = score_candidates(static, agg, tables, goal, gs, lp, lkind, lslot, ldst, ctx=ctx)
             lead_s0, lead_i = top_k(sl.reshape(p_count * (r - 1)), j_lead)
             lead_p = (lead_i // (r - 1)).to(torch.int32)
             lead_slot = (lead_i % (r - 1)).to(torch.int32) + 1
@@ -190,14 +191,15 @@ def make_drain_round(goal, dims, n_src: int, k_rep: int, c_dst: int, apply_waves
             mp = cand_p[rows0, k_i]
             ms = cand_s[rows0, k_i]
             md = dsts[rows0, k_i, ci % c]
-            s_now = score_candidates(static, agg, tables, goal, gs, mp, move_kind, ms, md)
+            s_now = score_candidates(static, agg, tables, goal, gs, mp, move_kind, ms, md,
+                                     ctx=ctx)
             all_ok = torch.isfinite(bs) & torch.isfinite(s_now)
             if use_leadership:
                 # every not-yet-applied promotion re-bids each wave, toward
                 # wherever its follower lives now
                 l_dst = agg.assignment[lead_p.long(), lead_slot.long()]
                 ls_now = score_candidates(static, agg, tables, goal, gs, lead_p, lead_kind,
-                                          lead_slot, l_dst)
+                                          lead_slot, l_dst, ctx=ctx)
                 lok = torch.isfinite(lead_s0) & torch.isfinite(ls_now) & ~lead_done
                 e_p = torch.cat([mp, lead_p])
                 e_kind = torch.cat([move_kind, lead_kind])
@@ -349,8 +351,9 @@ def make_pair_drain_round(goal, dims, n_pairs: int, apply_waves: int):
         cand_ok = found & pair_ok[:, None]
         dst_list = topic_dst_list(static, agg, tables, gs, pair_t, pair_b, rnd, c_dst, b_count)
         kind_move = torch.tensor(KIND_MOVE, dtype=torch.int32, device=dev)
+        ctx = ScoreContext(static, agg, tables, goal, gs)
         s = score_candidates(static, agg, tables, goal, gs, cand_p[:, :, None], kind_move,
-                             cand_s[:, :, None], dst_list[:, None, :])
+                             cand_s[:, :, None], dst_list[:, None, :], ctx=ctx)
         cells = torch.where(cand_ok[:, :, None], s, neg_inf).reshape(v, k * c_dst)
         blocked = torch.zeros((v, k * c_dst), dtype=torch.bool, device=dev)
         applied_any = torch.zeros((), dtype=torch.bool, device=dev)
@@ -360,7 +363,8 @@ def make_pair_drain_round(goal, dims, n_pairs: int, apply_waves: int):
             k_i = ci // c_dst
             p_i, s_i = cand_p[rows0, k_i], cand_s[rows0, k_i]
             dst = dst_list[rows0, ci % c_dst]
-            s_now = score_candidates(static, agg, tables, goal, gs, p_i, move_kind, s_i, dst)
+            s_now = score_candidates(static, agg, tables, goal, gs, p_i, move_kind, s_i, dst,
+                                     ctx=ctx)
             ok = torch.isfinite(bs) & torch.isfinite(s_now)
             sel = apply_wave(static, agg, p_i.contiguous(), move_kind, s_i.contiguous(),
                              dst.contiguous(), s_now.contiguous(), ok, make_touch_tag(rnd, w))

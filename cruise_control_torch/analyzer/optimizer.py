@@ -76,7 +76,7 @@ from cruise_control_torch.analyzer.swaps import make_swap_round
 from cruise_control_torch.config.balancing import BalancingConstraint
 from cruise_control_torch.kernels.apply_wave import apply_wave
 from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
-from cruise_control_torch.kernels.score_candidates import score_candidates
+from cruise_control_torch.kernels.score_candidates import ScoreContext, score_candidates
 from cruise_control_torch.kernels.state_fingerprint import state_fingerprint
 from cruise_control_torch.models.flat_model import FlatClusterModel
 from cruise_control_torch.parallel.sharding import (
@@ -287,8 +287,9 @@ def _make_grid_round(goal, dims: Dims, settings: OptimizerSettings):
         dev = agg.assignment.device
         gs = goal.prepare(static, agg, dims)
         cands = dst_candidates(static, gs, agg, goal, dims, k_dst, tables)
+        ctx = ScoreContext(static, agg, tables, goal, gs)
         top_scores, sel_p, sel_kind, sel_slot, sel_dst0 = grid_shortlist(
-            static, agg, tables, goal, gs, cands, k_sel)
+            static, agg, tables, goal, gs, cands, k_sel, ctx=ctx)
         live = torch.isfinite(top_scores)
         is_move = sel_kind == KIND_MOVE
         applied = torch.zeros((), dtype=torch.bool, device=dev)
@@ -301,7 +302,7 @@ def _make_grid_round(goal, dims: Dims, settings: OptimizerSettings):
             nonlocal applied, done
             fresh_dst = fresh_dst.to(torch.int32).contiguous()
             s = score_candidates(static, agg, tables, goal, gs, sel_p, sel_kind, sel_slot,
-                                 fresh_dst)
+                                 fresh_dst, ctx=ctx)
             sel = apply_wave(static, agg, sel_p, sel_kind, sel_slot, fresh_dst, s,
                              torch.isfinite(s) & live & ~done, make_touch_tag(rnd, w))
             applied = applied | torch.any(sel)
@@ -324,7 +325,8 @@ def _make_grid_round(goal, dims: Dims, settings: OptimizerSettings):
         if goal.uses_moves:
             all_brokers = torch.arange(dims.num_brokers, dtype=torch.int32, device=dev)
             s_b = score_candidates(static, agg, tables, goal, gs, sel_p[:, None],
-                                   sel_kind[:, None], sel_slot[:, None], all_brokers[None, :])
+                                   sel_kind[:, None], sel_slot[:, None], all_brokers[None, :],
+                                   ctx=ctx)
             best = torch.argmax(s_b, dim=1).to(torch.int32)
             wave_with_dst(torch.where(is_move, best, lead_dst()), n_waves)
         return agg, applied

@@ -18,15 +18,28 @@
 // reference's, in its order (built with -fmad=false, no fast math). Where XLA
 // fuses a multiply into an add the code calls fmaf, and every tanh is
 // xla_tanhf (common/xla_math.py). An action that is not valid (empty slot,
-// src == dst, a -1 destination) scores -inf before anything is gathered with
-// its indices: the reference's values there are masked by the same `valid`
-// bit.
+// src == dst, a -1 destination) scores -inf: the reference's values there are
+// masked by the same `valid` bit.
+//
+// The score is taken in three parts, so that a caller can load what a row
+// or a column of a grid shares once:
+//   - SrcHalf, once per (p, kind, slot): the action's deltas, the
+//     partition's flags and topic, and the source broker's words, with every
+//     check that reads the source side alone already folded into `ok`;
+//   - DstHalf, once per destination broker: its words and flags;
+//   - combine(), per cell: both halves and the two words that depend on the
+//     pair, topic_count[t * B + dst] and rack_count[p * NR + rack(dst)].
+// The halves load every word at a clamped address, with no load behind a
+// branch, so the loads of one level go out together; a word that the action's
+// kind or the goal never reads is loaded at index 0 (one transaction a warp).
 #pragma once
 
 #include "common.cuh"
 
 // The context every score reads: the model, the aggregates, the tables, the
-// goal's limit and window. Pointers are device addresses.
+// goal's limit and window. Pointers are device addresses. The host packs it
+// once a round (kernels/score_candidates.py ScoreContext, a ctypes Structure
+// with these fields in this order) and passes its address.
 struct ScoreCtx {
   const int* assignment;
   const float* part_load;
@@ -54,64 +67,232 @@ struct ScoreCtx {
   int R, NR, B, goal;
 };
 
+template <typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ bool ldb(const unsigned char* p) { return __ldg(p) != 0; }
 
-// Fill `c` from the C interface's pointer array, starting at ptrs[k], in the
-// order: assignment, part_load, topic_id, broker_capacity, broker_rack,
-//   broker_host, dead, replica_dst_ok, leadership_dst_ok, movable_partition,
-//   host_cpu_capacity_limit, broker_load, replica_count, leader_count,
-//   potential_nw_out, leader_nw_in, rack_replica_count, topic_replica_count,
-//   host_cpu_load, hi_load, lo_load, band_hi, band_lo, band_on, hi_rep,
-//   lo_rep, hi_lead, lo_lead, hi_pnw, hi_lnw, hi_lnw_waive_dead, hi_topic,
-//   lo_topic, hi_host_cpu, rack_enabled, limit, max_replicas_per_broker,
-//   w_lower, w_upper, w_active, only_move_immigrants
-// and from `ints`: R, NR, B, goal. Returns the index past the last pointer.
-static inline int read_score_ctx(ScoreCtx& g, const long long* ptrs, int k, const long long* ints) {
-  g.assignment = (const int*)ptrs[k++];
-  g.part_load = (const float*)ptrs[k++];
-  g.topic_id = (const int*)ptrs[k++];
-  g.capacity = (const float*)ptrs[k++];
-  g.broker_rack = (const int*)ptrs[k++];
-  g.broker_host = (const int*)ptrs[k++];
-  g.dead = (const unsigned char*)ptrs[k++];
-  g.replica_dst_ok = (const unsigned char*)ptrs[k++];
-  g.leadership_dst_ok = (const unsigned char*)ptrs[k++];
-  g.movable = (const unsigned char*)ptrs[k++];
-  g.host_cpu_cap_limit = (const float*)ptrs[k++];
-  g.broker_load = (const float*)ptrs[k++];
-  g.replica_count = (const int*)ptrs[k++];
-  g.leader_count = (const int*)ptrs[k++];
-  g.potential = (const float*)ptrs[k++];
-  g.leader_nw_in = (const float*)ptrs[k++];
-  g.rack_count = (const int*)ptrs[k++];
-  g.topic_count = (const int*)ptrs[k++];
-  g.host_cpu = (const float*)ptrs[k++];
-  g.hi_load = (const float*)ptrs[k++];
-  g.lo_load = (const float*)ptrs[k++];
-  g.band_hi = (const float*)ptrs[k++];
-  g.band_lo = (const float*)ptrs[k++];
-  g.band_on = (const unsigned char*)ptrs[k++];
-  g.hi_rep = (const float*)ptrs[k++];
-  g.lo_rep = (const float*)ptrs[k++];
-  g.hi_lead = (const float*)ptrs[k++];
-  g.lo_lead = (const float*)ptrs[k++];
-  g.hi_pnw = (const float*)ptrs[k++];
-  g.hi_lnw = (const float*)ptrs[k++];
-  g.waive_dead = (const unsigned char*)ptrs[k++];
-  g.hi_topic = (const float*)ptrs[k++];
-  g.lo_topic = (const float*)ptrs[k++];
-  g.hi_host_cpu = (const float*)ptrs[k++];
-  g.rack_enabled = (const unsigned char*)ptrs[k++];
-  g.limit = (const float*)ptrs[k++];
-  g.max_replicas = (const int*)ptrs[k++];
-  g.w_lower = (const float*)ptrs[k++];
-  g.w_upper = (const float*)ptrs[k++];
-  g.w_active = (const unsigned char*)ptrs[k++];
-  g.only_immigrants = (const unsigned char*)ptrs[k++];
-  g.R = (int)ints[0];
-  g.NR = (int)ints[1];
-  g.B = (int)ints[2];
-  g.goal = (int)ints[3];
-  return k;
+// Row b of a [*, 4] float table as one 16-byte load (the context's [*, 4]
+// tables are 16-byte aligned: kernels/score_candidates.py checks it).
+__device__ __forceinline__ void ld4(const float* t, long long b, float (&out)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(t) + b);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+// a[i] for a runtime i in 0..3, by selects, so that `a` stays in registers
+__device__ __forceinline__ float at4(const float (&a)[4], int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+
+// SrcHalf.flags / DstHalf.flags
+enum HalfFlags {
+  H_VALID = 1,       // src (dst) >= 0
+  H_MOVE = 2,        // src: a replica move (else a leadership transfer)
+  H_DEAD = 4,        // src: the source broker is dead
+  H_OK = 8,          // src: every source-side check passed
+  H_DUP = 16,        // src: a sibling shares the source's rack (goals 0, 15)
+  H_SRC_OVER = 32,   // src: the source is over its limit (goals 2-5, 7)
+  H_REPLICA_OK = 64, // dst: replica_dst_ok
+  H_LEAD_OK = 128,   // dst: leadership_dst_ok
+};
+
+// What a score reads of (p, kind, slot) and its source broker. An odd number
+// of 4-byte words, so that threads reading consecutive halves in shared
+// memory hit distinct banks.
+struct SrcHalf {
+  int p, src, t, flags;  // src as the assignment holds it (-1: empty slot)
+  int drep, dleader;
+  float dload[4], dpnw, dlnw;
+  float load[4], band_lo[4], band_hi[4];  // the source broker's
+  int rep, lead, host, rack, topic_src;   // topic_src = topic_count[t * B + src]
+  float lnw, hi_topic;
+  float g0, g1;  // goals 8-11: capacity (floored) and utilization; 12: the topic's window
+};
+
+// What a score reads of the destination broker; `dst` as given.
+struct DstHalf {
+  int dst, flags;
+  float load[4], hi_load[4], band_lo[4], band_hi[4];
+  int rep, lead;
+  float hi_rep, hi_lead, potential, hi_pnw, lnw, hi_lnw;
+  int host, rack;
+  float host_cpu, hi_host_cpu, limit;
+  float g0, g1;  // goals 0, 15: the tiebreak; 5: the host's CPU limit; 8-11: capacity, utilization
+};
+
+static_assert(sizeof(SrcHalf) % 8 == 4, "SrcHalf must be an odd number of words");
+static_assert(sizeof(DstHalf) % 8 == 4, "DstHalf must be an odd number of words");
+
+// resource of each capacity-goal id (2..5), as goals/hard.py _CAPACITY_KERNEL_ID
+__device__ __forceinline__ int capacity_resource(int goal) {
+  switch (goal) {
+    case 2: return RES_DISK;
+    case 3: return RES_NW_IN;
+    case 4: return RES_NW_OUT;
+    default: return RES_CPU;
+  }
+}
+
+// The source half of (p, kind, slot). p must be a partition index. No load
+// sits behind a branch: a word that this action or goal never reads is
+// loaded at index 0 instead (one transaction a warp), so that the loads of
+// one level go out together.
+__device__ __forceinline__ SrcHalf src_half(const ScoreCtx& g, int p, int kind, int slot) {
+  SrcHalf h;
+  const int goal = g.goal;
+  const bool is_move = kind == KIND_MOVE;
+  const bool cap_goal = goal >= 2 && goal <= 5, lim_goal = cap_goal || goal == 7;
+  const bool dist_goal = goal >= 8 && goal <= 11, rack_goal = goal == 0 || goal == 15;
+  const int res = dist_goal ? goal - 8 : capacity_resource(goal);
+  const long long pr = (long long)p * g.R;
+  // level 0: the partition's words
+  const int src = ld(g.assignment + pr + (is_move ? slot : 0));
+  // the part_load row, 24 bytes at an 8-byte boundary: three 8-byte loads
+  const float2* pl = reinterpret_cast<const float2*>(g.part_load) + (long long)p * 3;
+  float plv[NUM_PART_METRICS];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const float2 v = __ldg(pl + m);
+    plv[2 * m] = v.x;
+    plv[2 * m + 1] = v.y;
+  }
+  const int t = ld(g.topic_id + p);
+  const bool movable = ldb(g.movable + p);
+  const bool only_imm = ldb(g.only_immigrants);
+  // level 1: the source broker's and the topic's words; sm and tm index the
+  // words only a move reads
+  const int sc = src < 0 ? 0 : src, sm = is_move ? sc : 0, tm = is_move ? t : 0;
+  const bool dead_src = ldb(g.dead + sc);
+  float lo_load[4];
+  ld4(g.broker_load, sc, h.load);
+  ld4(g.lo_load, sc, lo_load);
+  ld4(g.band_lo, sc, h.band_lo);
+  ld4(g.band_hi, sc, h.band_hi);
+  h.rep = ld(g.replica_count + sm);
+  h.lead = ld(g.leader_count + sc);
+  const float lo_rep = ld(g.lo_rep + sm), lo_lead = ld(g.lo_lead + sc);
+  h.lnw = ld(g.leader_nw_in + (goal == 14 ? sc : 0));
+  h.host = ld(g.broker_host + sc);
+  h.rack = ld(g.broker_rack + sm);
+  h.hi_topic = ld(g.hi_topic + tm);
+  const float lo_topic = ld(g.lo_topic + tm);
+  const float lim_s = ld(g.limit + (lim_goal ? sc : 0));
+  const float pot_s = ld(g.potential + (goal == 7 ? sc : 0));
+  const float cap_s = ld(g.capacity + (dist_goal ? (long long)sc * 4 + res : 0));
+  const float w_lo_t = ld(g.w_lower + (goal == 12 ? t : 0));
+  const float w_hi_t = ld(g.w_upper + (goal == 12 ? t : 0));
+  // level 2: the topic's count on the source (a move's topic check, case
+  // 12), the source's rack count (cases 0, 15), its host's CPU (case 5)
+  const int topic_src = ld(g.topic_count + (long long)tm * g.B + sm);
+  h.topic_src = is_move ? topic_src : 0;
+  const int rack_dup =
+      ld(g.rack_count + (rack_goal && is_move ? (long long)p * g.NR + h.rack : 0));
+  const int hs5 = goal == 5 ? h.host : 0;
+  const float host_cpu_s = ld(g.host_cpu + hs5), host_cap_s = ld(g.host_cpu_cap_limit + hs5);
+
+  // build_action (common.cuh), from the loaded row
+  float lead[4], foll[4];
+  leader_vec(plv, lead);
+  follower_vec(plv, foll);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float move_load = slot == 0 ? lead[r] : foll[r];
+    h.dload[r] = is_move ? move_load : lead[r] - foll[r];
+  }
+  const bool leader_transfer = !is_move || slot == 0;
+  h.drep = is_move ? 1 : 0;
+  h.dleader = leader_transfer ? 1 : 0;
+  h.dpnw = is_move ? plv[NW_OUT_LEADER] : 0.0f;
+  h.dlnw = leader_transfer ? plv[NW_IN_LEADER] : 0.0f;
+  h.p = p;
+  h.src = src;
+  h.t = t;
+
+  // the checks that read the source side alone
+  bool ok = movable;
+  if (only_imm && !dead_src) ok = false;  // acceptance.py:323
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float d = h.dload[r];
+    if (d > 0.0f && !dead_src && !(h.load[r] - d >= lo_load[r])) ok = false;
+  }
+  const float drep = (float)h.drep, dlead = (float)h.dleader;
+  if (drep > 0.0f && !dead_src && !((float)h.rep - drep >= lo_rep)) ok = false;
+  if (dlead > 0.0f && !dead_src && !((float)h.lead - dlead >= lo_lead)) ok = false;
+  if (drep > 0.0f && !dead_src && !((float)(h.topic_src - h.drep) >= lo_topic)) ok = false;
+
+  // the goal's own source words: whether the source is over its limit
+  // (cases 2-5, 7), its floored capacity and utilization (8-11), the
+  // topic's window (12)
+  bool src_over = false;
+  if (cap_goal) {
+    src_over = at4(h.load, res) > lim_s;
+    if (res == RES_CPU) src_over = src_over || host_cpu_s > host_cap_s;
+  } else if (goal == 7) {
+    src_over = pot_s > lim_s;
+  }
+  const float cap_f = fmaxf(cap_s, 1e-9f);
+  h.g0 = dist_goal ? cap_f : goal == 12 ? w_lo_t : 0.0f;
+  h.g1 = dist_goal ? at4(h.load, res) / cap_f : goal == 12 ? w_hi_t : 0.0f;
+  h.flags = (src >= 0 ? H_VALID : 0) | (is_move ? H_MOVE : 0) | (dead_src ? H_DEAD : 0) |
+            (ok ? H_OK : 0) | (rack_dup > 1 ? H_DUP : 0) | (src_over ? H_SRC_OVER : 0);
+  return h;
+}
+
+// The destination half of broker `dst` (any int; -1 gives an invalid half)
+// for moves and leadership transfers, or, with `move` false, for leadership
+// transfers alone (the words only a move reads are loaded at index 0). No
+// load sits behind a branch, as in src_half.
+__device__ __forceinline__ DstHalf dst_half(const ScoreCtx& g, int dst, bool move = true) {
+  DstHalf h;
+  const int goal = g.goal;
+  const bool lim_goal = (goal >= 2 && goal <= 5) || goal == 7;
+  const bool dist_goal = goal >= 8 && goal <= 11, rack_goal = goal == 0 || goal == 15;
+  const int dc = dst < 0 ? 0 : dst, dm = move ? dc : 0;
+  const bool rep_ok = ldb(g.replica_dst_ok + dc), lead_ok = ldb(g.leadership_dst_ok + dc);
+  float cap[4];
+  ld4(g.broker_load, dc, h.load);
+  ld4(g.hi_load, dc, h.hi_load);
+  ld4(g.band_lo, dc, h.band_lo);
+  ld4(g.band_hi, dc, h.band_hi);
+  ld4(g.capacity, rack_goal || dist_goal ? dc : 0, cap);
+  h.rep = ld(g.replica_count + dm);
+  h.lead = ld(g.leader_count + dc);
+  h.hi_rep = ld(g.hi_rep + dm);
+  h.hi_lead = ld(g.hi_lead + dc);
+  h.potential = ld(g.potential + dm);
+  h.hi_pnw = ld(g.hi_pnw + dm);
+  h.lnw = ld(g.leader_nw_in + dc);
+  h.hi_lnw = ld(g.hi_lnw + dc);
+  h.host = ld(g.broker_host + dc);
+  h.rack = ld(g.broker_rack + dm);
+  h.limit = ld(g.limit + (lim_goal ? dc : 0));
+  // level 2: the host's words
+  h.host_cpu = ld(g.host_cpu + h.host);
+  h.hi_host_cpu = ld(g.hi_host_cpu + h.host);
+  const float host_cap = ld(g.host_cpu_cap_limit + (goal == 5 ? h.host : 0));
+  // the goal's own: the rack goals' tiebreak (0, 15), the host's CPU limit
+  // (5), the floored capacity and utilization (8-11)
+  h.g0 = 0.0f;
+  h.g1 = 0.0f;
+  if (rack_goal) {
+    float m = -INFINITY;
+    for (int r = 0; r < 4; ++r) m = fmaxf(m, h.load[r] / fmaxf(cap[r], 1e-9f));
+    h.g0 = 1e-3f * (1.0f - xla_tanhf(m));
+  } else if (goal == 5) {
+    h.g0 = host_cap;
+  } else if (dist_goal) {
+    const int res = goal - 8;
+    h.g0 = fmaxf(at4(cap, res), 1e-9f);
+    h.g1 = at4(h.load, res) / h.g0;
+  }
+  h.dst = dst;
+  h.flags = (dst >= 0 ? H_VALID : 0) | (rep_ok ? H_REPLICA_OK : 0) | (lead_ok ? H_LEAD_OK : 0);
+  return h;
 }
 
 // distribution_score (goals/base.py): the imbalance removed on the two
@@ -125,91 +306,113 @@ __device__ __forceinline__ float distribution_score(float b_src, float b_dst, fl
   return (red > 1e-6f && endpoint_ok) ? fmaf(1e-3f, xla_tanhf(tb), red) : 0.0f;
 }
 
-// resource of each capacity-goal id (2..5), as goals/hard.py _CAPACITY_KERNEL_ID
-__device__ __forceinline__ int capacity_resource(int goal) {
-  switch (goal) {
-    case 2: return RES_DISK;
-    case 3: return RES_NW_IN;
-    case 4: return RES_NW_OUT;
-    default: return RES_CPU;
-  }
+// The run's and the goal's scalars that combine() reads: loaded once per
+// thread (load_scalars), not once per cell.
+struct Scalars {
+  int flags;          // bits 0-3 band_on[r], 4 waive_dead, 5 rack_enabled, 6 w_active
+  float w_lo, w_hi;   // the window's first entries (the scalar windows)
+  int max_replicas;
+};
+
+__device__ __forceinline__ Scalars load_scalars(const ScoreCtx& g) {
+  Scalars k;
+  k.flags = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) k.flags |= ldb(g.band_on + r) ? 1 << r : 0;
+  k.flags |= (ldb(g.waive_dead) ? 16 : 0) | (ldb(g.rack_enabled) ? 32 : 0) |
+             (ldb(g.w_active) ? 64 : 0);
+  k.w_lo = ld(g.w_lower);
+  k.w_hi = ld(g.w_upper);
+  k.max_replicas = ld(g.max_replicas);
+  return k;
 }
 
-// The masked score of the action (p, kind, slot, dst): its score where the
+// The pair's two words: topic_count[t * B + dst] and rack_count[p * NR +
+// rack(dst)], at clamped addresses. combine() reads them only for a move
+// (the topic check, the rack checks and case 12 all need one), so a
+// leadership transfer loads neither.
+struct PairWords {
+  int topic_dst, rack_dst;
+};
+
+__device__ __forceinline__ PairWords pair_words(const ScoreCtx& g, bool move, int t, int p,
+                                                int dst, int rack_dst) {
+  if (!move) return {0, 0};
+  return {ld(g.topic_count + (long long)t * g.B + (dst < 0 ? 0 : dst)),
+          ld(g.rack_count + (long long)p * g.NR + rack_dst)};
+}
+
+__device__ __forceinline__ PairWords pair_words(const ScoreCtx& g, const SrcHalf& s,
+                                                const DstHalf& d) {
+  return pair_words(g, s.flags & H_MOVE, s.t, s.p, d.dst, d.rack);
+}
+
+// The masked score of the action of `s` toward `d`: its score where the
 // structure, the tables and the goal accept it and it improves by more than
-// SCORE_EPS, else -inf.
-__device__ __forceinline__ float score_action(const ScoreCtx& g, int p, int kind, int slot,
-                                              int dst) {
-  Action a = build_action(g.assignment, g.R, g.part_load, p, kind, slot, dst);
-  if (!a.valid) return -INFINITY;
-  const int src = a.src;
-  const bool is_move = a.is_move;
-  const long long ps = (long long)src * 4, pd = (long long)dst * 4;
+// SCORE_EPS, else -inf. `row` is the partition's assignment row (R words).
+__device__ __forceinline__ float combine(const ScoreCtx& g, const Scalars& k, const SrcHalf& s,
+                                         const DstHalf& d, const int* row, PairWords w) {
+  const int sflags = s.flags, dflags = d.flags;
+  const int src = s.src, dst = d.dst;
+  if (!(sflags & H_VALID) || !(dflags & H_VALID) || src == dst) return -INFINITY;
+  const bool is_move = sflags & H_MOVE;
+  const bool dead_src = sflags & H_DEAD;
 
-  // structural_mask
-  bool ok = g.movable[p] && (is_move ? g.replica_dst_ok[dst] : g.leadership_dst_ok[dst]);
+  // structural_mask (the source side is in H_OK)
+  bool ok = (sflags & H_OK) && (is_move ? (dflags & H_REPLICA_OK) : (dflags & H_LEAD_OK));
   if (is_move)
-    for (int s = 0; s < g.R; ++s)
-      if (g.assignment[(long long)p * g.R + s] == dst) ok = false;
-  const bool dead_src = g.dead[src];
-  // only_move_immigrants: the source must be dead (acceptance.py:323)
-  if (g.only_immigrants[0] && !dead_src) ok = false;
+    for (int i = 0; i < g.R; ++i)
+      if (row[i] == dst) ok = false;
 
-  // tables_acceptance: hard load box
+  // tables_acceptance: hard load box, destination side
+  float dload[4], ls[4], dl_[4];
+#pragma unroll
   for (int r = 0; r < 4; ++r) {
-    float d = a.dload[r];
-    if (d > 0.0f) {
-      if (!(g.broker_load[pd + r] + d <= g.hi_load[pd + r])) ok = false;
-      if (!dead_src && !(g.broker_load[ps + r] - d >= g.lo_load[ps + r])) ok = false;
-    }
+    dload[r] = s.dload[r];
+    ls[r] = s.load[r];
+    dl_[r] = d.load[r];
+    if (dload[r] > 0.0f && !(dl_[r] + dload[r] <= d.hi_load[r])) ok = false;
   }
   // two-case distribution band
+#pragma unroll
   for (int r = 0; r < 4; ++r) {
-    float d = a.dload[r];
-    float s = g.broker_load[ps + r], dd = g.broker_load[pd + r];
-    float lo_s = g.band_lo[ps + r], hi_s = g.band_hi[ps + r];
-    float lo_d = g.band_lo[pd + r], hi_d = g.band_hi[pd + r];
-    bool pos = d >= 0.0f;
-    bool case1 = pos ? (s >= lo_s && dd <= hi_d) : (dd >= lo_d && s <= hi_s);
-    bool acc1 = pos ? (dd + d <= hi_d && (s - d >= lo_s || dead_src))
-                    : (s - d <= hi_s && dd + d >= lo_d);
-    float prev = s - dd;
-    bool acc2 = fabsf(prev - 2.0f * d) < fabsf(prev);
+    float dd_ = dload[r];
+    float sl = ls[r], dl = dl_[r];
+    float lo_s = s.band_lo[r], hi_s = s.band_hi[r];
+    float lo_d = d.band_lo[r], hi_d = d.band_hi[r];
+    bool pos = dd_ >= 0.0f;
+    bool case1 = pos ? (sl >= lo_s && dl <= hi_d) : (dl >= lo_d && sl <= hi_s);
+    bool acc1 = pos ? (dl + dd_ <= hi_d && (sl - dd_ >= lo_s || dead_src))
+                    : (sl - dd_ <= hi_s && dl + dd_ >= lo_d);
+    float prev = sl - dl;
+    bool acc2 = fabsf(prev - 2.0f * dd_) < fabsf(prev);
     bool ok_r = case1 ? acc1 : (acc2 || dead_src);
-    ok_r = ok_r || d == 0.0f || !g.band_on[r];
+    ok_r = ok_r || dd_ == 0.0f || !(k.flags & (1 << r));
     if (!ok_r) ok = false;
   }
-  // replica and leader counts
-  const float drep = (float)a.drep, dlead = (float)a.dleader;
-  if (drep > 0.0f) {
-    if (!((float)g.replica_count[dst] + drep <= g.hi_rep[dst])) ok = false;
-    if (!dead_src && !((float)g.replica_count[src] - drep >= g.lo_rep[src])) ok = false;
-  }
-  if (dlead > 0.0f) {
-    if (!((float)g.leader_count[dst] + dlead <= g.hi_lead[dst])) ok = false;
-    if (!dead_src && !((float)g.leader_count[src] - dlead >= g.lo_lead[src])) ok = false;
-  }
+  // replica and leader counts, destination side
+  const int drep_i = s.drep, dleader_i = s.dleader;
+  const float drep = (float)drep_i, dlead = (float)dleader_i;
+  const int rep_d = d.rep, lead_d = d.lead;
+  if (drep > 0.0f && !((float)rep_d + drep <= d.hi_rep)) ok = false;
+  if (dlead > 0.0f && !((float)lead_d + dlead <= d.hi_lead)) ok = false;
   // potential NW_OUT, leader bytes-in
-  if (a.dpnw > 0.0f && !(g.potential[dst] + a.dpnw <= g.hi_pnw[dst])) ok = false;
-  if (a.dleader_nw_in > 0.0f) {
-    bool lnw_ok = g.leader_nw_in[dst] + a.dleader_nw_in <= g.hi_lnw[dst];
-    if (!(lnw_ok || (g.waive_dead[0] && dead_src))) ok = false;
+  const float dpnw = s.dpnw, dlnw = s.dlnw;
+  if (dpnw > 0.0f && !(d.potential + dpnw <= d.hi_pnw)) ok = false;
+  if (dlnw > 0.0f) {
+    bool lnw_ok = d.lnw + dlnw <= d.hi_lnw;
+    if (!(lnw_ok || ((k.flags & 16) && dead_src))) ok = false;
   }
-  // per-topic replica count
-  const long long t = g.topic_id[p];
-  if (drep > 0.0f) {
-    if (!((float)(g.topic_count[t * g.B + dst] + a.drep) <= g.hi_topic[t])) ok = false;
-    if (!dead_src && !((float)(g.topic_count[t * g.B + src] - a.drep) >= g.lo_topic[t])) ok = false;
-  }
+  // per-topic replica count, destination side
+  if (drep > 0.0f && !((float)(w.topic_dst + drep_i) <= s.hi_topic)) ok = false;
   // host-level CPU
-  const int hs = g.broker_host[src], hd = g.broker_host[dst];
-  const float dcpu = a.dload[RES_CPU];
-  const float host_after = g.host_cpu[hd] + (hs == hd ? 0.0f : dcpu);
-  if (!(dcpu <= 0.0f || host_after <= g.hi_host_cpu[hd])) ok = false;
+  const int hs = s.host, hd = d.host;
+  const float dcpu = dload[RES_CPU];
+  const float host_after = d.host_cpu + (hs == hd ? 0.0f : dcpu);
+  if (!(dcpu <= 0.0f || host_after <= d.hi_host_cpu)) ok = false;
   // rack safety
-  const int rs = g.broker_rack[src], rd = g.broker_rack[dst];
-  const int count_dst = g.rack_count[(long long)p * g.NR + rd] - (rs == rd ? 1 : 0);
-  if (g.rack_enabled[0] && drep > 0.0f && count_dst != 0) ok = false;
+  const int count_dst = w.rack_dst - (s.rack == d.rack ? 1 : 0);
+  if ((k.flags & 32) && drep > 0.0f && count_dst != 0) ok = false;
 
   // the goal's own acceptance and score
   float score = 0.0f;
@@ -218,15 +421,12 @@ __device__ __forceinline__ float score_action(const ScoreCtx& g, int p, int kind
     case 15: {  // KafkaAssignerEvenRackAwareGoal: the rack-aware case, plus
                 // the even window [floor(avg), ceil(avg)] on replica counts
       if (is_move && count_dst != 0) ok = false;
-      bool dup = g.rack_count[(long long)p * g.NR + rs] > 1;
-      float m = -INFINITY;
-      for (int r = 0; r < 4; ++r) m = fmaxf(m, g.broker_load[pd + r] / fmaxf(g.capacity[pd + r], 1e-9f));
-      float tiebreak = 1e-3f * (1.0f - xla_tanhf(m));
-      score = (is_move && dup) ? 1.0f + tiebreak : 0.0f;
+      const bool dup = sflags & H_DUP;
+      score = (is_move && dup) ? 1.0f + d.g0 : 0.0f;
       if (g.goal == 15) {
-        const float lo = g.w_lower[0], hi = g.w_upper[0];
-        if (is_move && !((float)(g.replica_count[dst] + 1) <= hi)) ok = false;
-        const float cs = (float)g.replica_count[src], cd = (float)g.replica_count[dst];
+        const float lo = k.w_lo, hi = k.w_hi;
+        if (is_move && !((float)(rep_d + 1) <= hi)) ok = false;
+        const float cs = (float)s.rep, cd = (float)rep_d;
         score = score + (is_move ? distribution_score(cs, cd, cs - 1.0f, cd + 1.0f, lo, hi,
                                                       (cs - cd) * 1e-2f)
                                  : 0.0f);
@@ -234,50 +434,47 @@ __device__ __forceinline__ float score_action(const ScoreCtx& g, int p, int kind
       break;
     }
     case 1: {  // ReplicaCapacityGoal
-      int cap = g.max_replicas[0];
-      if (is_move && !(g.replica_count[dst] + 1 <= cap)) ok = false;
-      bool over = g.replica_count[src] > cap;
-      float headroom = (float)(cap - g.replica_count[dst]);
+      int cap = k.max_replicas;
+      if (is_move && !(rep_d + 1 <= cap)) ok = false;
+      bool over = s.rep > cap;
+      float headroom = (float)(cap - rep_d);
       score = (is_move && over) ? fmaf(1e-3f, xla_tanhf(headroom * 1e-3f), 1.0f) : 0.0f;
       break;
     }
     case 2: case 3: case 4: case 5: {  // CapacityGoal(resource)
       int res = capacity_resource(g.goal);
-      float dres = a.dload[res];
-      float after = g.broker_load[pd + res] + dres;
-      bool acc = after <= g.limit[dst] || dres <= 0.0f;
-      bool src_over = g.broker_load[ps + res] > g.limit[src];
+      float dres = at4(dload, res);
+      float after = at4(dl_, res) + dres;
+      bool acc = after <= d.limit || dres <= 0.0f;
       if (res == RES_CPU) {
-        float h_after = g.host_cpu[hd] + (hs == hd ? 0.0f : dres);
-        acc = acc && (h_after <= g.host_cpu_cap_limit[hd] || dres <= 0.0f);
-        src_over = src_over || g.host_cpu[hs] > g.host_cpu_cap_limit[hs];
+        float h_after = d.host_cpu + (hs == hd ? 0.0f : dres);
+        acc = acc && (h_after <= d.g0 || dres <= 0.0f);
       }
       if (!acc) ok = false;
-      score = (src_over && dres > 1e-6f) ? dres : 0.0f;
+      score = ((sflags & H_SRC_OVER) && dres > 1e-6f) ? dres : 0.0f;
       break;
     }
     case 6: {  // ReplicaDistributionGoal
-      const float lo = g.w_lower[0], hi = g.w_upper[0];
-      if (is_move && !(((float)(g.replica_count[src] - 1) >= lo || dead_src) &&
-                       (float)(g.replica_count[dst] + 1) <= hi))
+      const float lo = k.w_lo, hi = k.w_hi;
+      if (is_move && !(((float)(s.rep - 1) >= lo || dead_src) && (float)(rep_d + 1) <= hi))
         ok = false;
-      const float cs = (float)g.replica_count[src], cd = (float)g.replica_count[dst];
+      const float cs = (float)s.rep, cd = (float)rep_d;
       score = is_move ? distribution_score(cs, cd, cs - 1.0f, cd + 1.0f, lo, hi, (cs - cd) * 1e-2f)
                       : 0.0f;
       break;
     }
     case 7: {  // PotentialNwOutGoal: `limit` is capacity_limit[:, NW_OUT]
-      if (!(a.dpnw <= 0.0f || g.potential[dst] + a.dpnw <= g.limit[dst])) ok = false;
-      score = (g.potential[src] > g.limit[src] && a.dpnw > 1e-6f) ? a.dpnw : 0.0f;
+      if (!(dpnw <= 0.0f || d.potential + dpnw <= d.limit)) ok = false;
+      score = ((sflags & H_SRC_OVER) && dpnw > 1e-6f) ? dpnw : 0.0f;
       break;
     }
     case 8: case 9: case 10: case 11: {  // ResourceDistributionGoal(resource)
       const int res = g.goal - 8;
-      const float lo = g.w_lower[0], hi = g.w_upper[0];
-      const bool active = g.w_active[0];
-      const float dres = a.dload[res];
-      const float cap_s = fmaxf(g.capacity[ps + res], 1e-9f), cap_d = fmaxf(g.capacity[pd + res], 1e-9f);
-      const float u_s = g.broker_load[ps + res] / cap_s, u_d = g.broker_load[pd + res] / cap_d;
+      const float lo = k.w_lo, hi = k.w_hi;
+      const bool active = k.flags & 64;
+      const float dres = at4(dload, res);
+      const float cap_s = s.g0, cap_d = d.g0;
+      const float u_s = s.g1, u_d = d.g1;
       const float u_s1 = u_s - dres / cap_s, u_d1 = u_d + dres / cap_d;
       const bool case1 = u_s >= lo && u_d <= hi;
       const bool acc1 = u_d1 <= hi && (u_s1 >= lo || dead_src);
@@ -288,8 +485,8 @@ __device__ __forceinline__ float score_action(const ScoreCtx& g, int p, int kind
       break;
     }
     case 12: {  // TopicReplicaDistributionGoal: per-topic windows
-      const float lo = g.w_lower[t], hi = g.w_upper[t];
-      const int c_s = g.topic_count[t * g.B + src], c_d = g.topic_count[t * g.B + dst];
+      const float lo = s.g0, hi = s.g1;
+      const int c_s = s.topic_src, c_d = w.topic_dst;
       if (is_move && !(((float)(c_s - 1) >= lo || dead_src) && (float)(c_d + 1) <= hi)) ok = false;
       const float cs = (float)c_s, cd = (float)c_d;
       score = is_move ? distribution_score(cs, cd, cs - 1.0f, cd + 1.0f, lo, hi, (cs - cd) * 1e-2f)
@@ -297,28 +494,27 @@ __device__ __forceinline__ float score_action(const ScoreCtx& g, int p, int kind
       break;
     }
     case 13: {  // LeaderReplicaDistributionGoal
-      const float lo = g.w_lower[0], hi = g.w_upper[0];
-      const bool transfers = a.dleader > 0;
-      if (transfers && !(((float)(g.leader_count[src] - 1) >= lo || dead_src) &&
-                         (float)(g.leader_count[dst] + 1) <= hi))
+      const float lo = k.w_lo, hi = k.w_hi;
+      const bool transfers = dleader_i > 0;
+      if (transfers && !(((float)(s.lead - 1) >= lo || dead_src) && (float)(lead_d + 1) <= hi))
         ok = false;
-      const float cs = (float)g.leader_count[src], cd = (float)g.leader_count[dst];
+      const float cs = (float)s.lead, cd = (float)lead_d;
       score = transfers
                   ? distribution_score(cs, cd, cs - 1.0f, cd + 1.0f, lo, hi, (cs - cd) * 1e-2f)
                   : 0.0f;
       break;
     }
     default: {  // 14: LeaderBytesInDistributionGoal
-      const float lo = g.w_lower[0], hi = g.w_upper[0];
-      const float d = a.dleader_nw_in;
-      if (d > 0.0f && !(g.leader_nw_in[dst] + d <= hi || dead_src)) ok = false;
-      const float bs = g.leader_nw_in[src], bd = g.leader_nw_in[dst];
-      score = d > 0.0f ? distribution_score(bs, bd, bs - d, bd + d, lo, hi, (bs - bd) * 1e-6f)
-                       : 0.0f;
+      const float lo = k.w_lo, hi = k.w_hi;
+      const float dl = dlnw;
+      if (dl > 0.0f && !(d.lnw + dl <= hi || dead_src)) ok = false;
+      const float bs = s.lnw, bd = d.lnw;
+      score = dl > 0.0f ? distribution_score(bs, bd, bs - dl, bd + dl, lo, hi, (bs - bd) * 1e-6f)
+                        : 0.0f;
       break;
     }
   }
-  const bool evac = dead_src && (is_move || a.dleader > 0);
+  const bool evac = dead_src && (is_move || dleader_i > 0);
   score = score + (evac ? 1.0e6f : 0.0f);
   return (ok && score > 1e-6f) ? score : -INFINITY;
 }

@@ -22,7 +22,7 @@ PyTorch version.
 
 A wrapper runs the plain version for CPU tensors and launches its kernel for
 CUDA tensors (or raises); it counts its launches in `<wrapper>.launches`
-(K3 also by goal case, in `score_candidates.cases`).
+(K3 also by goal case and by path, in `score_candidates.cases` and `.paths`).
 Sources are in `cruise_control_torch/csrc/`, built by `kernels.build` at
 first use.
 """
@@ -65,8 +65,9 @@ def wrappers():
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "cases"):
-            fn.cases.clear()
+        for counter in ("cases", "paths"):
+            if hasattr(fn, counter):
+                getattr(fn, counter).clear()
 
 
 def launches() -> dict:

@@ -14,8 +14,8 @@ rebuilds and an unchanged one is reused. Builds happen at first use, never at im
 `build_all()` starts one `nvcc` per source, all at once.
 
 A wrapper calls its entry point with `ptrs`/`ints` argument arrays and
-`stream()`, or, where the host's share of a call matters (window_sum, K2),
-through `entry()`, whose argument types are set once, with
+`stream()`, or, where the host's share of a call matters (window_sum, K2,
+K3, K9), through `entry()`, whose argument types are set once, with
 `raw_stream()`.
 """
 

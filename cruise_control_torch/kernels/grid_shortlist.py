@@ -4,12 +4,17 @@ Replaces cruise_control_tpu/analyzer/optimizer.py one_round (:357), its
 shortlist at :371-409: the [P, R, K] move grid and the [P, R-1] leadership
 grid scored as acceptance.score_batch scores them, each partition's best
 cell, and the best partition. The CUDA kernel is csrc/grid_shortlist.cu; it
-scores every cell with K3's `score_action` (csrc/score_goal.cuh) and writes
-no score to memory. `grid_shortlist_plain` (K3's plain version, argmax,
-`drain.top_k`) is the PyTorch version.
+scores every cell with K3's source and destination halves and their combine
+(csrc/score_goal.cuh), a warp per group of partitions, and writes no score
+to memory:
+each block leaves one record of its best partition in a per-device scratch,
+and a second launch reduces them. `grid_shortlist_plain` (K3's plain
+version, argmax, `drain.top_k`) is the PyTorch version.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -21,7 +26,12 @@ from cruise_control_torch.analyzer.actions import (
 )
 from cruise_control_torch.analyzer.drain import top_k
 from cruise_control_torch.kernels import build
-from cruise_control_torch.kernels.score_candidates import score_candidates_plain, score_context
+from cruise_control_torch.kernels.score_candidates import bound_context, score_candidates_plain
+
+#: per device: the blocks' records (csrc/grid_shortlist.cu BlockBest), with
+#: its address. Calls on one stream use it in turn.
+_SCRATCH = {}
+_ARGTYPES = (build.PTR,) * 5 + (build.INT,) * 4 + (build.PTR,)
 
 
 def grid_shortlist_plain(static, agg, tables, goal, gs, dst_cands, k: int = 1):
@@ -64,28 +74,41 @@ def grid_shortlist_plain(static, agg, tables, goal, gs, dst_cands, k: int = 1):
     return top_score, top_p.to(torch.int32), best_kind[top_p], best_slot[top_p], best_dst[top_p]
 
 
-def grid_shortlist(static, agg, tables, goal, gs, dst_cands, k: int = 1):
+def _scratch(dev: int) -> int:
+    addr = _SCRATCH.get(dev)
+    if addr is None:
+        lib = build.load("grid_shortlist")
+        lib.grid_shortlist_scratch_bytes.restype = ctypes.c_longlong
+        buf = torch.empty(int(lib.grid_shortlist_scratch_bytes()), dtype=torch.uint8,
+                          device=torch.device("cuda", dev))
+        _SCRATCH[dev] = addr = (buf, buf.data_ptr())
+    return addr[1]
+
+
+def grid_shortlist(static, agg, tables, goal, gs, dst_cands, k: int = 1, ctx=None):
     """`grid_shortlist_plain` for CPU tensors, the CUDA kernel for CUDA
-    tensors. The kernel takes the greedy round's k = 1 only."""
+    tensors. The kernel takes the greedy round's k = 1 only. `ctx` is the
+    round's ScoreContext (one is built when none is given)."""
     dev = agg.assignment.device
     if dev.type == "cpu":
         return grid_shortlist_plain(static, agg, tables, goal, gs, dst_cands, k)
     if k != 1:
         raise ValueError(f"grid_shortlist: the kernel takes k = 1, got {k}")
-    ctx, ctx_ints = score_context(static, agg, tables, goal, gs, "grid_shortlist")
-    dst_cands = dst_cands.to(torch.int32).contiguous()
+    # the context lives through the call: the C entry reads its struct
+    ctx = bound_context(ctx, static, agg, tables, goal, gs)
+    address = ctx.pack("grid_shortlist")
+    if dst_cands.dtype != torch.int32 or not dst_cands.is_contiguous():
+        dst_cands = dst_cands.to(torch.int32).contiguous()
     build.require(dst_cands, torch.int32, 1, "dst_cands", dev)
     p_count, r = agg.assignment.shape
     out_score = torch.empty(1, dtype=torch.float32, device=dev)
     out_idx = torch.empty(4, dtype=torch.int32, device=dev)
-    key = torch.empty(1, dtype=torch.int64, device=dev)
-    lib = build.load("grid_shortlist")
-    code = lib.grid_shortlist(
-        build.ptrs(out_score, out_idx, key, dst_cands, *ctx),
-        build.ints(p_count, dst_cands.shape[0], 1 if goal.uses_moves else 0,
-                   1 if goal.uses_leadership and r >= 2 else 0, *ctx_ints),
-        build.stream())
-    build.check(lib, code, "grid_shortlist")
+    code = build.entry("grid_shortlist", _ARGTYPES)(
+        address, out_score.data_ptr(), out_idx.data_ptr(), _scratch(dev.index),
+        dst_cands.data_ptr(), p_count, dst_cands.shape[0], 1 if goal.uses_moves else 0,
+        1 if goal.uses_leadership and r >= 2 else 0, build.raw_stream(dev.index))
+    if code:
+        build.check(build.load("grid_shortlist"), code, "grid_shortlist")
     grid_shortlist.launches += 1
     return out_score, out_idx[0:1], out_idx[1:2], out_idx[2:3], out_idx[3:4]
 

@@ -1,4 +1,4 @@
-"""Where K2 broker_topk and window_sum spend their time, on one NVIDIA GPU.
+"""Where K2 broker_topk, window_sum and K3 score_candidates spend their time, on one NVIDIA GPU.
 
     python3 scripts/kernel_variants.py [--out build/kernel_variants.json]
 
@@ -30,9 +30,21 @@ and 33) or holding every slot (598,554; k = 8).
 
 Then the host's share of a call: microseconds per call of the window_sum
 wrapper, torch.sum, the wrapper's C entry alone (its output made once),
-torch.empty and Tensor.new_empty on the 2,600-term input
-(host clock around 20,000 calls). Prints the card's name and power limit and
-every number; writes them as JSON to --out. Needs a GPU.
+torch.empty and Tensor.new_empty on the 2,600-term input; and of K3's
+wrapper on a drain wave's 512 single cells (DiskCapacityGoal on BASELINE
+config 2, with a round's context) beside its steps: the C entry alone,
+the cached launch layout, Tensor.new_empty, binding the context (host clock
+around 20,000 calls). Then K3's kernels on one layout each, the path
+forced in the packed layout (device microseconds, outputs held equal), on
+chip_smoke's model: its two per-cell kernels on the [P, 2] promotion grid
+of CpuCapacityGoal and on a wave's 512 cells of DiskCapacityGoal, and all
+three (the factored tiles, the promotion path's thread a cell and the
+general path's two threads a cell) on DiskCapacityGoal's drain grids
+[V, 8, C] (V 64 to 512, C 2 to 64), its all-broker re-score of 16, 64 and
+256 entries and the pair drain's per-row grids [512 and 64, 4, 64]: where
+the tiles win sets `score_candidates.FACTORED_MIN_CELLS`. Prints the card's name
+and power limit and every number; writes them as JSON to --out. Needs a
+GPU.
 """
 
 from __future__ import annotations
@@ -216,6 +228,117 @@ def main() -> int:
                         ("Tensor.new_empty", lambda: x.new_empty(()))):
         res["host_us"][label] = host_us(call)
         print(f"host {label:20s} {res['host_us'][label]:.2f} us per call")
+
+    from cruise_control_torch.analyzer.acceptance import build_tables
+    from cruise_control_torch.analyzer.context import (
+        build_static_ctx,
+        compute_aggregates,
+        dims_of,
+    )
+    from cruise_control_torch.analyzer.goals import goals_by_priority
+    from cruise_control_torch.config.balancing import BalancingConstraint
+    from cruise_control_torch.kernels import score_candidates as k3
+    from cruise_control_torch.models import generators
+
+    m = generators.random_cluster(42, generators.BASELINE_CONFIGS[2]).to("cuda")
+    dims = dims_of(m)
+    st = build_static_ctx(m, BalancingConstraint.default(), dims)
+    ag = compute_aggregates(st, m.assignment, dims)
+    goals = goals_by_priority(None)
+    goal = goals[2]
+    tables = build_tables(goals[:2], st, ag, dims)
+    gs = goal.prepare(st, ag, dims)
+    n = 512
+    wp = torch.from_numpy(rng.integers(0, dims.num_partitions, n).astype(np.int32)).cuda()
+    wk = torch.zeros(n, dtype=torch.int32, device="cuda")
+    ws_ = torch.from_numpy(rng.integers(0, dims.max_rf, n).astype(np.int32)).cuda()
+    wd = torch.from_numpy(rng.integers(0, dims.num_brokers, n).astype(np.int32)).cuda()
+    idx = (wp, wk, ws_, wd)
+    ctx = k3.ScoreContext(st, ag, tables, goal, gs)
+    address = ctx.pack("kernel_variants")
+    lay = k3._launch_layout(idx, ag.assignment)
+    out = ag.assignment.new_empty(lay.shape, dtype=torch.float32)
+    fn3 = build.entry("score_candidates", k3._ARGTYPES)
+    for label, call in (
+            ("K3 wrapper, 512 cells", lambda: k3.score_candidates(st, ag, tables, goal, gs, *idx,
+                                                                  ctx=ctx)),
+            ("K3 C entry, output made once", lambda: fn3(
+                address, out.data_ptr(), wp.data_ptr(), wk.data_ptr(), ws_.data_ptr(),
+                wd.data_ptr(), lay.address, build.raw_stream(0))),
+            ("K3 launch layout (cached)", lambda: k3._launch_layout(idx, ag.assignment)),
+            ("K3 output, new_empty", lambda: ag.assignment.new_empty(lay.shape,
+                                                                     dtype=torch.float32)),
+            ("K3 context bind and pack", lambda: k3.bound_context(
+                ctx, st, ag, tables, goal, gs).pack("kernel_variants"))):
+        res["host_us"][label] = host_us(call)
+        print(f"host {label:30s} {res['host_us'][label]:.2f} us per call")
+
+    import dataclasses
+
+    from cruise_control_torch.analyzer.actions import KIND_MOVE, leadership_grid
+
+    prop = dataclasses.replace(generators.BASELINE_CONFIGS[5], num_dead_brokers=26,
+                               load_distribution="pareto", mean_utilization=0.5)
+    sm = generators.random_cluster(42, prop).to("cuda")
+    sdims = dims_of(sm)
+    sst = build_static_ctx(sm, BalancingConstraint.default(), sdims)
+    sag = compute_aggregates(sst, sm.assignment, sdims)
+    res["K3 paths"] = {}
+    nb = sdims.num_brokers
+
+    def cuda_i32(*xs):
+        return tuple(torch.from_numpy(np.asarray(x, dtype=np.int32)).cuda() for x in xs)
+
+    def drain_grid(c, v=512):
+        """The drain round's move grid [v, 8, c] toward c distinct brokers."""
+        return cuda_i32(rng.integers(0, sdims.num_partitions, (v, 8, 1)), KIND_MOVE,
+                        rng.integers(0, sdims.max_rf, (v, 8, 1)),
+                        rng.choice(nb, (1, 1, c), replace=False))
+
+    def all_brokers(k):
+        """The grid round's all-broker re-score [k, nb]."""
+        return cuda_i32(rng.integers(0, sdims.num_partitions, (k, 1)), np.full((k, 1), KIND_MOVE),
+                        rng.integers(0, sdims.max_rf, (k, 1)), np.arange(nb)[None, :])
+
+    def pair_grid(v, k, c):
+        """The pair drain's grid [v, k, c], a destination list per row."""
+        return cuda_i32(rng.integers(0, sdims.num_partitions, (v, k, 1)), KIND_MOVE,
+                        rng.integers(0, sdims.max_rf, (v, k, 1)),
+                        rng.integers(0, nb, (v, 1, c)))
+
+    factored_paths = (k3.PATH_FACTORED, k3.PATH_PROMOTION, k3.PATH_GENERAL)
+    for gi, label, idx3, paths in (
+            (5, "promotion grid [P, 2]", leadership_grid(sag.assignment),
+             (k3.PATH_GENERAL, k3.PATH_PROMOTION)),
+            (2, "wave of 512 cells", cuda_i32(
+                rng.integers(0, sdims.num_partitions, n), np.zeros(n),
+                rng.integers(0, sdims.max_rf, n), rng.integers(0, nb, n)),
+             (k3.PATH_GENERAL, k3.PATH_PROMOTION)),
+            (2, "drain grid [512, 8, 64]", drain_grid(64), factored_paths),
+            (2, "drain grid [512, 8, 2]", drain_grid(2), factored_paths),
+            (2, f"all-broker grid [16, {nb}]", all_brokers(16), factored_paths),
+            *((2, f"drain grid [{v}, 8, {c}]", drain_grid(c, v), factored_paths)
+              for v, c in ((64, 64), (128, 64), (512, 16), (512, 8), (512, 32))),
+            *((2, f"all-broker grid [{k}, {nb}]", all_brokers(k), factored_paths)
+              for k in (64, 256)),
+            *((2, f"pair drain grid [{v}, {k}, {c}]", pair_grid(v, k, c), factored_paths)
+              for v, k, c in ((512, 4, 64), (64, 4, 64)))):
+        g3 = goals[gi]
+        t3 = build_tables(goals[:gi], sst, sag, sdims)
+        c3 = k3.ScoreContext(sst, sag, t3, g3, g3.prepare(sst, sag, sdims))
+        a3 = c3.pack("kernel_variants")
+        lay3 = k3._launch_layout(idx3, sag.assignment)
+        outs = []
+        for path in paths:
+            packed = (ctypes.c_longlong * 16)(*list(lay3.packed)[:15], path)
+            o3 = sag.assignment.new_empty(lay3.shape, dtype=torch.float32)
+            us = device_us(lambda: fn3(a3, o3.data_ptr(), *(t.data_ptr() for t in idx3),
+                                       ctypes.addressof(packed), build.raw_stream(0)))
+            outs.append(o3)
+            res["K3 paths"][f"{label}, {k3.PATH_NAMES[path]} kernel"] = us
+            print(f"K3 {label:30s} {k3.PATH_NAMES[path]:9s} kernel {json.dumps(us)}")
+        if not all(torch.equal(outs[0].view(torch.int32), o.view(torch.int32)) for o in outs):
+            raise SystemExit(f"kernel_variants: K3's kernels disagree on the {label}")
     path = pathlib.Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(res, indent=1))

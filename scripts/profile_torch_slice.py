@@ -18,7 +18,10 @@ default), solves once as a warm-up, then:
      them, each call's wall shared out by the goals' rounds);
   2. once under torch.profiler (CPU and CUDA activities), for the device's
      busy time by kernel, the idle share of the solve's wall time, the number
-     of kernel launches and of host reads of device values;
+     of kernel launches and of host reads of device values, each hand kernel
+     wrapper's host time (every wrapper the analyzer calls runs inside a
+     `torch.profiler.record_function` span named after it, put around it by
+     this script alone) and K3's launches by path;
 and times the set-up before the goal loops and the proposal diff after them.
 Prints a summary and writes the numbers as JSON to --out. Needs a GPU; exits
 non-zero without one.
@@ -45,7 +48,8 @@ OWN_KERNELS = {
     "k_broker_sums": "K1 segment_aggregates", "k_counts": "K1 segment_aggregates",
     "k_host_cpu": "K1 segment_aggregates", "k_topk_runs": "K2 broker_topk",
     "k_topk_select": "K2 broker_topk",
-    "k_score": "K3 score_candidates",
+    "k_score_cells": "K3 score_candidates", "k_score_tiles": "K3 score_candidates",
+    "k_score_flat": "K3 score_candidates",
     "k_apply_wave": "K4 apply_wave", "k_score_swaps": "K5 score_swaps",
     "k_pair_init": "K6 pair_picks", "k_pair_bid": "K6 pair_picks",
     "k_pair_take": "K6 pair_picks", "k_window_sum": "window_sum",
@@ -56,6 +60,39 @@ OWN_KERNELS = {
 }
 #: the chunked solves, whose per-goal times come from the solve itself
 CHUNKED = ("service", "bench", "greedy")
+#: the record_function span around a hand kernel wrapper
+SPAN = "wrapper::"
+
+
+def wrap_wrappers() -> list:
+    """Run every hand kernel wrapper that a module of the port calls inside a
+    record_function span named after it; returns what `unwrap` puts back.
+    The wrappers count their launches on themselves, so the counts stay where
+    they were."""
+    from cruise_control_torch import kernels
+
+    def spanned(name, fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(SPAN + name):
+                return fn(*args, **kw)
+        call.spanned = fn
+        return call
+
+    wrappers = kernels.wrappers()
+    done = []
+    for mod in [m for n, m in sys.modules.items() if n.startswith("cruise_control_torch.")]:
+        if mod is None or mod.__name__.startswith("cruise_control_torch.kernels"):
+            continue
+        for name, fn in wrappers.items():
+            if getattr(mod, name, None) is fn:
+                setattr(mod, name, spanned(name, fn))
+                done.append((mod, name, fn))
+    return done
+
+
+def unwrap(done: list) -> None:
+    for mod, name, fn in done:
+        setattr(mod, name, fn)
 
 
 def _is_device_event(evt) -> bool:
@@ -132,15 +169,34 @@ def profile(path: str, model, opt) -> dict:
         tables = goal.contribute_acceptance(static, goal.prepare(static, agg, dims), tables)
 
     # 2. one traced solve
+    from cruise_control_torch.kernels import score_candidates as k3
+
+    paths = getattr(k3.score_candidates, "paths", None)
+    if paths is not None:
+        paths.clear()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _, traced_s = solve()
+    spans = wrap_wrappers()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            _, traced_s = solve()
+    finally:
+        unwrap(spans)
+    k3_paths = dict(paths) if paths is not None else None
     by_kernel = collections.Counter()
     launches = collections.Counter()
     busy_us = 0.0
     host = {}
     glue = collections.Counter()
+    wrapper_host = {}
     for evt in prof.key_averages():
+        if evt.key.startswith(SPAN):
+            # a span has a host entry and, where it launched work, a device
+            # one of the same name; the host one is the wrapper's host time
+            if not _is_device_event(evt):
+                wrapper_host[evt.key[len(SPAN):]] = {
+                    "calls": evt.count, "host_s": float(evt.cpu_time_total) / 1e6,
+                    "host_us_per_call": float(evt.cpu_time_total) / max(evt.count, 1)}
+            continue
         us = _device_us(evt)
         if _is_device_event(evt):
             busy_us += us
@@ -162,6 +218,7 @@ def profile(path: str, model, opt) -> dict:
         "replica_moves": res.num_replica_moves, "leadership_moves": res.num_leadership_moves,
         "glue_device_s_by_kernel": {k: v / 1e6 for k, v in glue.most_common(15)},
         "setup_s": setup_s, "proposal_diff_s": diff_s,
+        "wrapper_host": wrapper_host, "k3_launches_by_path": k3_paths,
     }
     print(f"[{path}] solve {wall_s:.3f} s (warm-up {warm_s:.3f} s, traced {traced_s:.3f} s); "
           f"device busy {out['device_busy_s']:.3f} s, idle share {out['device_idle_share']:.3f}")
@@ -169,6 +226,10 @@ def profile(path: str, model, opt) -> dict:
         print(f"  {k:36s} {v:9.4f} s  {launches[k]:7d} launches")
     for k, v in out["glue_device_s_by_kernel"].items():
         print(f"    glue {k[:60]:60s} {v:9.4f} s")
+    for k, v in sorted(wrapper_host.items(), key=lambda kv: -kv[1]["host_s"]):
+        print(f"  wrapper {k:30s} {v['calls']:7d} calls  {v['host_s']:8.4f} s host "
+              f"({v['host_us_per_call']:.2f} us a call, traced)")
+    print(f"  K3 launches by path {k3_paths}")
     print(f"  set-up (model to the card, static context, K1) {setup_s:.3f} s; "
           f"proposal diff {diff_s:.3f} s")
     for k, v in per_goal.items():

@@ -23,7 +23,7 @@ import wave_cases
 
 from cruise_control_torch.analyzer import optimizer as opt
 from cruise_control_torch.analyzer.acceptance import build_tables
-from cruise_control_torch.analyzer.actions import KIND_MOVE, leadership_grid
+from cruise_control_torch.analyzer.actions import KIND_LEADERSHIP, KIND_MOVE, leadership_grid
 from cruise_control_torch.analyzer.context import build_static_ctx, compute_aggregates, dims_of
 from cruise_control_torch.analyzer.goals import HARD_GOAL_NAMES, goals_by_priority
 from cruise_control_torch.config.balancing import BalancingConstraint
@@ -32,6 +32,7 @@ from cruise_control_torch.kernels import window_sum as ws
 from cruise_control_torch.kernels.apply_wave import apply_wave, apply_wave_plain
 from cruise_control_torch.kernels.broker_topk import broker_topk, broker_topk_plain
 from cruise_control_torch.kernels.pair_picks import pair_picks, pair_picks_plain
+from cruise_control_torch.kernels import score_candidates as k3_module
 from cruise_control_torch.kernels.score_candidates import score_candidates, score_candidates_plain
 from cruise_control_torch.analyzer.stats import compute_stats
 from cruise_control_torch.kernels.cluster_stats import cluster_stats, cluster_stats_plain
@@ -1029,3 +1030,374 @@ def test_options_and_kafka_assigner_on_the_card_equal_the_cpu():
         assert np.array_equal(res[0].final_assignment, res[1].final_assignment)
         assert np.array_equal(res[0].touch_tag, res[1].touch_tag)
         assert res[0].provenance.digest(goals=names) == res[1].provenance.digest(goals=names)
+
+
+# -- K3's three paths, K9 on ties, the score context ---------------------------------
+
+ALL_CASES = STACK_IDS + ["KafkaAssignerEvenRackAwareGoal"]
+
+
+def _goal_and_priors(name):
+    stack = goals_by_priority(KA_NAMES if name in KA_NAMES else None)
+    g = next(x for x in stack if x.name == name)
+    return g, stack[:stack.index(g)]
+
+
+def _side(static, agg, dims, name):
+    """(goal, tables, gs) of goal `name` under its priors' tables."""
+    g, priors = _goal_and_priors(name)
+    return g, build_tables(priors, static, agg, dims), g.prepare(static, agg, dims)
+
+
+def _k3_path(sc, ac, sg, ag, dims, name, make, path):
+    """K3 on the card against its plain version on the CPU, on the index
+    tensors make(agg) builds on each side; the launch must take `path`.
+    Returns the number of finite cells."""
+    gc, tc, gsc = _side(sc, ac, dims, name)
+    gg, tg, gsg = _side(sg, ag, dims, name)
+    before = score_candidates.paths[path]
+    want = score_candidates_plain(sc, ac, tc, gc, gsc, *make(ac))
+    got = score_candidates(sg, ag, tg, gg, gsg, *make(ag)).cpu()
+    assert score_candidates.paths[path] == before + 1, dict(score_candidates.paths)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert _bits(want[fin], got[fin])
+    return int(fin.sum())
+
+
+def _factored_layouts(a, num_brokers):
+    """name -> make(agg): the factored path's index layouts. The drain grid
+    [V, K, C] toward C = 20 and C = 200 destinations (the tile is 32 and 128
+    columns wide) and toward C = 2 and C = 3 (a two- or three-broker
+    cluster: tiles of 2 and 4 columns, whose rows the shared memory bounds),
+    some of them -1 and repeated; the pair drain's per-row destination lists
+    [V, 1, C] for C = 20 and 2; the all-broker re-score [k, B]."""
+    rng = np.random.default_rng(11)
+    p = rng.integers(0, a.shape[0], (16, 4, 1)).astype(np.int32)
+    s = rng.integers(0, a.shape[1], (16, 4, 1)).astype(np.int32)
+    d20 = rng.integers(-1, num_brokers, (1, 1, 20)).astype(np.int32)
+    d200 = rng.integers(-1, num_brokers, (1, 1, 200)).astype(np.int32)
+    rows = rng.integers(0, num_brokers, (16, 1, 20)).astype(np.int32)
+    # 600 rows, so that the narrow tiles' row limit is reached more than once
+    pn = rng.integers(0, a.shape[0], (150, 4, 1)).astype(np.int32)
+    sn = rng.integers(0, a.shape[1], (150, 4, 1)).astype(np.int32)
+    d2 = rng.choice(num_brokers, (1, 1, 2), replace=False).astype(np.int32)
+    d3 = np.array([[[-1, 0, 1]]], dtype=np.int32)
+    rows2 = rng.integers(0, num_brokers, (600, 1, 2)).astype(np.int32)
+    pr = rng.integers(0, a.shape[0], (600, 1, 1)).astype(np.int32)
+    sr = rng.integers(0, a.shape[1], (600, 1, 1)).astype(np.int32)
+    kp = rng.integers(0, a.shape[0], (5, 1)).astype(np.int32)
+    ks = rng.integers(0, a.shape[1], (5, 1)).astype(np.int32)
+
+    def grid(dst, p=p, s=s):
+        def make(agg):
+            dev = agg.assignment.device
+            t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+            return t(p), torch.tensor(KIND_MOVE, dtype=torch.int32, device=dev), t(s), t(dst)
+        return make
+
+    def all_brokers(agg):
+        dev = agg.assignment.device
+        t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+        return (t(kp), torch.full((5, 1), KIND_MOVE, dtype=torch.int32, device=dev), t(ks),
+                torch.arange(num_brokers, dtype=torch.int32, device=dev)[None, :])
+
+    return {"drain C=20": grid(d20), "drain C=200": grid(d200), "pair drain": grid(rows),
+            "all brokers": all_brokers, "drain C=2": grid(d2, pn, sn),
+            "drain C=3": grid(d3, pn, sn), "pair drain C=2": grid(rows2, pr, sr)}
+
+
+NARROW = ("drain C=2", "drain C=3", "pair drain C=2")
+#: the layouts whose dst depends on the first axis: a thread a cell
+PER_ROW = ("pair drain", "pair drain C=2")
+
+
+@pytest.fixture
+def tiles_at_any_size(monkeypatch):
+    """The factored path's size floor at 0, so that these small grids take
+    the tiles (at their full size the drain grids do), with a layout cache
+    of their own."""
+    monkeypatch.setattr(k3_module, "FACTORED_MIN_CELLS", 0)
+    monkeypatch.setattr(k3_module, "_LAYOUTS", {})
+
+
+@pytest.mark.parametrize("name", ALL_CASES)
+def test_k3_factored_path(pair, name, tiles_at_any_size):
+    total = 0
+    for layout, make in _factored_layouts(pair["ac"].assignment, 24).items():
+        total += _k3_path(pair["sc"], pair["ac"], pair["sg"], pair["ag"], pair["dims"], name,
+                          make, "promotion" if layout in PER_ROW else "factored")
+    assert total > 0 or name in ("KafkaAssignerEvenRackAwareGoal",)
+
+
+@pytest.fixture(scope="module")
+def rf_pairs(pair):
+    """Seeded clusters at replication factors 2, 3 and 4 (3 is `pair`'s)."""
+    out = {3: (pair["sc"], pair["ac"], pair["sg"], pair["ag"], pair["dims"])}
+    for rf in (2, 4):
+        cpu = generators.random_cluster(43 + rf, dataclasses.replace(PROP, replication_factor=rf))
+        gpu = cpu.to("cuda")
+        dims = dims_of(cpu)
+        c = dataclasses.replace(BalancingConstraint.default(), max_replicas_per_broker=80)
+        sc, sg = build_static_ctx(cpu, c, dims), build_static_ctx(gpu, c, dims)
+        out[rf] = (sc, compute_aggregates(sc, cpu.assignment, dims), sg,
+                   compute_aggregates(sg, gpu.assignment, dims), dims)
+    return out
+
+
+@pytest.mark.parametrize("rf", [2, 3, 4])
+@pytest.mark.parametrize("name", STACK_IDS)
+def test_k3_promotion_path(rf_pairs, name, rf):
+    """The [P, R-1] leadership grid (drain.py) and the bulk planner's
+    [B, K, R-1] leadership cells, one thread per row."""
+    sc, ac, sg, ag, dims = rf_pairs[rf]
+    rng = np.random.default_rng(rf)
+    cand = rng.integers(0, ac.assignment.shape[0], (24, 8, 1)).astype(np.int32)
+
+    def bulk_cells(agg):
+        dev = agg.assignment.device
+        p3 = torch.from_numpy(cand).to(dev)
+        slots = torch.arange(1, rf, dtype=torch.int32, device=dev)[None, None, :]
+        kind = torch.tensor(KIND_LEADERSHIP, dtype=torch.int32, device=dev)
+        return p3, kind, slots, agg.assignment[p3.long(), slots.long()]
+
+    for make in (lambda agg: leadership_grid(agg.assignment), bulk_cells):
+        _k3_path(sc, ac, sg, ag, dims, name, make, "promotion")
+
+
+@pytest.mark.parametrize("rf", [2, 3, 4])
+@pytest.mark.parametrize("name", STACK_IDS)
+def test_k3_factored_narrow_tiles(rf_pairs, name, rf, tiles_at_any_size):
+    """The factored path toward two and three destinations at R = 2, 3 and 4:
+    tiles of 2 and 4 columns, as many rows as the shared memory holds."""
+    sc, ac, sg, ag, dims = rf_pairs[rf]
+    layouts = _factored_layouts(ac.assignment, dims.num_brokers)
+    for layout in NARROW:
+        _k3_path(sc, ac, sg, ag, dims, name, layouts[layout],
+                 "promotion" if layout in PER_ROW else "factored")
+
+
+def test_k3_full_size_drain_grid_takes_the_tiles(pair):
+    """At the drain round's [512, 8, 64] the tiles are taken as the rounds
+    call K3, with no size floor changed."""
+    rng = np.random.default_rng(12)
+    p = rng.integers(0, pair["ac"].assignment.shape[0], (512, 8, 1)).astype(np.int32)
+    s = rng.integers(0, pair["ac"].assignment.shape[1], (512, 8, 1)).astype(np.int32)
+    d = np.resize(np.arange(-1, 24, dtype=np.int32), 64).reshape(1, 1, 64)
+
+    def make(agg):
+        dev = agg.assignment.device
+        t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+        return t(p), torch.tensor(KIND_MOVE, dtype=torch.int32, device=dev), t(s), t(d)
+
+    assert _k3_path(pair["sc"], pair["ac"], pair["sg"], pair["ag"], pair["dims"],
+                    "DiskCapacityGoal", make, "factored") > 0
+
+
+@pytest.mark.parametrize("rf", [1, 2])
+def test_two_broker_cluster_on_the_card_equals_the_cpu(rf, tiles_at_any_size):
+    """A two-broker cluster, whose drain grids, pair drain and all-broker
+    re-score are two columns wide, solved by the fused stack and the service
+    on the card against the CPU; with the size floor at 0, K3 takes its
+    factored path on tiles of two columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    model = generators.random_cluster(7, dataclasses.replace(
+        PROP, num_racks=2, num_brokers=2, num_topics=12, mean_partitions_per_topic=6.0,
+        replication_factor=rf, num_dead_brokers=0))
+    for settings in (opt.STACK_SETTINGS, opt.SERVICE_SETTINGS):
+        before = score_candidates.paths["factored"]
+        res = [opt.GoalOptimizer(settings=settings, device=d).optimizations(
+            model, None, raise_on_hard_failure=False) for d in ("cpu", "cuda")]
+        assert score_candidates.paths["factored"] > before
+        assert np.array_equal(res[0].final_assignment, res[1].final_assignment)
+        assert np.array_equal(res[0].touch_tag, res[1].touch_tag)
+        for a, b in zip(res[0].goal_results, res[1].goal_results):
+            assert (a.violated_brokers_after, a.rounds, a.converged, a.cost_after) == (
+                b.violated_brokers_after, b.rounds, b.converged, b.cost_after)
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["flag-off", "immigrants"])
+@pytest.mark.parametrize("name", ALL_CASES)
+def test_k3_general_path(pair, name, flag):
+    """512 single cells, as a drain wave re-scores them: moves and
+    promotions, a -1 destination, src == dst, empty slots, dead sources,
+    with only_move_immigrants off and on."""
+    sc, sg = _flagged(pair["sc"], flag), _flagged(pair["sg"], flag)
+    a = pair["ac"].assignment.numpy()
+    rng = np.random.default_rng(7)
+    n = 512
+    p = rng.integers(0, a.shape[0], n).astype(np.int32)
+    kind = (rng.random(n) < 0.25).astype(np.int32)
+    slot = rng.integers(0, a.shape[1], n).astype(np.int32)
+    slot[kind == KIND_LEADERSHIP] = rng.integers(1, a.shape[1], int(kind.sum()))
+    dst = rng.integers(0, 24, n).astype(np.int32)
+    dst[:16] = -1
+    dst[16:32] = a[p[16:32], slot[16:32]]  # src == dst for a move
+    empty = np.nonzero(a[:, 2] < 0)[0]
+    p[32:48], slot[32:48], kind[32:48] = empty[:16], 2, KIND_MOVE
+    dead = np.nonzero(pair["sc"].dead.numpy())[0]
+    on_dead = np.argwhere(np.isin(a, dead))
+    pick = on_dead[rng.integers(0, len(on_dead), 64)]
+    p[48:112], slot[48:112], kind[48:112] = pick[:, 0], pick[:, 1], KIND_MOVE
+    lead = kind == KIND_LEADERSHIP
+    dst[lead] = a[p[lead], slot[lead]]
+
+    def make(agg):
+        dev = agg.assignment.device
+        return tuple(torch.from_numpy(x).to(dev) for x in (p, kind, slot, dst))
+
+    _k3_path(sc, pair["ac"], sg, pair["ag"], pair["dims"], name, make, "general")
+
+
+def _k9_both(sc, sg, ac, ag, dims, name, cands):
+    from cruise_control_torch.kernels.grid_shortlist import grid_shortlist, grid_shortlist_plain
+
+    gc, tc, gsc = _side(sc, ac, dims, name)
+    gg, tg, gsg = _side(sg, ag, dims, name)
+    want = grid_shortlist_plain(sc, ac, tc, gc, gsc, cands)
+    got = grid_shortlist(sg, ag, tg, gg, gsg, cands.cuda())
+    for w, x in zip(want, got):
+        assert _bits(w, x), (name, want, got)
+    return [int(x) if x.dtype != torch.float32 else float(x) for x in want]
+
+
+def _only_movable(static, ps):
+    m = torch.zeros_like(static.movable_partition)
+    m[torch.as_tensor(ps).long()] = True
+    return static._replace(movable_partition=m)
+
+
+@pytest.mark.parametrize("k", [4, 7, 11])
+@pytest.mark.parametrize("name", ["DiskCapacityGoal", "ReplicaDistributionGoal",
+                                  "LeaderReplicaDistributionGoal", "RackAwareGoal",
+                                  "TopicReplicaDistributionGoal", "KafkaAssignerEvenRackAwareGoal"])
+def test_k9_cells_not_a_multiple_of_a_warp(pair, name, k):
+    """R x K = 12, 21 and 33 move cells a partition (a warp takes 32)."""
+    cands = torch.from_numpy(np.random.default_rng(k).permutation(24)[:k].astype(np.int32))
+    _k9_both(pair["sc"], pair["sg"], pair["ac"], pair["ag"], pair["dims"], name, cands)
+
+
+@pytest.fixture(scope="module")
+def twins():
+    """The pair cluster with partition 40 a copy of partition 9 (row, load,
+    topic) and partition 3 a copy of 61, both with a replica on a dead
+    broker: equal cells, so equal bests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    cpu = generators.random_cluster(42, PROP)
+    fields = {k: v.clone() for k, v in cpu._asdict().items()}
+    for dst_p, src_p in ((40, 9), (3, 61)):
+        for f in ("assignment", "part_load", "topic_id"):
+            fields[f][dst_p] = fields[f][src_p]
+    cpu = from_numpy({k: v.numpy() for k, v in fields.items()})
+    gpu = cpu.to("cuda")
+    dims = dims_of(cpu)
+    c = dataclasses.replace(BalancingConstraint.default(), max_replicas_per_broker=80)
+    sc, sg = build_static_ctx(cpu, c, dims), build_static_ctx(gpu, c, dims)
+    return (sc, sg, compute_aggregates(sc, cpu.assignment, dims),
+            compute_aggregates(sg, gpu.assignment, dims), dims)
+
+
+@pytest.mark.parametrize("twin", [(9, 40), (3, 61)])
+@pytest.mark.parametrize("name", ["DiskCapacityGoal", "ReplicaDistributionGoal",
+                                  "LeaderReplicaDistributionGoal", "RackAwareGoal"])
+def test_k9_two_partitions_with_the_same_best(twins, name, twin):
+    """Only the two twins may move: they tie, and the lower p wins."""
+    sc, sg, ac, ag, dims = twins
+    sc, sg = _only_movable(sc, twin), _only_movable(sg, twin)
+    cands = torch.arange(24, dtype=torch.int32)[::3].contiguous()
+    score, p, *_ = _k9_both(sc, sg, ac, ag, dims, name, cands)
+    assert np.isfinite(score) or name != "DiskCapacityGoal"
+    if np.isfinite(score):
+        assert p == min(twin)
+
+
+def test_k9_a_promotion_equal_to_the_best_move(pair):
+    """LeaderReplicaDistributionGoal with no prior tables: moving the leader
+    to a broker d scores as promoting a follower on broker b where d and b
+    lead as many partitions. Only that partition moves, toward d alone: the
+    two tie and the move wins."""
+    from cruise_control_torch.analyzer.acceptance import empty_tables
+    from cruise_control_torch.kernels.grid_shortlist import grid_shortlist, grid_shortlist_plain
+
+    sc, ac, dims = pair["sc"], pair["ac"], pair["dims"]
+    g, _ = _goal_and_priors("LeaderReplicaDistributionGoal")
+    t = empty_tables(dims, "cpu")
+    gs = g.prepare(sc, ac, dims)
+    a, lead = ac.assignment, ac.leader_count
+    found = None
+    for p in range(a.shape[0]):
+        for s in range(1, a.shape[1]):
+            b = int(a[p, s])
+            if b < 0:
+                continue
+            for d in range(24):
+                if d in a[p].tolist() or int(lead[d]) != int(lead[b]):
+                    continue
+                i32 = lambda v: torch.tensor([v], dtype=torch.int32)  # noqa: E731
+                mv = score_candidates_plain(sc, ac, t, g, gs, i32(p), i32(KIND_MOVE), i32(0),
+                                            i32(d))
+                pr = score_candidates_plain(sc, ac, t, g, gs, i32(p), i32(KIND_LEADERSHIP),
+                                            i32(s), i32(b))
+                if torch.isfinite(mv).all() and _bits(mv, pr):
+                    found = (p, d)
+                    break
+            if found:
+                break
+        if found:
+            break
+    assert found is not None, "the fixture holds no tied move and promotion"
+    p, d = found
+    sc1, sg1 = _only_movable(sc, [p]), _only_movable(pair["sg"], [p])
+    cands = torch.tensor([d], dtype=torch.int32)
+    want = grid_shortlist_plain(sc1, ac, t, g, gs, cands)
+    got = grid_shortlist(sg1, pair["ag"], empty_tables(dims, "cuda"), g,
+                         g.prepare(sg1, pair["ag"], dims), cands.cuda())
+    for w, x in zip(want, got):
+        assert _bits(w, x)
+    assert int(want[2]) == KIND_MOVE and int(want[1]) == p
+
+
+@pytest.mark.parametrize("name", ["DiskCapacityGoal", "LeaderReplicaDistributionGoal"])
+def test_k9_every_cell_minus_inf(pair, name):
+    """Nothing movable: p 0, slot 0, the first candidate, score -inf (a
+    score is either above SCORE_EPS or -inf, so -0.0 never bids)."""
+    sc = pair["sc"]._replace(movable_partition=torch.zeros_like(pair["sc"].movable_partition))
+    sg = pair["sg"]._replace(movable_partition=torch.zeros_like(pair["sg"].movable_partition))
+    cands = torch.tensor([5, 9, 2, 17, 11], dtype=torch.int32)
+    score, p, kind, slot, dst = _k9_both(sc, sg, pair["ac"], pair["ag"], pair["dims"], name,
+                                         cands)
+    assert (score, p, kind, slot, dst) == (-np.inf, 0, KIND_MOVE, 0, 5)
+
+
+def test_a_rebound_context_scores_like_a_fresh_one(pair):
+    """A context built on one aggregate, called with another (as after the
+    lane's K10 returns fresh outputs): it is rebuilt, counted, and scores
+    as a fresh context and the plain version do."""
+    from cruise_control_torch.kernels.grid_shortlist import grid_shortlist, grid_shortlist_plain
+    from cruise_control_torch.kernels.score_candidates import ScoreContext
+
+    dims = pair["dims"]
+    g, tg, gsg = _side(pair["sg"], pair["ag"], dims, "DiskCapacityGoal")
+    ctx = ScoreContext(pair["sg"], pair["ag"], tg, g, gsg)
+    make = _factored_layouts(pair["ac"].assignment, 24)["drain C=20"]
+    score_candidates(pair["sg"], pair["ag"], tg, g, gsg, *make(pair["ag"]), ctx=ctx)
+    ag2 = type(pair["ag"])(*(t.clone() for t in pair["ag"]))
+    ag2.broker_load[3] += 1000.0
+    ag2.replica_count[5] += 3
+    ac2 = type(ag2)(*(t.cpu() for t in ag2))
+    rebuilds = ScoreContext.rebuilds
+    got = score_candidates(pair["sg"], ag2, tg, g, gsg, *make(ag2), ctx=ctx)
+    assert ScoreContext.rebuilds == rebuilds + 1 and ctx.agg is ag2
+    fresh = score_candidates(pair["sg"], ag2, tg, g, gsg, *make(ag2))
+    gc, tc, gsc = _side(pair["sc"], ac2, dims, "DiskCapacityGoal")
+    want = score_candidates_plain(pair["sc"], ac2, tc, gc, gsc, *make(ac2))
+    assert _bits(got, fresh) and _bits(got, want)
+    assert ctx.struct.assignment == ag2.assignment.data_ptr()
+    cands = torch.tensor([5, 9, 2, 17], dtype=torch.int32)
+    got9 = grid_shortlist(pair["sg"], pair["ag"], tg, g, gsg, cands.cuda(), ctx=ctx)
+    assert ScoreContext.rebuilds == rebuilds + 2 and ctx.agg is pair["ag"]
+    gc0, tc0, gsc0 = _side(pair["sc"], pair["ac"], dims, "DiskCapacityGoal")
+    for w, x in zip(grid_shortlist_plain(pair["sc"], pair["ac"], tc0, gc0, gsc0, cands), got9):
+        assert _bits(w, x)
