@@ -24,10 +24,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        K3's factored, promotion, factored, general and promotion paths), K4
        apply_wave (a 1,024-entry drain wave, a
        2,600-entry two-leg relay wave and the bulk planner's wave, one entry
-       per broker of the bucketed service context: 3,072), K5 score_swaps
-       (the [128, 128, 8, 8] replica-swap grid and the [512, 4, 2, 8, 2]
-       relay grid), K6 pair_picks
-       (512 surplus pairs), window_sum in XLA:CPU's order (the brokers'
+       per broker of the bucketed service context: 3,072; and its wave on a
+       5,000-broker cluster bucketed to 5,120, K4's wide configuration), K5
+       score_swaps with a round's context (the [128, 128, 8, 8] replica-swap
+       grid on its staged path, a wave's re-validation of 128 swaps, the
+       [512, 16, 8] topic-swap grid and the [512, 4, 2, 8, 2] relay grid), K6
+       pair_picks (512 surplus pairs at k = 4 and 8), window_sum in XLA:CPU's order (the brokers'
        leader bytes-in, the [2,600, 4] broker loads, the 199,518
        partitions' leader bytes-in and the bucketed context's 3,072 brokers'
        leader bytes-in, each beside torch.sum), K7 state_fingerprint (the
@@ -86,7 +88,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (the two kafka-assigner goals; K3's case 15 must launch). Replicas of
      excluded partitions may stay on dead brokers.
   Around each solve every kernel's launch count is set to 0 and read after
-  (K3's also by path; the service bucketed solve must take all three);
+  (K3's and K5's also by path; the service bucketed solve must take all
+  three of K3's);
   each kernel of the solve's path must have launched, and the result must
   hold: no replica left on a dead broker, no goal worse than before,
   sanity_check, the proposals replay to the final assignment. Each solve's
@@ -530,6 +533,12 @@ PARITY_COST_REL, PARITY_COST_FLOOR, PARITY_COUNT_SLACK = 0.05, 0.01, 3
 
 #: entries of chip_smoke's two-leg relay wave for K4
 K4_RELAY_ENTRIES = 2600
+#: the cluster of K4's wide-configuration row (generators.ClusterProperty):
+#: 5,000 brokers, bucketed to 5,120, so that the bulk planner's wave holds
+#: more entries than K4's block configuration takes
+WIDE_CLUSTER = dict(num_racks=50, num_brokers=5000, num_topics=1000,
+                    mean_partitions_per_topic=20.0, replication_factor=3,
+                    load_distribution="pareto", mean_utilization=0.5)
 
 
 def k4_relay_wave(a_np: np.ndarray, num_brokers: int, n: int = K4_RELAY_ENTRIES):
@@ -821,6 +830,7 @@ def main() -> int:
         relay_grid,
         select_surplus_pairs,
         top_k,
+        topic_swap_grid,
     )
     from cruise_control_torch.analyzer.goals import (
         HARD_GOAL_NAMES,
@@ -836,8 +846,10 @@ def main() -> int:
     from cruise_control_torch.kernels.score_swaps import (
         LEADERSHIP_RELAY,
         REPLICA_SWAP,
+        TOPIC_SWAP,
         score_swaps,
         score_swaps_plain,
+        swap_context,
     )
     from cruise_control_torch.kernels.cluster_stats import cluster_stats, cluster_stats_plain
     from cruise_control_torch.kernels.grid_shortlist import grid_shortlist, grid_shortlist_plain
@@ -1375,16 +1387,83 @@ def main() -> int:
           f"ms per call, plain {k4_bulk['plain_ms']:.4f} ms, bound {k4_bulk['bound_ms']:.6f} ms")
     del a4_g, a4_c
 
-    # K5 on DiskUsageDistributionGoal's [128, 128, 8, 8] replica-swap grid and
-    # LeaderBytesInDistributionGoal's [512, 4, 2, 8, 2] relay grid, each
-    # under its priors' tables
+    # K4's wide configuration: the bulk planner's wave on WIDE_CLUSTER's
+    # 5,000 brokers, bucketed to 5,120 (past the block configuration's 4,096
+    # entries)
+    model_w = generators.random_cluster(SEED, generators.ClusterProperty(**WIDE_CLUSTER))
+    st_w_g, agg_w_g, wide_g = k4_bulk_wave(model_w, "cuda")
+    _, pm_w_c, dims_w, st_w_c, _, _ = opt.GoalOptimizer(
+        device="cpu", settings=opt.SERVICE_SETTINGS)._build_ctx(model_w)
+    agg_w_c = compute_aggregates(st_w_c, pm_w_c.assignment, dims_w)
+    wide_c = tuple(a.cpu() if torch.is_tensor(a) else a for a in wide_g)
+    nw = wide_g[0].shape[0]
+    if nw <= 4096:
+        fail(f"K4 apply_wave (wide wave): {nw} entries, not past the block configuration")
+    a4_g, a4_c = clone(agg_w_g), clone(agg_w_c)
+    sel_g = apply_wave(st_w_g, a4_g, *wide_g)
+    sel_c = apply_wave_plain(st_w_c, a4_c, *wide_c)
+    torch.cuda.synchronize()
+    if not bits_equal(sel_g, sel_c):
+        fail("K4 apply_wave (wide wave): selection differs from the plain version")
+    for n_, a_, b_ in zip(a4_c._fields, a4_g, a4_c):
+        if not bits_equal(a_, b_):
+            fail(f"K4 apply_wave (wide wave): applied {n_} differs from the plain version")
+    n_sel = int(sel_c.sum())
+    if n_sel == 0:
+        fail("K4 apply_wave (wide wave): the wave selected nothing")
+    k4_err = max([max_abs_err(sel_g, sel_c)] + [max_abs_err(a_, b_) for a_, b_ in zip(a4_g, a4_c)])
+
+    def k4_wide_call(fn):
+        def call(i):
+            if i == 0:
+                pool[:] = [clone(agg_w_g) for _ in range(WARMUP + REPS)]
+                torch.cuda.synchronize()
+            return fn(st_w_g, pool[i], *wide_g)
+        return call
+
+    k4_bytes = nw * (4 * 4 + 4 + 1 + 1) + nw * (r * 4 * 2 + 24) + n_sel * (2 * r * 4 * 2 + 2 * 56)
+    k4_wide = row("apply_wave wide wave", "apply_wave.cu",
+                  "cruise_control_tpu/analyzer/context.py:425", k4_err, k4_wide_call(apply_wave),
+                  k4_wide_call(apply_wave_plain), k4_bytes, nw * 60,
+                  f"the bulk planner's {nw}-entry wave on {dims_w.num_brokers} brokers, one leg: "
+                  "the wide configuration")
+    rows.pop("apply_wave wide wave")
+    pool.clear()
+    print(f"K4 apply_wave: the bulk planner's {nw}-entry wave on {dims_w.num_brokers} brokers "
+          f"(the wide configuration), {n_sel} selected, selection and every aggregate "
+          f"bit-equal; {k4_wide['ms']:.4f} ms on the device, {k4_wide['call_ms']:.4f} ms per "
+          f"call, plain {k4_wide['plain_ms']:.4f} ms, bound {k4_wide['bound_ms']:.6f} ms")
+    del a4_g, a4_c, model_w, st_w_g, agg_w_g, st_w_c, agg_w_c, pm_w_c
+
+    # K5 on DiskUsageDistributionGoal's [128, 128, 8, 8] replica-swap grid
+    # (the staged path), TopicReplicaDistributionGoal's [512, 16, 8]
+    # topic-swap grid and LeaderBytesInDistributionGoal's [512, 4, 2, 8, 2]
+    # relay grid (a thread a cell), each under its priors' tables, and a
+    # wave's re-validation of 128 nominated swaps; each called with its
+    # round's context, as the rounds call it
     disk_use, lbi = by_name["DiskUsageDistributionGoal"], by_name["LeaderBytesInDistributionGoal"]
+    topic_goal = by_name["TopicReplicaDistributionGoal"]
 
     def swap_args(st, agg):
         gs = disk_use.prepare(st, agg, dims)
         grid = swap_grid(st, agg, disk_use.resource, disk_use.drain_contrib(st, gs, agg).contiguous(),
                          128, 8, dims.num_brokers)[-1]
         return (REPLICA_SWAP, st, agg, priors(disk_use, st, agg), gs, *grid)
+
+    def swap_wave_args(st, agg):
+        gs = disk_use.prepare(st, agg, dims)
+        hot, cold, hp, hs, cp, cs, _ = swap_grid(
+            st, agg, disk_use.resource, disk_use.drain_contrib(st, gs, agg).contiguous(), 128, 8,
+            dims.num_brokers)
+        return (REPLICA_SWAP, st, agg, priors(disk_use, st, agg), gs, hp[:, 0].contiguous(),
+                hs[:, 0].contiguous(), hot, cp[:, 0].contiguous(), cs[:, 0].contiguous(), cold)
+
+    def topic_swap_args(st, agg):
+        gs = topic_goal.prepare(st, agg, dims)
+        tables = priors(topic_goal, st, agg)
+        grid = topic_swap_grid(st, agg, tables, gs, 0, 512, 16, 8, dims.num_topics,
+                               dims.num_brokers)[-1]
+        return (TOPIC_SWAP, st, agg, tables, gs, *grid)
 
     def relay_args(st, agg):
         gs = lbi.prepare(st, agg, dims)
@@ -1393,18 +1472,25 @@ def main() -> int:
 
     k5_rows = []
     for label, make, kw in (("replica-swap grid", swap_args, dict(resource=disk_use.resource)),
+                            ("replica-swap wave", swap_wave_args,
+                             dict(resource=disk_use.resource, wave=True)),
+                            ("topic-swap grid", topic_swap_args, {}),
                             ("relay grid", relay_args, {})):
         args_g, args_c = make(st_g, agg_g), make(st_c, agg_c)
         for i_, (x_, y_) in enumerate(zip(args_g[5:], args_c[5:])):
             if not bits_equal(x_, y_):
                 fail(f"K5 score_swaps ({label}): index tensor {i_} differs between card and CPU")
+        before = dict(score_swaps.paths)
         o_g = score_swaps(*args_g, **kw)
         torch.cuda.synchronize()
+        path = [k for k, v in score_swaps.paths.items() if v != before.get(k, 0)]
         o_c = score_swaps_plain(*args_c, **kw)
         o_g_c = o_g.cpu()
         fin = torch.isfinite(o_c)
         if not torch.equal(fin, torch.isfinite(o_g_c)) or not bits_equal(o_g_c[fin], o_c[fin]):
             fail(f"K5 score_swaps ({label}): differs from the plain version")
+        if path != (["staged"] if label == "replica-swap grid" else ["cells"]):
+            fail(f"K5 score_swaps ({label}): took the path {path}")
         cells = o_c.numel()
         # distinct inputs: the index tensors, each picked partition's rows
         # (assignment, load, rack counts) and each broker's aggregate and
@@ -1413,52 +1499,61 @@ def main() -> int:
         parts = torch.unique(torch.cat([args_c[5].reshape(-1), args_c[8].reshape(-1)])).numel()
         brokers = torch.unique(torch.cat([args_c[7].reshape(-1), args_c[10].reshape(-1)])).numel()
         nbytes = idx_bytes + cells * 4 + parts * (r * 4 + 24 + dims.num_racks * 4 + 4) + brokers * 200
+        ctx5 = swap_context(None, *args_g[1:5])
         k5_rows.append(dict(label=label, err=max_abs_err(o_g_c, o_c), cells=cells,
-                            finite=int(fin.sum()), nbytes=nbytes,
-                            call=lambda i, a=args_g, k=kw: score_swaps(*a, **k),
+                            finite=int(fin.sum()), nbytes=nbytes, path=path[0],
+                            call=lambda i, a=args_g, k=kw, c=ctx5: score_swaps(*a, **k, ctx=c),
                             plain=lambda i, a=args_g, k=kw: score_swaps_plain(*a, **k)))
-        print(f"K5 score_swaps ({label}, {tuple(o_c.shape)}): {int(fin.sum())} finite of {cells}, "
-              f"masks and improvements bit-equal")
+        print(f"K5 score_swaps ({label}, {tuple(o_c.shape)}, the {path[0]} path): "
+              f"{int(fin.sum())} finite of {cells}, masks and improvements bit-equal")
     err5 = max(x["err"] for x in k5_rows)
-    for x, key in zip(k5_rows, ("score_swaps", "score_swaps relay grid")):
+    for x in k5_rows:
+        key = "score_swaps" if x["label"] == "replica-swap grid" else "score_swaps " + x["label"]
         # ~200 operations per cell (csrc/score_swaps.cu)
         rw = row(key, "score_swaps.cu", "cruise_control_tpu/analyzer/swaps.py:98", err5, x["call"],
                  x["plain"], x["nbytes"], 200 * x["cells"],
-                 f"one thread per cell, {x['label']} of {x['cells']} cells")
+                 f"the {x['path']} path, {x['label']} of {x['cells']} cells, a round's context")
         if key != "score_swaps":
             rows.pop(key)
-            print(f"K5 score_swaps on the {x['label']}: {rw['ms']:.4f} ms on the device, "
-                  f"{rw['call_ms']:.4f} ms per call, plain {rw['plain_ms']:.4f} ms, bound "
-                  f"{rw['bound_ms']:.6f} ms by {rw['bound_by']}")
+            print(f"K5 score_swaps on the {x['label']} ({x['path']} path): {rw['ms']:.4f} ms on "
+                  f"the device, {rw['call_ms']:.4f} ms per call, plain {rw['plain_ms']:.4f} ms, "
+                  f"bound {rw['bound_ms']:.6f} ms by {rw['bound_by']}")
 
-    # K6 on TopicReplicaDistributionGoal's first-round 512 surplus pairs
-    topic_goal = by_name["TopicReplicaDistributionGoal"]
-
-    def pairs(st, agg):
+    # K6 on TopicReplicaDistributionGoal's first-round 512 surplus pairs, at
+    # the pair drain's k = 4 (the JSON row) and at k = 8
+    def pairs(st, agg, k):
         gs = topic_goal.prepare(st, agg, dims)
         pt, pb, _ = select_surplus_pairs(st, agg, priors(topic_goal, st, agg), gs, 0, 512,
                                          dims.num_topics, dims.num_brokers)
-        return (agg.assignment, st.topic_id, st.movable_partition, pt, pb, 4, dims.num_brokers)
+        return (agg.assignment, st.topic_id, st.movable_partition, pt, pb, k, dims.num_brokers)
 
-    k6_g, k6_c = pairs(st_g, agg_g), pairs(st_c, agg_c)
-    for i_ in (3, 4):
-        if not bits_equal(k6_g[i_], k6_c[i_]):
-            fail("K6 pair_picks: the surplus pairs differ between card and CPU")
-    o6_g = pair_picks(*k6_g)
-    torch.cuda.synchronize()
-    o6_c = pair_picks_plain(*k6_c)
-    for n_, a_, b_ in zip(("p", "slot", "found"), o6_g, o6_c):
-        if not bits_equal(a_, b_):
-            fail(f"K6 pair_picks: {n_} differs from the plain version")
-    # per pass: the assignment, each slot's topic and movable flag, each
-    # broker's pair row; the [512, 4] outputs once
-    row("pair_picks", "pair_picks.cu", "cruise_control_tpu/analyzer/drain.py:235",
-        max(max_abs_err(a_, b_) for a_, b_ in zip(o6_g, o6_c)),
-        lambda i: pair_picks(*k6_g), lambda i: pair_picks_plain(*k6_g),
-        p_count * r * 4 + p_count * 5 + dims.num_brokers * 4 + 512 * 8 + 512 * 4 * 9,
-        4 * p_count * r * 6,
-        "k = 4 passes, each an atomicMin bid per slot on its pair's row and a decode per row")
-    print(f"K6 pair_picks: 512 pairs x 4, {int(o6_c[2].sum())} found, exact")
+    for k6 in (4, 8):
+        k6_g, k6_c = pairs(st_g, agg_g, k6), pairs(st_c, agg_c, k6)
+        for i_ in (3, 4):
+            if not bits_equal(k6_g[i_], k6_c[i_]):
+                fail("K6 pair_picks: the surplus pairs differ between card and CPU")
+        o6_g = pair_picks(*k6_g)
+        torch.cuda.synchronize()
+        o6_c = pair_picks_plain(*k6_c)
+        for n_, a_, b_ in zip(("p", "slot", "found"), o6_g, o6_c):
+            if not bits_equal(a_, b_):
+                fail(f"K6 pair_picks (k = {k6}): {n_} differs from the plain version")
+        # one pass: the assignment, each slot's topic and movable flag, each
+        # broker's pair row; the [512, k] outputs once
+        key = "pair_picks" if k6 == 4 else f"pair_picks k = {k6}"
+        rw = row(key, "pair_picks.cu", "cruise_control_tpu/analyzer/drain.py:235",
+                 max(max_abs_err(a_, b_) for a_, b_ in zip(o6_g, o6_c)),
+                 lambda i, a=k6_g: pair_picks(*a), lambda i, a=k6_g: pair_picks_plain(*a),
+                 p_count * r * 4 + p_count * 5 + dims.num_brokers * 4 + 512 * 8 + 512 * k6 * 9,
+                 p_count * r * 6 + int(o6_c[2].sum()) * k6,
+                 f"k = {k6}: two launches, one pass over the slots (the pair rows in each "
+                 "block's shared memory, each slot inserting into its row's k-entry list by an "
+                 "atomicMin cascade), then the picks' write-out")
+        if key != "pair_picks":
+            rows.pop(key)
+        print(f"K6 pair_picks: 512 pairs x {k6}, {int(o6_c[2].sum())} found, exact; "
+              f"{rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per call, plain "
+              f"{rw['plain_ms']:.4f} ms, bound {rw['bound_ms']:.6f} ms")
 
     # window_sum in XLA:CPU's order on the brokers' leader bytes-in
     # (LeaderBytesInDistributionGoal's window, the JSON row), the [2,600, 4]
@@ -1762,11 +1857,12 @@ def main() -> int:
         wall = time.monotonic() - t0
         counts = kernels.launches()
         k3_paths = dict(score_candidates.paths)
+        k5_paths = dict(score_swaps.paths)
         peak = torch.cuda.max_memory_allocated()
         for key in path:
             if counts[key] == 0:
                 fail(f"{label}: the solve never launched kernel {key}")
-        print(f"{label}: K3 launches by path {k3_paths}")
+        print(f"{label}: K3 launches by path {k3_paths}, K5 {k5_paths}")
         if label == "service bucketed" and min(
                 k3_paths.get(x, 0) for x in ("factored", "promotion", "general")) == 0:
             fail(f"{label}: K3 did not take each of its three paths ({k3_paths})")
@@ -1843,7 +1939,7 @@ def main() -> int:
                          "leadership_moves": res.num_leadership_moves, "peak_bytes": peak,
                          "final_assignment_sha256": digest, "touch_tag_sha256": tags,
                          "decision_digest": dg["checksum"], "launches": counts,
-                         "k3_paths": k3_paths,
+                         "k3_paths": k3_paths, "k5_paths": k5_paths,
                          "goals": [[g.name, g.violated_brokers_before, g.violated_brokers_after,
                                     g.rounds, g.converged, g.cost_before, g.cost_after]
                                    for g in res.goal_results]}

@@ -45,7 +45,12 @@ from cruise_control_torch.common.xla_math import fma
 from cruise_control_torch.kernels.broker_topk import broker_topk
 from cruise_control_torch.kernels.pair_picks import pair_picks
 from cruise_control_torch.kernels.score_candidates import ScoreContext, score_candidates
-from cruise_control_torch.kernels.score_swaps import LEADERSHIP_RELAY, TOPIC_SWAP, score_swaps
+from cruise_control_torch.kernels.score_swaps import (
+    LEADERSHIP_RELAY,
+    TOPIC_SWAP,
+    score_swaps,
+    swap_context,
+)
 from cruise_control_torch.kernels.window_sum import window_sum
 
 
@@ -428,12 +433,54 @@ def _valid_or(p, bs):
     return torch.where(torch.isfinite(bs), p, torch.full_like(p, -1))
 
 
+def topic_swap_grid(static: StaticCtx, agg: Aggregates, tables, gs, rnd: int, v: int,
+                    d_dst: int, k_ret: int, t_count: int, b_count: int):
+    """The topic-swap round's candidates (drain.py:431-485): each of the V
+    surplus pairs' pick (p1, s1 [V], its second pick on odd rounds) on broker
+    pair_b [V], its D destinations (dsts [V, D]), each destination's K
+    lightest and heaviest replicas (g_p2, g_s2 [V, D, K]), and the six K5
+    index tensors of the [V, D, K] grid, broadcast lazily; a cell without
+    both picks is masked by a -1 partition."""
+    p_count, r = agg.assignment.shape
+    dev = agg.assignment.device
+    pair_t, pair_b, pair_ok = select_surplus_pairs(static, agg, tables, gs, rnd, v, t_count,
+                                                   b_count)
+    c1p, c1s, c_found = pair_replica_picks(static, agg, pair_t, pair_b, 2, b_count)
+    use_second = (rnd % 2 == 1) & c_found[:, 1]
+    p1 = torch.where(use_second, c1p[:, 1], c1p[:, 0])
+    s1 = torch.where(use_second, c1s[:, 1], c1s[:, 0])
+    cand_ok = c_found[:, 0] & pair_ok
+    dsts = topic_dst_list(static, agg, tables, gs, pair_t, pair_b, rnd, d_dst, b_count)
+
+    # return candidates: each destination's lightest and heaviest replicas
+    p_all = torch.arange(p_count, dtype=torch.int32, device=dev)
+    is_leader = (torch.arange(r, device=dev) == 0)[None, :]
+    load_l1 = torch.where(is_leader, load_total(_leader_vec(static.part_load, p_all))[:, None],
+                          load_total(_follower_vec(static.part_load, p_all))[:, None])
+    k_half = max(1, k_ret // 2)
+    lp, ls, lok = broker_topk(load_l1, agg.assignment, static.movable_partition, k_half,
+                              b_count, heaviest=False)
+    hp, hs, hok = broker_topk(load_l1, agg.assignment, static.movable_partition,
+                              k_ret - k_half, b_count, heaviest=True)
+    ret_p = torch.cat([lp, hp], dim=1)
+    ret_s = torch.cat([ls, hs], dim=1)
+    ret_ok = torch.cat([lok, hok], dim=1)
+
+    # the [V, D, K] grid, read by K5 through broadcast strides
+    g_p2, g_s2 = ret_p[dsts.long()], ret_s[dsts.long()]
+    g_p2_ok = torch.where(ret_ok[dsts.long()], g_p2, -1)
+    p1_ok = torch.where(cand_ok, p1, torch.full_like(p1, -1))
+    grid = (p1_ok[:, None, None], s1[:, None, None], pair_b[:, None, None], g_p2_ok, g_s2,
+            dsts[:, :, None])
+    return p1, s1, pair_b, g_p2, g_s2, dsts, grid
+
+
 def make_topic_swap_round(goal, dims, n_pairs: int, d_dst: int, k_ret: int, apply_waves: int):
     """Swap fallback for TopicReplicaDistributionGoal (drain.py:431): a
     surplus pair's replica exchanged with a similar-load replica of an
     under-count destination, validated by K5 and applied two legs at a time
     by K4."""
-    p_count, r = dims.num_partitions, dims.max_rf
+    p_count = dims.num_partitions
     t_count, b_count = dims.num_topics, dims.num_brokers
     v = max(1, min(n_pairs, b_count))
     d_dst = max(1, min(d_dst, b_count))
@@ -443,38 +490,11 @@ def make_topic_swap_round(goal, dims, n_pairs: int, d_dst: int, k_ret: int, appl
     def swap_round(static: StaticCtx, agg: Aggregates, tables, gs, rnd: int):
         dev = agg.assignment.device
         neg_inf = torch.tensor(-torch.inf, dtype=torch.float32, device=dev)
-        pair_t, pair_b, pair_ok = select_surplus_pairs(static, agg, tables, gs, rnd, v, t_count,
-                                                       b_count)
-        c1p, c1s, c_found = pair_replica_picks(static, agg, pair_t, pair_b, 2, b_count)
-        use_second = (rnd % 2 == 1) & c_found[:, 1]
-        p1 = torch.where(use_second, c1p[:, 1], c1p[:, 0])
-        s1 = torch.where(use_second, c1s[:, 1], c1s[:, 0])
-        cand_ok = c_found[:, 0] & pair_ok
-        dsts = topic_dst_list(static, agg, tables, gs, pair_t, pair_b, rnd, d_dst, b_count)
-
-        # return candidates: each destination's lightest and heaviest replicas
-        p_all = torch.arange(p_count, dtype=torch.int32, device=dev)
-        is_leader = (torch.arange(r, device=dev) == 0)[None, :]
-        load_l1 = torch.where(is_leader, load_total(_leader_vec(static.part_load, p_all))[:, None],
-                              load_total(_follower_vec(static.part_load, p_all))[:, None])
-        k_half = max(1, k_ret // 2)
-        lp, ls, lok = broker_topk(load_l1, agg.assignment, static.movable_partition, k_half,
-                                  b_count, heaviest=False)
-        hp, hs, hok = broker_topk(load_l1, agg.assignment, static.movable_partition,
-                                  k_ret - k_half, b_count, heaviest=True)
-        ret_p = torch.cat([lp, hp], dim=1)
-        ret_s = torch.cat([ls, hs], dim=1)
-        ret_ok = torch.cat([lok, hok], dim=1)
-
-        # the [V, D, K] grid, read by K5 through broadcast strides; a cell
-        # without both picks is masked by a -1 partition
-        g_p2, g_s2 = ret_p[dsts.long()], ret_s[dsts.long()]
-        g_p2_ok = torch.where(ret_ok[dsts.long()], g_p2, -1)
-        p1_ok = torch.where(cand_ok, p1, torch.full_like(p1, -1))
-        kind = torch.tensor(TOPIC_SWAP, device=dev)
-        cells = score_swaps(kind, static, agg, tables, gs, p1_ok[:, None, None],
-                            s1[:, None, None], pair_b[:, None, None], g_p2_ok, g_s2,
-                            dsts[:, :, None]).reshape(v, d_dst * k_ret)
+        p1, s1, pair_b, g_p2, g_s2, dsts, grid = topic_swap_grid(
+            static, agg, tables, gs, rnd, v, d_dst, k_ret, t_count, b_count)
+        ctx = swap_context(None, static, agg, tables, gs)
+        cells = score_swaps(TOPIC_SWAP, static, agg, tables, gs, *grid,
+                            ctx=ctx).reshape(v, d_dst * k_ret)
         blocked = torch.zeros((v, d_dst * k_ret), dtype=torch.bool, device=dev)
         applied_any = torch.zeros((), dtype=torch.bool, device=dev)
         move_kind = torch.full((v,), KIND_MOVE, dtype=torch.int32, device=dev)
@@ -483,8 +503,8 @@ def make_topic_swap_round(goal, dims, n_pairs: int, d_dst: int, k_ret: int, appl
             j, kk = ci // k_ret, ci % k_ret
             d_i = dsts[rows0, j]
             p2, s2 = g_p2[rows0, j, kk], g_s2[rows0, j, kk]
-            out = score_swaps(kind, static, agg, tables, gs, _valid_or(p1, bs), s1, pair_b,
-                              p2, s2, d_i)
+            out = score_swaps(TOPIC_SWAP, static, agg, tables, gs, _valid_or(p1, bs), s1,
+                              pair_b, p2, s2, d_i, ctx=ctx)
             ok = torch.isfinite(out)
             sel = apply_wave(static, agg, p1.contiguous(), move_kind, s1.contiguous(),
                              d_i.contiguous(), out, ok, make_touch_tag(rnd, w),
@@ -643,8 +663,9 @@ def make_leadership_relay_round(goal, dims, n_src: int, k_out: int, k_ret: int,
         a = agg.assignment
         hot, c1p, ret_p, grid = relay_grid(static, agg, gs, goal, rnd, v, k1, k2, b_count)
         s1_all = torch.arange(1, r, dtype=torch.int32, device=dev)
-        kind = torch.tensor(LEADERSHIP_RELAY, device=dev)
-        cells = score_swaps(kind, static, agg, tables, gs, *grid).reshape(v, n_cells)
+        ctx = swap_context(None, static, agg, tables, gs)
+        cells = score_swaps(LEADERSHIP_RELAY, static, agg, tables, gs, *grid,
+                            ctx=ctx).reshape(v, n_cells)
         blocked = torch.zeros((v, n_cells), dtype=torch.bool, device=dev)
         applied_any = torch.zeros((), dtype=torch.bool, device=dev)
         lead_kind = torch.full((v,), KIND_LEADERSHIP, dtype=torch.int32, device=dev)
@@ -657,8 +678,8 @@ def make_leadership_relay_round(goal, dims, n_src: int, k_out: int, k_ret: int,
             p1 = c1p[rows0, i1]
             d_i = torch.clamp(a[p1.long(), s1.long()], min=0)
             p2 = ret_p[d_i.long(), i2]
-            out = score_swaps(kind, static, agg, tables, gs, _valid_or(p1, bs), s1, hot, p2,
-                              s2, d_i)
+            out = score_swaps(LEADERSHIP_RELAY, static, agg, tables, gs, _valid_or(p1, bs), s1,
+                              hot, p2, s2, d_i, ctx=ctx)
             ok = torch.isfinite(out)
             e_i = torch.clamp(a[p2.long(), s2.long()], min=0)
             sel = apply_wave(static, agg, p1.contiguous(), lead_kind, s1.contiguous(),

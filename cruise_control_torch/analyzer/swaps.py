@@ -8,7 +8,8 @@ top-N cold brokers' K lightest (K2) make an [N, N, K, K] grid that K5 scores
 in one launch through broadcast strides; per wave each hot broker nominates
 one cell (cold partner rotated by the wave, the last wave over all
 partners), K5 re-validates the nominations on the current aggregates and K4
-applies a disjoint subset, both legs.
+applies a disjoint subset, both legs. Every K5 launch of a round reads one
+context packed once (`swap_context`).
 
 `replica_swap_grid` and `replica_swap_revalidate` are K5's plain versions.
 """
@@ -22,7 +23,7 @@ from cruise_control_torch.analyzer.actions import KIND_MOVE, build_selected, slo
 from cruise_control_torch.analyzer.context import Aggregates, StaticCtx, apply_wave, make_touch_tag
 from cruise_control_torch.analyzer.goals.base import SCORE_EPS
 from cruise_control_torch.common.resources import PartMetric, Resource
-from cruise_control_torch.kernels.score_swaps import REPLICA_SWAP, score_swaps
+from cruise_control_torch.kernels.score_swaps import REPLICA_SWAP, score_swaps, swap_context
 
 
 def _dist(u, gs):
@@ -168,8 +169,8 @@ def make_swap_round(goal, dims, n_pairs: int = 8, k: int = 8, swaps_per_broker: 
         gs = goal.prepare(static, agg, dims)
         hot, cold, hp, hs, cp, cs, grid = swap_grid(static, agg, res, contrib_in, n_pairs, k,
                                                     dims.num_brokers)
-        kind = torch.tensor(REPLICA_SWAP, device=dev)
-        score = score_swaps(kind, static, agg, tables, gs, *grid, resource=res)
+        ctx = swap_context(None, static, agg, tables, gs)
+        score = score_swaps(REPLICA_SWAP, static, agg, tables, gs, *grid, resource=res, ctx=ctx)
         rows0 = torch.arange(n_pairs, dtype=torch.int64, device=dev)
         move_kind = torch.full((n_pairs,), KIND_MOVE, dtype=torch.int32, device=dev)
         blocked = torch.zeros(score.shape, dtype=torch.bool, device=dev)
@@ -190,9 +191,9 @@ def make_swap_round(goal, dims, n_pairs: int = 8, k: int = 8, swaps_per_broker: 
             p1, s1 = hp[rows0, a_idx], hs[rows0, a_idx]
             p2, s2 = cp[j_idx, b_idx], cs[j_idx, b_idx]
             c = cold[j_idx]
-            out = score_swaps(kind, static, agg, tables, gs,
+            out = score_swaps(REPLICA_SWAP, static, agg, tables, gs,
                               torch.where(torch.isfinite(bs), p1, -1), s1, hot, p2, s2, c,
-                              resource=res, wave=True)
+                              resource=res, wave=True, ctx=ctx)
             ok = torch.isfinite(out)
             sel = apply_wave(static, agg, p1.contiguous(), move_kind, s1.contiguous(),
                              c.contiguous(), out, ok, make_touch_tag(rnd, w),

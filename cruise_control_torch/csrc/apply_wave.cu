@@ -9,11 +9,12 @@
 // apply_actions_batch calls of swaps.py:293-298, drain.py:610-615 and
 // drain.py:862-867.
 //
-// Bound on this card: latency. A wave holds at most 4,096 entries (the bulk
-// planner's waves hold one per broker, 3,072 on the bucketed smoke model; a
-// drain wave 512 nominations + 512 promotions); its bytes are a few hundred
-// KB at most. What costs is the launch and the chain of dependent stages,
-// each a round of shared-memory atomics ended by a barrier.
+// Bound on this card: latency. A wave on the main path holds at most a few
+// thousand entries (the bulk planner's waves hold one per broker, 3,072 on
+// the bucketed smoke model; a drain wave 512 nominations + 512 promotions);
+// its bytes are a few hundred KB at most. What costs is the launch and the
+// chain of dependent stages, each a round of shared-memory atomics ended by a
+// barrier.
 //
 // The first design ran every selection stage as an O(N^2) pairwise
 // scan over shared memory in one block, and one thread applied the host-CPU
@@ -24,7 +25,19 @@
 // thread 0's serial host-CPU passes and 1% to the claims and the apply
 // (PERF.md). This design keeps one block of 1,024 threads (each stage is a
 // few shared-memory atomics per entry at N <= 4,096, about a microsecond:
-// too little work to spread over a cluster) and makes every stage O(N):
+// too little work to spread over a cluster) and makes every stage O(N).
+// Two launch configurations of it, chosen by size:
+//   - block (k_apply_wave): N <= 4,096 entries (up to four a thread, in
+//     registers) and max(B, H) <= 8,192 groups: entries and the broker and
+//     host tables in shared memory, as below;
+//   - wide (k_apply_wave_wide): any other size. The same stages in the same
+//     order, each thread looping over entries i = tid, tid + 1,024, ...
+//     whose per-entry words live in a global scratch; every table (brokers,
+//     hosts, partitions) in the global workspace, reset slot by slot; the
+//     host-CPU subtractions always through the sort, tile by tile of 4,096
+//     entries (64-bit keys of (source host, entry in the tile)), the tiles
+//     in entry order, so a host's run still subtracts in entry order.
+// The block configuration:
 //   - Each stage of wave_select is one unique_per_group (context.py:460) over
 //     a per-group table: an atomicMax of an order-preserving uint32 key of
 //     the entry's score into every group it claims, a barrier, the float
@@ -69,12 +82,12 @@
 
 #include "common.cuh"
 
-#define MAX_N 4096
+// the block configuration's most entries and groups (brokers or hosts)
+#define BLOCK_N 4096
+#define BLOCK_GROUPS 8192
 #define THREADS 1024
 // the entries a thread owns: i = threadIdx.x + k * THREADS
-#define PER_THREAD (MAX_N / THREADS)
-// the groups (brokers or hosts) a shared-memory table holds
-#define MAX_GROUPS 8192
+#define PER_THREAD (BLOCK_N / THREADS)
 #define SMEM_LIMIT 232448
 // a u16 claim that is not there (one leg, no third broker)
 #define NO_CLAIM 0xFFFFu
@@ -83,7 +96,7 @@
 #define IDX_NONE 0x7FFFFFFF
 // host_cpu sort keys: leg << 26 | source host << 12 | entry; the sort orders
 // bits 12-26 (stable, so entries stay in index order within a run)
-#define SORT_ITEMS (2 * MAX_N / THREADS)
+#define SORT_ITEMS (2 * BLOCK_N / THREADS)
 #define HOST_NONE 0x3FFFu
 #define RUN(key) ((key) >> 12)
 
@@ -450,12 +463,229 @@ __global__ void __launch_bounds__(THREADS) k_apply_wave(WaveArgs w) {
   }
 }
 
+// -- the wide configuration ----------------------------------------------------
+
+// entries of one host-sort tile, and the keys a thread sorts
+#define WIDE_TILE 4096
+#define WIDE_ITEMS (WIDE_TILE / THREADS)
+typedef cub::BlockRadixSort<unsigned long long, THREADS, WIDE_ITEMS> WideSort;
+
+// The wide configuration's per-entry words, in the global scratch (claims
+// -1 where there is none; keep and best the per-stage flags, each entry's
+// own thread the only one to touch them).
+struct WideEntries {
+  float *score, *dc1, *dc2;
+  int *q1, *q2, *src, *dst, *b3, *h1, *h2, *hs1, *hs2;
+  unsigned char *keep, *best;
+};
+
+__host__ __device__ __forceinline__ size_t wide_scratch_bytes(long long n) {
+  return (size_t)n * (12 * 4 + 2);
+}
+
+__device__ __forceinline__ WideEntries wide_carve(unsigned char* base, int n) {
+  WideEntries e;
+  float* f = reinterpret_cast<float*>(base);
+  e.score = f;
+  e.dc1 = f + n;
+  e.dc2 = f + 2 * (size_t)n;
+  int* q = reinterpret_cast<int*>(f + 3 * (size_t)n);
+  e.q1 = q;
+  e.q2 = q + n;
+  e.src = q + 2 * (size_t)n;
+  e.dst = q + 3 * (size_t)n;
+  e.b3 = q + 4 * (size_t)n;
+  e.h1 = q + 5 * (size_t)n;
+  e.h2 = q + 6 * (size_t)n;
+  e.hs1 = q + 7 * (size_t)n;
+  e.hs2 = q + 8 * (size_t)n;
+  e.keep = reinterpret_cast<unsigned char*>(q + 9 * (size_t)n);
+  e.best = e.keep + n;
+  return e;
+}
+
+// unique_per_group over the global tables, each thread looping over its
+// entries; the same three phases, the same compares, the same resets
+template <int C, typename Claim>
+__device__ __forceinline__ void unique_per_group_wide(const WideEntries& e, Claim claim, int n,
+                                                      unsigned* tkey, int* tidx) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n; i += THREADS) {
+    if (!e.keep[i]) continue;
+    const unsigned key = score_key(e.score[i]);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int g = claim(i, c);
+      if (g >= 0) atomicMax(&tkey[g], key);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += THREADS) {
+    bool best = e.keep[i];
+    if (best) {
+      const float s = e.score[i];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int g = claim(i, c);
+        if (g >= 0 && !(s >= key_score(__ldcg(&tkey[g])))) best = false;
+      }
+      if (best) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int g = claim(i, c);
+          if (g >= 0) atomicMin(&tidx[g], i);
+        }
+      }
+    }
+    e.best[i] = best;
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += THREADS) {
+    if (!e.best[i]) continue;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int g = claim(i, c);
+      if (g >= 0 && __ldcg(&tidx[g]) != i) e.best[i] = false;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += THREADS) {
+    if (e.keep[i]) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int g = claim(i, c);
+        if (g < 0) continue;
+        __stcg(&tkey[g], KEY_NONE);
+        __stcg(&tidx[g], IDX_NONE);
+      }
+    }
+    e.keep[i] = e.best[i];
+  }
+  __syncthreads();
+}
+
+// One leg's subtractions of the selected entries' CPU loads from their
+// source hosts, tile by tile of WIDE_TILE entries: the tile's entries sorted
+// by source host (stable), one thread per run subtracting it in entry order.
+// `none` (the host count) marks an entry of no run; `bits` holds it.
+__device__ void subtract_sources_wide(const WaveArgs& w, const WideEntries& e, const int* hs,
+                                      const float* dc, unsigned long long none, int bits,
+                                      unsigned char* smem) {
+  WideSort::TempStorage& tmp = *reinterpret_cast<WideSort::TempStorage*>(smem);
+  unsigned long long* sorted =
+      reinterpret_cast<unsigned long long*>(smem + align16(sizeof(WideSort::TempStorage)));
+  for (int t0 = 0; t0 < w.n; t0 += WIDE_TILE) {
+    unsigned long long keys[WIDE_ITEMS];
+#pragma unroll
+    for (int j = 0; j < WIDE_ITEMS; ++j) {
+      const int r = threadIdx.x * WIDE_ITEMS + j, i = t0 + r;
+      const unsigned long long host = i < w.n && e.keep[i] ? (unsigned long long)hs[i] : none;
+      keys[j] = (host << 12) | (unsigned long long)r;
+    }
+    WideSort(tmp).Sort(keys, 12, 12 + bits);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < WIDE_ITEMS; ++j) sorted[threadIdx.x * WIDE_ITEMS + j] = keys[j];
+    __syncthreads();
+    for (int r = threadIdx.x; r < WIDE_TILE; r += THREADS) {
+      const unsigned long long host = sorted[r] >> 12;
+      if (host == none || (r > 0 && (sorted[r - 1] >> 12) == host)) continue;
+      float x = w.host_cpu[host];
+      for (int q = r; q < WIDE_TILE && (sorted[q] >> 12) == host; ++q)
+        x = x - dc[t0 + (int)(sorted[q] & 0xFFFull)];
+      w.host_cpu[host] = x;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) k_apply_wave_wide(WaveArgs w, unsigned char* scratch,
+                                                             int hosts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = w.n, tid = threadIdx.x;
+  const bool two = w.legs == 2;
+  const WideEntries e = wide_carve(scratch, n);
+  unsigned* tkey = w.part_key;
+  int* tidx = w.part_idx;
+
+  // claims of every entry, from the pre-wave assignment
+  for (int i = tid; i < n; i += THREADS) {
+    bool v = w.ok[i] && w.p[i] >= 0 && (!two || w.p2[i] >= 0);
+    Action a1, a2;
+    if (v) {
+      a1 = build_action(w.assignment, w.R, w.part_load, w.p[i], w.kind[i], w.slot[i], w.dst[i]);
+      v = a1.valid && a1.dst < w.B;
+    }
+    if (v && two) {
+      a2 = build_action(w.assignment, w.R, w.part_load, w.p2[i], w.kind2[i], w.slot2[i], w.dst2[i]);
+      v = a2.valid && a2.dst < w.B;
+    }
+    e.keep[i] = v;
+    if (!v) continue;
+    e.score[i] = w.score[i];
+    e.src[i] = a1.src;
+    e.dst[i] = a1.dst;
+    e.b3[i] = w.brokers3 ? a2.dst : -1;
+    e.h1[i] = w.broker_host[a1.dst];
+    e.h2[i] = two ? w.broker_host[a2.dst] : -1;
+    e.hs1[i] = w.broker_host[a1.src];
+    e.hs2[i] = two ? w.broker_host[a2.src] : -1;
+    e.q1[i] = a1.p;
+    e.q2[i] = two ? a2.p : -1;
+    e.dc1[i] = a1.dload[RES_CPU];
+    e.dc2[i] = two ? a2.dload[RES_CPU] : 0.0f;
+  }
+  __syncthreads();
+
+  // the stages of wave_select, in the reference's order
+  unique_per_group_wide<2>(e, [&](int i, int c) { return c == 0 ? e.src[i] : e.dst[i]; }, n,
+                           tkey, tidx);
+  if (w.brokers3)
+    unique_per_group_wide<3>(e, [&](int i, int c) {
+      return c == 0 ? e.src[i] : (c == 1 ? e.dst[i] : e.b3[i]); }, n, tkey, tidx);
+  unique_per_group_wide<2>(e, [&](int i, int c) { return c == 0 ? e.h1[i] : e.h2[i]; }, n,
+                           tkey, tidx);
+  unique_per_group_wide<2>(e, [&](int i, int c) { return c == 0 ? e.q1[i] : e.q2[i]; }, n,
+                           tkey, tidx);
+
+  // apply the selected entries
+  bool any = false;
+  for (int i = tid; i < n; i += THREADS) {
+    w.sel_out[i] = e.keep[i];
+    if (!e.keep[i]) continue;
+    any = true;
+    Action a1 = build_action(w.assignment, w.R, w.part_load, w.p[i], w.kind[i], w.slot[i], w.dst[i]);
+    Action a2;
+    if (two)
+      a2 = build_action(w.assignment, w.R, w.part_load, w.p2[i], w.kind2[i], w.slot2[i], w.dst2[i]);
+    apply_action(w, a1);
+    if (two) apply_action(w, a2);
+  }
+  if (!__syncthreads_or(any)) return;
+
+  // host_cpu_load: leg 1's subtractions, leg 1's additions, then leg 2's
+  int bits = 1;
+  while (bits < 52 && (1ull << bits) <= (unsigned long long)hosts) ++bits;
+  const unsigned long long none = (unsigned long long)hosts;
+  subtract_sources_wide(w, e, e.hs1, e.dc1, none, bits, smem);
+  for (int i = tid; i < n; i += THREADS)
+    if (e.keep[i]) w.host_cpu[e.h1[i]] = w.host_cpu[e.h1[i]] + e.dc1[i];
+  if (!two) return;
+  __syncthreads();
+  subtract_sources_wide(w, e, e.hs2, e.dc2, none, bits, smem);
+  for (int i = tid; i < n; i += THREADS)
+    if (e.keep[i]) w.host_cpu[e.h2[i]] = w.host_cpu[e.h2[i]] + e.dc2[i];
+}
+
 // ptrs: p, kind, slot, dst, p2, kind2, slot2, dst2 (i32[N]; leg 2 ignored
 //       when legs == 1), score f32[N], ok u8[N], sel_out u8[N],
 //       assignment, part_load, topic_id, broker_rack, broker_host, broker_load,
 //       replica_count, leader_count, potential, leader_nw_in, rack_count,
-//       topic_count, host_cpu, touch_tag, workspace i32[2, >= P] (score keys,
-//       then indices; at 0 and INT32_MAX, as the kernel leaves it)
+//       topic_count, host_cpu, touch_tag, workspace i32[2, >= max(P, B, H)]
+//       (score keys, then indices; at 0 and INT32_MAX, as the kernel leaves
+//       it), scratch (the wide configuration's, wide_scratch_bytes(N) bytes;
+//       unused by the block configuration: kernels/apply_wave.py sizes it
+//       from the same limits, BLOCK_ENTRIES and BLOCK_GROUPS)
 // ints: N, R, NR, B, tag, legs (1 or 2), brokers3 (0 or 1), H, workspace row
 CC_EXPORT int apply_wave(const long long* ptrs, const long long* ints, cudaStream_t stream) {
   WaveArgs w;
@@ -486,29 +716,41 @@ CC_EXPORT int apply_wave(const long long* ptrs, const long long* ints, cudaStrea
   w.host_cpu = (float*)ptrs[k++];
   w.touch_tag = (int*)ptrs[k++];
   w.part_key = (unsigned*)ptrs[k++];
-  w.n = (int)ints[0];
+  unsigned char* scratch = (unsigned char*)ptrs[k++];
+  const long long n = ints[0];
   w.R = (int)ints[1];
   w.NR = (int)ints[2];
   w.B = (int)ints[3];
   w.tag = (int)ints[4];
   w.legs = (int)ints[5];
   w.brokers3 = (int)ints[6];
-  const int hosts = (int)ints[7];
+  const long long hosts = ints[7];
   w.part_idx = (int*)(w.part_key + ints[8]);
-  w.groups = w.B > hosts ? w.B : hosts;
-  if (w.n <= 0) return cudaSuccess;
-  if (w.n > MAX_N || w.legs < 1 || w.legs > 2 || (w.brokers3 && w.legs != 2) ||
-      w.groups > MAX_GROUPS)
+  const long long groups = w.B > hosts ? w.B : hosts;
+  if (n <= 0) return cudaSuccess;
+  if (n >= 0x7FFFFFFFLL || w.legs < 1 || w.legs > 2 || (w.brokers3 && w.legs != 2) ||
+      groups > ints[8] || hosts > 0x7FFFFFFFLL)
     return cudaErrorInvalidValue;
+  w.n = (int)n;
+  w.groups = (int)groups;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e =
         cudaFuncSetAttribute(k_apply_wave, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(k_apply_wave_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_LIMIT);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const size_t smem = smem_bytes(w.n, w.groups);
-  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  k_apply_wave<<<1, THREADS, smem, stream>>>(w);
+  if (n <= BLOCK_N && groups <= BLOCK_GROUPS) {
+    const size_t smem = smem_bytes(w.n, w.groups);
+    if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+    k_apply_wave<<<1, THREADS, smem, stream>>>(w);
+    return cudaGetLastError();
+  }
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = align16(sizeof(WideSort::TempStorage)) + WIDE_TILE * sizeof(unsigned long long);
+  k_apply_wave_wide<<<1, THREADS, smem, stream>>>(w, scratch, (int)hosts);
   return cudaGetLastError();
 }

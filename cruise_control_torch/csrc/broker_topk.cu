@@ -26,7 +26,10 @@
 //                  broker's, a block scan, the keys placed) and write them
 //                  out coalesced: block g's keys of broker b are the run
 //                  keys[g * chunk + start, + count), and runs[g * B + b] holds
-//                  (start << 16) | count;
+//                  (start << 16) | count. Up to 32,768 brokers the histogram
+//                  lives in shared memory; above, in the block's own row of
+//                  `runs`, which the scan then overwrites (a second launch
+//                  configuration of the same kernel, for any B < 2**31);
 //   k_topk_select  one warp per broker: lane l takes the broker's runs of
 //                  blocks l, l + 32, ...; each pass, a lane keeps the 8
 //                  largest keys below the last winner among its runs,
@@ -66,14 +69,20 @@ __device__ __forceinline__ unsigned int order_bits(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// the most brokers whose counters k_topk_runs keeps in shared memory
+constexpr long long K2_SHARED_BINS = 32768;
+
 // dynamic shared memory of k_topk_runs: K2_CHUNK keys, then B counters
+// (GLOBAL_BINS: the counters in the block's row of `runs` instead)
+template <bool GLOBAL_BINS>
 __global__ void __launch_bounds__(K2_THREADS)
     k_topk_runs(const float* __restrict__ contrib, const int* __restrict__ assignment,
                 const unsigned char* __restrict__ movable, long long n, int R, int B,
                 int heaviest, int chunk, unsigned int* __restrict__ runs,
                 unsigned long long* __restrict__ keys) {
   extern __shared__ unsigned long long s_keys[];
-  unsigned int* s_bin = (unsigned int*)(s_keys + K2_CHUNK);
+  unsigned int* row = runs + (long long)blockIdx.x * B;
+  unsigned int* s_bin = GLOBAL_BINS ? row : (unsigned int*)(s_keys + K2_CHUNK);
   __shared__ K2Scan::TempStorage scan_tmp;
   const int tid = threadIdx.x;
   for (int b = tid; b < B; b += K2_THREADS) s_bin[b] = 0u;
@@ -116,16 +125,16 @@ __global__ void __launch_bounds__(K2_THREADS)
   for (int j = 0; j < K2_ITEMS; ++j) rank[j] = key[j] ? atomicAdd(&s_bin[bk[j]], 1u) : 0u;
   __syncthreads();
 
-  // the block's runs: an exclusive scan of the counts, bins base + tid
-  unsigned int* row = runs + (long long)blockIdx.x * B;
+  // the block's runs: an exclusive scan of the counts, bins base + tid (the
+  // global counters read past L1, where their atomics land)
   unsigned int carry = 0u;
   for (int base = 0; base < B; base += K2_THREADS) {
     int b = base + tid;
-    unsigned int cnt = b < B ? s_bin[b] : 0u, start, total;
+    unsigned int cnt = b < B ? (GLOBAL_BINS ? __ldcg(s_bin + b) : s_bin[b]) : 0u, start, total;
     K2Scan(scan_tmp).ExclusiveSum(cnt, start, total);
     start += carry;
     if (b < B) {
-      s_bin[b] = start;
+      if (!GLOBAL_BINS) s_bin[b] = start;
       row[b] = (start << 16) | cnt;
     }
     carry += total;
@@ -133,7 +142,8 @@ __global__ void __launch_bounds__(K2_THREADS)
   }
 #pragma unroll
   for (int j = 0; j < K2_ITEMS; ++j)
-    if (key[j]) s_keys[s_bin[bk[j]] + rank[j]] = key[j];
+    if (key[j])
+      s_keys[(GLOBAL_BINS ? __ldcg(row + bk[j]) >> 16 : s_bin[bk[j]]) + rank[j]] = key[j];
   __syncthreads();
   unsigned long long* out = keys + (long long)blockIdx.x * chunk;
   for (unsigned int e = tid; e < carry; e += K2_THREADS) out[e] = s_keys[e];
@@ -379,29 +389,38 @@ __global__ void __launch_bounds__(K2_SELECT_THREADS, K2_SELECT_MIN_BLOCKS)
 // contrib f32[P*R], assignment i32[P*R], movable u8[P]; runs u32[blocks * B];
 // keys u64[blocks * chunk]; out_p, out_s i32[B, k], out_ok u8[B, k]. The
 // slots are cut into `blocks` chunks of ceil(P*R / blocks) <= 4,096; P*R <
-// 2**32; B <= 32,768 (the block's counters and keys in shared memory).
+// 2**32; B < 2**31 (the block's counters in shared memory up to
+// K2_SHARED_BINS brokers, in its row of `runs` above).
 CC_EXPORT int broker_topk(const float* contrib, const int* assignment, const unsigned char* movable,
                           unsigned int* runs, unsigned long long* keys, int* out_p, int* out_s,
                           unsigned char* out_ok, long long P, long long R, long long B, long long k,
                           long long heaviest, long long blocks, cudaStream_t stream) {
   if (B <= 0 || k <= 0) return cudaSuccess;
   long long n = P * R, chunk = blocks > 0 ? (n + blocks - 1) / blocks : 0;
-  if (R <= 0 || blocks <= 0 || n >= (1LL << 32) || chunk > K2_CHUNK || B > 32768 ||
+  if (R <= 0 || blocks <= 0 || n >= (1LL << 32) || chunk > K2_CHUNK || B > 0x7fffffffLL ||
       blocks > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (chunk == 0) chunk = 1;
-  size_t smem = (size_t)K2_CHUNK * sizeof(unsigned long long) + (size_t)B * sizeof(unsigned int);
-  static size_t smem_set[64];  // per device: the largest size allowed so far
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64 || smem_set[dev] < smem) {
-    e = cudaFuncSetAttribute(k_topk_runs, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e;
+  if (B > K2_SHARED_BINS) {
+    k_topk_runs<true><<<(unsigned)blocks, K2_THREADS, K2_CHUNK * sizeof(unsigned long long),
+                        stream>>>(contrib, assignment, movable, n, (int)R, (int)B,
+                                  (int)heaviest, (int)chunk, runs, keys);
+  } else {
+    size_t smem = (size_t)K2_CHUNK * sizeof(unsigned long long) + (size_t)B * sizeof(unsigned int);
+    static size_t smem_set[64];  // per device: the largest size allowed so far
+    int dev = 0;
+    e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
-    if (dev >= 0 && dev < 64) smem_set[dev] = smem;
+    if (dev < 0 || dev >= 64 || smem_set[dev] < smem) {
+      e = cudaFuncSetAttribute(k_topk_runs<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return e;
+      if (dev >= 0 && dev < 64) smem_set[dev] = smem;
+    }
+    k_topk_runs<false><<<(unsigned)blocks, K2_THREADS, smem, stream>>>(
+        contrib, assignment, movable, n, (int)R, (int)B, (int)heaviest, (int)chunk, runs, keys);
   }
-  k_topk_runs<<<(unsigned)blocks, K2_THREADS, smem, stream>>>(
-      contrib, assignment, movable, n, (int)R, (int)B, (int)heaviest, (int)chunk, runs, keys);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   k_topk_select<<<(unsigned)((B + K2_SELECT_WARPS - 1) / K2_SELECT_WARPS), K2_SELECT_THREADS, 0,
                   stream>>>(

@@ -5,9 +5,9 @@
 // `ptrs` holds device addresses, `ints` sizes, strides and flags, both host
 // arrays read before the launch; or, for an entry point called through
 // kernels/build.py `entry` (window_sum, broker_topk, score_candidates,
-// grid_shortlist), the arguments one by one: device addresses (K3 and K9
-// first the host address of their packed ScoreCtx, score_goal.cuh), 64-bit
-// integers, the stream last. The return
+// score_swaps, pair_picks, grid_shortlist), the arguments one by one: device
+// addresses (K3, K5 and K9 first the host address of their packed ScoreCtx,
+// score_goal.cuh), 64-bit integers, the stream last. The return
 // value is the cudaError_t of the launch (0 on success); cc_error_string
 // names it.
 #pragma once

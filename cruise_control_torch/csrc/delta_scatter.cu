@@ -25,15 +25,16 @@
 // is 64 rows.
 //
 // Design: one launch, no grid-wide step. The block stages the batch's
-// normalized targets in shared memory (-1 where the row writes nothing).
-// Thread i then owns partition row i and broker i: it scans the batch in
-// order, so the last landing row wins, and writes the row (the delta's or
-// the input's) and the broker's state and six masks. Thread 0 also writes
-// the partition count. Every thread of a warp reads the same shared word in
-// a scan step (a broadcast).
+// normalized targets in shared memory (-1 where the row writes nothing), a
+// tile of D_TILE rows at a time, so a batch of any size takes the same
+// kernel. Thread i owns partition row i and broker i: it scans the tiles in
+// order, so the last landing row wins, and then writes the row (the delta's
+// or the input's) and the broker's state and six masks. Thread 0 also
+// writes the partition count. Every thread of a warp reads the same shared
+// word in a scan step (a broadcast).
 #include "common.cuh"
 
-#define MAX_D 2048
+#define D_TILE 2048
 #define STATE_NEW 1
 #define STATE_DEMOTED 2
 #define STATE_DEAD 3
@@ -66,22 +67,30 @@ __device__ __forceinline__ int landing(bool kind_ok, int idx, int n) {
 }
 
 __global__ void k_delta_scatter(ScatterArgs a) {
-  extern __shared__ int smem[];
-  int* s_b = smem;            // broker target of a KIND_STATE row
-  int* s_r = smem + a.d;      // load-row target of a KIND_LOAD / KIND_PART_ADD row
-  int* s_t = smem + 2 * a.d;  // topic target of a KIND_PART_ADD row
-  for (int k = threadIdx.x; k < a.d; k += blockDim.x) {
-    int kd = a.kind[k];
-    s_b[k] = landing(kd == K_STATE, a.broker[k], a.b);
-    s_r[k] = landing(kd == K_LOAD || kd == K_PART_ADD, a.row[k], a.p);
-    s_t[k] = landing(kd == K_PART_ADD, a.row[k], a.p);
-  }
-  __syncthreads();
+  __shared__ int s_b[D_TILE];  // broker target of a KIND_STATE row
+  __shared__ int s_r[D_TILE];  // load-row target of a KIND_LOAD / KIND_PART_ADD row
+  __shared__ int s_t[D_TILE];  // topic target of a KIND_PART_ADD row
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // the last landing row of each target: the state's, the load row's, the topic's
+  int wb = -1, wl = -1, wt = -1;
+  for (int k0 = 0; k0 < a.d; k0 += D_TILE) {
+    const int nk = min(D_TILE, a.d - k0);
+    for (int k = threadIdx.x; k < nk; k += blockDim.x) {
+      int kd = a.kind[k0 + k];
+      s_b[k] = landing(kd == K_STATE, a.broker[k0 + k], a.b);
+      s_r[k] = landing(kd == K_LOAD || kd == K_PART_ADD, a.row[k0 + k], a.p);
+      s_t[k] = landing(kd == K_PART_ADD, a.row[k0 + k], a.p);
+    }
+    __syncthreads();
+    for (int k = 0; k < nk; ++k) {
+      if (s_b[k] == i) wb = k0 + k;
+      if (s_r[k] == i) wl = k0 + k;
+      if (s_t[k] == i) wt = k0 + k;
+    }
+    __syncthreads();
+  }
   if (i < a.b) {
-    int st = a.state_in[i];
-    for (int k = 0; k < a.d; ++k)
-      if (s_b[k] == i) st = a.state[k];
+    const int st = wb >= 0 ? a.state[wb] : a.state_in[i];
     const bool v = a.valid[i];
     const bool alive = (st != STATE_DEAD) && v;
     const bool demoted = (st == STATE_DEMOTED) && v;
@@ -94,11 +103,6 @@ __global__ void k_delta_scatter(ScatterArgs a) {
     a.lead_ok[i] = alive && !demoted && a.base_lead[i];
   }
   if (i < a.p) {
-    int wl = -1, wt = -1;
-    for (int k = 0; k < a.d; ++k) {
-      if (s_r[k] == i) wl = k;
-      if (s_t[k] == i) wt = k;
-    }
     const float* src = wl >= 0 ? a.load + (long long)wl * a.m : a.part_load_in + i * a.m;
     float* dst = a.part_load_out + i * a.m;
     for (int j = 0; j < a.m; ++j) dst[j] = src[j];
@@ -148,10 +152,10 @@ CC_EXPORT int delta_scatter(const long long* ptrs, const long long* ints, cudaSt
   a.m = (int)ints[1];
   a.b = (int)ints[2];
   a.p = (int)ints[3];
-  if (a.d < 0 || a.d > MAX_D || a.m <= 0 || a.b < 0 || a.p < 0) return cudaErrorInvalidValue;
+  if (a.d < 0 || a.m <= 0 || a.b < 0 || a.p < 0) return cudaErrorInvalidValue;
   const int threads = 256;
   const long long n = a.b > a.p ? a.b : a.p;
   const long long blocks = n > 0 ? (n + threads - 1) / threads : 1;
-  k_delta_scatter<<<(unsigned)blocks, threads, 3 * (a.d > 0 ? a.d : 1) * sizeof(int), stream>>>(a);
+  k_delta_scatter<<<(unsigned)blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
 }

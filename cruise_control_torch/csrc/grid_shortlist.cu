@@ -16,9 +16,10 @@
 // memory.
 //
 // Design: a warp takes a group of G = 32 / (2R) partitions at a time (5 at
-// R = 3). The block first stages the K destination candidates' halves in
-// shared memory. Then, for the group, 2R lanes a partition load at once
-// every half its cells share: R lanes the move source halves (one a slot)
+// R = 3; one where 2R > 32). The block first stages the K destination
+// candidates' halves in shared memory. Then, for the group, 2R lanes a
+// partition (above R = 16, each lane ceil(2R / 32) of the roles in turn)
+// load at once every half its cells share: R lanes the move source halves (one a slot)
 // and the assignment row, R - 1 lanes the followers' destination halves,
 // one lane the leader's source half; every lane then loads the move cells'
 // pair words, one per (partition, candidate); and the lanes combine the
@@ -36,11 +37,13 @@
 // of one block reduces the records and writes the winner. With every cell
 // -inf the winner is p 0, slot 0, and the first destination candidate (kind
 // MOVE), or broker 0 for a goal without moves, as the reference's initial
-// values give.
+// values give. A block has K9_WARPS warps, fewer where a wide R and K would
+// not fit their shared memory.
 #include "score_goal.cuh"
 
-constexpr int K9_WARPS = 4;
-constexpr int K9_THREADS = K9_WARPS * 32;
+constexpr int K9_WARPS = 4;  // a block's warps, at most
+// the most dynamic shared memory a block of k_grid_bid takes
+constexpr size_t K9_SMEM_MAX = 200 * 1024;
 // the most blocks a launch uses (the size of the caller's record scratch)
 constexpr int K9_MAX_BLOCKS = 4096;
 
@@ -74,10 +77,10 @@ __host__ __device__ __forceinline__ size_t warp_bytes(int R, int K, int G) {
                       K * sizeof(PairWords) + R * sizeof(int) + (R * K + R - 1) * sizeof(float));
 }
 
-__global__ void __launch_bounds__(K9_THREADS) k_grid_bid(GridArgs g, BlockBest* blocks) {
+__global__ void __launch_bounds__(K9_WARPS * 32) k_grid_bid(GridArgs g, BlockBest* blocks) {
   extern __shared__ int smem[];
   const int R = g.c.R, K = g.K, G = g.G, RK = R * K, C = RK + R - 1;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
   DstHalf* s_dst = reinterpret_cast<DstHalf*>(smem);
   char* w = reinterpret_cast<char*>(s_dst + K) + (size_t)warp * warp_bytes(R, K, G);
   SrcHalf* mv = reinterpret_cast<SrcHalf*>(w);
@@ -88,18 +91,20 @@ __global__ void __launch_bounds__(K9_THREADS) k_grid_bid(GridArgs g, BlockBest* 
   float* score = reinterpret_cast<float*>(row + G * R);
   __shared__ BlockBest s_best[K9_WARPS];
   if (g.uses_moves)
-    for (int k = threadIdx.x; k < K; k += K9_THREADS) s_dst[k] = dst_half(g.c, g.dst_cands[k]);
+    for (int k = threadIdx.x; k < K; k += blockDim.x) s_dst[k] = dst_half(g.c, g.dst_cands[k]);
   __syncthreads();
 
   const unsigned full = 0xffffffffu;
   const Scalars sc = load_scalars(g.c);
   const int first_dst = g.uses_moves ? g.dst_cands[0] : 0;
   BlockBest wb{0ull, -INFINITY, KIND_MOVE, 0, 0};
-  const long long stride = (long long)gridDim.x * K9_WARPS * G;
-  for (long long p0 = ((long long)blockIdx.x * K9_WARPS + warp) * G; p0 < g.P; p0 += stride) {
-    // 1. the halves, all of the group's at once
-    const int gi = lane / (2 * R), role = lane % (2 * R);
-    if (gi < G && p0 + gi < g.P) {
+  const long long stride = (long long)gridDim.x * warps * G;
+  for (long long p0 = ((long long)blockIdx.x * warps + warp) * G; p0 < g.P; p0 += stride) {
+    // 1. the halves, all of the group's at once (a lane a role; roles past
+    //    the warp's 32 lanes in further turns)
+    for (int j = lane; j < G * 2 * R; j += 32) {
+      const int gi = j / (2 * R), role = j % (2 * R);
+      if (p0 + gi >= g.P) continue;
       const int p = (int)(p0 + gi);
       const int* arow = g.c.assignment + (long long)p * R;
       if (role < R) {
@@ -184,7 +189,7 @@ __global__ void __launch_bounds__(K9_THREADS) k_grid_bid(GridArgs g, BlockBest* 
   __syncthreads();
   if (threadIdx.x == 0) {
     BlockBest b = s_best[0];
-    for (int i = 1; i < K9_WARPS; ++i)
+    for (int i = 1; i < warps; ++i)
       if (s_best[i].key > b.key) b = s_best[i];
     blocks[blockIdx.x] = b;
   }
@@ -227,8 +232,9 @@ __global__ void __launch_bounds__(256) k_grid_take(GridArgs g, const BlockBest* 
 constexpr int K9_MAX_DEVICES = 64;
 struct K9Launch {
   size_t smem_set = 48 * 1024;  // k_grid_bid's dynamic shared-memory limit
-  int sms = 0, per_sm = 0;      // SMs; blocks an SM at per_sm_smem bytes
+  int sms = 0, per_sm = 0;      // SMs; blocks an SM at per_sm_smem bytes and per_sm_warps
   size_t per_sm_smem = (size_t)-1;
+  int per_sm_warps = 0;
 };
 
 // ctx: the score context (host memory, read here); out_score f32[1], out_idx
@@ -248,10 +254,14 @@ CC_EXPORT int grid_shortlist(const ScoreCtx* ctx, float* out_score, int* out_idx
   g.use_leadership = use_leadership != 0 && ctx->R >= 2;
   if (P <= 0 || P > 0x7fffffffLL || ctx->R < 1) return cudaErrorInvalidValue;
   g.G = 32 / (2 * ctx->R) > 0 ? 32 / (2 * ctx->R) : 1;
-  if (2 * ctx->R > 32) return cudaErrorInvalidValue;  // a partition's halves take 2R lanes
+  // as many warps as fit the block's shared memory, up to K9_WARPS
+  int warps = K9_WARPS;
+  while (warps > 1 &&
+         (size_t)K * sizeof(DstHalf) + (size_t)warps * warp_bytes(ctx->R, (int)K, g.G) > K9_SMEM_MAX)
+    --warps;
   const size_t smem =
-      (size_t)K * sizeof(DstHalf) + (size_t)K9_WARPS * warp_bytes(ctx->R, (int)K, g.G);
-  if (smem > 200 * 1024) return cudaErrorInvalidValue;
+      (size_t)K * sizeof(DstHalf) + (size_t)warps * warp_bytes(ctx->R, (int)K, g.G);
+  if (smem > K9_SMEM_MAX) return cudaErrorInvalidValue;
   // the launch state of the current device (the one `stream` belongs to):
   // the shared-memory attribute, the SM count and the occupancy are each a
   // device's own
@@ -272,17 +282,18 @@ CC_EXPORT int grid_shortlist(const ScoreCtx* ctx, float* out_score, int* out_idx
     e = cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
   }
-  if (st.per_sm_smem != smem) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.per_sm, k_grid_bid, K9_THREADS, smem);
+  if (st.per_sm_smem != smem || st.per_sm_warps != warps) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.per_sm, k_grid_bid, warps * 32, smem);
     if (e != cudaSuccess) return e;
     st.per_sm_smem = smem;
+    st.per_sm_warps = warps;
   }
-  long long n = (P + (long long)K9_WARPS * g.G - 1) / ((long long)K9_WARPS * g.G);
+  long long n = (P + (long long)warps * g.G - 1) / ((long long)warps * g.G);
   const long long wave = (long long)st.sms * (st.per_sm > 0 ? st.per_sm : 1);
   if (n > wave) n = wave;
   if (n > K9_MAX_BLOCKS) n = K9_MAX_BLOCKS;
   BlockBest* rec = static_cast<BlockBest*>(blocks);
-  k_grid_bid<<<(unsigned)n, K9_THREADS, smem, stream>>>(g, rec);
+  k_grid_bid<<<(unsigned)n, warps * 32, smem, stream>>>(g, rec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   k_grid_take<<<1, 256, 0, stream>>>(g, rec, (int)n);

@@ -4,87 +4,158 @@
 // Replaces: cruise_control_tpu/analyzer/drain.py pair_replica_picks (:235),
 // k segment_min passes of the flat slot index over T * B + 1 group ids.
 //
-// Bound on this card: bytes. Each pass reads the P * R assignment (2.4 MB on
-// the smoke model), the partition's topic and movable flag and the broker's
-// pair row: about 3.4 MB a pass, 4 passes, ~4 us at the card's rate.
+// Bound on this card: bytes. The call reads the P * R assignment (2.4 MB on
+// the bucketed smoke model), each partition's topic and movable flag and
+// each broker's pair row once: about 3.4 MB, ~1 us at the card's rate.
 //
-// Design: no T * B group table (10.4M groups on the smoke model). The V pairs'
-// brokers are distinct, so the wrapper's pair_row_of_broker i32[B] names the
-// one row a slot can belong to. Pass j: every slot of its row's topic whose
-// index exceeds the row's previous pick bids with atomicMin on a per-row i32;
-// a second small kernel records the winner, which is the reference's j-th
-// segment minimum. atomicMin on an integer is exact in any order. A row with
-// no more slots reports the last slot with found = 0, as the reference does.
+// Design: no T * B group table (10.4M groups on the smoke model), and one
+// read of the slots. The V pairs' brokers are distinct, so a table
+// row_of[B] names the one row a slot can belong to. Every slot of its row's
+// topic inserts its flat index into the row's k-entry list with an
+// atomicMin cascade: v = index; for j in 0..k-1, old = atomicMin(&list[j],
+// v), v = max(old, v), until v is the sentinel. Each level is a
+// linearizable atomicMin, so level j ends holding the row's j-th smallest
+// index whatever the order of arrival: exactly the reference's k segment
+// minima. The lists are per-device scratch that every call leaves at the
+// sentinel. A row with fewer than k slots reports the last slot with found
+// = 0, as the reference does. Two launches, in one of two configurations
+// chosen by the broker count:
+//   - up to 12,288 brokers (48 KB): k_pair_pass<true> builds row_of in each
+//     block's shared memory while its slots' loads are in flight, then the
+//     pass; k_pair_take, a thread a list entry, writes (p, slot, found) and
+//     puts the entry back at the sentinel;
+//   - above: k_pair_rows writes row_of into a per-device table kept at -1,
+//     and k_pair_pass<false>'s last block to finish (an atomic ticket after
+//     __threadfence) writes the picks and puts row_of, the lists and the
+//     ticket back.
 #include "common.cuh"
 
-__global__ void k_pair_init(int* best, int v, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < v) best[i] = n;
+constexpr int K6_THREADS = 256;
+constexpr int K6_ITEMS = 4;  // slots a thread takes
+constexpr int K6_NONE = 0x7FFFFFFF;
+constexpr long long K6_SHARED_ROWS = 12288;  // brokers whose rows fit 48 KB of shared memory
+
+__global__ void k_pair_rows(const int* __restrict__ pair_b, int v, int B, int* __restrict__ row_of) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= v) return;
+  const int b = pair_b[i];
+  if (b >= 0 && b < B) row_of[b] = i;
 }
 
-__global__ void k_pair_bid(const int* assignment, const int* topic_id, const unsigned char* movable,
-                           const int* pair_t, const int* row_of, const int* out_p,
-                           const int* out_s, const unsigned char* out_ok, long long n, int R,
-                           int k, int pass, int* best) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int b = assignment[i];
-  if (b < 0) return;
-  long long p = i / R;
-  if (!movable[p]) return;
-  int row = row_of[b];
-  if (row < 0 || topic_id[p] != pair_t[row]) return;
-  if (pass > 0) {
-    long long prev = (long long)row * k + pass - 1;
-    if (!out_ok[prev]) return;
-    if (i <= (long long)out_p[prev] * R + out_s[prev]) return;
-  }
-  atomicMin(&best[row], (int)i);
-}
-
-__global__ void k_pair_take(int* best, int v, long long n, int R, int k, int pass, int* out_p,
-                            int* out_s, unsigned char* out_ok) {
-  int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= v) return;
-  long long idx = best[row];
-  bool found = idx < n;
-  if (!found) idx = n - 1;
-  long long o = (long long)row * k + pass;
-  out_p[o] = (int)(idx / R);
-  out_s[o] = (int)(idx % R);
+// (p, slot, found) of list entry o, which goes back to the sentinel
+__device__ __forceinline__ void take(int* lists, long long o, long long n, int R, int* out_p,
+                                     int* out_s, unsigned char* out_ok) {
+  const int idx = __ldcg(lists + o);
+  const bool found = idx != K6_NONE;
+  const long long sel = found ? idx : n - 1;
+  out_p[o] = (int)(sel / R);
+  out_s[o] = (int)(sel % R);
   out_ok[o] = found ? 1 : 0;
-  best[row] = (int)n;  // reset for the next pass
+  lists[o] = K6_NONE;
 }
 
-// ptrs: assignment i32[P*R], topic_id i32[P], movable u8[P], pair_t i32[V],
-//       row_of i32[B], best i32[V] (scratch), out_p i32[V,k], out_s i32[V,k],
-//       out_ok u8[V,k]
-// ints: P, R, B, V, k
-CC_EXPORT int pair_picks(const long long* ptrs, const long long* ints, cudaStream_t stream) {
-  const int* assignment = (const int*)ptrs[0];
-  const int* topic_id = (const int*)ptrs[1];
-  const unsigned char* movable = (const unsigned char*)ptrs[2];
-  const int* pair_t = (const int*)ptrs[3];
-  const int* row_of = (const int*)ptrs[4];
-  int* best = (int*)ptrs[5];
-  int* out_p = (int*)ptrs[6];
-  int* out_s = (int*)ptrs[7];
-  unsigned char* out_ok = (unsigned char*)ptrs[8];
-  long long P = ints[0];
-  int R = (int)ints[1];
-  int v = (int)ints[3], k = (int)ints[4];
-  long long n = P * R;
-  if (v == 0 || n == 0) return cudaSuccess;
-  cudaError_t e;
-  k_pair_init<<<(v + 255) / 256, 256, 0, stream>>>(best, v, (int)n);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  for (int pass = 0; pass < k; ++pass) {
-    k_pair_bid<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        assignment, topic_id, movable, pair_t, row_of, out_p, out_s, out_ok, n, R, k, pass, best);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    k_pair_take<<<(v + 255) / 256, 256, 0, stream>>>(best, v, n, R, k, pass, out_p, out_s,
-                                                     out_ok);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+template <bool SHARED_ROWS>
+__global__ void __launch_bounds__(K6_THREADS)
+    k_pair_pass(const int* __restrict__ assignment, const int* __restrict__ topic_id,
+                const unsigned char* __restrict__ movable, const int* __restrict__ pair_t,
+                const int* __restrict__ pair_b, int* row_of, int* lists, unsigned int* ticket,
+                long long n, int R, int B, int v, int k, int* __restrict__ out_p,
+                int* __restrict__ out_s, unsigned char* __restrict__ out_ok) {
+  extern __shared__ int s_row[];  // SHARED_ROWS: row_of[B]
+  __shared__ bool s_last;
+  const long long base = (long long)blockIdx.x * K6_THREADS * K6_ITEMS + threadIdx.x;
+  // every load issued, at a clamped index, before any is used
+  int b[K6_ITEMS];
+#pragma unroll
+  for (int j = 0; j < K6_ITEMS; ++j) b[j] = assignment[min(base + j * K6_THREADS, n - 1)];
+  int t[K6_ITEMS];
+  unsigned char mv[K6_ITEMS];
+#pragma unroll
+  for (int j = 0; j < K6_ITEMS; ++j) {
+    const long long p = min(base + j * K6_THREADS, n - 1) / R;
+    t[j] = topic_id[p];
+    mv[j] = movable[p];
   }
-  return cudaSuccess;
+  const int* rows = row_of;
+  if constexpr (SHARED_ROWS) {
+    for (int x = threadIdx.x; x < B; x += K6_THREADS) s_row[x] = -1;
+    __syncthreads();
+    for (int r = threadIdx.x; r < v; r += K6_THREADS) {
+      const int bb = pair_b[r];
+      if (bb >= 0 && bb < B) s_row[bb] = r;
+    }
+    __syncthreads();
+    rows = s_row;
+  }
+  int row[K6_ITEMS];
+#pragma unroll
+  for (int j = 0; j < K6_ITEMS; ++j) row[j] = rows[b[j] >= 0 && b[j] < B ? b[j] : 0];
+#pragma unroll
+  for (int j = 0; j < K6_ITEMS; ++j) {
+    const long long i = base + j * K6_THREADS;
+    bool mine = i < n && b[j] >= 0 && b[j] < B && mv[j] && row[j] >= 0;
+    mine = mine && t[j] == pair_t[mine ? row[j] : 0];
+    if (!mine) continue;
+    int* list = lists + (long long)row[j] * k;
+    int x = (int)i;
+    for (int q = 0; q < k && x != K6_NONE; ++q) {
+      const int old = atomicMin(list + q, x);
+      x = old > x ? old : x;
+    }
+  }
+  if constexpr (!SHARED_ROWS) {
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!s_last) return;
+    // the last block: every row's picks, then the scratch back at its state
+    __threadfence();
+    for (long long o = threadIdx.x; o < (long long)v * k; o += K6_THREADS)
+      take(lists, o, n, R, out_p, out_s, out_ok);
+    for (int r = threadIdx.x; r < v; r += K6_THREADS) {
+      const int bb = pair_b[r];
+      if (bb >= 0 && bb < B) row_of[bb] = -1;
+    }
+    if (threadIdx.x == 0) *ticket = 0u;
+  }
+}
+
+__global__ void k_pair_take(int* lists, long long vk, long long n, int R, int* __restrict__ out_p,
+                            int* __restrict__ out_s, unsigned char* __restrict__ out_ok) {
+  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o < vk) take(lists, o, n, R, out_p, out_s, out_ok);
+}
+
+// assignment i32[P*R], topic_id i32[P], movable u8[P], pair_t, pair_b i32[V];
+// row_of i32[>= B] (scratch at -1), lists i32[>= V*k] (scratch at
+// INT32_MAX), ticket u32 (scratch at 0), each left so; out_p, out_s i32[V,
+// k], out_ok u8[V, k]. P * R < 2**31 - 1.
+CC_EXPORT int pair_picks(const int* assignment, const int* topic_id, const unsigned char* movable,
+                         const int* pair_t, const int* pair_b, int* row_of, int* lists,
+                         unsigned int* ticket, int* out_p, int* out_s, unsigned char* out_ok,
+                         long long P, long long R, long long B, long long V, long long k,
+                         cudaStream_t stream) {
+  const long long n = P * R;
+  if (V <= 0 || k <= 0) return cudaSuccess;
+  if (n <= 0 || R <= 0 || n >= 0x7FFFFFFFLL || B <= 0 || B > 0x7FFFFFFFLL || V * k > 0x7FFFFFFFLL)
+    return cudaErrorInvalidValue;
+  const long long per_block = (long long)K6_THREADS * K6_ITEMS;
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  cudaError_t e;
+  if (B <= K6_SHARED_ROWS) {
+    k_pair_pass<true><<<blocks, K6_THREADS, B * sizeof(int), stream>>>(
+        assignment, topic_id, movable, pair_t, pair_b, row_of, lists, ticket, n, (int)R, (int)B,
+        (int)V, (int)k, out_p, out_s, out_ok);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    k_pair_take<<<(unsigned)((V * k + 255) / 256), 256, 0, stream>>>(lists, V * k, n, (int)R,
+                                                                     out_p, out_s, out_ok);
+    return cudaGetLastError();
+  }
+  k_pair_rows<<<(unsigned)((V + 255) / 256), 256, 0, stream>>>(pair_b, (int)V, (int)B, row_of);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  k_pair_pass<false><<<blocks, K6_THREADS, 0, stream>>>(
+      assignment, topic_id, movable, pair_t, pair_b, row_of, lists, ticket, n, (int)R, (int)B,
+      (int)V, (int)k, out_p, out_s, out_ok);
+  return cudaGetLastError();
 }

@@ -64,7 +64,8 @@ struct ScoreCtx {
   const float *w_lower, *w_upper;  // the soft goal's window: f32[] or f32[T]
   const unsigned char* w_active;
   const unsigned char* only_immigrants;  // bool[]: only replicas on dead brokers move
-  int R, NR, B, goal;
+  const float* capacity_limit;           // f32[B, 4]: K5's capacity and potential bounds
+  int R, NR, B, goal;                    // goal: -1 in a context of K5's, which reads none
 };
 
 template <typename T>

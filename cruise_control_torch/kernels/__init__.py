@@ -22,7 +22,8 @@ PyTorch version.
 
 A wrapper runs the plain version for CPU tensors and launches its kernel for
 CUDA tensors (or raises); it counts its launches in `<wrapper>.launches`
-(K3 also by goal case and by path, in `score_candidates.cases` and `.paths`).
+(K3 also by goal case and by path, in `score_candidates.cases` and `.paths`,
+K5 by path in `score_swaps.paths`).
 Sources are in `cruise_control_torch/csrc/`, built by `kernels.build` at
 first use.
 """

@@ -16,14 +16,21 @@ from cruise_control_torch.analyzer.actions import KIND_MOVE, build_selected
 from cruise_control_torch.common.resources import Resource
 from cruise_control_torch.kernels import build
 
-#: the most entries one wave may hold (one CUDA block; the bulk planner's
-#: waves hold one entry per broker, 3,072 on the bucketed smoke model)
-MAX_WAVE = 4096
-#: the most brokers, and hosts, the kernel's shared-memory tables hold
-MAX_GROUPS = 8192
-#: per device, the kernel's partition table: i32[2, >= P], score keys at 0
-#: and indices at INT32_MAX, the state every launch leaves it in
+#: the kernel's block configuration takes waves of up to BLOCK_ENTRIES
+#: entries over up to BLOCK_GROUPS brokers and hosts (entries and tables in
+#: shared memory; the bulk planner's waves hold one entry per broker, 3,072 on
+#: the bucketed smoke model); any larger wave takes its wide configuration
+#: (csrc/apply_wave.cu)
+BLOCK_ENTRIES = 4096
+BLOCK_GROUPS = 8192
+#: per device, the kernel's group tables: i32[2, >= max(P, B, H)], score
+#: keys at 0 and indices at INT32_MAX, the state every launch leaves it in
 _WORKSPACE = {}
+#: per device, the wide configuration's per-entry scratch (bytes), grown on
+#: demand; nothing in it outlives a call
+_SCRATCH = {}
+#: bytes of that scratch per entry (csrc/apply_wave.cu wide_scratch_bytes)
+WIDE_BYTES_PER_ENTRY = 50
 
 
 def _unique_per_group(sel, s, claims, n_groups: int):
@@ -171,15 +178,16 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
     `p`, `kind`, `slot`, `dst` i32[N] (and each of `leg2`'s), `score` f32[N],
     `ok` bool[N]. A flagged two-leg entry's second leg must leave the broker
     its first leg enters (every swap and relay does): the kernel claims no
-    other broker, and applies each entry's legs without atomics. The
-    kernel's partition table is allocated once per device (again only for a
-    model with more partitions) and shared by launches on one stream."""
+    other broker, and applies each entry's legs without atomics. A wave of
+    at most BLOCK_ENTRIES entries over at most BLOCK_GROUPS brokers and hosts
+    takes the kernel's block configuration, any other its wide one (the same
+    stages, entries and tables in global memory). The kernel's group tables
+    are allocated once per device (again only for a larger model) and shared
+    by launches on one stream."""
     if score.device.type == "cpu":
         return apply_wave_plain(static, agg, p, kind, slot, dst, score, ok, tag, leg2, brokers3)
     dev = score.device
     n = score.shape[0]
-    if n > MAX_WAVE:
-        raise ValueError(f"apply_wave: {n} entries, the kernel takes at most {MAX_WAVE}")
     if brokers3 and leg2 is None:
         raise ValueError("apply_wave: brokers3 needs a second leg")
     legs = (p, kind, slot, dst) + (tuple(leg2) if leg2 is not None else (p, kind, slot, dst))
@@ -197,18 +205,25 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
         if t.device != dev or not t.is_contiguous():
             raise ValueError("apply_wave: context tensors must be contiguous and on " + str(dev))
     num_brokers, num_hosts = agg.broker_load.shape[0], agg.host_cpu_load.shape[0]
-    if max(num_brokers, num_hosts) > MAX_GROUPS:
-        raise ValueError(f"apply_wave: {num_brokers} brokers and {num_hosts} hosts, the kernel "
-                         f"takes at most {MAX_GROUPS} of each")
+    groups = max(num_brokers, num_hosts)
+    if n >= 2**31 - 1:
+        raise ValueError(f"apply_wave: {n} entries, the kernel takes fewer than 2**31 - 1")
+    slots = max(agg.assignment.shape[0], groups)
     ws = _WORKSPACE.get(dev)
-    if ws is None or ws.shape[1] < agg.assignment.shape[0]:
-        ws = torch.zeros((2, agg.assignment.shape[0]), dtype=torch.int32, device=dev)
+    if ws is None or ws.shape[1] < slots:
+        ws = torch.zeros((2, slots), dtype=torch.int32, device=dev)
         ws[1] = torch.iinfo(torch.int32).max
         _WORKSPACE[dev] = ws
+    scratch = ws  # not read by the block configuration
+    if n > BLOCK_ENTRIES or groups > BLOCK_GROUPS:
+        scratch = _SCRATCH.get(dev)
+        if scratch is None or scratch.numel() < n * WIDE_BYTES_PER_ENTRY:
+            scratch = torch.empty(n * WIDE_BYTES_PER_ENTRY, dtype=torch.uint8, device=dev)
+            _SCRATCH[dev] = scratch
     sel = torch.empty(n, dtype=torch.bool, device=dev)
     lib = build.load("apply_wave")
     code = lib.apply_wave(
-        build.ptrs(*legs, score, ok, sel, *tensors, ws),
+        build.ptrs(*legs, score, ok, sel, *tensors, ws, scratch),
         build.ints(n, agg.assignment.shape[1], agg.rack_replica_count.shape[1], num_brokers,
                    tag, 2 if leg2 is not None else 1, 1 if brokers3 else 0, num_hosts,
                    ws.shape[1]),

@@ -11,9 +11,6 @@ import torch
 
 from cruise_control_torch.kernels import build
 
-#: the most brokers the kernel takes: a block's counters of them and its
-#: CHUNK keys live in shared memory (128 KB and 32 KB)
-MAX_BROKERS = 32_768
 #: slots a block of the kernel's first launch takes
 CHUNK = 4096
 #: per device: (runs, keys) scratch of the kernel, grown on demand; nothing
@@ -79,7 +76,11 @@ def _scratch(dev: int, b: int, blocks: int):
 
 def broker_topk(contrib, assignment, movable_partition, k: int, num_brokers: int,
                 heaviest: bool = True):
-    """`broker_topk_plain` for CPU tensors, the CUDA kernel for CUDA tensors."""
+    """`broker_topk_plain` for CPU tensors, the CUDA kernel for CUDA tensors.
+    Up to 32,768 brokers a block of the kernel's first launch counts its
+    slots by broker in shared memory (128 KB, beside its CHUNK keys' 32 KB);
+    above, in its own row of the runs table (a second launch configuration
+    of the same kernel): any broker count below 2**31."""
     if contrib.device.type == "cpu":
         return broker_topk_plain(contrib, assignment, movable_partition, k, num_brokers,
                                  heaviest)
@@ -96,9 +97,8 @@ def broker_topk(contrib, assignment, movable_partition, k: int, num_brokers: int
     n = p_count * r
     if k < 1 or n >= 2**32:
         raise ValueError("broker_topk: needs k >= 1 and fewer than 2**32 slots")
-    if num_brokers > MAX_BROKERS:
-        raise ValueError(f"broker_topk: {num_brokers} brokers, the kernel takes at most "
-                         f"{MAX_BROKERS}")
+    if num_brokers >= 2**31:
+        raise ValueError(f"broker_topk: {num_brokers} brokers, the kernel takes fewer than 2**31")
     blocks = max(1, -(-n // CHUNK))
     idx = contrib.get_device()
     runs, keys = _scratch(idx, num_brokers, blocks)

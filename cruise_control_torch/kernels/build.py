@@ -15,8 +15,8 @@ rebuilds and an unchanged one is reused. Builds happen at first use, never at im
 
 A wrapper calls its entry point with `ptrs`/`ints` argument arrays and
 `stream()`, or, where the host's share of a call matters (window_sum, K2,
-K3, K9), through `entry()`, whose argument types are set once, with
-`raw_stream()`.
+K3, K5, K6, K9), through `entry()`, whose argument types are set once,
+with `raw_stream()`.
 """
 
 from __future__ import annotations

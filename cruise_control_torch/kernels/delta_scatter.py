@@ -26,8 +26,6 @@ KIND_NOOP = 0
 KIND_STATE = 1
 KIND_LOAD = 2
 KIND_PART_ADD = 3
-#: the most batch rows the kernel stages in shared memory
-MAX_DELTAS = 2048
 
 
 def _landing(kind_ok: torch.Tensor, idx: torch.Tensor, n: int):
@@ -81,15 +79,13 @@ def delta_scatter_plain(static, batch, base_replica_dst: torch.Tensor,
 def delta_scatter(static, batch, base_replica_dst: torch.Tensor,
                   base_leadership_dst: torch.Tensor):
     """`delta_scatter_plain` for a context on the CPU, the CUDA kernel for
-    one on the card (one launch)."""
+    one on the card (one launch, for a batch of any size)."""
     if static.part_load.device.type == "cpu":
         return delta_scatter_plain(static, batch, base_replica_dst, base_leadership_dst)
     dev = static.part_load.device
     p, m = static.part_load.shape
     b = static.broker_state.shape[0]
     d = batch.kind.shape[0]
-    if d > MAX_DELTAS:
-        raise ValueError(f"delta_scatter: {d} batch rows, at most {MAX_DELTAS}")
     for name, t in (("kind", batch.kind), ("broker", batch.broker), ("state", batch.state),
                     ("row", batch.row), ("topic", batch.topic)):
         build.require(t, torch.int32, 1, f"batch.{name}", dev)

@@ -33,12 +33,13 @@ CTX_POINTERS = (
     "host_cpu", "hi_load", "lo_load", "band_hi", "band_lo", "band_on", "hi_rep", "lo_rep",
     "hi_lead", "lo_lead", "hi_pnw", "hi_lnw", "waive_dead", "hi_topic", "lo_topic", "hi_host_cpu",
     "rack_enabled", "limit", "max_replicas", "w_lower", "w_upper", "w_active", "only_immigrants",
+    "capacity_limit",
 )
 CTX_INTS = ("R", "NR", "B", "goal")
 #: the [*, 4] tables the kernels read a row of as one 16-byte load, and the
 #: part_load rows they read as 8-byte loads: byte alignment each needs
 CTX_ALIGN = {"capacity": 16, "broker_load": 16, "hi_load": 16, "lo_load": 16, "band_hi": 16,
-             "band_lo": 16, "part_load": 8}
+             "band_lo": 16, "capacity_limit": 16, "part_load": 8}
 
 
 class ScoreCtxStruct(ctypes.Structure):
@@ -59,8 +60,8 @@ def _context_tensors(static, agg, tables, goal, gs):
     dev = agg.assignment.device
     # the capacity goals' usable capacity, PotentialNwOutGoal's limit, and
     # the soft goals' window (per topic for the topic goal); unused
-    # arguments get a placeholder
-    if hasattr(goal, "limit"):
+    # arguments get a placeholder (K5's contexts have no goal)
+    if goal is not None and hasattr(goal, "limit"):
         limit = goal.limit(static).contiguous()
     elif gs is not None and hasattr(gs, "limit"):
         limit = gs.limit
@@ -79,14 +80,15 @@ def _context_tensors(static, agg, tables, goal, gs):
         agg.broker_load, agg.replica_count, agg.leader_count, agg.potential_nw_out,
         agg.leader_nw_in, agg.rack_replica_count, agg.topic_replica_count, agg.host_cpu_load,
         *tables, limit, static.max_replicas_per_broker, w_lower, w_upper, w_active,
-        static.only_move_immigrants,
+        static.only_move_immigrants, static.capacity_limit,
     )
 
 
 class ScoreContext:
     """What every K3 / K9 launch of one goal's round reads: strong references
     to the round's `static`, `agg`, `tables`, `goal` and `gs` and, packed at
-    the first launch, their tensors' addresses in a `ScoreCtxStruct`.
+    the first launch, their tensors' addresses in a `ScoreCtxStruct`. K5
+    reads the same struct from a context built with `goal` None.
 
     `bind` checks by identity that the context was built from the objects a
     call passes; on a mismatch it rebuilds (counted in `rebuilds`), so a
@@ -118,7 +120,7 @@ class ScoreContext:
         every tensor checked once for its device and contiguity."""
         if self.address is None:
             goal, agg = self.goal, self.agg
-            if goal.kernel_id is None:
+            if goal is not None and goal.kernel_id is None:
                 raise NotImplementedError(f"{what}: no kernel case for {goal.name}")
             tensors = _context_tensors(self.static, agg, self.tables, goal, self.gs)
             dev = agg.assignment.device
@@ -130,7 +132,8 @@ class ScoreContext:
             self.tensors = tensors
             self.struct = ScoreCtxStruct(
                 *(t.data_ptr() for t in tensors), agg.assignment.shape[1],
-                agg.rack_replica_count.shape[1], agg.broker_load.shape[0], goal.kernel_id)
+                agg.rack_replica_count.shape[1], agg.broker_load.shape[0],
+                -1 if goal is None else goal.kernel_id)
             self.address = ctypes.addressof(self.struct)
             ScoreContext.packs += 1
         return self.address

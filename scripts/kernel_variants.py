@@ -1,4 +1,4 @@
-"""Where K2 broker_topk, window_sum and K3 score_candidates spend their time, on one NVIDIA GPU.
+"""Where K2, window_sum, K3, K5 and K6 spend their time, on one NVIDIA GPU.
 
     python3 scripts/kernel_variants.py [--out build/kernel_variants.json]
 
@@ -12,6 +12,11 @@ K2 on 199,518 x 3 slots over 2,600 brokers, k = 8 (pareto contributions, 5%
 of the partitions immovable); window_sum on 2,600, [2,600, 4] and 199,518
 terms. The variants:
 
+  K5          full; its staged kernel at 1 or 3 blocks an SM (2 in full),
+              loading 8 hot picks' cross words at once (4), one, two or four
+              cold picks a thread (full: two where one would make more blocks
+              than run at once), and with its cells' checks as short-circuit
+              branches
   K2          full; no insertion (the select's per-lane keep of its 8
               largest keys is an xor); no key loads (the select loads no
               run's first keys, reading the runs table instead); no key
@@ -42,7 +47,14 @@ three (the factored tiles, the promotion path's thread a cell and the
 general path's two threads a cell) on DiskCapacityGoal's drain grids
 [V, 8, C] (V 64 to 512, C 2 to 64), its all-broker re-score of 16, 64 and
 256 entries and the pair drain's per-row grids [512 and 64, 4, 64]: where
-the tiles win sets `score_candidates.FACTORED_MIN_CELLS`. Prints the card's name
+the tiles win sets `score_candidates.FACTORED_MIN_CELLS`. Then K5 on the
+same model: DiskUsageDistributionGoal's replica-swap grids [N, N, K, K] (N
+8 to 128, K 4 to 16) on both of its paths, forced in the packed layout
+(the staged tiles and a thread a cell; outputs held equal): where the
+staged path wins sets `score_swaps.STAGED_MIN_CELLS`; its topic-swap and
+relay grids and a wave's 128-swap re-validation (a thread a cell); K6 on
+512 surplus pairs at k = 1, 4 and 8; and the host's share of a K5 wave
+call and a K6 call beside their C entries alone. Prints the card's name
 and power limit and every number; writes them as JSON to --out. Needs a
 GPU.
 """
@@ -53,6 +65,7 @@ import argparse
 import ctypes
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -72,6 +85,43 @@ K2_VARIANTS = {
     "no key write-out": [
         ("for (unsigned int e = tid; e < carry; e += K2_THREADS) out[e] = s_keys[e];",
          "if (carry == 0xffffffffu) out[tid] = s_keys[tid];")],
+}
+#: K5's staged kernel: more or fewer blocks an SM, the hot picks a thread's
+#: cross words load at once, and the cell's checks written as a chain of
+#: short-circuit branches (loads behind each) instead of independent compares
+K5_LAZY = r"""
+__device__ __forceinline__ float grid_cell_lazy(STAGED_CELL, int res, float lo, float hi,
+                                                bool active_ok, int rack_on, int band_on) {
+  if (H.p < 0 || C.p < 0 || BH.b < 0 || BC.b < 0) return -INFINITY;
+  const float delta = at4(H.dload, res) - at4(C.dload, res);
+  const float h1 = imbalance(BH.u - delta / BH.cap, lo, hi);
+  const float c1 = imbalance(BC.u + delta / BC.cap, lo, hi);
+  bool ok = delta > 1e-6f && BH.b != BC.b && H.p != C.p && active_ok &&
+            h1 <= BH.imb0 + 1e-6f && c1 <= BC.imb0 + 1e-6f && !x1.holds && !x2.holds;
+  const int same = BH.rack == BC.rack ? 1 : 0;
+  ok = ok && (!rack_on || (x1.rack - same == 0 && x2.rack - same == 0));
+  ok = ok && (H.s != 0 || BC.lead_ok) && (C.s != 0 || BH.lead_ok);
+  ok = ok && staged_tables_ok(band_on, H, BH, C, BC, x1.tc, x2.tc);
+  for (int r = 0; ok && r < 4; ++r) {
+    const float net = H.dload[r] - C.dload[r];
+    ok = BH.load[r] - net <= BH.lim[r] && BC.load[r] + net <= BC.lim[r];
+  }
+  ok = ok && BC.pot + H.dpnw - C.dpnw <= BC.pot_lim && BH.pot - H.dpnw + C.dpnw <= BH.pot_lim;
+  return ok ? BH.imb0 + BC.imb0 - h1 - c1 : -INFINITY;
+}
+
+// hot picks whose cross words a thread loads at once"""
+K5_VARIANTS = {
+    "1 block an SM": [("__launch_bounds__(SW_THREADS, 2) k_swap_staged",
+                       "__launch_bounds__(SW_THREADS, 1) k_swap_staged")],
+    "3 blocks an SM": [("__launch_bounds__(SW_THREADS, 2) k_swap_staged",
+                        "__launch_bounds__(SW_THREADS, 3) k_swap_staged")],
+    "chunk of 8": [("constexpr int SW_CHUNK = 4;", "constexpr int SW_CHUNK = 8;")],
+    "one cold pick a thread": [("? 2 * T1 : T1;", "? T1 : T1;")],
+    "two cold picks a thread": [("? 2 * T1 : T1;", "? 2 * T1 : 2 * T1;")],
+    "four cold picks a thread": [("? 2 * T1 : T1;", "? 4 * T1 : 4 * T1;")],
+    "lazy checks": [("\n// hot picks whose cross words a thread loads at once", K5_LAZY),
+                    ("          v = grid_cell(H, *sBH,", "          v = grid_cell_lazy(H, *sBH,")],
 }
 WS_VARIANTS = {
     "empty": [("  const int tid = threadIdx.x;\n",
@@ -93,10 +143,11 @@ def build_variants(build, out_dir: pathlib.Path) -> dict:
     for h in build.CSRC.glob("*.cuh"):
         (out_dir / h.name).write_text(h.read_text())
     jobs = {}
-    for name, variants in (("broker_topk", K2_VARIANTS), ("window_sum", WS_VARIANTS)):
+    for name, variants in (("broker_topk", K2_VARIANTS), ("window_sum", WS_VARIANTS),
+                           ("score_swaps", K5_VARIANTS)):
         src = (build.CSRC / f"{name}.cu").read_text()
         for label, edits in {"full": [], **variants}.items():
-            cu = out_dir / f"{name}-{label.replace(' ', '_')}.cu"
+            cu = out_dir / f"{name}-{re.sub(r'[^A-Za-z0-9]+', '_', label)}.cu"
             cu.write_text(variant(src, edits))
             so = cu.with_suffix(".so")
             jobs[(name, label)] = (so, subprocess.Popen(
@@ -139,6 +190,12 @@ def host_us(call, n: int = 20000) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / n * 1e6
+
+
+def launched(code: int) -> None:
+    """Raise if a C entry point refused its launch."""
+    if code:
+        raise SystemExit(f"kernel_variants: a launch returned CUDA error {code}")
 
 
 def entry(so: pathlib.Path, name: str, argtypes):
@@ -321,7 +378,9 @@ def main() -> int:
               for v, c in ((64, 64), (128, 64), (512, 16), (512, 8), (512, 32))),
             *((2, f"all-broker grid [{k}, {nb}]", all_brokers(k), factored_paths)
               for k in (64, 256)),
-            *((2, f"pair drain grid [{v}, {k}, {c}]", pair_grid(v, k, c), factored_paths)
+            # a destination list per row: the factored tiles refuse the layout
+            *((2, f"pair drain grid [{v}, {k}, {c}]", pair_grid(v, k, c),
+               (k3.PATH_PROMOTION, k3.PATH_GENERAL))
               for v, k, c in ((512, 4, 64), (64, 4, 64)))):
         g3 = goals[gi]
         t3 = build_tables(goals[:gi], sst, sag, sdims)
@@ -332,13 +391,107 @@ def main() -> int:
         for path in paths:
             packed = (ctypes.c_longlong * 16)(*list(lay3.packed)[:15], path)
             o3 = sag.assignment.new_empty(lay3.shape, dtype=torch.float32)
-            us = device_us(lambda: fn3(a3, o3.data_ptr(), *(t.data_ptr() for t in idx3),
-                                       ctypes.addressof(packed), build.raw_stream(0)))
+            us = device_us(lambda: launched(fn3(a3, o3.data_ptr(), *(t.data_ptr() for t in idx3),
+                                                ctypes.addressof(packed), build.raw_stream(0))))
             outs.append(o3)
             res["K3 paths"][f"{label}, {k3.PATH_NAMES[path]} kernel"] = us
             print(f"K3 {label:30s} {k3.PATH_NAMES[path]:9s} kernel {json.dumps(us)}")
         if not all(torch.equal(outs[0].view(torch.int32), o.view(torch.int32)) for o in outs):
             raise SystemExit(f"kernel_variants: K3's kernels disagree on the {label}")
+
+    # K5: the replica-swap grid [N, N, K, K] of DiskUsageDistributionGoal on
+    # both paths, forced in the packed layout; the topic-swap and relay grids
+    # (a thread a cell); then the host's share of a K5 and a K6 call
+    from cruise_control_torch.analyzer import drain, swaps
+    from cruise_control_torch.kernels import pair_picks as k6
+    from cruise_control_torch.kernels import score_swaps as k5
+
+    res["K5 paths"] = {}
+    disk_use, topic_goal, lbi = goals[8], goals[12], goals[14]
+    t5 = build_tables(goals[:8], sst, sag, sdims)
+    gs5 = disk_use.prepare(sst, sag, sdims)
+    contrib5 = disk_use.drain_contrib(sst, gs5, sag).contiguous()
+    c5 = k5.swap_context(None, sst, sag, t5, gs5)
+    a5 = c5.pack("kernel_variants")
+    fn5 = build.entry("score_swaps", k5._ARGTYPES)
+    for nn, kk in ((128, 8), (64, 8), (48, 8), (40, 8), (32, 8), (16, 8), (8, 8), (128, 4),
+                   (64, 4), (128, 16), (32, 16)):
+        grid = swaps.swap_grid(sst, sag, disk_use.resource, contrib5, nn, kk, nb)[-1]
+        lay5 = k5._launch_layout(k5.REPLICA_SWAP, disk_use.resource, False, grid, sag.assignment)
+        outs = []
+        for path in (k5.PATH_STAGED, k5.PATH_CELLS):
+            packed = (ctypes.c_longlong * 39)(*list(lay5.packed)[:38], path)
+            o5 = sag.assignment.new_empty(lay5.shape, dtype=torch.float32)
+            us = device_us(lambda: launched(fn5(a5, o5.data_ptr(), *(t.data_ptr() for t in grid),
+                                                ctypes.addressof(packed), build.raw_stream(0))))
+            outs.append(o5)
+            label = f"replica-swap grid [{nn}, {nn}, {kk}, {kk}], {k5.PATH_NAMES[path]}"
+            res["K5 paths"][label] = us
+            print(f"K5 {label:42s} {json.dumps(us)}")
+        if not torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32)):
+            raise SystemExit(f"kernel_variants: K5's paths disagree on [{nn}, {nn}, {kk}, {kk}]")
+    for nn, kk in ((128, 8), (48, 8), (32, 8)):
+        grid = swaps.swap_grid(sst, sag, disk_use.resource, contrib5, nn, kk, nb)[-1]
+        lay5 = k5._launch_layout(k5.REPLICA_SWAP, disk_use.resource, False, grid, sag.assignment)
+        staged = (ctypes.c_longlong * 39)(*list(lay5.packed)[:38], k5.PATH_STAGED)
+        o5 = sag.assignment.new_empty(lay5.shape, dtype=torch.float32)
+        for label in ("full", *K5_VARIANTS):
+            fn = entry(libs[("score_swaps", label)], "score_swaps", k5._ARGTYPES)
+            us = device_us(lambda: launched(fn(a5, o5.data_ptr(), *(t.data_ptr() for t in grid),
+                                                ctypes.addressof(staged), build.raw_stream(0))))
+            key = f"replica-swap grid [{nn}, {nn}, {kk}, {kk}], staged, {label}"
+            res["K5 paths"][key] = us
+            print(f"K5 {key:58s} {json.dumps(us)}")
+    t12 = build_tables(goals[:12], sst, sag, sdims)
+    gs12 = topic_goal.prepare(sst, sag, sdims)
+    gs14 = lbi.prepare(sst, sag, sdims)
+    for label, kind, tables_, gs_, grid in (
+            ("topic-swap grid [512, 16, 8]", k5.TOPIC_SWAP, t12, gs12, drain.topic_swap_grid(
+                sst, sag, t12, gs12, 0, 512, 16, 8, sdims.num_topics, nb)[-1]),
+            ("relay grid [512, 4, 2, 8, 2]", k5.LEADERSHIP_RELAY, build_tables(
+                goals[:14], sst, sag, sdims), gs14, drain.relay_grid(
+                sst, sag, gs14, lbi, 0, 512, 4, 8, nb)[-1])):
+        cx = k5.swap_context(None, sst, sag, tables_, gs_)
+        us = device_us(lambda: k5.score_swaps(kind, sst, sag, tables_, gs_, *grid, ctx=cx))
+        res["K5 paths"][f"{label}, cells"] = us
+        print(f"K5 {label:42s} {json.dumps(us)}")
+    hot, cold, hp, hs, cp, cs, _ = swaps.swap_grid(sst, sag, disk_use.resource, contrib5, 128, 8,
+                                                   nb)
+    wave = (hp[:, 0].contiguous(), hs[:, 0].contiguous(), hot, cp[:, 0].contiguous(),
+            cs[:, 0].contiguous(), cold)
+    lay_w = k5._launch_layout(k5.REPLICA_SWAP, disk_use.resource, True, wave, sag.assignment)
+    o_w = sag.assignment.new_empty(lay_w.shape, dtype=torch.float32)
+    res["K5 paths"]["replica-swap wave [128], cells"] = device_us(
+        lambda: k5.score_swaps(k5.REPLICA_SWAP, sst, sag, t5, gs5, *wave,
+                               resource=disk_use.resource, wave=True, ctx=c5))
+    pt, pb, _ = drain.select_surplus_pairs(sst, sag, t12, gs12, 0, 512, sdims.num_topics, nb)
+    k6_args = (sag.assignment, sst.topic_id, sst.movable_partition, pt, pb, 4, nb)
+    row_of, lists, ticket = k6._scratch(0, nb, 512 * 4)
+    o6 = torch.empty((2, 512, 4), dtype=torch.int32, device="cuda")
+    ok6 = torch.empty((512, 4), dtype=torch.bool, device="cuda")
+    fn6 = build.entry("pair_picks", k6._ARGTYPES)
+    res["K6"] = {k: device_us(lambda k=k: k6.pair_picks(*k6_args[:5], k, nb)) for k in (1, 4, 8)}
+    print(f"K6 pair_picks, 512 pairs, k = 1 / 4 / 8: {json.dumps(res['K6'])}")
+    for label, call in (
+            ("K5 wrapper, wave of 128 swaps", lambda: k5.score_swaps(
+                k5.REPLICA_SWAP, sst, sag, t5, gs5, *wave, resource=disk_use.resource, wave=True,
+                ctx=c5)),
+            ("K5 C entry, output made once", lambda: fn5(
+                a5, o_w.data_ptr(), *(t.data_ptr() for t in wave), lay_w.address,
+                build.raw_stream(0))),
+            ("K5 launch layout (cached)", lambda: k5._launch_layout(
+                k5.REPLICA_SWAP, disk_use.resource, True, wave, sag.assignment)),
+            ("K5 context bind and pack", lambda: k5.swap_context(
+                c5, sst, sag, t5, gs5).pack("kernel_variants")),
+            ("K6 wrapper, 512 pairs x 4", lambda: k6.pair_picks(*k6_args)),
+            ("K6 C entry, outputs made once", lambda: fn6(
+                sag.assignment.data_ptr(), sst.topic_id.data_ptr(),
+                sst.movable_partition.data_ptr(), pt.data_ptr(), pb.data_ptr(),
+                row_of.data_ptr(), lists.data_ptr(), ticket.data_ptr(), o6.data_ptr(),
+                o6.data_ptr() + 4 * 512 * 4, ok6.data_ptr(), sdims.num_partitions, sdims.max_rf,
+                nb, 512, 4, build.raw_stream(0)))):
+        res["host_us"][label] = host_us(call)
+        print(f"host {label:30s} {res['host_us'][label]:.2f} us per call")
     path = pathlib.Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(res, indent=1))

@@ -21,7 +21,7 @@ default), solves once as a warm-up, then:
      of kernel launches and of host reads of device values, each hand kernel
      wrapper's host time (every wrapper the analyzer calls runs inside a
      `torch.profiler.record_function` span named after it, put around it by
-     this script alone) and K3's launches by path;
+     this script alone) and K3's and K5's launches by path;
 and times the set-up before the goal loops and the proposal diff after them.
 Prints a summary and writes the numbers as JSON to --out. Needs a GPU; exits
 non-zero without one.
@@ -50,8 +50,9 @@ OWN_KERNELS = {
     "k_topk_select": "K2 broker_topk",
     "k_score_cells": "K3 score_candidates", "k_score_tiles": "K3 score_candidates",
     "k_score_flat": "K3 score_candidates",
-    "k_apply_wave": "K4 apply_wave", "k_score_swaps": "K5 score_swaps",
-    "k_pair_init": "K6 pair_picks", "k_pair_bid": "K6 pair_picks",
+    "k_apply_wave": "K4 apply_wave", "k_apply_wave_wide": "K4 apply_wave",
+    "k_score_swaps": "K5 score_swaps", "k_swap_staged": "K5 score_swaps",
+    "k_pair_rows": "K6 pair_picks", "k_pair_pass": "K6 pair_picks",
     "k_pair_take": "K6 pair_picks", "k_window_sum": "window_sum",
     "k_state_fingerprint": "K7 state_fingerprint", "k_topic_spread": "K8 cluster_stats",
     "k_broker_stats": "K8 cluster_stats", "k_grid_bid": "K9 grid_shortlist",
@@ -170,10 +171,13 @@ def profile(path: str, model, opt) -> dict:
 
     # 2. one traced solve
     from cruise_control_torch.kernels import score_candidates as k3
+    from cruise_control_torch.kernels import score_swaps as k5
 
     paths = getattr(k3.score_candidates, "paths", None)
-    if paths is not None:
-        paths.clear()
+    k5_counts = getattr(k5.score_swaps, "paths", None)
+    for counter in (paths, k5_counts):
+        if counter is not None:
+            counter.clear()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     spans = wrap_wrappers()
     try:
@@ -182,6 +186,7 @@ def profile(path: str, model, opt) -> dict:
     finally:
         unwrap(spans)
     k3_paths = dict(paths) if paths is not None else None
+    k5_paths = dict(k5_counts) if k5_counts is not None else None
     by_kernel = collections.Counter()
     launches = collections.Counter()
     busy_us = 0.0
@@ -219,6 +224,7 @@ def profile(path: str, model, opt) -> dict:
         "glue_device_s_by_kernel": {k: v / 1e6 for k, v in glue.most_common(15)},
         "setup_s": setup_s, "proposal_diff_s": diff_s,
         "wrapper_host": wrapper_host, "k3_launches_by_path": k3_paths,
+        "k5_launches_by_path": k5_paths,
     }
     print(f"[{path}] solve {wall_s:.3f} s (warm-up {warm_s:.3f} s, traced {traced_s:.3f} s); "
           f"device busy {out['device_busy_s']:.3f} s, idle share {out['device_idle_share']:.3f}")
@@ -229,7 +235,7 @@ def profile(path: str, model, opt) -> dict:
     for k, v in sorted(wrapper_host.items(), key=lambda kv: -kv[1]["host_s"]):
         print(f"  wrapper {k:30s} {v['calls']:7d} calls  {v['host_s']:8.4f} s host "
               f"({v['host_us_per_call']:.2f} us a call, traced)")
-    print(f"  K3 launches by path {k3_paths}")
+    print(f"  K3 launches by path {k3_paths}, K5 {k5_paths}")
     print(f"  set-up (model to the card, static context, K1) {setup_s:.3f} s; "
           f"proposal diff {diff_s:.3f} s")
     for k, v in per_goal.items():

@@ -518,11 +518,13 @@ def test_k5_relay_validation_equals_jax(ctx):
     assert n_ok > 0
 
 
-def test_k6_pair_picks_equal_jax(ctx):
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_k6_pair_picks_equal_jax(ctx, k):
     """Pairs on distinct brokers, half naming a topic the broker holds and
-    half any topic (pairs the round would mark not ok): exact, for k = 2
-    and 4."""
-    from cruise_control_torch.kernels.pair_picks import pair_picks_plain
+    half any topic (pairs the round would mark not ok, most with no slot at
+    all), through the wrapper: exact against jitted JAX. At k = 4 and 8 most
+    rows hold fewer than k slots."""
+    from cruise_control_torch.kernels.pair_picks import pair_picks
 
     rng = np.random.default_rng(24)
     a = ctx["arrays"]["assignment"]
@@ -530,16 +532,108 @@ def test_k6_pair_picks_equal_jax(ctx):
     pair_b = rng.permutation(ctx["jd"].num_brokers)[:16].astype(np.int32)
     held = [topic[np.argwhere(a == x)[rng.integers(0, 5)][0]] for x in pair_b[:8]]
     pair_t = np.asarray(held + list(rng.integers(0, ctx["jd"].num_topics, 8)), dtype=np.int32)
-    for k in (2, 4):
-        want = jdrain.pair_replica_picks(ctx["js"], ctx["ja"], jnp.asarray(pair_t),
-                                         jnp.asarray(pair_b), k, ctx["jd"].num_topics,
-                                         ctx["jd"].num_brokers)
-        got = pair_picks_plain(ctx["ta"].assignment, ctx["ts"].topic_id,
-                               ctx["ts"].movable_partition, torch.from_numpy(pair_t),
-                               torch.from_numpy(pair_b), k, ctx["jd"].num_brokers)
-        for x, y in zip(want, got):
-            assert _bits_equal(x, y)
-        assert np.asarray(want[2]).any() and not np.asarray(want[2]).all()
+    # the last pair names a topic its broker holds no replica of
+    on_last = set(topic[np.nonzero((a == pair_b[-1]).any(axis=1))[0]].tolist())
+    pair_t[-1] = min(set(range(ctx["jd"].num_topics)) - on_last)
+    jfn = jax.jit(jdrain.pair_replica_picks, static_argnums=(4, 5, 6))
+    want = jfn(ctx["js"], ctx["ja"], jnp.asarray(pair_t), jnp.asarray(pair_b), k,
+               ctx["jd"].num_topics, ctx["jd"].num_brokers)
+    got = pair_picks(ctx["ta"].assignment, ctx["ts"].topic_id, ctx["ts"].movable_partition,
+                     torch.from_numpy(pair_t), torch.from_numpy(pair_b), k,
+                     ctx["jd"].num_brokers)
+    for x, y in zip(want, got):
+        assert _bits_equal(x, y)
+    found = np.asarray(want[2])
+    assert found.any() and not found.all()
+    assert (~found.any(axis=1)).any(), "a row with no slot"
+    if k >= 4:
+        assert (found.any(axis=1) & ~found.all(axis=1)).any(), "a row with fewer than k slots"
+
+
+def _jax_replica_swap_revalidate(static, agg, tables, gs, res, p1, s1, h, p2, s2, c):
+    """The JAX swap round's per-wave re-validation (swaps.py:255-282) as a
+    function of its cells: the improvement, -inf where not valid."""
+    from cruise_control_tpu.analyzer.swaps import _dist, _slot_contrib
+
+    a = agg.assignment
+    cap = jnp.maximum(static.broker_capacity[:, res], 1e-9)
+    contrib = _slot_contrib(static, a, res)
+    still = (a[p1, s1] == h) & (a[p2, s2] == c)
+    still &= ~jnp.any(a[p1] == c[:, None], axis=-1)
+    still &= ~jnp.any(a[p2] == h[:, None], axis=-1)
+    rack_h, rack_c = static.broker_rack[h], static.broker_rack[c]
+    same = (rack_h == rack_c).astype(agg.rack_replica_count.dtype)
+    rack_safe = ((agg.rack_replica_count[p1, rack_c] - same) == 0) & (
+        (agg.rack_replica_count[p2, rack_h] - same) == 0)
+    still &= rack_safe | ~tables.rack_enabled
+    u_h, u_c = agg.broker_load[h, res] / cap[h], agg.broker_load[c, res] / cap[c]
+    d = contrib[p1, s1] - contrib[p2, s2]
+    h0, h1 = _dist(u_h, gs), _dist(u_h - d / cap[h], gs)
+    c0, c1 = _dist(u_c, gs), _dist(u_c + d / cap[c], gs)
+    improve = h0 + c0 - h1 - c1
+    endpoint_ok = (h1 <= h0 + 1e-6) & (c1 <= c0 + 1e-6)
+    kind = jnp.full(p1.shape, KIND_MOVE, dtype=jnp.int32)
+    mv1 = jact.build_selected(static.part_load, a, p1, kind, s1, c)
+    mv2 = jact.build_selected(static.part_load, a, p2, kind, s2, h)
+    ok = still & endpoint_ok & (improve > 1e-6) & jacc.swap_tables_acceptance(
+        static, tables, agg, mv1, mv2)
+    return ok, improve
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["replica-swap", "topic-swap", "relay"])
+def test_k5_score_swaps_takes_a_python_int_kind(ctx, kind):
+    """The K5 wrapper called as the rounds call it, `kind` a Python int (a
+    tensor is refused: it would cost a read of the device), against the JAX
+    validators: the replica swap's wave re-validation (DiskUsage, :255-282,
+    under its priors' tables), the topic swap's (:485) and the relay's
+    (:692), with no priors."""
+    from cruise_control_torch.kernels.score_swaps import score_swaps
+
+    rng = np.random.default_rng(30 + kind)
+    a = ctx["arrays"]["assignment"]
+    b_count = ctx["jd"].num_brokers
+    n = 4000
+    if kind == 2:
+        rows = [(p1, s1, a[p1, 0], p2, s2, a[p1, s1])
+                for p1 in range(a.shape[0]) for s1 in range(1, a.shape[1])
+                if a[p1, s1] >= 0 and a[p1, 0] >= 0
+                for p2 in np.nonzero(a[:, 0] == a[p1, s1])[0][:3] for s2 in range(1, a.shape[1])]
+        cells = [np.ascontiguousarray(c) for c in np.asarray(rows, dtype=np.int32).T]
+    else:
+        b = rng.integers(0, b_count, n).astype(np.int32)
+        d = rng.integers(0, b_count, n).astype(np.int32)
+        c1 = [_slots_on(a, x, rng, 1) for x in b]
+        c2 = [_slots_on(a, x, rng, 1) for x in d]
+        cells = [np.asarray([x[0][0] for x in c1], np.int32), np.asarray([x[1][0] for x in c1],
+                                                                          np.int32), b,
+                 np.asarray([x[0][0] for x in c2], np.int32), np.asarray([x[1][0] for x in c2],
+                                                                          np.int32), d]
+        cells[0][:50] = -1  # masked cells
+    gi = (8, 12, 14)[kind]
+    jgoal, tgoal = jgoals(None)[gi], tgoals(None)[gi]
+    jgs = jgoal.prepare(ctx["js"], ctx["ja"], ctx["jd"])
+    tgs = tgoal.prepare(ctx["ts"], ctx["ta"], ctx["td"])
+    jt, tt = _stack_tables(ctx, (gi, 0, 0)[kind])
+    res = getattr(tgoal, "resource", 0)
+    if kind == 0:
+        jfn = jax.jit(lambda agg, t, gs, *c: _jax_replica_swap_revalidate(
+            ctx["js"], agg, t, gs, res, *c))
+    else:
+        make = (jdrain.make_topic_swap_round(jgoal, ctx["jd"], 24, 8, 8, 8) if kind == 1
+                else jdrain.make_leadership_relay_round(jgoal, ctx["jd"], 24, 4, 8, 8))
+        validate = _closure(make, "validate")
+        jfn = jax.jit(lambda agg, t, gs, *c: validate(ctx["js"], agg, t, gs, *c)[:2])
+    jcells = [jnp.asarray(np.maximum(c, 0)) for c in cells]
+    ok, imp = jfn(ctx["ja"], jt, jgs, *jcells)
+    want = np.where(np.asarray(ok) & (cells[0] >= 0), np.asarray(imp), -np.inf).astype(np.float32)
+    got = score_swaps(kind, ctx["ts"], ctx["ta"], tt, tgs, *(torch.from_numpy(c) for c in cells),
+                      resource=res, wave=kind == 0).numpy()
+    assert np.array_equal(np.isfinite(want), np.isfinite(got))
+    assert _bits_equal(want, got)
+    assert np.isfinite(want).any()
+    with pytest.raises(TypeError):
+        score_swaps(torch.tensor(kind), ctx["ts"], ctx["ta"], tt, tgs,
+                    *(torch.from_numpy(c) for c in cells), resource=res, wave=kind == 0)
 
 
 # -- K10 ------------------------------------------------------------------------

@@ -279,7 +279,7 @@ def test_k4_wave_of_4096_entries(waves, legs):
     four entries a thread): random moves and promotions, or relays."""
     rng = np.random.default_rng(40 + legs)
     a = waves["arrays"]["assignment"]
-    n, b = k4.MAX_WAVE, wave_cases.NUM_BROKERS
+    n, b = k4.BLOCK_ENTRIES, wave_cases.NUM_BROKERS
     p = rng.integers(0, a.shape[0], n).astype(np.int32)
     if legs == 1:
         kind = (rng.random(n) < 0.4).astype(np.int32)
@@ -1401,3 +1401,372 @@ def test_a_rebound_context_scores_like_a_fresh_one(pair):
     gc0, tc0, gsc0 = _side(pair["sc"], pair["ac"], dims, "DiskCapacityGoal")
     for w, x in zip(grid_shortlist_plain(pair["sc"], pair["ac"], tc0, gc0, gsc0, cands), got9):
         assert _bits(w, x)
+
+
+# -- past the old size limits, and K5 / K6 redesigned ---------------------------------
+
+
+def _sides(cpu, hosts_of=None):
+    """(static, agg) on the CPU and on the card of a generated cluster, with
+    `hosts_of(num_brokers)` as its broker -> host map where given."""
+    if hosts_of is not None:
+        cpu = cpu._replace(broker_host=hosts_of(cpu.num_brokers))
+    dims = dims_of(cpu)
+    sc = build_static_ctx(cpu, BalancingConstraint.default(), dims)
+    sg = build_static_ctx(cpu.to("cuda"), BalancingConstraint.default(), dims)
+    return dims, sc, compute_aggregates(sc, cpu.assignment, dims), sg, compute_aggregates(
+        sg, cpu.assignment.cuda(), dims)
+
+
+def _k4_equal(sc, sg, ac, ag, w):
+    ac, ag = _fresh(ac), _fresh(ag)
+    sel_c, sel_g = _k4_both(sc, sg, ac, ag, w)
+    assert _bits(sel_c, sel_g)
+    for f in ac._fields:
+        assert _bits(ac._asdict()[f], ag._asdict()[f]), f
+    assert _workspace_at_sentinels()
+    return int(sel_c.sum())
+
+
+#: a cluster wider than K4's block configuration (5,000 brokers; the bulk
+#: planner's waves hold one entry per broker, 5,120 bucketed)
+WIDE_PROP = generators.ClusterProperty(num_racks=50, num_brokers=5000, num_topics=1000,
+                                       mean_partitions_per_topic=20.0, replication_factor=3,
+                                       load_distribution="pareto", mean_utilization=0.5)
+
+
+def test_k4_one_leg_wave_of_5120_entries():
+    """A bulk-width wave of 5,120 entries (one per broker, past the block
+    configuration's 4,096), three brokers a host: K4's wide configuration,
+    bit-equal to the plain version."""
+    _card()
+    cpu = generators.random_cluster(12, dataclasses.replace(WIDE_PROP, num_brokers=5120))
+    dims, sc, ac, sg, ag = _sides(cpu, lambda b: torch.arange(b, dtype=torch.int32) // 3)
+    a = cpu.assignment.numpy()
+    w = wave_cases.flag_valid(wave_cases.bulk_width(a, np.random.default_rng(13), 5120), a)
+    assert len(w["score"]) == 5120
+    assert _k4_equal(sc, sg, ac, ag, w) >= 100
+
+
+@pytest.mark.parametrize("legs", [1, 2])
+def test_k4_wave_over_9000_brokers(legs):
+    """1,024 entries over 9,000 brokers and 3,000 hosts (past the block
+    configuration's 8,192 groups): random moves and promotions, or relays
+    claiming a third broker."""
+    _card()
+    cpu = generators.random_cluster(14, dataclasses.replace(
+        WIDE_PROP, num_brokers=9000, num_racks=90, num_topics=2000))
+    dims, sc, ac, sg, ag = _sides(cpu, lambda b: torch.arange(b, dtype=torch.int32) // 3)
+    a = cpu.assignment.numpy()
+    rng = np.random.default_rng(15 + legs)
+    n = 1024
+    p = rng.integers(0, a.shape[0], n).astype(np.int32)
+    if legs == 1:
+        kind = (rng.random(n) < 0.4).astype(np.int32)
+        slot = np.where(kind == 1, rng.integers(1, 3, n), rng.integers(0, 3, n)).astype(np.int32)
+        dst = np.where(kind == 1, a[p, slot], rng.integers(0, 9000, n)).astype(np.int32)
+        wave_legs = [(p, kind, slot, dst)]
+    else:
+        lead = np.ones(n, np.int32)
+        s1 = rng.integers(1, 3, n).astype(np.int32)
+        d = a[p, s1]
+        order = np.argsort(a[:, 0], kind="stable")
+        first = np.searchsorted(a[order, 0], np.arange(9001))
+        p2 = np.asarray([order[first[x] + rng.integers(0, first[x + 1] - first[x])]
+                         if x >= 0 and first[x + 1] > first[x] else 0 for x in d], np.int32)
+        s2 = rng.integers(1, 3, n).astype(np.int32)
+        wave_legs = [(p, lead, s1, d.astype(np.int32)), (p2, lead, s2, a[p2, s2].astype(np.int32))]
+    w = {"legs": wave_legs, "score": rng.integers(0, 8, n).astype(np.float32),
+         "ok": rng.random(n) < 0.9, "brokers3": legs == 2}
+    w = wave_cases.flag_valid(w, a)
+    if legs == 2:
+        w["ok"] &= (a[wave_legs[1][0], 0] == wave_legs[0][3]) & (wave_legs[1][0] != p)
+    assert _k4_equal(sc, sg, ac, ag, w) >= 50
+
+
+@pytest.mark.parametrize("case", ["not_a_candidate", "signed_zeros", "shared_source_hosts",
+                                  "relays_e_is_b", "bulk_width"])
+def test_k4_crafted_waves_in_the_wide_configuration(waves, case):
+    """tests/wave_cases.py's waves padded past 4,096 entries with unflagged
+    ones: the wide configuration selects and applies as the plain version."""
+    w = wave_cases.pad(waves["cases"][case], 4100)
+    assert len(w["score"]) == 4100
+    ac, ag = _fresh(waves["ac"]), _fresh(waves["ag"])
+    sel_c, sel_g = _k4_both(waves["sc"], waves["sg"], ac, ag, w)
+    assert _bits(sel_c, sel_g) and w["occurs"](sel_c.numpy())
+    for f in ac._fields:
+        assert _bits(ac._asdict()[f], ag._asdict()[f]), f
+    assert _workspace_at_sentinels()
+
+
+@pytest.mark.parametrize("heaviest", [True, False])
+def test_k2_over_40000_brokers(heaviest):
+    """40,000 brokers (past the 32,768 whose counters fit a block's shared
+    memory): each block counts in its row of the runs table."""
+    _card()
+    rng = np.random.default_rng(41)
+    p, r, b = 30000, 3, 40000
+    a = rng.integers(0, b, (p, r)).astype(np.int32)
+    a[rng.random((p, r)) < 0.05] = -1
+    a[:2000, 0] = 7  # one broker with many slots
+    c = rng.integers(-3, 4, (p, r)).astype(np.float32)
+    c[rng.random((p, r)) < 0.05] = -np.inf
+    mv = rng.random(p) < 0.95
+    args = [torch.from_numpy(x) for x in (c, a, mv)]
+    want = broker_topk_plain(*args, 4, b, heaviest)
+    got = broker_topk(*(t.cuda() for t in args), 4, b, heaviest)
+    for x, y in zip(want, got):
+        assert _bits(x, y)
+    assert bool(want[2].any()) and not bool(want[2].all())
+
+
+@pytest.mark.parametrize("name", ["RackAwareGoal", "DiskCapacityGoal",
+                                  "ReplicaDistributionGoal", "LeaderReplicaDistributionGoal",
+                                  "NetworkInboundUsageDistributionGoal"])
+def test_k9_replication_factor_17(name):
+    """R = 17: a partition's 34 halves take more than a warp's 32 lanes."""
+    _card()
+    cpu = generators.random_cluster(5, generators.ClusterProperty(
+        num_racks=20, num_brokers=40, num_topics=30, mean_partitions_per_topic=6.0,
+        replication_factor=17, num_dead_brokers=2, load_distribution="pareto",
+        mean_utilization=0.5))
+    dims, sc, ac, sg, ag = _sides(cpu)
+    assert dims.max_rf == 17
+    for k in (4, 16):
+        cands = torch.from_numpy(np.random.default_rng(k).permutation(40)[:k].astype(np.int32))
+        _k9_both(sc, sg, ac, ag, dims, name, cands)
+
+
+@pytest.mark.parametrize("unique", [True, False], ids=["distinct-targets", "repeated-targets"])
+def test_k10_batch_of_4096_rows(unique):
+    """A 4,096-row batch (past the 2,048 rows one tile of shared memory
+    stages), the later of two rows to one target landing across tiles."""
+    _card()
+    from cruise_control_torch.kernels.delta_scatter import delta_scatter, delta_scatter_plain
+
+    model = generators.random_cluster(42, dataclasses.replace(WIDE_PROP, num_brokers=600,
+                                                              num_topics=300))
+    ctx_c = opt.GoalOptimizer(settings=opt.SERVICE_SETTINGS, device="cpu")._build_ctx(model)
+    ctx_g = opt.GoalOptimizer(settings=opt.SERVICE_SETTINGS, device="cuda")._build_ctx(model)
+    sc, sg = ctx_c[3], ctx_g[3]
+    b, (p, m) = ctx_c[2].num_brokers, tuple(sc.part_load.shape)
+    rng = np.random.default_rng(9)
+    batch = _k10_batch(rng, 4096, 4000, b, p, m, unique, "cpu")
+    base_rep, base_lead = (torch.from_numpy(rng.random(b) < 0.9) for _ in range(2))
+    want = delta_scatter_plain(sc, batch, base_rep, base_lead)
+    got = delta_scatter(sg, type(batch)(*(t.cuda() for t in batch)), base_rep.cuda(),
+                        base_lead.cuda())
+    for f in want._fields:
+        assert _bits(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.fixture(scope="module")
+def swap_model():
+    """A 600-broker cluster, wide enough for the rounds' full K5 grids."""
+    _card()
+    cpu = generators.random_cluster(23, dataclasses.replace(
+        WIDE_PROP, num_brokers=600, num_racks=30, num_topics=300, num_dead_brokers=6))
+    dims, sc, ac, sg, ag = _sides(cpu)
+    return dict(dims=dims, sc=sc, ac=ac, sg=sg, ag=ag)
+
+
+def _k5_grid(side, dims, kind):
+    """(goal, tables, gs, index tensors) of the rounds' full-size K5 grid of
+    `kind` on one side: [128, 128, 8, 8], [512, 16, 8] or [512, 4, 2, 8, 2]."""
+    from cruise_control_torch.analyzer import drain, swaps
+    from cruise_control_torch.kernels.score_swaps import LEADERSHIP_RELAY, REPLICA_SWAP
+
+    st, agg = side
+    name = {REPLICA_SWAP: "DiskUsageDistributionGoal",
+            LEADERSHIP_RELAY: "LeaderBytesInDistributionGoal"}.get(
+        kind, "TopicReplicaDistributionGoal")
+    g, tables, gs = _side(st, agg, dims, name)
+    if kind == REPLICA_SWAP:
+        grid = swaps.swap_grid(st, agg, g.resource, g.drain_contrib(st, gs, agg).contiguous(),
+                               128, 8, dims.num_brokers)[-1]
+    elif kind == LEADERSHIP_RELAY:
+        grid = drain.relay_grid(st, agg, gs, g, 0, 512, 4, 8, dims.num_brokers)[-1]
+    else:
+        grid = drain.topic_swap_grid(st, agg, tables, gs, 0, 512, 16, 8, dims.num_topics,
+                                     dims.num_brokers)[-1]
+    return g, tables, gs, grid
+
+
+def _k5_both(m, kind, edit=None):
+    """K5 on the card against its plain version on the CPU, on the grid of
+    `kind`, edited by edit(grid) on both sides; returns (finite cells, path
+    launched)."""
+    from cruise_control_torch.kernels.score_swaps import score_swaps, score_swaps_plain
+
+    g, tc, gsc, grid_c = _k5_grid((m["sc"], m["ac"]), m["dims"], kind)
+    _, tg, gsg, grid_g = _k5_grid((m["sg"], m["ag"]), m["dims"], kind)
+    for x, y in zip(grid_c, grid_g):
+        assert _bits(x, y)
+    if edit is not None:
+        grid_c = edit([t.clone() for t in grid_c])
+        grid_g = [t.cuda() for t in grid_c]
+    res = getattr(g, "resource", 0)
+    before = dict(score_swaps.paths)
+    want = score_swaps_plain(kind, m["sc"], m["ac"], tc, gsc, *grid_c, resource=res)
+    got = score_swaps(kind, m["sg"], m["ag"], tg, gsg, *grid_g, resource=res).cpu()
+    fin = torch.isfinite(want)
+    assert want.shape == got.shape
+    assert torch.equal(fin, torch.isfinite(got))
+    assert _bits(want[fin], got[fin])
+    path = [k for k, v in score_swaps.paths.items() if v != before.get(k, 0)]
+    return int(fin.sum()), path
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["replica-swap", "topic-swap", "relay"])
+def test_k5_full_size_grids(swap_model, kind):
+    """Each kind at the rounds' full grid shape: the replica-swap grid on the
+    staged path, the topic-swap and relay grids a thread a cell."""
+    finite, path = _k5_both(swap_model, kind)
+    assert path == (["staged"] if kind == 0 else ["cells"])
+    assert finite > 0
+
+
+@pytest.mark.parametrize("path", ["staged", "cells"])
+@pytest.mark.parametrize("edit", ["masked rows", "stray pick"])
+def test_k5_replica_swap_grid_with_masked_and_stray_picks(swap_model, edit, path, monkeypatch):
+    """The replica-swap grid, on the staged path and forced a thread a cell,
+    with a hot broker's picks masked, a cold broker's picks masked, a masked
+    hot and a masked cold broker; and with a pick that is not on its grid
+    broker (its cells scored in the reference's form)."""
+    from cruise_control_torch.kernels import score_swaps as k5
+
+    if path == "cells":
+        monkeypatch.setattr(k5, "STAGED_MIN_CELLS", 1 << 40)
+        monkeypatch.setattr(k5, "_LAYOUTS", {})
+    def masked(grid):
+        p1, s1, hot, p2, s2, cold = grid
+        p1[3] = -1
+        p2[:, 5] = -1
+        hot[9] = -1
+        cold[:, 7] = -1
+        p1[20, 0, 1, 0] = -1
+        return (p1, s1, hot, p2, s2, cold)
+
+    def stray(grid):
+        p1, s1, hot, p2, s2, cold = grid
+        p1[11, 0, 2, 0], s1[11, 0, 2, 0] = p1[12, 0, 2, 0], s1[12, 0, 2, 0]
+        p2[0, 30, 0, 1], s2[0, 30, 0, 1] = p2[0, 31, 0, 1], s2[0, 31, 0, 1]
+        return (p1, s1, hot, p2, s2, cold)
+
+    finite, took = _k5_both(swap_model, 0, masked if edit == "masked rows" else stray)
+    assert took == [path] and finite > 0
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_k6_one_pass(pair, k):
+    """K6 at k = 1, 4 and 8: rows with fewer than k slots and a row with
+    none, bit-equal to the plain version; at most two launches a call, and
+    the scratch back at its state after each."""
+    from cruise_control_torch.kernels import pair_picks as k6
+
+    rng = np.random.default_rng(30 + k)
+    a = pair["ac"].assignment
+    topic = pair["sc"].topic_id
+    pair_b = torch.from_numpy(rng.permutation(24)[:12].astype(np.int32))
+    held = [int(topic[int(np.argwhere(a.numpy() == b)[0][0])]) for b in pair_b[:9].tolist()]
+    on_last = set(topic[(a == int(pair_b[-1])).any(dim=1)].tolist())
+    none = min(set(range(60)) - on_last)
+    pair_t = torch.tensor(held + list(rng.integers(0, 60, 2)) + [none], dtype=torch.int32)
+    want = pair_picks_plain(a, topic, pair["sc"].movable_partition, pair_t, pair_b, k, 24)
+    args = (pair["ag"].assignment, pair["sg"].topic_id, pair["sg"].movable_partition,
+            pair_t.cuda(), pair_b.cuda(), k, 24)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = pair_picks(*args)
+        torch.cuda.synchronize()
+    for x, y in zip(want, got):
+        assert _bits(x, y)
+    found = want[2]
+    assert not bool(found[-1].any()), "a row with no slot"
+    if k > 1:
+        assert bool((found.any(dim=1) & ~found.all(dim=1)).any()), "a row with fewer than k"
+    launches = [e for e in prof.events() if e.name.split("(")[0].split("<")[0].split(" ")[-1]
+                .startswith("k_pair")]
+    assert 0 < len(launches) <= 2, [e.name for e in launches]
+    row_of, lists, ticket = k6._SCRATCH[torch.cuda.current_device()]
+    assert bool((row_of == -1).all()) and bool((lists == torch.iinfo(torch.int32).max).all())
+    assert int(ticket[0]) == 0
+
+
+def test_k5_and_k6_read_nothing_back(swap_model, pair):
+    """Once built, a K5 call of each kind (with a round's context) and a K6
+    call synchronize nothing with the host."""
+    from cruise_control_torch.kernels.score_swaps import score_swaps, swap_context
+
+    m = swap_model
+    calls = []
+    for kind in (0, 1, 2):
+        g, tg, gsg, grid = _k5_grid((m["sg"], m["ag"]), m["dims"], kind)
+        ctx = swap_context(None, m["sg"], m["ag"], tg, gsg)
+        calls.append(lambda kind=kind, tg=tg, gsg=gsg, grid=grid, ctx=ctx, res=getattr(
+            g, "resource", 0): score_swaps(kind, m["sg"], m["ag"], tg, gsg, *grid, resource=res,
+                                           ctx=ctx))
+    pair_t = torch.zeros(8, dtype=torch.int32, device="cuda")
+    pair_b = torch.arange(8, dtype=torch.int32, device="cuda")
+    calls.append(lambda: pair_picks(pair["ag"].assignment, pair["sg"].topic_id,
+                                    pair["sg"].movable_partition, pair_t, pair_b, 4, 24))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_replica_distribution_on_5000_brokers_card_equals_cpu():
+    """ReplicaDistributionGoal through the service machine (SERVICE_SETTINGS,
+    bucketed to 5,120 brokers) on a 5,000-broker cluster: the bulk planner's
+    waves take K4's wide configuration; the decision digest and the final
+    assignment equal the CPU run's."""
+    _card()
+    model = generators.random_cluster(11, WIDE_PROP)
+    waves_before = apply_wave.launches
+    res = [opt.GoalOptimizer(device=d, settings=opt.SERVICE_SETTINGS).optimizations(
+        model, ["ReplicaDistributionGoal"], raise_on_hard_failure=False) for d in ("cpu", "cuda")]
+    assert apply_wave.launches > waves_before
+    assert res[0].bucketed["padded"]["num_brokers"] == 5120
+    assert res[0].provenance.digest() == res[1].provenance.digest()
+    assert np.array_equal(res[0].final_assignment, res[1].final_assignment)
+    assert res[0].num_replica_moves > 0
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_k6_over_12288_brokers(k):
+    """20,000 brokers (past the 12,288 whose pair rows fit a block's shared
+    memory): K6's other configuration, the pair rows in a per-device table
+    and the picks written by the pass's last block."""
+    _card()
+    from cruise_control_torch.kernels import pair_picks as k6
+
+    rng = np.random.default_rng(50 + k)
+    p, r, b, t = 30000, 3, 20000, 500
+    a = rng.integers(0, b, (p, r)).astype(np.int32)
+    a[rng.random((p, r)) < 0.05] = -1
+    a[:40, :] = 11  # a pair with many slots
+    topic = rng.integers(0, t, p).astype(np.int32)
+    topic[:40] = 3
+    mv = rng.random(p) < 0.95
+    pair_b = rng.permutation(b)[:512].astype(np.int32)
+    pair_b[0] = 11
+    held = np.full(512, -1, np.int32)
+    for v, x in enumerate(pair_b):
+        rows = np.nonzero((a == x).any(axis=1))[0]
+        held[v] = topic[rows[0]] if len(rows) else rng.integers(0, t)
+    held[0] = 3
+    args = [torch.from_numpy(x) for x in (a, topic, mv, held, pair_b)]
+    want = pair_picks_plain(*args, k, b)
+    got = pair_picks(*(x.cuda() for x in args), k, b)
+    for x, y in zip(want, got):
+        assert _bits(x, y)
+    assert bool(want[2].any()) and bool(want[2][0].all())
+    row_of, lists, ticket = k6._SCRATCH[torch.cuda.current_device()]
+    assert bool((row_of == -1).all()) and bool((lists == torch.iinfo(torch.int32).max).all())
+    assert int(ticket[0]) == 0

@@ -381,3 +381,90 @@ def test_the_wrapper_with_a_context_equals_jitted_jax(model, gi):
         assert np.array_equal(want[fin].view(np.int32), got[fin].view(np.int32)), name
         finite += int(fin.sum())
     assert finite > 0
+
+
+# -- K5 on the same context ------------------------------------------------------------
+
+
+def test_a_swap_context_packs_without_a_goal(model):
+    """K5 reads the ScoreCtx struct from a context with no goal (its goal
+    field -1), capacity_limit included; a round's K3 context serves K5 as
+    it is, without a rebuild for the goal K5 never reads."""
+    from cruise_control_torch.kernels import score_swaps as k5
+
+    g, tables, gs = _torch_side(model, 8)
+    ctx = k5.swap_context(None, model["ts"], model["ta"], tables, gs)
+    assert ctx.goal is None and ctx.pack("test")
+    assert ctx.struct.goal == -1
+    assert ctx.struct.capacity_limit == model["ts"].capacity_limit.data_ptr()
+    assert ctx.struct.w_lower == gs.lower.data_ptr()
+    k3ctx = k3.ScoreContext(model["ts"], model["ta"], tables, g, gs)
+    rebuilds = k3.ScoreContext.rebuilds
+    assert k5.swap_context(k3ctx, model["ts"], model["ta"], tables, gs) is k3ctx
+    assert k3.ScoreContext.rebuilds == rebuilds and k3ctx.goal is g
+
+
+def _swap_layouts(model):
+    """name -> (kind, wave, index tensors, path): each K5 call site's layout
+    on the small model, built by the rounds' own grid functions."""
+    from cruise_control_torch.analyzer import drain, swaps
+    from cruise_control_torch.kernels import score_swaps as k5
+
+    st, agg, td = model["ts"], model["ta"], model["td"]
+    goals = tgoals(None)
+    disk, topic, lbi = goals[8], goals[12], goals[14]
+    gs = disk.prepare(st, agg, td)
+    grid = swaps.swap_grid(st, agg, disk.resource, disk.drain_contrib(st, gs, agg).contiguous(),
+                           8, 4, td.num_brokers)[-1]
+    tables = tacc.build_tables(goals[:12], st, agg, td)
+    tgrid = drain.topic_swap_grid(st, agg, tables, topic.prepare(st, agg, td), 0, 8, 4, 4,
+                                  td.num_topics, td.num_brokers)[-1]
+    rgrid = drain.relay_grid(st, agg, lbi.prepare(st, agg, td), lbi, 0, 8, 4, 8,
+                             td.num_brokers)[-1]
+    wave = tuple(torch.zeros(8, dtype=torch.int32) for _ in range(6))
+    return {
+        "replica-swap grid": (k5.REPLICA_SWAP, False, grid, k5.PATH_STAGED),
+        "replica-swap wave": (k5.REPLICA_SWAP, True, wave, k5.PATH_CELLS),
+        "topic-swap grid": (k5.TOPIC_SWAP, False, tgrid, k5.PATH_CELLS),
+        "topic-swap wave": (k5.TOPIC_SWAP, False, wave, k5.PATH_CELLS),
+        "relay grid": (k5.LEADERSHIP_RELAY, False, rgrid, k5.PATH_CELLS),
+    }
+
+
+def test_the_swap_path_of_each_call_site(model, monkeypatch):
+    """The replica-swap grid [N, N, K, K] takes K5's staged path (from
+    STAGED_MIN_CELLS cells: the small model's grid is below it, so the floor
+    is set to 0 here), every other call site a thread a cell; below the
+    floor the grid does too."""
+    from cruise_control_torch.kernels import score_swaps as k5
+
+    monkeypatch.setattr(k5, "STAGED_MIN_CELLS", 0)
+    layouts = _swap_layouts(model)
+    for name, (kind, wave, idx, path) in layouts.items():
+        shape, shape5, strides = k5.layout(*idx)
+        assert shape == torch.broadcast_shapes(*(t.shape for t in idx)), name
+        assert k5.choose_path(kind, wave, shape5, strides) == path, name
+    kind, wave, idx, _ = layouts["replica-swap grid"]
+    _, shape5, strides = k5.layout(*idx)
+    monkeypatch.setattr(k5, "STAGED_MIN_CELLS", int(np.prod(shape5)) + 1)
+    assert k5.choose_path(kind, wave, shape5, strides) == k5.PATH_CELLS
+
+
+def test_a_swap_launch_layout_is_checked_packed_and_cached(model):
+    """The C entry's layout: the five dims, the thirty strides, kind,
+    resource, wave and path, packed once per layout; index tensors of
+    another type are refused (the kernel reads int32 in place)."""
+    from cruise_control_torch.kernels import score_swaps as k5
+
+    a = model["ta"].assignment
+    kind, wave, idx, _ = _swap_layouts(model)["replica-swap grid"]
+    path = k5.choose_path(kind, wave, *k5.layout(*idx)[1:])
+    lay = k5._launch_layout(kind, 3, wave, idx, a)
+    assert lay is k5._launch_layout(kind, 3, wave, idx, a)
+    shape, shape5, strides = k5.layout(*idx)
+    assert list(lay.packed) == [*shape5, *strides, kind, 3, 0, path]
+    assert lay.shape == shape and ctypes.addressof(lay.packed) == lay.address
+    with pytest.raises(TypeError):
+        k5._launch_layout(kind, 3, wave, tuple(t.long() for t in idx), a)
+    with pytest.raises(ValueError):
+        k5._launch_layout(7, 0, False, idx, a)
