@@ -11,9 +11,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      version run on a CPU copy of the same inputs (integers exact, floats
      bit-equal, finite masks exact); time each on the card over a run of
      back-to-back calls, as device time from a profiler trace and as time
-     per call from CUDA events, and its plain version from CUDA events (K2
-     and window_sum beside the previous design's times, PREVIOUS_MS):
-       K1 segment_aggregates, K2 broker_topk (DiskCapacityGoal's drain
+     per call from CUDA events, and its plain version from CUDA events (K1,
+     K2, K8 and window_sum beside the previous design's times, PREVIOUS_MS):
+       K1 segment_aggregates (the smoke model, its bucketed service context's
+       212,992 x 3 slots over 3,072 brokers, and the smoke model with half
+       its slots on broker 0), K2 broker_topk (DiskCapacityGoal's drain
        priorities heaviest and lightest first, the relay's leadership-masked
        weights, and the bulk planner's priorities on the bucketed service
        context's 3,072 brokers), K3 score_candidates (each called with a
@@ -35,7 +37,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        leader bytes-in, each beside torch.sum), K7 state_fingerprint (the
        aggregates)
        K8 cluster_stats (the statistics of the smoke model, whose
-       [4,000, 2,600] topic table is the work) and K9 grid_shortlist (the
+       [4,000, 2,600] topic table is the work, and of its first 20 topics,
+       whose mean takes TOPIC_LANES' order) and K9 grid_shortlist (the
        greedy round's [199,518, 3, 16] move grid and [199,518, 2] promotion
        grid under a hard goal with dead brokers and under
        LeaderReplicaDistributionGoal, beside K3 on the materialized grid
@@ -701,12 +704,14 @@ def option_recipes(fields: dict):
     }
 
 
-#: K2's and window_sum's device and call ms at chip_smoke's rows in the
-#: designs they replaced (K2: one atomicMax pass per k; window_sum: one block
-#: per column), as PERF.md section 6 records them, printed beside the new
-#: times
+#: device and call ms at chip_smoke's rows in the designs they replaced
+#: (K2: one atomicMax pass per k; window_sum: one block per column; K1: two
+#: library sorts and a thread per broker; K8: one block per topic, then one
+#: block for the seven series), as PERF.md section 6 records them, printed
+#: beside the new times
 PREVIOUS_MS = {"disk drain": (0.143, 0.170), "leader bytes-in": (0.0034, 0.0284),
-               "broker loads": (0.0035, 0.0271), "partition leader bytes-in": (0.1087, 0.1112)}
+               "broker loads": (0.0035, 0.0271), "partition leader bytes-in": (0.1087, 0.1112),
+               "K1 smoke model": (0.481, 0.532), "K8 4000 topics": (0.184, 0.191)}
 
 
 def previous(label: str) -> str:
@@ -978,30 +983,55 @@ def main() -> int:
           "the input context unchanged")
     del st10_g, out10_g, inputs10
 
-    # K1
-    k1_args_g = (model.assignment, st_g.part_load, st_g.topic_id, st_g.broker_rack,
-                 st_g.broker_host, dims.num_brokers, dims.num_racks, dims.num_hosts,
-                 dims.num_topics)
-    k1_args_c = (model_cpu.assignment, st_c.part_load, st_c.topic_id, st_c.broker_rack,
-                 st_c.broker_host, dims.num_brokers, dims.num_racks, dims.num_hosts,
-                 dims.num_topics)
-    out_g = segment_aggregates(*k1_args_g)
-    torch.cuda.synchronize()
-    out_c = segment_aggregates_plain(*k1_args_c)
+    # K1 on the smoke model (the JSON row), on its bucketed service context
+    # (212,992 x 3 slots over 3,072 brokers, the main path's shape) and on
+    # the smoke model with half its slots moved to broker 0 (one broker
+    # takes its block's four warps)
     names = ("broker_load", "replica_count", "leader_count", "potential_nw_out",
              "leader_nw_in", "rack_replica_count", "topic_replica_count", "host_cpu_load")
-    for n_, a_, b_ in zip(names, out_g, out_c):
-        if not bits_equal(a_, b_):
-            fail(f"K1 segment_aggregates: {n_} differs from the plain version")
-    k1_bytes = (model_cpu.assignment.numel() * 4 + model_cpu.part_load.numel() * 4
-                + p_count * 4 + dims.num_brokers * 8 + sum(t.numel() * 4 for t in out_c))
-    # per slot: 4 load adds, potential NW_OUT, leader NW_IN, 4 counts
-    row("segment_aggregates", "segment_aggregates.cu", "cruise_control_tpu/analyzer/context.py:276",
-        max(max_abs_err(a_, b_) for a_, b_ in zip(out_g, out_c)),
-        lambda i: segment_aggregates(*k1_args_g), lambda i: segment_aggregates_plain(*k1_args_g),
-        k1_bytes, p_count * r * 10 + dims.num_brokers,
-        "one thread per broker sums its stable-sorted slots in order; the wrapper's sort included")
-    print("K1 segment_aggregates: bit-equal to the plain version")
+
+    def k1_row(label, key, a_g, a_c, st_g_, st_c_, dims_):
+        args_g = (a_g, st_g_.part_load, st_g_.topic_id, st_g_.broker_rack, st_g_.broker_host,
+                  dims_.num_brokers, dims_.num_racks, dims_.num_hosts, dims_.num_topics)
+        args_c = (a_c, st_c_.part_load, st_c_.topic_id, st_c_.broker_rack, st_c_.broker_host,
+                  dims_.num_brokers, dims_.num_racks, dims_.num_hosts, dims_.num_topics)
+        out_g = segment_aggregates(*args_g)
+        torch.cuda.synchronize()
+        out_c = segment_aggregates_plain(*args_c)
+        for n_, a_, b_ in zip(names, out_g, out_c):
+            if not bits_equal(a_, b_):
+                fail(f"K1 segment_aggregates ({label}): {n_} differs from the plain version")
+        p_, r_ = a_c.shape
+        nbytes = (a_c.numel() * 4 + st_c_.part_load.numel() * 4 + p_ * 4
+                  + dims_.num_brokers * 8 + sum(t.numel() * 4 for t in out_c))
+        # per slot: 4 load adds, potential NW_OUT, leader NW_IN, 4 counts
+        rw = row(key, "segment_aggregates.cu", "cruise_control_tpu/analyzer/context.py:276",
+                 max(max_abs_err(a_, b_) for a_, b_ in zip(out_g, out_c)),
+                 lambda i: segment_aggregates(*args_g), lambda i: segment_aggregates_plain(*args_g),
+                 nbytes, p_ * r_ * 10 + dims_.num_brokers,
+                 f"{label}: slots bucketed by broker in blocks of 4,096 (a stable block radix "
+                 "sort, a runs table), a warp per broker sums its runs in slot order (a "
+                 "block for a heavy broker) and counts the topic table by atomics after a "
+                 "memset, rack rows written whole from shared-memory tiles")
+        print(f"K1 segment_aggregates ({label}): bit-equal to the plain version; "
+              f"{rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per call, plain "
+              f"{rw['plain_ms']:.4f} ms, bound {rw['bound_ms']:.6f} ms; "
+              f"{previous('K1 ' + label)}")
+        return rw
+
+    k1_row("smoke model", "segment_aggregates", model.assignment, model_cpu.assignment, st_g, st_c,
+           dims)
+    pm10_g, dims10 = ctx10_g[1], ctx10_g[2]
+    k1_row("bucketed", "segment_aggregates bucketed", pm10_g.assignment, ctx10_c[1].assignment,
+           ctx10_g[3], ctx10_c[3], dims10)
+    rows.pop("segment_aggregates bucketed")
+    skew_c = model_cpu.assignment.clone()
+    half = torch.from_numpy(np.random.default_rng(SEED).random(tuple(skew_c.shape)) < 0.5)
+    skew_c[half & (skew_c >= 0)] = 0
+    k1_row("skewed, broker 0 holds half the slots", "segment_aggregates skewed",
+           skew_c.to(dev), skew_c, st_g, st_c, dims)
+    rows.pop("segment_aggregates skewed")
+    del pm10_g, skew_c, half
 
     agg_g = compute_aggregates(st_g, model.assignment, dims)
     agg_c = compute_aggregates(st_c, model_cpu.assignment, dims)
@@ -1630,24 +1660,37 @@ def main() -> int:
     k8_c = (agg_c.broker_load, model_cpu.broker_capacity, alive_broker_mask(model_cpu),
             agg_c.replica_count, agg_c.leader_count, agg_c.potential_nw_out,
             agg_c.topic_replica_count)
-    o8_g = cluster_stats(*k8_g)
-    torch.cuda.synchronize()
-    o8_c = cluster_stats_plain(*k8_c)
-    for n_, a_, b_ in zip(("f32 fields", "counts"), o8_g, o8_c):
-        if not bits_equal(a_, b_):
-            fail(f"K8 cluster_stats: {n_} differ from the plain version")
     t_count = dims.num_topics
-    # the [T, B] table once, the per-broker vectors once, the outputs; per
-    # topic cell a subtract, a multiply, an add and the integer sums, per
-    # broker and series about ten operations
-    row("cluster_stats", "cluster_stats.cu", "cruise_control_tpu/analyzer/stats.py:69",
-        max(max_abs_err(a_, b_) for a_, b_ in zip(o8_g, o8_c)),
-        lambda i: cluster_stats(*k8_g), lambda i: cluster_stats_plain(*k8_g),
-        t_count * b_count * 4 + b_count * (16 + 16 + 1 + 4 + 4 + 4) + 25 * 4 + 12,
-        t_count * b_count * 6 + b_count * 7 * 10,
-        "one block per topic (XLA-ordered sums along the broker axis), then one block for "
-        "the seven per-broker series and the topic mean")
-    print("K8 cluster_stats: every field bit-equal to the plain version")
+
+    def k8_row(label, key, args_g, args_c):
+        o8_g = cluster_stats(*args_g)
+        torch.cuda.synchronize()
+        o8_c = cluster_stats_plain(*args_c)
+        for n_, a_, b_ in zip(("f32 fields", "counts"), o8_g, o8_c):
+            if not bits_equal(a_, b_):
+                fail(f"K8 cluster_stats ({label}): {n_} differ from the plain version")
+        t_ = args_c[6].shape[0]
+        # the [T, B] table once, the per-broker vectors once, the outputs; per
+        # topic cell a subtract, a multiply, an add and the integer sums, per
+        # broker and series about ten operations
+        rw = row(key, "cluster_stats.cu", "cruise_control_tpu/analyzer/stats.py:69",
+                 max(max_abs_err(a_, b_) for a_, b_ in zip(o8_g, o8_c)),
+                 lambda i: cluster_stats(*args_g), lambda i: cluster_stats_plain(*args_g),
+                 t_ * b_count * 4 + b_count * (16 + 16 + 1 + 4 + 4 + 4) + 25 * 4 + 12,
+                 t_ * b_count * 6 + b_count * 7 * 10,
+                 f"{label}: one launch, a block per per-broker series and a warp per topic "
+                 "(XLA-ordered sums, a level-2 window a warp), the topic mean in the last "
+                 "block")
+        print(f"K8 cluster_stats ({label}): every field bit-equal to the plain version; "
+              f"{rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per call, plain "
+              f"{rw['plain_ms']:.4f} ms, bound {rw['bound_ms']:.6f} ms; "
+              f"{previous('K8 ' + label)}")
+
+    k8_row(f"{t_count} topics", "cluster_stats", k8_g, k8_c)
+    # 20 topics: the mean over them in TOPIC_LANES' vectorized order
+    k8_row("20 topics", "cluster_stats 20 topics",
+           k8_g[:6] + (k8_g[6][:20].contiguous(),), k8_c[:6] + (k8_c[6][:20].contiguous(),))
+    rows.pop("cluster_stats 20 topics")
 
     # K9 on the greedy round's grid of the smoke state: [199,518, 3, 16]
     # moves toward num_dst_candidates = 16 rack-representative brokers and

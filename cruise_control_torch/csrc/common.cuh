@@ -4,8 +4,9 @@
 //   int <name>(const long long* ptrs, const long long* ints, cudaStream_t stream)
 // `ptrs` holds device addresses, `ints` sizes, strides and flags, both host
 // arrays read before the launch; or, for an entry point called through
-// kernels/build.py `entry` (window_sum, broker_topk, score_candidates,
-// score_swaps, pair_picks, grid_shortlist), the arguments one by one: device
+// kernels/build.py `entry` (segment_aggregates, broker_topk,
+// score_candidates, score_swaps, pair_picks, window_sum, cluster_stats,
+// grid_shortlist), the arguments one by one: device
 // addresses (K3, K5 and K9 first the host address of their packed ScoreCtx,
 // score_goal.cuh), 64-bit integers, the stream last. The return
 // value is the cudaError_t of the launch (0 on success); cc_error_string
@@ -114,71 +115,6 @@ __device__ __forceinline__ float xla_tanhf(float x) {
 // Distance of v outside [lo, hi]; 0 inside (goals/base.py imbalance).
 __device__ __forceinline__ float imbalance(float v, float lo, float hi) {
   return fmaxf(0.0f, v - hi) + fmaxf(0.0f, lo - v);
-}
-
-// XLA:CPU's order for a float32 sum of n terms (its tree-reduction rewrite
-// of `reduce`, window 32): n <= 32 terms are added in index order from +0.0
-// (one term is returned as it is: XLA drops a reduction over one element);
-// a longer axis is padded with zeros to m, the next multiple of 32, with
-// (m - n) / 2 of them (rounded down) in front, each window of 32 is summed in
-// index order from +0.0, and the window sums are reduced the same way until
-// 32 or fewer remain. A padding zero is skipped rather than added: a sum that
-// starts at +0.0 never becomes -0.0, so adding +0.0 would change nothing.
-// kernels/window_sum.py window_sum_plain is the same on the CPU.
-//
-// Block-wide: every thread of the block calls it with the same n. term(i)
-// gives the i-th term; s_a and s_b are shared scratch of at least
-// ceil(n / 32) and ceil(n / 1024) floats. Windows of one level are
-// independent, one thread each; levels are separated by barriers. Returns
-// the sum to every thread.
-template <typename Term>
-__device__ float block_xla_sum(Term term, int n, float* s_a, float* s_b) {
-  __shared__ float s_result;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  float* src = s_a;
-  if (n > 32) {
-    int m = (n + 31) / 32 * 32, lo = (m - n) / 2, nw = m / 32;
-    for (int w = tid; w < nw; w += nt) {
-      float acc = 0.0f;
-      for (int k = 0; k < 32; ++k) {
-        int i = w * 32 + k - lo;
-        if (i >= 0 && i < n) acc = __fadd_rn(acc, term(i));
-      }
-      s_a[w] = acc;
-    }
-    __syncthreads();
-    float* dst = s_b;
-    n = nw;
-    while (n > 32) {
-      m = (n + 31) / 32 * 32, lo = (m - n) / 2, nw = m / 32;
-      for (int w = tid; w < nw; w += nt) {
-        float acc = 0.0f;
-        for (int k = 0; k < 32; ++k) {
-          int i = w * 32 + k - lo;
-          if (i >= 0 && i < n) acc = __fadd_rn(acc, src[i]);
-        }
-        dst[w] = acc;
-      }
-      __syncthreads();
-      float* t = src;
-      src = dst;
-      dst = t;
-      n = nw;
-    }
-    if (tid == 0) {
-      float acc = 0.0f;
-      for (int i = 0; i < n; ++i) acc = __fadd_rn(acc, src[i]);
-      s_result = acc;
-    }
-  } else if (tid == 0) {
-    float acc = n == 1 ? term(0) : 0.0f;
-    for (int i = n == 1 ? 1 : 0; i < n; ++i) acc = __fadd_rn(acc, term(i));
-    s_result = acc;
-  }
-  __syncthreads();
-  float r = s_result;
-  __syncthreads();
-  return r;
 }
 
 CC_EXPORT const char* cc_error_string(int code) {

@@ -38,7 +38,10 @@
 // -inf the winner is p 0, slot 0, and the first destination candidate (kind
 // MOVE), or broker 0 for a goal without moves, as the reference's initial
 // values give. A block has K9_WARPS warps, fewer where a wide R and K would
-// not fit their shared memory.
+// not fit their shared memory; where one warp's would not fit either (R of
+// about 800 at K = 16, or thousands of candidates), a second configuration
+// keeps every block's halves, pair words and score table in its own part of
+// a device-memory workspace instead, K9_GLOBAL_BLOCKS blocks at most.
 #include "score_goal.cuh"
 
 constexpr int K9_WARPS = 4;  // a block's warps, at most
@@ -46,6 +49,8 @@ constexpr int K9_WARPS = 4;  // a block's warps, at most
 constexpr size_t K9_SMEM_MAX = 200 * 1024;
 // the most blocks a launch uses (the size of the caller's record scratch)
 constexpr int K9_MAX_BLOCKS = 4096;
+// the most blocks of the device-memory configuration (the workspace's size)
+constexpr int K9_GLOBAL_BLOCKS = 264;
 
 struct GridArgs {
   ScoreCtx c;
@@ -77,11 +82,25 @@ __host__ __device__ __forceinline__ size_t warp_bytes(int R, int K, int G) {
                       K * sizeof(PairWords) + R * sizeof(int) + (R * K + R - 1) * sizeof(float));
 }
 
-__global__ void __launch_bounds__(K9_WARPS * 32) k_grid_bid(GridArgs g, BlockBest* blocks) {
+// The bytes of a block's part: K DstHalfs and `warps` warps' parts (in the
+// workspace, each block's part starts 16-byte aligned).
+__host__ __device__ __forceinline__ size_t block_bytes(int R, int K, int G, int warps) {
+  return (size_t)K * sizeof(DstHalf) + (size_t)warps * warp_bytes(R, K, G);
+}
+__host__ __device__ __forceinline__ size_t work_bytes(int R, int K, int G, int warps) {
+  return (block_bytes(R, K, G, warps) + 15) / 16 * 16;
+}
+
+// WORK: the device-memory configuration, each block's part of `work`
+// (block_bytes() a block) in place of its shared memory.
+template <bool WORK>
+__global__ void __launch_bounds__(K9_WARPS * 32)
+    k_grid_bid(GridArgs g, BlockBest* blocks, char* work) {
   extern __shared__ int smem[];
   const int R = g.c.R, K = g.K, G = g.G, RK = R * K, C = RK + R - 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  DstHalf* s_dst = reinterpret_cast<DstHalf*>(smem);
+  DstHalf* s_dst = reinterpret_cast<DstHalf*>(
+      WORK ? work + blockIdx.x * work_bytes(R, K, G, warps) : reinterpret_cast<char*>(smem));
   char* w = reinterpret_cast<char*>(s_dst + K) + (size_t)warp * warp_bytes(R, K, G);
   SrcHalf* mv = reinterpret_cast<SrcHalf*>(w);
   SrcHalf* lead = mv + G * R;
@@ -237,12 +256,45 @@ struct K9Launch {
   int per_sm_warps = 0;
 };
 
+// The launch shape: G, warps, the dynamic shared memory (0 in the
+// device-memory configuration) and the workspace bytes (0 in the
+// shared-memory one).
+struct K9Shape {
+  int G, warps;
+  size_t smem, work;
+};
+
+static K9Shape k9_shape(long long R, long long K, long long P) {
+  K9Shape s;
+  s.G = 32 / (2 * R) > 0 ? (int)(32 / (2 * R)) : 1;
+  // as many warps as fit the block's shared memory, up to K9_WARPS
+  s.warps = K9_WARPS;
+  while (s.warps > 1 && block_bytes((int)R, (int)K, s.G, s.warps) > K9_SMEM_MAX) --s.warps;
+  s.smem = block_bytes((int)R, (int)K, s.G, s.warps);
+  s.work = 0;
+  if (s.smem > K9_SMEM_MAX) {  // not even one warp's: the device-memory configuration
+    s.warps = K9_WARPS;
+    long long n = (P + (long long)s.warps * s.G - 1) / ((long long)s.warps * s.G);
+    if (n > K9_GLOBAL_BLOCKS) n = K9_GLOBAL_BLOCKS;
+    s.work = (size_t)n * work_bytes((int)R, (int)K, s.G, s.warps);
+    s.smem = 0;
+  }
+  return s;
+}
+
+// The device-memory workspace a launch on these sizes needs (0: none).
+CC_EXPORT long long grid_shortlist_work_bytes(long long R, long long K, long long P) {
+  return R < 1 || P <= 0 ? 0 : (long long)k9_shape(R, K, P).work;
+}
+
 // ctx: the score context (host memory, read here); out_score f32[1], out_idx
 // i32[4] (p, kind, slot, dst); blocks: scratch of K9_MAX_BLOCKS records
-// (grid_shortlist_scratch_bytes() bytes); dst_cands i32[K].
+// (grid_shortlist_scratch_bytes() bytes); work: grid_shortlist_work_bytes()
+// bytes (null where that is 0); dst_cands i32[K].
 CC_EXPORT int grid_shortlist(const ScoreCtx* ctx, float* out_score, int* out_idx, void* blocks,
-                             const int* dst_cands, long long P, long long K, long long uses_moves,
-                             long long use_leadership, cudaStream_t stream) {
+                             void* work, const int* dst_cands, long long P, long long K,
+                             long long uses_moves, long long use_leadership,
+                             cudaStream_t stream) {
   GridArgs g;
   g.c = *ctx;
   g.out_score = out_score;
@@ -253,15 +305,11 @@ CC_EXPORT int grid_shortlist(const ScoreCtx* ctx, float* out_score, int* out_idx
   g.uses_moves = uses_moves != 0 && K > 0;
   g.use_leadership = use_leadership != 0 && ctx->R >= 2;
   if (P <= 0 || P > 0x7fffffffLL || ctx->R < 1) return cudaErrorInvalidValue;
-  g.G = 32 / (2 * ctx->R) > 0 ? 32 / (2 * ctx->R) : 1;
-  // as many warps as fit the block's shared memory, up to K9_WARPS
-  int warps = K9_WARPS;
-  while (warps > 1 &&
-         (size_t)K * sizeof(DstHalf) + (size_t)warps * warp_bytes(ctx->R, (int)K, g.G) > K9_SMEM_MAX)
-    --warps;
-  const size_t smem =
-      (size_t)K * sizeof(DstHalf) + (size_t)warps * warp_bytes(ctx->R, (int)K, g.G);
-  if (smem > K9_SMEM_MAX) return cudaErrorInvalidValue;
+  const K9Shape shape = k9_shape(ctx->R, K, P);
+  if (shape.work > 0 && work == nullptr) return cudaErrorInvalidValue;
+  g.G = shape.G;
+  const int warps = shape.warps;
+  const size_t smem = shape.smem;
   // the launch state of the current device (the one `stream` belongs to):
   // the shared-memory attribute, the SM count and the occupancy are each a
   // device's own
@@ -272,7 +320,8 @@ CC_EXPORT int grid_shortlist(const ScoreCtx* ctx, float* out_score, int* out_idx
   static K9Launch launch_state[K9_MAX_DEVICES];
   K9Launch& st = launch_state[dev];
   if (smem > st.smem_set) {
-    e = cudaFuncSetAttribute(k_grid_bid, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(k_grid_bid<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return e;
     st.smem_set = smem;
   }
@@ -283,7 +332,11 @@ CC_EXPORT int grid_shortlist(const ScoreCtx* ctx, float* out_score, int* out_idx
     if (e != cudaSuccess) return e;
   }
   if (st.per_sm_smem != smem || st.per_sm_warps != warps) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.per_sm, k_grid_bid, warps * 32, smem);
+    e = shape.work > 0
+            ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.per_sm, k_grid_bid<true>,
+                                                            warps * 32, smem)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.per_sm, k_grid_bid<false>,
+                                                            warps * 32, smem);
     if (e != cudaSuccess) return e;
     st.per_sm_smem = smem;
     st.per_sm_warps = warps;
@@ -292,8 +345,12 @@ CC_EXPORT int grid_shortlist(const ScoreCtx* ctx, float* out_score, int* out_idx
   const long long wave = (long long)st.sms * (st.per_sm > 0 ? st.per_sm : 1);
   if (n > wave) n = wave;
   if (n > K9_MAX_BLOCKS) n = K9_MAX_BLOCKS;
+  if (shape.work > 0 && n > K9_GLOBAL_BLOCKS) n = K9_GLOBAL_BLOCKS;
   BlockBest* rec = static_cast<BlockBest*>(blocks);
-  k_grid_bid<<<(unsigned)n, warps * 32, smem, stream>>>(g, rec);
+  if (shape.work > 0)
+    k_grid_bid<true><<<(unsigned)n, warps * 32, 0, stream>>>(g, rec, static_cast<char*>(work));
+  else
+    k_grid_bid<false><<<(unsigned)n, warps * 32, smem, stream>>>(g, rec, nullptr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   k_grid_take<<<1, 256, 0, stream>>>(g, rec, (int)n);

@@ -30,7 +30,9 @@
 //     shared memory once, then each thread loads the pair words of its four
 //     cells together and combines them. A destination's words are read once
 //     per 1,024-cell tile, not once per cell. The drain round's [512, 8, 64]
-//     move grids take it.
+//     move grids take it. Any size: an assignment row too wide to stage
+//     (R of about 12,000) is read in device memory instead, and past 65,535
+//     column tiles a block loops over its grid row's tiles.
 //   - general (k_score_cells): two threads a cell, one loading its source
 //     half, the other its destination half and pair words, every load at a
 //     clamped address, so that each follows one chain of dependent gathers;
@@ -118,18 +120,22 @@ __global__ void __launch_bounds__(256) k_score_flat(ScoreArgs g) {
 
 // Rows are the flattened (i0, i1) pairs, columns i2 (dst depends on i2
 // alone). Launched with TILE_THREADS threads, tr * tc <= TILE_CELLS, and
-// dynamic shared memory for tr SrcHalfs, tc DstHalfs and tr assignment rows.
-__global__ void __launch_bounds__(TILE_THREADS, 2) k_score_tiles(ScoreArgs g, int tr, int tc) {
+// dynamic shared memory for tr SrcHalfs, tc DstHalfs and, where ROWS, tr
+// assignment rows (without ROWS, a row wider than the static shared memory
+// holds, the cells read the partition's row in device memory). Grid row y
+// takes the column tiles y, y + gridDim.y, ... in turn, its rows staged once.
+template <bool ROWS>
+__global__ void __launch_bounds__(TILE_THREADS, 2)
+    k_score_tiles(ScoreArgs g, int tr, int tc, long long col_tiles) {
   extern __shared__ int smem[];
   SrcHalf* s_src = reinterpret_cast<SrcHalf*>(smem);
   DstHalf* s_dst = reinterpret_cast<DstHalf*>(s_src + tr);
   int* s_row = reinterpret_cast<int*>(s_dst + tc);
   const int R = g.c.R;
   const long long row0 = (long long)blockIdx.x * tr, row_end = g.d0 * g.d1;
-  const long long col0 = (long long)blockIdx.y * tc;
   const int tid = threadIdx.x;
   // stage: thread j < tr loads row j's source half and assignment row, the
-  // next tc threads the columns' destination halves
+  // next tc threads the first column tile's destination halves
   for (int j = tid; j < tr + tc; j += TILE_THREADS) {
     if (j < tr) {
       const long long row = row0 + j;
@@ -139,30 +145,41 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) k_score_tiles(ScoreArgs g, in
         const int kind = ld(g.kind + at(g.sk, i0, i1, 0));
         const int slot = ld(g.slot + at(g.ss, i0, i1, 0));
         s_src[j] = src_half(g.c, p, kind, slot);
-        for (int k = 0; k < R; ++k) s_row[j * R + k] = ld(g.c.assignment + (long long)p * R + k);
+        if (ROWS)
+          for (int k = 0; k < R; ++k) s_row[j * R + k] = ld(g.c.assignment + (long long)p * R + k);
       }
     } else {
-      const long long col = col0 + (j - tr);
+      const long long col = (long long)blockIdx.y * tc + (j - tr);
       if (col < g.d2) s_dst[j - tr] = dst_half(g.c, ld(g.dst + at(g.sd, 0, 0, col)));
     }
   }
   __syncthreads();
-  // each thread's cells: first every pair word, then every combine
   const Scalars sc = load_scalars(g.c);
-  PairWords w[TILE_CELLS_PER_THREAD];
-  bool live[TILE_CELLS_PER_THREAD];
+  for (long long ct = blockIdx.y; ct < col_tiles; ct += gridDim.y) {
+    const long long col0 = ct * tc;
+    if (ct != blockIdx.y) {  // the next tile's destination halves
+      __syncthreads();
+      for (int j = tid; j < tc; j += TILE_THREADS)
+        if (col0 + j < g.d2) s_dst[j] = dst_half(g.c, ld(g.dst + at(g.sd, 0, 0, col0 + j)));
+      __syncthreads();
+    }
+    // each thread's cells: first every pair word, then every combine
+    PairWords w[TILE_CELLS_PER_THREAD];
+    bool live[TILE_CELLS_PER_THREAD];
 #pragma unroll
-  for (int i = 0; i < TILE_CELLS_PER_THREAD; ++i) {
-    const int cell = tid + i * TILE_THREADS, jr = cell / tc, jc = cell % tc;
-    live[i] = jr < tr && row0 + jr < row_end && col0 + jc < g.d2;
-    if (live[i]) w[i] = pair_words(g.c, s_src[jr], s_dst[jc]);
-  }
+    for (int i = 0; i < TILE_CELLS_PER_THREAD; ++i) {
+      const int cell = tid + i * TILE_THREADS, jr = cell / tc, jc = cell % tc;
+      live[i] = jr < tr && row0 + jr < row_end && col0 + jc < g.d2;
+      if (live[i]) w[i] = pair_words(g.c, s_src[jr], s_dst[jc]);
+    }
 #pragma unroll
-  for (int i = 0; i < TILE_CELLS_PER_THREAD; ++i) {
-    const int cell = tid + i * TILE_THREADS, jr = cell / tc, jc = cell % tc;
-    if (live[i])
-      g.out[(row0 + jr) * g.d2 + col0 + jc] =
-          combine(g.c, sc, s_src[jr], s_dst[jc], s_row + jr * R, w[i]);
+    for (int i = 0; i < TILE_CELLS_PER_THREAD; ++i) {
+      const int cell = tid + i * TILE_THREADS, jr = cell / tc, jc = cell % tc;
+      if (live[i])
+        g.out[(row0 + jr) * g.d2 + col0 + jc] =
+            combine(g.c, sc, s_src[jr], s_dst[jc],
+                    ROWS ? s_row + jr * R : g.c.assignment + (long long)s_src[jr].p * R, w[i]);
+    }
   }
 }
 
@@ -199,18 +216,23 @@ CC_EXPORT int score_candidates(const ScoreCtx* ctx, float* out, const int* p, co
     while (tc < d2 && tc < 128) tc *= 2;
     // as many rows as make a tile of TILE_CELLS, and no more than the
     // static shared-memory limit holds: narrow tiles (tc = 2, 4) are bound
-    // by the rows' source halves, not by the cells
-    const size_t smem_max = 48 * 1024, row_bytes = sizeof(SrcHalf) + (size_t)ctx->R * 4;
-    if (tc * sizeof(DstHalf) + row_bytes > smem_max) return cudaErrorInvalidValue;
+    // by the rows' source halves, not by the cells. A row too wide for that
+    // limit stays in device memory (the second configuration).
+    const size_t smem_max = 48 * 1024, dst_bytes = tc * sizeof(DstHalf);
+    const bool rows = dst_bytes + sizeof(SrcHalf) + (size_t)ctx->R * 4 <= smem_max;
+    const size_t row_bytes = sizeof(SrcHalf) + (rows ? (size_t)ctx->R * 4 : 0);
     int tr = TILE_CELLS / tc;
-    if ((size_t)tr > (smem_max - tc * sizeof(DstHalf)) / row_bytes)
-      tr = (int)((smem_max - tc * sizeof(DstHalf)) / row_bytes);
+    if ((size_t)tr > (smem_max - dst_bytes) / row_bytes)
+      tr = (int)((smem_max - dst_bytes) / row_bytes);
     const long long row_tiles = (d0 * d1 + tr - 1) / tr;
     const long long col_tiles = (d2 + tc - 1) / tc;
-    if (row_tiles > 0x7fffffffLL || col_tiles > 65535) return cudaErrorInvalidValue;
-    const size_t smem = tc * sizeof(DstHalf) + (size_t)tr * row_bytes;
-    k_score_tiles<<<dim3((unsigned)row_tiles, (unsigned)col_tiles), TILE_THREADS, smem, stream>>>(
-        g, tr, tc);
+    if (row_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const size_t smem = dst_bytes + (size_t)tr * row_bytes;
+    const dim3 grid((unsigned)row_tiles, (unsigned)(col_tiles < 65535 ? col_tiles : 65535));
+    if (rows)
+      k_score_tiles<true><<<grid, TILE_THREADS, smem, stream>>>(g, tr, tc, col_tiles);
+    else
+      k_score_tiles<false><<<grid, TILE_THREADS, smem, stream>>>(g, tr, tc, col_tiles);
   } else if (path == PATH_PROMOTION) {
     if ((numel + 255) / 256 > 0x7fffffffLL) return cudaErrorInvalidValue;
     k_score_flat<<<(unsigned)((numel + 255) / 256), 256, 0, stream>>>(g);

@@ -14,9 +14,9 @@ rebuilds and an unchanged one is reused. Builds happen at first use, never at im
 `build_all()` starts one `nvcc` per source, all at once.
 
 A wrapper calls its entry point with `ptrs`/`ints` argument arrays and
-`stream()`, or, where the host's share of a call matters (window_sum, K2,
-K3, K5, K6, K9), through `entry()`, whose argument types are set once,
-with `raw_stream()`.
+`stream()` (K4, K7, K10, K11), or through `entry()`, whose argument types
+are set once, with `raw_stream()` (K1, K2, K3, K5, K6, window_sum, K8,
+K9).
 """
 
 from __future__ import annotations

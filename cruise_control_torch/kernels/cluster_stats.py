@@ -5,9 +5,10 @@ _masked_stats (:58): masked mean / std / min / max over the alive brokers of
 each resource's utilisation, the replica and leader counts and the potential
 NW_OUT, plus the mean over the non-empty topics of each topic's replica-count
 standard deviation across the alive brokers. The CUDA kernel is
-csrc/cluster_stats.cu; `cluster_stats_plain` is the numpy version. Every
+csrc/cluster_stats.cu; `cluster_stats_plain` is the PyTorch version. Every
 float sum of both is taken in XLA:CPU's order (kernels/window_sum.py), so
-both are bit-equal to the jitted reference.
+both are bit-equal to the jitted reference; `topic_sum` and
+`window_sum.xla_sum` state the order in numpy, as the tests' spec.
 
 The sum over 32 or fewer topics is the exception. XLA:CPU fuses it with the
 per-topic square roots into one loop, which LLVM's loop vectorizer
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from cruise_control_torch.kernels import build
-from cruise_control_torch.kernels.window_sum import xla_sum
+from cruise_control_torch.kernels.window_sum import xla_order_sum, xla_sum
 
 #: (field, width) of the packed f32 output, in ClusterModelStats order
 STAT_SLOTS = (("resource_mean", 4), ("resource_std", 4), ("resource_min", 4),
@@ -40,6 +41,11 @@ STAT_SLOTS = (("resource_mean", 4), ("resource_std", 4), ("resource_min", 4),
               ("potential_nw_out_max", 1))
 NUM_F32 = sum(w for _, w in STAT_SLOTS)
 INT_SLOTS = ("num_alive_brokers", "num_replicas", "num_leaders")
+#: per device: the kernel's topic deviations and its counters (the ticket
+#: and the non-empty topics, 0 between launches), with their addresses,
+#: grown on demand. Calls on one stream use them in turn.
+_SCRATCH = {}
+_ARGTYPES = (build.PTR,) * 11 + (build.INT,) * 3 + (build.PTR,)
 
 _F = np.float32
 
@@ -73,52 +79,90 @@ def topic_sum(values: np.ndarray, num_brokers: int) -> np.float32:
     return _F(s)
 
 
-def _masked_stats(values: np.ndarray, mask: np.ndarray, n: np.float32):
-    """(mean, std, min, max) of `values` where `mask`, as float32 scalars
+def topic_order_sum(values: torch.Tensor, num_brokers: int) -> torch.Tensor:
+    """`topic_sum` in PyTorch: the f32 sum of the per-topic deviations
+    `values` (at least one) in XLA:CPU's order, on their device."""
+    t = values.shape[0]
+    if t > 32 or t == 1:
+        return xla_order_sum(values)
+    lanes = TOPIC_LANES[num_brokers > 32][t - 1]
+    acc = values.new_zeros(max(lanes, 1))
+    main = t - t % lanes if lanes else 0
+    for i in range(main):
+        acc[i % lanes] += values[i]
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    s = acc[0]
+    for i in range(main, t):
+        s = s + values[i]
+    return s
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The f32 square root, correctly rounded (torch's f32 sqrt on the CPU is
+    not always; the f64 one rounded to f32 is)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _masked_stats(values: torch.Tensor, mask: torch.Tensor, n: torch.Tensor):
+    """(mean, std, min, max) of `values` where `mask`, as f32 scalars
     (stats.py _masked_stats); `n` is max(mask count, 1)."""
-    v = values.astype(_F)
-    zero = _F(0.0)
-    mean = _F(xla_sum(np.where(mask, v, zero)) / n)
+    v = values.to(torch.float32)
+    zero = v.new_zeros(())
+    inf = v.new_full((), float("inf"))
+    mean = xla_order_sum(torch.where(mask, v, zero)) / n
     d = v - mean
-    var = _F(xla_sum(np.where(mask, d * d, zero)) / n)
-    vmin = np.where(mask, v, _F(np.inf)).min()
-    vmax = np.where(mask, v, _F(-np.inf)).max()
-    return mean, np.sqrt(var), _F(vmin), _F(vmax)
+    var = xla_order_sum(torch.where(mask, d * d, zero)) / n
+    return mean, _sqrt(var), torch.where(mask, v, inf).amin(), torch.where(mask, v, -inf).amax()
 
 
 def cluster_stats_plain(broker_load, capacity, alive, replica_count, leader_count,
                         potential_nw_out, topic_replica_count):
-    """(f32[25], i32[3]) on the CPU: see the module docstring."""
-    load, cap, alive_m, reps, leads, pnw, tc = (
-        t.detach().cpu().numpy() for t in (broker_load, capacity, alive, replica_count,
-                                           leader_count, potential_nw_out, topic_replica_count))
-    n = np.maximum(_F(alive_m.sum()), _F(1.0))
-    util = load / np.maximum(cap, _F(1e-9))
-    res = [_masked_stats(util[:, r], alive_m, n) for r in range(4)]
-    r_mean, r_std, r_min, r_max = _masked_stats(reps, alive_m, n)
-    l_mean, l_std, _, _ = _masked_stats(leads, alive_m, n)
-    p_mean, _, _, p_max = _masked_stats(pnw, alive_m, n)
+    """(f32[25], i32[3]) on the inputs' device: see the module docstring."""
+    load, cap, reps, leads, tc = (t.detach() for t in (broker_load, capacity, replica_count,
+                                                       leader_count, topic_replica_count))
+    f32 = torch.float32
+    n = torch.clamp_min(alive.sum().to(f32), 1.0)
+    util = load / torch.clamp_min(cap, 1e-9)
+    res = [_masked_stats(util[:, r], alive, n) for r in range(4)]
+    r_mean, r_std, r_min, r_max = _masked_stats(reps, alive, n)
+    l_mean, l_std, _, _ = _masked_stats(leads, alive, n)
+    p_mean, _, _, p_max = _masked_stats(potential_nw_out.detach(), alive, n)
     # per-topic spread (stats.py :93-100); integer count sums are exact
-    counts = tc.astype(_F)
-    t_mean = (tc.astype(np.int64) * alive_m[None, :]).sum(axis=1).astype(_F) / n
+    counts = tc.to(f32)
+    t_mean = (tc.long() * alive[None, :]).sum(dim=1).to(f32) / n
     d = counts - t_mean[:, None]
-    t_var = xla_sum(np.where(alive_m[None, :], d * d, _F(0.0)).T) / n
-    t_nonempty = tc.astype(np.int64).sum(axis=1) > 0
-    t_std = np.where(t_nonempty, np.sqrt(t_var), _F(0.0)).astype(_F)
-    n_topics = np.maximum(_F(t_nonempty.sum()), _F(1.0))
-    topic_std = _F(topic_sum(t_std, load.shape[0]) / n_topics) if t_std.shape[0] else _F(0.0)
-    out = np.array([*(x[0] for x in res), *(x[1] for x in res), *(x[2] for x in res),
-                    *(x[3] for x in res), r_mean, r_std, r_min, r_max, l_mean, l_std, topic_std,
-                    p_mean, p_max], dtype=_F)
-    out_i = np.array([alive_m.sum(), reps.astype(np.int64).sum(), leads.astype(np.int64).sum()],
-                     dtype=np.int32)
-    return torch.from_numpy(out), torch.from_numpy(out_i)
+    t_var = xla_order_sum(torch.where(alive[None, :], d * d, counts.new_zeros(())).T) / n
+    t_nonempty = tc.long().sum(dim=1) > 0
+    t_std = torch.where(t_nonempty, _sqrt(t_var), counts.new_zeros(()))
+    n_topics = torch.clamp_min(t_nonempty.sum().to(f32), 1.0)
+    topic_std = (topic_order_sum(t_std, load.shape[0]) / n_topics if t_std.shape[0]
+                 else counts.new_zeros(()))
+    out = torch.stack([*(x[0] for x in res), *(x[1] for x in res), *(x[2] for x in res),
+                       *(x[3] for x in res), r_mean, r_std, r_min, r_max, l_mean, l_std,
+                       topic_std, p_mean, p_max])
+    out_i = torch.stack([alive.sum(), reps.long().sum(), leads.long().sum()]).to(torch.int32)
+    return out, out_i
+
+
+def _scratch(dev: int, t: int):
+    """(topic deviations f32, counters i32[2] at 0, their addresses) of device
+    `dev`, the deviations grown to at least `t`."""
+    ws = _SCRATCH.get(dev)
+    if ws is None or ws[0].numel() < t:
+        cuda = torch.device("cuda", dev)
+        std = torch.empty(max(t, 4096 if ws is None else 2 * ws[0].numel()),
+                          dtype=torch.float32, device=cuda)
+        counters = torch.zeros(2, dtype=torch.int32, device=cuda) if ws is None else ws[1]
+        ws = _SCRATCH[dev] = (std, counters, std.data_ptr(), counters.data_ptr())
+    return ws
 
 
 def cluster_stats(broker_load, capacity, alive, replica_count, leader_count, potential_nw_out,
                   topic_replica_count):
-    """`cluster_stats_plain` for CPU tensors, the CUDA kernel (two launches)
-    for CUDA ones; returns (f32[25], i32[3]) on the inputs' device."""
+    """`cluster_stats_plain` for CPU tensors, the CUDA kernel (one launch, any
+    B and T) for CUDA ones; returns (f32[25], i32[3]) on the inputs' device."""
     if broker_load.device.type == "cpu":
         return cluster_stats_plain(broker_load, capacity, alive, replica_count, leader_count,
                                    potential_nw_out, topic_replica_count)
@@ -136,18 +180,16 @@ def cluster_stats(broker_load, capacity, alive, replica_count, leader_count, pot
         build.require(x, dtype, len(shape), name, dev)
         if tuple(x.shape) != shape:
             raise ValueError(f"cluster_stats: {name} has shape {tuple(x.shape)}, expected {shape}")
-    if (max(b, t) + 31) // 32 * 4 > 36 * 1024:
-        raise ValueError(f"cluster_stats: {b} brokers / {t} topics exceed the kernel's shared memory")
-    topic_std = torch.empty(t, dtype=torch.float32, device=dev)
-    topic_nonempty = torch.empty(t, dtype=torch.int32, device=dev)
+    ws = _scratch(dev.index, t)
     out = torch.empty(NUM_F32, dtype=torch.float32, device=dev)
     out_i = torch.empty(len(INT_SLOTS), dtype=torch.int32, device=dev)
-    lib = build.load("cluster_stats")
-    code = lib.cluster_stats(
-        build.ptrs(broker_load, capacity, alive, replica_count, leader_count, potential_nw_out,
-                   topic_replica_count, topic_std, topic_nonempty, out, out_i),
-        build.ints(b, t, TOPIC_LANES[b > 32][t - 1] if 1 < t <= 32 else -1), build.stream())
-    build.check(lib, code, "cluster_stats")
+    code = build.entry("cluster_stats", _ARGTYPES)(
+        broker_load.data_ptr(), capacity.data_ptr(), alive.data_ptr(), replica_count.data_ptr(),
+        leader_count.data_ptr(), potential_nw_out.data_ptr(), topic_replica_count.data_ptr(),
+        ws[2], ws[3], out.data_ptr(), out_i.data_ptr(), b, t,
+        TOPIC_LANES[b > 32][t - 1] if 1 < t <= 32 else -1, build.raw_stream(dev.index))
+    if code:
+        build.check(build.load("cluster_stats"), code, "cluster_stats")
     cluster_stats.launches += 1
     return out, out_i
 

@@ -29,9 +29,14 @@ from cruise_control_torch.kernels import build
 from cruise_control_torch.kernels.score_candidates import bound_context, score_candidates_plain
 
 #: per device: the blocks' records (csrc/grid_shortlist.cu BlockBest), with
-#: its address. Calls on one stream use it in turn.
+#: its address; the workspace of the kernel's device-memory configuration
+#: (a replication factor or a candidate count whose halves overflow shared
+#: memory), grown on demand; the sizes last asked and their bytes. Calls on
+#: one stream use them in turn.
 _SCRATCH = {}
-_ARGTYPES = (build.PTR,) * 5 + (build.INT,) * 4 + (build.PTR,)
+_WORK = {}
+_WORK_SIZES = {}
+_ARGTYPES = (build.PTR,) * 6 + (build.INT,) * 4 + (build.PTR,)
 
 
 def grid_shortlist_plain(static, agg, tables, goal, gs, dst_cands, k: int = 1):
@@ -85,6 +90,25 @@ def _scratch(dev: int) -> int:
     return addr[1]
 
 
+def _work(dev: int, r: int, k: int, p: int) -> int:
+    """The address of device `dev`'s workspace for the kernel's device-memory
+    configuration, grown to what a launch on these sizes takes (0: the
+    launch keeps everything in shared memory)."""
+    key = (r, k, p)
+    if _WORK_SIZES.get(dev, (None,))[0] != key:
+        fn = build.load("grid_shortlist").grid_shortlist_work_bytes
+        fn.argtypes, fn.restype = [build.INT] * 3, build.INT
+        _WORK_SIZES[dev] = (key, fn(r, k, p))
+    need = _WORK_SIZES[dev][1]
+    if need == 0:
+        return 0
+    ws = _WORK.get(dev)
+    if ws is None or ws[0].numel() < need:
+        buf = torch.empty(need, dtype=torch.uint8, device=torch.device("cuda", dev))
+        ws = _WORK[dev] = (buf, buf.data_ptr())
+    return ws[1]
+
+
 def grid_shortlist(static, agg, tables, goal, gs, dst_cands, k: int = 1, ctx=None):
     """`grid_shortlist_plain` for CPU tensors, the CUDA kernel for CUDA
     tensors. The kernel takes the greedy round's k = 1 only. `ctx` is the
@@ -105,7 +129,8 @@ def grid_shortlist(static, agg, tables, goal, gs, dst_cands, k: int = 1, ctx=Non
     out_idx = torch.empty(4, dtype=torch.int32, device=dev)
     code = build.entry("grid_shortlist", _ARGTYPES)(
         address, out_score.data_ptr(), out_idx.data_ptr(), _scratch(dev.index),
-        dst_cands.data_ptr(), p_count, dst_cands.shape[0], 1 if goal.uses_moves else 0,
+        _work(dev.index, r, dst_cands.shape[0], p_count), dst_cands.data_ptr(), p_count,
+        dst_cands.shape[0], 1 if goal.uses_moves else 0,
         1 if goal.uses_leadership and r >= 2 else 0, build.raw_stream(dev.index))
     if code:
         build.check(build.load("grid_shortlist"), code, "grid_shortlist")

@@ -1,8 +1,9 @@
 """K1: segment sums of an assignment into every aggregate the goals read.
 
 Replaces cruise_control_tpu/analyzer/context.py compute_aggregates (:276).
-The CUDA kernel is csrc/segment_aggregates.cu; `segment_aggregates_plain`
-is the PyTorch version (the CPU path and the kernel's spec).
+The CUDA kernels are csrc/segment_aggregates.cu, which bucket the slots by
+broker themselves (no library sort); `segment_aggregates_plain` is the
+PyTorch version (the CPU path and the kernels' spec).
 """
 
 from __future__ import annotations
@@ -11,6 +12,13 @@ import torch
 
 from cruise_control_torch.common.resources import PartMetric, Resource
 from cruise_control_torch.kernels import build
+
+#: per device: the kernels' scratch (bytes) and its address, grown on
+#: demand; by (P, R, B, H), the bytes a call takes. Calls on one stream use
+#: the scratch in turn.
+_SCRATCH = {}
+_BYTES = {}
+_ARGTYPES = (build.PTR,) * 14 + (build.INT,) * 6 + (build.PTR,)
 
 
 def segment_aggregates_plain(assignment, part_load, topic_id, broker_rack, broker_host,
@@ -62,10 +70,30 @@ def segment_aggregates_plain(assignment, part_load, topic_id, broker_rack, broke
             topic_replica_count.contiguous(), host_cpu)
 
 
+def _scratch(dev: int, p: int, r: int, b: int, h: int):
+    """(scratch, its address) of device `dev`, at least the bytes the kernels
+    take on these sizes (the runs tables and the sorted offsets)."""
+    need = _BYTES.get((p, r, b, h))
+    if need is None:
+        fn = build.load("segment_aggregates").segment_aggregates_scratch_bytes
+        fn.argtypes, fn.restype = [build.INT] * 4, build.INT
+        if len(_BYTES) >= 64:
+            _BYTES.clear()
+        need = _BYTES[(p, r, b, h)] = fn(p, r, b, h)
+    ws = _SCRATCH.get(dev)
+    if ws is None or ws[0].numel() < need:
+        old = 0 if ws is None else ws[0].numel()
+        buf = torch.empty(max(need, 2 * old, 1 << 20), dtype=torch.uint8,
+                          device=torch.device("cuda", dev))
+        ws = _SCRATCH[dev] = (buf, buf.data_ptr())
+    return ws
+
+
 def segment_aggregates(assignment, part_load, topic_id, broker_rack, broker_host,
                        num_brokers: int, num_racks: int, num_hosts: int, num_topics: int):
     """The aggregates of `segment_aggregates_plain`: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
+    tensors, the CUDA kernel for CUDA tensors (any size: a broker far
+    heavier than the mean takes a whole block instead of a warp)."""
     if assignment.device.type == "cpu":
         return segment_aggregates_plain(assignment, part_load, topic_id, broker_rack,
                                         broker_host, num_brokers, num_racks, num_hosts,
@@ -81,21 +109,20 @@ def segment_aggregates(assignment, part_load, topic_id, broker_rack, broker_host
     if part_load.shape != (p, len(PartMetric)):
         raise ValueError(f"part_load: expected ({p}, {len(PartMetric)}), got {tuple(part_load.shape)}")
     b, nr, h, t = num_brokers, num_racks, num_hosts, num_topics
-    # layout (not arithmetic): each segment's members in ascending slot order
-    seg = torch.where(assignment >= 0, assignment, b).reshape(-1)
-    seg_sorted, order = torch.sort(seg, stable=True)
-    lseg = torch.where(assignment[:, 0] >= 0, assignment[:, 0], b)
-    lseg_sorted, lorder = torch.sort(lseg, stable=True)
+    if broker_rack.shape[0] < b or broker_host.shape[0] != b or topic_id.shape[0] != p:
+        raise ValueError("segment_aggregates: broker_rack needs num_brokers entries, "
+                         "broker_host num_brokers and topic_id one a partition")
+    ws = _scratch(dev.index, p, r, b, h)
     f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
     outs = (torch.empty((b, 4), **f32), torch.empty(b, **i32), torch.empty(b, **i32),
             torch.empty(b, **f32), torch.empty(b, **f32), torch.empty((p, nr), **i32),
             torch.empty((t, b), **i32), torch.empty(h, **f32))
-    lib = build.load("segment_aggregates")
-    code = lib.segment_aggregates(
-        build.ptrs(assignment, part_load, topic_id, broker_rack, broker_host,
-                   seg_sorted.contiguous(), order, lseg_sorted.contiguous(), lorder, *outs),
-        build.ints(p, r, b, nr, h, t), build.stream())
-    build.check(lib, code, "segment_aggregates")
+    code = build.entry("segment_aggregates", _ARGTYPES)(
+        assignment.data_ptr(), part_load.data_ptr(), topic_id.data_ptr(), broker_rack.data_ptr(),
+        broker_host.data_ptr(), *(o.data_ptr() for o in outs), ws[1], p, r, b, nr, h, t,
+        build.raw_stream(dev.index))
+    if code:
+        build.check(build.load("segment_aggregates"), code, "segment_aggregates")
     segment_aggregates.launches += 1
     return outs
 

@@ -4,7 +4,8 @@ Replaces the `jnp.sum` reductions of the soft goals' windows and costs
 (cruise_control_tpu/analyzer/goals/soft.py :63-64, :84, :412, :462, :474,
 :516), the capacity goals' costs (goals/hard.py :198, :206) and the mean
 replica load (analyzer/drain.py :214, :278). The CUDA kernel is
-csrc/window_sum.cu; `window_sum_plain` is the CPU version. Both add in the
+csrc/window_sum.cu; `window_sum_plain` (`xla_order_sum`) is the PyTorch
+version and `xla_sum` the same in numpy, the tests' spec. All add in the
 order of XLA:CPU's tree-reduction rewrite (window 32):
 
 - n <= 32 terms are added in index order, starting from +0.0 (one term is
@@ -28,10 +29,6 @@ from cruise_control_torch.kernels import build
 
 #: XLA:CPU's tree-reduction window
 WINDOW = 32
-#: the longest column the kernel takes (the port's longest is the bucketed
-#: partition axis, 212,992): its window sums take (n / 16 + 8) floats of the
-#: scratch per column
-MAX_TERMS = 1 << 24
 #: per device: the kernel's scratch (f32, every level's window sums) and its
 #: column tiles' tickets (int32, 0 between launches), grown on demand, with
 #: their addresses. Calls on one stream use them in turn.
@@ -61,9 +58,32 @@ def xla_sum(a: np.ndarray) -> np.ndarray:
     return acc
 
 
+def xla_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """f32[...]: the sum over the first axis of the float32 tensor `x`, in
+    XLA:CPU's order (module docstring), on `x`'s device: `xla_sum` in
+    PyTorch."""
+    if x.shape[0] == 1:
+        return x[0].clone()
+    while x.shape[0] > WINDOW:
+        n = x.shape[0]
+        m = -(-n // WINDOW) * WINDOW
+        lo = (m - n) // 2
+        padded = x.new_zeros((m,) + tuple(x.shape[1:]))
+        padded[lo:lo + n] = x
+        w = padded.reshape((m // WINDOW, WINDOW) + tuple(x.shape[1:]))
+        acc = torch.zeros_like(w[:, 0])
+        for k in range(WINDOW):
+            acc.add_(w[:, k])
+        x = acc
+    acc = x.new_zeros(x.shape[1:])
+    for k in range(x.shape[0]):
+        acc.add_(x[k])
+    return acc
+
+
 def window_sum_plain(x: torch.Tensor) -> torch.Tensor:
     """f32[...]: the sum over the first axis, in XLA:CPU's order."""
-    return torch.from_numpy(np.array(xla_sum(x.detach().cpu().numpy()), dtype=np.float32))
+    return xla_order_sum(x.detach())
 
 
 def _scratch(dev: int, floats: int, tiles: int):
@@ -80,7 +100,9 @@ def _scratch(dev: int, floats: int, tiles: int):
 
 def window_sum(x: torch.Tensor) -> torch.Tensor:
     """`window_sum_plain` for a CPU tensor, the CUDA kernel for a CUDA one.
-    `x` is f32[n] or f32[n, cols]; returns f32[] or f32[cols]."""
+    `x` is f32[n] or f32[n, cols], n < 2**31; returns f32[] or f32[cols].
+    Past 65,535 column tiles (of up to 32 columns), each row of the grid
+    takes its tiles in turn."""
     if x.dtype != torch.float32 or x.dim() not in (1, 2):
         raise TypeError(f"window_sum: expected f32 of rank 1 or 2, got {x.dtype} {tuple(x.shape)}")
     if not x.is_cuda:
@@ -88,8 +110,6 @@ def window_sum(x: torch.Tensor) -> torch.Tensor:
             return window_sum_plain(x)
         raise ValueError(f"window_sum: expected a CPU or CUDA tensor, got {x.device}")
     n = x.shape[0]
-    if n > MAX_TERMS:
-        raise ValueError(f"window_sum: {n} terms, the kernel takes at most {MAX_TERMS}")
     if not x.is_contiguous():
         x = x.contiguous()
     cols = x.shape[1] if x.dim() == 2 else 1

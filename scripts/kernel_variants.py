@@ -1,4 +1,4 @@
-"""Where K2, window_sum, K3, K5 and K6 spend their time, on one NVIDIA GPU.
+"""Where K1, K2, window_sum, K3, K5, K6 and K8 spend their time, on one NVIDIA GPU.
 
     python3 scripts/kernel_variants.py [--out build/kernel_variants.json]
 
@@ -23,6 +23,19 @@ terms. The variants:
               write-out (the runs kernel keeps its sorted keys in shared
               memory)
   window_sum  full; empty (it returns at once: the floor of a launch)
+  K1          full; no topic atomics (the walk counts no member in the
+              topic table); the runs kernel at one block an SM (two in full);
+              the sums at one or four members a lane at a time (two in
+              full); no block for a heavy broker (its warp walks it); two
+              runs a thread of the walk (one in full) -- on
+              199,518 x 3 slots over 2,600 brokers, 52 racks, 4,000 topics,
+              and with broker 0 holding half the slots, kernel by kernel
+  K8          full; registers bound for 8 or 6 blocks an SM (no bound in
+              full); the topics' sums 16 loads a lane at a time (32 in
+              full); the topics' first pass unrolled 32 or 8 deep (16 in
+              full); the topics' warps idle; the series' warps idle; a
+              clock64() stage split -- on a [4,000, 2,600] topic table and
+              its first 20 topics
 
 Then K2 on skewed brokers, through the wrapper (a broker with more than
 2,048 eligible slots is selected by its whole block, which takes the
@@ -123,6 +136,91 @@ K5_VARIANTS = {
     "lazy checks": [("\n// hot picks whose cross words a thread loads at once", K5_LAZY),
                     ("          v = grid_cell(H, *sBH,", "          v = grid_cell_lazy(H, *sBH,")],
 }
+#: K1: the walk's topic atomics taken out, one block of the runs an SM (two
+#: in full), one or four members a lane of the sums at a time (two in
+#: full), no block for a heavy broker, and two runs a thread of the walk at
+#: a time (one in full)
+K1_VARIANTS = {
+    "no topic atomics": [("          atomicAdd(&g.topic_count[",
+                          "          if (g.B < 0) atomicAdd(&g.topic_count[")],
+    "runs: 1 block an SM": [("__launch_bounds__(K1_THREADS, 2) k_seg_runs",
+                             "__launch_bounds__(K1_THREADS) k_seg_runs")],
+    "sums: 1 member a lane": [("constexpr int K1_WARP_PER = 2;",
+                               "constexpr int K1_WARP_PER = 1;")],
+    "sums: 4 members a lane": [("constexpr int K1_WARP_PER = 2;",
+                                "constexpr int K1_WARP_PER = 4;")],
+    "no heavy block": [("constexpr int K1_HEAVY = 2048;",
+                        "constexpr int K1_HEAVY = 0x7fffffff;")],
+    "sums: 2 runs a thread": [("constexpr int K1_RUNS = 1;", "constexpr int K1_RUNS = 2;")],
+}
+#: K8's stage split: clock64() cycles of one launch (the last one run) by
+#: stage, read back through k8_clocks(): series 0 (block 0; 0-2: its first
+#: pass, its mean, its variance) and series 4 (block 4; 3-5), topic 0 (8-9:
+#: its first pass, its sum) and topic 100 (10-11), the last block's topic
+#: mean (16), and in block 0's warp 0, the level-1 loads and staging, the
+#: lanes' window sums and lane 0's sum of a chunk (24-26 in the mean, 20-22
+#: in the variance)
+K8_CLOCKS = [
+    ("struct Levels {", "__device__ long long k8_clk[64];\n\nstruct Levels {"),
+    ("  const int lane = threadIdx.x & 31;\n#pragma unroll\n"
+     "  for (int h = 0; h < 32; h += BATCH) {",
+     "  const int lane = threadIdx.x & 31;\n  const long long ck0 = clock64();\n#pragma unroll\n"
+     "  for (int h = 0; h < 32; h += BATCH) {"),
+    ("  __syncwarp();\n  float s = 0.0f;",
+     "  __syncwarp();\n  const long long ck1 = clock64();\n  float s = 0.0f;"),
+    ("  stage[lane] = s;\n  __syncwarp();\n  float w2 = 0.0f;\n",
+     "  stage[lane] = s;\n  __syncwarp();\n  const long long ck2 = clock64();\n"
+     "  float w2 = 0.0f;\n"),
+    ("  __syncwarp();\n  return w2;\n}",
+     "  __syncwarp();\n  if (threadIdx.x == 0 && blockIdx.x == 0)\n"
+     "    k8_clk[20] = ck1 - ck0, k8_clk[21] = ck2 - ck1, k8_clk[22] = clock64() - ck2;\n"
+     "  return w2;\n}"),
+    ("  Moments m;\n", "  Moments m;\n  const long long c0 = clock64();\n"),
+    ("  const float n = fmaxf((float)m.alive_n, 1.0f);\n",
+     "  const long long c1 = clock64();\n  const float n = fmaxf((float)m.alive_n, 1.0f);\n"),
+    ("  m.mean = mean;\n", "  m.mean = mean;\n  const long long c2 = clock64();\n"
+     "  if (threadIdx.x == 0 && blockIdx.x == 0)\n"
+     "    k8_clk[24] = k8_clk[20], k8_clk[25] = k8_clk[21], k8_clk[26] = k8_clk[22];\n"),
+    ("  return m;\n}", "  if (threadIdx.x == 0 && (blockIdx.x == 0 || blockIdx.x == 4)) {\n"
+     "    const int o = blockIdx.x == 0 ? 0 : 3;\n"
+     "    k8_clk[o] = c1 - c0, k8_clk[o + 1] = c2 - c1, k8_clk[o + 2] = clock64() - c2;\n  }\n"
+     "  return m;\n}"),
+    ("  const int* row = g.topic_count + (long long)t * b;\n",
+     "  const int* row = g.topic_count + (long long)t * b;\n  const long long c0 = clock64();\n"),
+    ("  // counts are integers, so their sums are exact in any order\n",
+     "  const long long c1 = clock64();\n"),
+    ("  if (lane == 0) {\n    const bool nonempty = all_sum > 0;",
+     "  if (lane == 0 && (t == 0 || t == 100)) {\n    const int o = t == 0 ? 8 : 10;\n"
+     "    k8_clk[o] = c1 - c0, k8_clk[o + 1] = clock64() - c1;\n  }\n"
+     "  if (lane == 0) {\n    const bool nonempty = all_sum > 0;"),
+    ("  if (!s_last) return;\n", "  if (!s_last) return;\n  const long long e0 = clock64();\n"),
+    ("    g.counters[0] = 0u;\n", "    k8_clk[16] = clock64() - e0;\n    g.counters[0] = 0u;\n"),
+    ("CC_EXPORT int cluster_stats(",
+     "CC_EXPORT int k8_clocks(long long* out) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, k8_clk, sizeof(k8_clk));\n}\n\n"
+     "CC_EXPORT int cluster_stats("),
+]
+#: K8's topic pass at an unroll depth
+TOPIC_PASS = "#pragma unroll %d\n  for (int i = lane; i < b; i += 32) {\n    const int c"
+#: K8: registers bound for 8 or 6 blocks an SM (no bound in full), the
+#: topics' sums 16 loads a lane at a time (32 in full), the topics' first
+#: pass unrolled 32 or 8 deep (16 in full), the topics' warps or the
+#: series' warps idle
+K8_VARIANTS = {
+    "8 blocks an SM": [("__launch_bounds__(K8_THREADS) k_cluster_stats",
+                        "__launch_bounds__(K8_THREADS, 8) k_cluster_stats")],
+    "topic sums 16 loads a lane": [("  const float ss = group_xla_sum<1, 32>(",
+                                    "  const float ss = group_xla_sum<1, 16>(")],
+    "topic pass unrolled 32": [(TOPIC_PASS % 16, TOPIC_PASS % 32)],
+    "topic pass unrolled 8": [(TOPIC_PASS % 16, TOPIC_PASS % 8)],
+    "6 blocks an SM": [("__launch_bounds__(K8_THREADS) k_cluster_stats",
+                        "__launch_bounds__(K8_THREADS, 6) k_cluster_stats")],
+    "no topics": [("    if (t < g.t) topic_spread(",
+                   "    if (t < g.t && g.b < 0) topic_spread(")],
+    "no series": [("    series(g, blockIdx.x, s_stage[warp], s_w, s_i);",
+                   "    if (g.b < 0) series(g, blockIdx.x, s_stage[warp], s_w, s_i);")],
+    "stage clocks": K8_CLOCKS,
+}
 WS_VARIANTS = {
     "empty": [("  const int tid = threadIdx.x;\n",
                "  const int tid = threadIdx.x;\n  if (cols > 0) return;\n")],
@@ -144,7 +242,8 @@ def build_variants(build, out_dir: pathlib.Path) -> dict:
         (out_dir / h.name).write_text(h.read_text())
     jobs = {}
     for name, variants in (("broker_topk", K2_VARIANTS), ("window_sum", WS_VARIANTS),
-                           ("score_swaps", K5_VARIANTS)):
+                           ("score_swaps", K5_VARIANTS), ("segment_aggregates", K1_VARIANTS),
+                           ("cluster_stats", K8_VARIANTS)):
         src = (build.CSRC / f"{name}.cu").read_text()
         for label, edits in {"full": [], **variants}.items():
             cu = out_dir / f"{name}-{re.sub(r'[^A-Za-z0-9]+', '_', label)}.cu"
@@ -285,6 +384,62 @@ def main() -> int:
                         ("Tensor.new_empty", lambda: x.new_empty(()))):
         res["host_us"][label] = host_us(call)
         print(f"host {label:20s} {res['host_us'][label]:.2f} us per call")
+
+    # K1 on the smoke model's shape (199,518 x 3 slots, 2,600 brokers, 52
+    # racks, 2,600 hosts, 4,000 topics) and with broker 0 holding half the
+    # slots; K8 on a [4,000, 2,600] topic table and its first 20 topics
+    from cruise_control_torch.kernels import cluster_stats as k8
+    from cruise_control_torch.kernels import segment_aggregates as k1
+
+    nr, h, t = 52, 2_600, 4_000
+    k1_in = [torch.from_numpy(x).cuda() for x in (
+        rng.integers(0, b, (p, r)).astype(np.int32), rng.pareto(1.5, (p, 6)).astype(np.float32),
+        rng.integers(0, t, p).astype(np.int32), (np.arange(b) % nr).astype(np.int32),
+        np.arange(b, dtype=np.int32))]
+    skew = k1_in[0].clone()
+    skew[torch.rand(skew.shape, device="cuda") < 0.5] = 0
+    ws1 = k1._scratch(0, p, r, b, h)
+    o1 = k1.segment_aggregates(*k1_in, b, nr, h, t)
+    res["segment_aggregates"] = {}
+    for label in ("full", *K1_VARIANTS):
+        fn = entry(libs[("segment_aggregates", label)], "segment_aggregates", k1._ARGTYPES)
+        for case, a1 in (("smoke shape", k1_in[0]), ("broker 0 holds half", skew)):
+            us = device_us(lambda: launched(fn(
+                a1.data_ptr(), *(x.data_ptr() for x in k1_in[1:]), *(o.data_ptr() for o in o1),
+                ws1[1], p, r, b, nr, h, t, build.raw_stream(0))))
+            res["segment_aggregates"][f"{case}, {label}"] = us
+            print(f"K1 {case:20s} {label:24s} {json.dumps(us)}")
+    counts = torch.from_numpy(rng.integers(0, 4, (t, b)).astype(np.int32)).cuda()
+    load8 = torch.from_numpy(rng.pareto(1.5, (b, 4)).astype(np.float32)).cuda()
+    k8_in = (load8, torch.full((b, 4), 100.0, device="cuda"),
+             torch.from_numpy(rng.random(b) < 0.99).cuda(), counts.sum(0, dtype=torch.int32),
+             counts.sum(0, dtype=torch.int32) // 2, load8[:, 2].contiguous())
+    o8 = torch.empty(k8.NUM_F32, device="cuda")
+    o8i = torch.empty(3, dtype=torch.int32, device="cuda")
+    res["cluster_stats"] = {}
+    for label in ("full", *K8_VARIANTS):
+        fn = entry(libs[("cluster_stats", label)], "cluster_stats", k8._ARGTYPES)
+        for tt in (t, 20):
+            ws8 = k8._scratch(0, tt)
+            table = counts[:tt].contiguous()
+            lanes = k8.TOPIC_LANES[True][tt - 1] if tt <= 32 else -1
+            us = device_us(lambda: launched(fn(
+                *(x.data_ptr() for x in k8_in), table.data_ptr(), ws8[2], ws8[3], o8.data_ptr(),
+                o8i.data_ptr(), b, tt, lanes, build.raw_stream(0))))
+            res["cluster_stats"][f"{tt} topics, {label}"] = us
+            print(f"K8 {tt:5d} topics {label:20s} {json.dumps(us)}")
+            if label == "stage clocks":
+                torch.cuda.synchronize()
+                clk = (ctypes.c_longlong * 64)()
+                lib = ctypes.CDLL(str(libs[("cluster_stats", label)]))
+                launched(lib.k8_clocks(clk))
+                res["cluster_stats"][f"{tt} topics, stage cycles"] = list(clk)
+                print(f"K8 {tt:5d} topics stage cycles {list(clk)[:27]}")
+    for label, call in (("K1 wrapper, smoke shape", lambda: k1.segment_aggregates(
+                            *k1_in, b, nr, h, t)),
+                        ("K8 wrapper, 4,000 topics", lambda: k8.cluster_stats(*k8_in, counts))):
+        res["host_us"][label] = host_us(call, 2000)
+        print(f"host {label:30s} {res['host_us'][label]:.2f} us per call")
 
     from cruise_control_torch.analyzer.acceptance import build_tables
     from cruise_control_torch.analyzer.context import (

@@ -45,8 +45,9 @@ import torch  # noqa: E402
 
 #: our kernels' __global__ functions (csrc/*.cu), by kernel
 OWN_KERNELS = {
-    "k_broker_sums": "K1 segment_aggregates", "k_counts": "K1 segment_aggregates",
-    "k_host_cpu": "K1 segment_aggregates", "k_topk_runs": "K2 broker_topk",
+    "k_seg_runs": "K1 segment_aggregates", "k_seg_sums": "K1 segment_aggregates",
+    "k_seg_host": "K1 segment_aggregates", "k_seg_racks": "K1 segment_aggregates",
+    "k_topk_runs": "K2 broker_topk",
     "k_topk_select": "K2 broker_topk",
     "k_score_cells": "K3 score_candidates", "k_score_tiles": "K3 score_candidates",
     "k_score_flat": "K3 score_candidates",
@@ -54,8 +55,8 @@ OWN_KERNELS = {
     "k_score_swaps": "K5 score_swaps", "k_swap_staged": "K5 score_swaps",
     "k_pair_rows": "K6 pair_picks", "k_pair_pass": "K6 pair_picks",
     "k_pair_take": "K6 pair_picks", "k_window_sum": "window_sum",
-    "k_state_fingerprint": "K7 state_fingerprint", "k_topic_spread": "K8 cluster_stats",
-    "k_broker_stats": "K8 cluster_stats", "k_grid_bid": "K9 grid_shortlist",
+    "k_state_fingerprint": "K7 state_fingerprint", "k_cluster_stats": "K8 cluster_stats",
+    "k_grid_bid": "K9 grid_shortlist",
     "k_grid_take": "K9 grid_shortlist", "k_delta_scatter": "K10 delta_scatter",
     "k_elect_preferred": "K11 elect_preferred",
 }

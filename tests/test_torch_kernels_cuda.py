@@ -467,13 +467,13 @@ def test_k2_leadership_and_light_calls_in_turn(pair):
 
 
 WS_LENGTHS = (1, 31, 32, 33, 1023, 1024, 1025, 32767, 32768, 32769, 199518, 1048577,
-              ws.MAX_TERMS)
+              1 << 24, (1 << 24) + 1, (1 << 25) + 33)
 
 
 @pytest.mark.parametrize("n", WS_LENGTHS)
 def test_window_sum_lengths(n):
-    """Every level boundary up to the longest column the kernel takes; the
-    tickets back at 0 after each call."""
+    """Every level boundary, and past 2**24 terms (the kernel's old limit);
+    the tickets back at 0 after each call."""
     _card()
     rng = np.random.default_rng(n)
     x = (rng.pareto(1.5, n) * rng.choice([-1.0, 1.0], n)).astype(np.float32)
@@ -1770,3 +1770,188 @@ def test_k6_over_12288_brokers(k):
     row_of, lists, ticket = k6._SCRATCH[torch.cuda.current_device()]
     assert bool((row_of == -1).all()) and bool((lists == torch.iinfo(torch.int32).max).all())
     assert int(ticket[0]) == 0
+
+
+def _k1_case(name: str, r: int):
+    """segment_aggregates' arguments (CPU tensors, then B, NR, H, T) for a
+    crafted case at replication factor r: ~24,000 slots over 300 brokers,
+    7 racks, 150 hosts (two brokers each, host 3 with four), 50 topics,
+    pareto loads with some -0.0 rows and 5% empty slots; then the case's
+    edit."""
+    rng = np.random.default_rng(sum(map(ord, name)) + r)
+    b, nr, h, t = 300, 7, 150, 50
+    p = 24_000 // r
+    if name == "runs span many chunks":  # ~300,000 slots: 74 chunks, ~1,000 a broker
+        p = 300_000 // r
+    a = rng.integers(0, b, (p, r)).astype(np.int32)
+    a[rng.random((p, r)) < 0.05] = -1
+    load = (rng.pareto(1.5, (p, 6)) * 10).astype(np.float32)
+    load[::7] = -0.0
+    host = (np.arange(b) // 2).astype(np.int32)
+    host[[10, 11]] = 3
+    topic = rng.integers(0, t, p).astype(np.int32)
+    if name == "a broker with no slots":
+        a[a == 5] = 6
+        a[a == b - 1] = 0
+    elif name == "one broker holding half the slots":
+        a[rng.random((p, r)) < 0.5] = 17
+    elif name == "every slot empty but one":
+        a[:] = -1
+        a[p // 2, r - 1] = 42
+    elif name == "bucketed padding":  # the last 10% of partitions and 50 brokers padding
+        pad = p - p // 10
+        a[pad:] = -1
+        load[pad:] = 0.0
+        a[a >= 250] -= 50
+    rack = (rng.permutation(b) % nr).astype(np.int32)
+    args = [torch.from_numpy(x) for x in (a, load, topic, rack, host)]
+    return args, (b, nr, h, t)
+
+
+K1_CASES = ("a broker with no slots", "one broker holding half the slots",
+            "every slot empty but one", "bucketed padding", "runs span many chunks")
+
+
+@pytest.mark.parametrize("r", [1, 8])
+@pytest.mark.parametrize("name", K1_CASES)
+def test_k1_crafted_cases(name, r):
+    """K1 at R = 1 and 8 bit-equal to its plain version on every output,
+    twice on the same scratch (a broker holding half the slots takes the
+    block of four warps)."""
+    _card()
+    from cruise_control_torch.kernels.segment_aggregates import (
+        segment_aggregates,
+        segment_aggregates_plain,
+    )
+
+    args, sizes = _k1_case(name, r)
+    want = segment_aggregates_plain(*args, *sizes)
+    for _ in range(2):
+        got = segment_aggregates(*(x.cuda() for x in args), *sizes)
+        torch.cuda.synchronize()
+        for i, (x, y) in enumerate(zip(want, got)):
+            assert _bits(x, y), (name, r, i)
+
+
+def test_k1_at_the_bucketed_main_path_shape():
+    """212,992 x 3 slots over 3,072 brokers (the last 472 and 13,474
+    partitions empty), 52 racks, 4,096 topics."""
+    _card()
+    from cruise_control_torch.kernels.segment_aggregates import (
+        segment_aggregates,
+        segment_aggregates_plain,
+    )
+
+    rng = np.random.default_rng(11)
+    p, r, b, nr, t = 212_992, 3, 3_072, 52, 4_096
+    a = rng.integers(0, 2_600, (p, r)).astype(np.int32)
+    a[199_518:] = -1
+    load = rng.pareto(1.5, (p, 6)).astype(np.float32)
+    load[199_518:] = 0.0
+    args = [torch.from_numpy(x) for x in (
+        a, load, rng.integers(0, 4_000, p).astype(np.int32),
+        (np.arange(b) % nr).astype(np.int32), np.arange(b, dtype=np.int32))]
+    want = segment_aggregates_plain(*args, b, nr, b, t)
+    got = segment_aggregates(*(x.cuda() for x in args), b, nr, b, t)
+    for i, (x, y) in enumerate(zip(want, got)):
+        assert _bits(x, y), i
+
+
+@pytest.mark.parametrize("b,t", [(300_000, 3), (40, 300_000)], ids=["300000-brokers",
+                                                                  "300000-topics"])
+def test_k8_past_its_old_shared_memory(b, t):
+    """max(B, T) past the ~294,000 the old kernel's shared memory held."""
+    _card()
+    rng = np.random.default_rng(b + t)
+    counts = rng.integers(0, 3, (t, b)).astype(np.int32)
+    counts[rng.random(t) < 0.2] = 0
+    load = rng.pareto(1.5, (b, 4)).astype(np.float32)
+    args = (torch.from_numpy(load), torch.full((b, 4), 100.0),
+            torch.from_numpy(rng.random(b) < 0.9), torch.from_numpy(counts.sum(0, dtype=np.int32)),
+            torch.from_numpy(counts.sum(0, dtype=np.int32) // 2),
+            torch.from_numpy(load[:, 2].copy()), torch.from_numpy(counts))
+    want = cluster_stats_plain(*args)
+    for _ in range(2):  # the counters are back at 0 after a launch
+        got = cluster_stats(*(x.cuda() for x in args))
+        for x, y in zip(want, got):
+            assert _bits(x, y)
+
+
+@pytest.mark.parametrize("n", [1, 2, 40, 300])
+def test_window_sum_past_65535_column_tiles(n):
+    """2,097,125 columns: past 65,535 tiles of 32, so each grid row takes
+    two tiles (at n = 300 with several blocks a tile and their tickets)."""
+    _card()
+    cols = 65_535 * 32 + 5
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((n, cols)).astype(np.float32))
+    want = window_sum_plain(x)
+    got = window_sum(x.cuda())
+    torch.cuda.synchronize()
+    assert _bits(want, got)
+    assert _window_tickets_clean()
+
+
+def _wide_sides(r: int):
+    """`pair`'s kind of cluster (24 brokers, RF 3) with its assignment padded
+    by empty slots to r columns, on the CPU and on the card."""
+    cpu = generators.random_cluster(42, dataclasses.replace(PROP, num_topics=20,
+                                                            mean_partitions_per_topic=3.0))
+    f = {k: v.numpy() for k, v in cpu._asdict().items()}
+    a = np.full((f["assignment"].shape[0], r), -1, np.int32)
+    a[:, :3] = f["assignment"]
+    return _sides(from_numpy(dict(f, assignment=a)))
+
+
+def test_k3_factored_tiles_past_the_48kb_row(tiles_at_any_size):
+    """R = 12,300: an assignment row of 49,200 bytes, more than the tiles'
+    static shared memory holds, so the cells read it in device memory."""
+    _card()
+    dims, sc, ac, sg, ag = _wide_sides(12_300)
+    rng = np.random.default_rng(4)
+    p = torch.from_numpy(rng.integers(0, dims.num_partitions, (40, 1, 1)).astype(np.int32))
+    s = torch.from_numpy(rng.integers(0, 3, (40, 1, 1)).astype(np.int32))
+
+    def make(agg):
+        dev = agg.assignment.device
+        return (p.to(dev), torch.full((40, 1, 1), KIND_MOVE, dtype=torch.int32, device=dev),
+                s.to(dev), torch.arange(24, dtype=torch.int32, device=dev)[None, None, :])
+
+    for name in ("DiskCapacityGoal", "RackAwareGoal", "ReplicaDistributionGoal"):
+        _k3_path(sc, ac, sg, ag, dims, name, make, "factored")
+
+
+def test_k3_factored_tiles_past_65535_column_tiles(pair):
+    """Two source rows (the first partitions with an acceptable move) against
+    8,388,608 destinations cycling over the brokers: 65,536 column tiles of
+    128."""
+    _card()
+    name, c = "ReplicaDistributionGoal", 65_536 * 128
+    g, t, gs = _side(pair["sc"], pair["ac"], pair["dims"], name)
+    brokers = torch.arange(24, dtype=torch.int32)[None, :]
+    one = torch.ones((1, 1), dtype=torch.int32)
+    rows = [p for p in range(pair["dims"].num_partitions) if torch.isfinite(
+        score_candidates_plain(pair["sc"], pair["ac"], t, g, gs, one * p, one * KIND_MOVE, one,
+                               brokers)).any()][:2]
+    assert len(rows) == 2
+    dst = (torch.arange(c, dtype=torch.int32) % 24)[None, None, :]
+
+    def make(agg):
+        dev = agg.assignment.device
+        return (torch.tensor(rows, dtype=torch.int32, device=dev)[:, None, None],
+                torch.full((2, 1, 1), KIND_MOVE, dtype=torch.int32, device=dev),
+                torch.ones((2, 1, 1), dtype=torch.int32, device=dev), dst.to(dev))
+
+    assert _k3_path(pair["sc"], pair["ac"], pair["sg"], pair["ag"], pair["dims"], name, make,
+                    "factored") > 0
+
+
+@pytest.mark.parametrize("name", ["DiskCapacityGoal", "ReplicaDistributionGoal",
+                                  "LeaderReplicaDistributionGoal"])
+def test_k9_replication_factor_2000(name):
+    """R = 2,000 (padded with empty slots): a warp's halves overflow the
+    block's shared memory, so the kernel keeps them in device memory."""
+    _card()
+    dims, sc, ac, sg, ag = _wide_sides(2_000)
+    for k in (4, 16):
+        cands = torch.from_numpy(np.random.default_rng(k).permutation(24)[:k].astype(np.int32))
+        _k9_both(sc, sg, ac, ag, dims, name, cands)

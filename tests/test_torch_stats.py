@@ -203,8 +203,9 @@ def test_topic_spread_equals_jitted_jax_in_its_own_order(t, b, monkeypatch):
     # one of them
     from cruise_control_torch.kernels import cluster_stats as k8
 
-    inner, seen = k8.topic_sum, []
-    monkeypatch.setattr(k8, "topic_sum", lambda v, nb: seen.append(v.copy()) or inner(v, nb))
+    inner, seen = k8.topic_order_sum, []
+    monkeypatch.setattr(k8, "topic_order_sum",
+                        lambda v, nb: seen.append(v.numpy().copy()) or inner(v, nb))
     lanes = k8.TOPIC_LANES[b > 32][t - 1] if t <= 32 else None
     truth_tree = _window_tree(t) if lanes is None else _lane_sum(list(range(t)), lanes)
     others = {tree: name for name, tree in (
@@ -217,7 +218,8 @@ def test_topic_spread_equals_jitted_jax_in_its_own_order(t, b, monkeypatch):
         p = stats_to_host(compute_stats(tfm.from_numpy(f), t)).topic_replica_std
         assert _same(j, p), seed
         v = seen[-1]
-        truth = inner(v, b)
+        truth = k8.topic_sum(v, b)
+        assert _same(inner(torch.from_numpy(v), b), truth), seed
         for name in others.values():
             alt = k8.xla_sum(v) if name == "windows" else _lane_sum(
                 [np.float32(x) for x in v], int(name.split()[0]))
