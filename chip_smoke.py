@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      bit-equal, finite masks exact); time each on the card over a run of
      back-to-back calls, as device time from a profiler trace and as time
      per call from CUDA events, and its plain version from CUDA events (K1,
-     K2, K8 and window_sum beside the previous design's times, PREVIOUS_MS):
+     K2, K7, K8, K10 and window_sum beside the previous design's times,
+     PREVIOUS_MS):
        K1 segment_aggregates (the smoke model, its bucketed service context's
        212,992 x 3 slots over 3,072 brokers, and the smoke model with half
        its slots on broker 0), K2 broker_topk (DiskCapacityGoal's drain
@@ -35,7 +36,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        leader bytes-in, the [2,600, 4] broker loads, the 199,518
        partitions' leader bytes-in and the bucketed context's 3,072 brokers'
        leader bytes-in, each beside torch.sum), K7 state_fingerprint (the
-       aggregates)
+       bucketed service context's aggregates over 3,072 brokers, the main
+       path's shape, and the smoke model's over 2,600),
        K8 cluster_stats (the statistics of the smoke model, whose
        [4,000, 2,600] topic table is the work, and of its first 20 topics,
        whose mean takes TOPIC_LANES' order) and K9 grid_shortlist (the
@@ -45,7 +47,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        followed by torch.argmax) and K10 delta_scatter (a 64-row batch of
        broker state changes, load spikes and partition adds, NOOP rows
        included, into the smoke model's bucketed context, 212,992 partitions
-       by 3,072 brokers), K3 and K9 with goal case 15
+       by 3,072 brokers, and a random 4,096-row batch into the same), K3 and K9 with goal case 15
        (KafkaAssignerEvenRackAwareGoal) and with the only_move_immigrants
        flag set, and K11 elect_preferred (the smoke model's 199,518 rows with
        the demote phase's 26 demoted brokers and its 26 dead ones);
@@ -707,11 +709,13 @@ def option_recipes(fields: dict):
 #: device and call ms at chip_smoke's rows in the designs they replaced
 #: (K2: one atomicMax pass per k; window_sum: one block per column; K1: two
 #: library sorts and a thread per broker; K8: one block per topic, then one
-#: block for the seven series), as PERF.md section 6 records them, printed
-#: beside the new times
+#: block for the seven series; K7: one block of scalar loads and a
+#: shared-memory tree; K10: every thread scanning the whole batch), as
+#: PERF.md section 6 records them, printed beside the new times
 PREVIOUS_MS = {"disk drain": (0.143, 0.170), "leader bytes-in": (0.0034, 0.0284),
                "broker loads": (0.0035, 0.0271), "partition leader bytes-in": (0.1087, 0.1112),
-               "K1 smoke model": (0.481, 0.532), "K8 4000 topics": (0.184, 0.191)}
+               "K1 smoke model": (0.481, 0.532), "K8 4000 topics": (0.184, 0.191),
+               "K7 smoke model": (0.0041, 0.0418), "K10 64 rows": (0.0126, 0.204)}
 
 
 def previous(label: str) -> str:
@@ -965,23 +969,59 @@ def main() -> int:
     if not all(torch.equal(x, y) for x, y in zip(inputs10, st10_g)):
         fail("K10 delta_scatter: the input context changed")
     changed = int((out10_c.part_load != st10_c.part_load).any(dim=1).sum())
-    # the batch once, the broker state, validity and two base masks, the
-    # part_load and topic_id columns, the count; out: the state and six
-    # masks, the two columns, the count. Per partition and broker a scan of
-    # the batch (two compares a row), per broker eight mask operations
-    k10_bytes = (d10 * (5 * 4 + m10 * 4) + b10 * (4 + 3) + 2 * p10 * (m10 * 4 + 4)
-                 + b10 * (4 + 6) + 2 * 4)
-    k10_ops = (p10 + b10) * d10 * 2 + b10 * 8
-    row("delta_scatter", "delta_scatter.cu", "cruise_control_tpu/analyzer/incremental.py:162",
-        max(max_abs_err(getattr(out10_g, n_), getattr(out10_c, n_)) for n_ in out10_c._fields),
-        lambda i: delta_scatter(st10_g, batch10_g, base10_g, base10_g),
-        lambda i: delta_scatter_plain(st10_g, batch10_g, base10_g, base10_g), k10_bytes, k10_ops,
-        f"{len(deltas)} deltas in a {d10}-row batch into [{p10}, {m10}] x {b10}: one thread per "
-        "partition row and broker scans the batch in shared memory; fresh outputs")
+
+    def k10_row(label, key, batch_g, d_):
+        """K10's row for a d_-row batch into the bucketed context. Bytes: the
+        batch once, the broker state, validity and two base masks, the
+        part_load and topic_id columns, the count; out: the state and six
+        masks, the two columns, the count. Operations, what the function
+        needs whatever implements it: three target tests a batch row, one
+        select an element written."""
+        nbytes = (d_ * (5 * 4 + m10 * 4) + b10 * (4 + 3) + 2 * p10 * (m10 * 4 + 4)
+                  + b10 * (4 + 6) + 2 * 4)
+        nops = 3 * d_ + p10 * (m10 + 1) + 7 * b10 + 1
+        rw = row(key, "delta_scatter.cu", "cruise_control_tpu/analyzer/incremental.py:162",
+                 0.0, lambda i: delta_scatter(st10_g, batch_g, base10_g, base10_g),
+                 lambda i: delta_scatter_plain(st10_g, batch_g, base10_g, base10_g), nbytes,
+                 nops, f"{label} into [{p10}, {m10}] x {b10}: a block a tile of 512 rows "
+                 "and brokers resolves its last writers once by shared-memory atomicMax, then "
+                 "copies the tile flat in 16-byte vectors; fresh outputs")
+        print(f"K10 delta_scatter ({label}): {rw['ms']:.4f} ms on the device, "
+              f"{rw['call_ms']:.4f} ms per call, plain {rw['plain_ms']:.4f} ms, bound "
+              f"{rw['bound_ms']:.6f} ms; {previous('K10 ' + str(d_) + ' rows')}")
+        return rw
+
+    k10_row(f"{len(deltas)} deltas in a {d10}-row batch", "delta_scatter", batch10_g, d10)
     print(f"K10 delta_scatter: {len(deltas)} deltas ({changed} load rows changed) into the "
           f"[{p10}, {m10}] x {b10} bucketed context, every field bit-equal to the plain version, "
           "the input context unchanged")
-    del st10_g, out10_g, inputs10
+    # a 4,096-row batch of random kinds and targets (repeated ones, about
+    # half counted from the end, a few outside the axes)
+    rng10 = np.random.default_rng(SEED)
+    d_big = 4096
+    cols10 = {"kind": rng10.integers(0, 4, d_big),
+              "broker": rng10.integers(-b10 - 4, b10 + 4, d_big),
+              "state": rng10.integers(0, 4, d_big),
+              "row": rng10.integers(-p10 - 4, p10 + 4, d_big),
+              "topic": rng10.integers(0, 4000, d_big)}
+    big_c = inc.DeltaBatch(**{k: torch.from_numpy(v.astype(np.int32)) for k, v in cols10.items()},
+                           load=torch.from_numpy(rng10.random((d_big, m10), dtype=np.float32)))
+    big_g = inc.DeltaBatch(*(t.to(dev) for t in big_c))
+    big_out_g = delta_scatter(st10_g, big_g, base10_g, base10_g)
+    torch.cuda.synchronize()
+    big_out_c = delta_scatter_plain(st10_c, big_c, base10_c, base10_c)
+    for n_ in big_out_c._fields:
+        if not bits_equal(getattr(big_out_g, n_), getattr(big_out_c, n_)):
+            fail(f"K10 delta_scatter ({d_big}-row batch): {n_} differs from the plain version")
+    if not all(torch.equal(x, y) for x, y in zip(inputs10, st10_g)):
+        fail(f"K10 delta_scatter ({d_big}-row batch): the input context changed")
+    k10_row(f"a random {d_big}-row batch", "delta_scatter 4096 rows", big_g, d_big)
+    rows.pop("delta_scatter 4096 rows")
+    print(f"K10 delta_scatter ({d_big}-row batch): every field bit-equal to the plain version, "
+          "the input context unchanged")
+    rows["delta_scatter"]["max_abs_err"] = max(
+        max_abs_err(getattr(out10_g, n_), getattr(out10_c, n_)) for n_ in out10_c._fields)
+    del st10_g, out10_g, inputs10, big_g, big_out_g
 
     # K1 on the smoke model (the JSON row), on its bucketed service context
     # (212,992 x 3 slots over 3,072 brokers, the main path's shape) and on
@@ -1637,20 +1677,32 @@ def main() -> int:
            st_b_g.movable_partition, st_b_c.movable_partition,
            opt.SERVICE_SETTINGS.drain_per_broker, dims_b.num_brokers, True)
     rows.pop("broker_topk bulk")
-    del agg_b_g, agg_b_c, st_b_g, st_b_c, pm_b_c
 
-    # K7 on the smoke state's aggregates
-    fp_g = state_fingerprint(agg_g)
-    torch.cuda.synchronize()
-    fp_c = state_fingerprint_plain(agg_c)
-    if int(fp_g) != int(fp_c):
-        fail(f"K7 state_fingerprint: {int(fp_g)} differs from the plain version's {int(fp_c)}")
-    b_count = dims.num_brokers
-    row("state_fingerprint", "state_fingerprint.cu", "cruise_control_tpu/analyzer/optimizer.py:1199",
-        abs(int(fp_g) - int(fp_c)), lambda i: state_fingerprint(agg_g),
-        lambda i: state_fingerprint_plain(agg_g), 7 * b_count * 4 + 8, 7 * b_count * 4,
-        "one block of 1,024 threads, uint32 partial sums added in shared memory; launch-bound")
-    print(f"K7 state_fingerprint: {int(fp_g)}, equal to the plain version")
+    def k7_row(label, key, ag, ac, nb):
+        """K7 on `ag` against its plain version on `ac`, timed: 7 * B words
+        read, an 8-byte word written, four operations a word (the weight's
+        multiply-add and or, the product's multiply-add)."""
+        fp_g = state_fingerprint(ag)
+        torch.cuda.synchronize()
+        fp_c = state_fingerprint_plain(ac)
+        if int(fp_g) != int(fp_c):
+            fail(f"K7 state_fingerprint ({label}): {int(fp_g)} differs from the plain version's "
+                 f"{int(fp_c)}")
+        rw = row(key, "state_fingerprint.cu", "cruise_control_tpu/analyzer/optimizer.py:1199",
+                 abs(int(fp_g) - int(fp_c)), lambda i: state_fingerprint(ag),
+                 lambda i: state_fingerprint_plain(ag), 7 * nb * 4 + 8, 7 * nb * 4,
+                 f"{label}: one launch, 16-byte vector loads issued before any multiply, a "
+                 "shuffle reduction a warp, one shared word a warp")
+        print(f"K7 state_fingerprint ({label}): {int(fp_g)}, equal to the plain version; "
+              f"{rw['ms']:.4f} ms on the device, {rw['call_ms']:.4f} ms per call, plain "
+              f"{rw['plain_ms']:.4f} ms, bound {rw['bound_ms']:.7f} ms; {previous('K7 ' + label)}")
+
+    # K7 on the bucketed service context's aggregates (3,072 brokers, the
+    # main path's shape: the row) and on the smoke model's 2,600
+    k7_row("bucketed", "state_fingerprint", agg_b_g, agg_b_c, dims_b.num_brokers)
+    k7_row("smoke model", "state_fingerprint smoke", agg_g, agg_c, dims.num_brokers)
+    rows.pop("state_fingerprint smoke")
+    del agg_b_g, agg_b_c, st_b_g, st_b_c, pm_b_c
 
     # K8 on the smoke model's statistics (stats_before's inputs)
     from cruise_control_torch.models.flat_model import alive_broker_mask
@@ -1660,7 +1712,7 @@ def main() -> int:
     k8_c = (agg_c.broker_load, model_cpu.broker_capacity, alive_broker_mask(model_cpu),
             agg_c.replica_count, agg_c.leader_count, agg_c.potential_nw_out,
             agg_c.topic_replica_count)
-    t_count = dims.num_topics
+    t_count, b_count = dims.num_topics, dims.num_brokers
 
     def k8_row(label, key, args_g, args_c):
         o8_g = cluster_stats(*args_g)

@@ -677,59 +677,66 @@ __global__ void __launch_bounds__(THREADS) k_apply_wave_wide(WaveArgs w, unsigne
     if (e.keep[i]) w.host_cpu[e.h2[i]] = w.host_cpu[e.h2[i]] + e.dc2[i];
 }
 
-// ptrs: p, kind, slot, dst, p2, kind2, slot2, dst2 (i32[N]; leg 2 ignored
-//       when legs == 1), score f32[N], ok u8[N], sel_out u8[N],
-//       assignment, part_load, topic_id, broker_rack, broker_host, broker_load,
-//       replica_count, leader_count, potential, leader_nw_in, rack_count,
-//       topic_count, host_cpu, touch_tag, workspace i32[2, >= max(P, B, H)]
-//       (score keys, then indices; at 0 and INT32_MAX, as the kernel leaves
-//       it), scratch (the wide configuration's, wide_scratch_bytes(N) bytes;
-//       unused by the block configuration: kernels/apply_wave.py sizes it
-//       from the same limits, BLOCK_ENTRIES and BLOCK_GROUPS)
-// ints: N, R, NR, B, tag, legs (1 or 2), brokers3 (0 or 1), H, workspace row
-CC_EXPORT int apply_wave(const long long* ptrs, const long long* ints, cudaStream_t stream) {
+// p, kind, slot, dst, p2, kind2, slot2, dst2 (i32[N]; leg 2 ignored when
+// legs == 1), score f32[N], ok u8[N], sel_out u8[N], assignment, part_load,
+// topic_id, broker_rack, broker_host, broker_load, replica_count,
+// leader_count, potential, leader_nw_in, rack_count, topic_count, host_cpu,
+// touch_tag, workspace i32[2, ws_row >= max(P, B, H)] (score keys, then
+// indices; at 0 and INT32_MAX, as the kernel leaves it), scratch (the wide
+// configuration's, wide_scratch_bytes(N) bytes; unused by the block
+// configuration: kernels/apply_wave.py sizes it from the same limits,
+// BLOCK_ENTRIES and BLOCK_GROUPS); then N, R, NR, B, tag, legs (1 or 2),
+// brokers3 (0 or 1), H and ws_row
+CC_EXPORT int apply_wave(const void* p, const void* kind, const void* slot, const void* dst,
+                         const void* p2, const void* kind2, const void* slot2, const void* dst2,
+                         const void* score, const void* ok, void* sel_out, void* assignment,
+                         const void* part_load, const void* topic_id, const void* broker_rack,
+                         const void* broker_host, void* broker_load, void* replica_count,
+                         void* leader_count, void* potential, void* leader_nw_in,
+                         void* rack_count, void* topic_count, void* host_cpu, void* touch_tag,
+                         void* workspace, void* scratch_ptr, long long n, long long R,
+                         long long NR, long long B, long long tag, long long legs,
+                         long long brokers3, long long hosts, long long ws_row,
+                         cudaStream_t stream) {
   WaveArgs w;
-  int k = 0;
-  w.p = (const int*)ptrs[k++];
-  w.kind = (const int*)ptrs[k++];
-  w.slot = (const int*)ptrs[k++];
-  w.dst = (const int*)ptrs[k++];
-  w.p2 = (const int*)ptrs[k++];
-  w.kind2 = (const int*)ptrs[k++];
-  w.slot2 = (const int*)ptrs[k++];
-  w.dst2 = (const int*)ptrs[k++];
-  w.score = (const float*)ptrs[k++];
-  w.ok = (const unsigned char*)ptrs[k++];
-  w.sel_out = (unsigned char*)ptrs[k++];
-  w.assignment = (int*)ptrs[k++];
-  w.part_load = (const float*)ptrs[k++];
-  w.topic_id = (const int*)ptrs[k++];
-  w.broker_rack = (const int*)ptrs[k++];
-  w.broker_host = (const int*)ptrs[k++];
-  w.broker_load = (float*)ptrs[k++];
-  w.replica_count = (int*)ptrs[k++];
-  w.leader_count = (int*)ptrs[k++];
-  w.potential = (float*)ptrs[k++];
-  w.leader_nw_in = (float*)ptrs[k++];
-  w.rack_count = (int*)ptrs[k++];
-  w.topic_count = (int*)ptrs[k++];
-  w.host_cpu = (float*)ptrs[k++];
-  w.touch_tag = (int*)ptrs[k++];
-  w.part_key = (unsigned*)ptrs[k++];
-  unsigned char* scratch = (unsigned char*)ptrs[k++];
-  const long long n = ints[0];
-  w.R = (int)ints[1];
-  w.NR = (int)ints[2];
-  w.B = (int)ints[3];
-  w.tag = (int)ints[4];
-  w.legs = (int)ints[5];
-  w.brokers3 = (int)ints[6];
-  const long long hosts = ints[7];
-  w.part_idx = (int*)(w.part_key + ints[8]);
+  w.p = (const int*)p;
+  w.kind = (const int*)kind;
+  w.slot = (const int*)slot;
+  w.dst = (const int*)dst;
+  w.p2 = (const int*)p2;
+  w.kind2 = (const int*)kind2;
+  w.slot2 = (const int*)slot2;
+  w.dst2 = (const int*)dst2;
+  w.score = (const float*)score;
+  w.ok = (const unsigned char*)ok;
+  w.sel_out = (unsigned char*)sel_out;
+  w.assignment = (int*)assignment;
+  w.part_load = (const float*)part_load;
+  w.topic_id = (const int*)topic_id;
+  w.broker_rack = (const int*)broker_rack;
+  w.broker_host = (const int*)broker_host;
+  w.broker_load = (float*)broker_load;
+  w.replica_count = (int*)replica_count;
+  w.leader_count = (int*)leader_count;
+  w.potential = (float*)potential;
+  w.leader_nw_in = (float*)leader_nw_in;
+  w.rack_count = (int*)rack_count;
+  w.topic_count = (int*)topic_count;
+  w.host_cpu = (float*)host_cpu;
+  w.touch_tag = (int*)touch_tag;
+  w.part_key = (unsigned*)workspace;
+  unsigned char* scratch = (unsigned char*)scratch_ptr;
+  w.R = (int)R;
+  w.NR = (int)NR;
+  w.B = (int)B;
+  w.tag = (int)tag;
+  w.legs = (int)legs;
+  w.brokers3 = (int)brokers3;
+  w.part_idx = (int*)(w.part_key + ws_row);
   const long long groups = w.B > hosts ? w.B : hosts;
   if (n <= 0) return cudaSuccess;
   if (n >= 0x7FFFFFFFLL || w.legs < 1 || w.legs > 2 || (w.brokers3 && w.legs != 2) ||
-      groups > ints[8] || hosts > 0x7FFFFFFFLL)
+      groups > ws_row || hosts > 0x7FFFFFFFLL)
     return cudaErrorInvalidValue;
   w.n = (int)n;
   w.groups = (int)groups;

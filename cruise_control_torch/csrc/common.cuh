@@ -1,16 +1,10 @@
 // Shared definitions of the cruise_control_torch kernels.
 //
-// Every entry point has a plain C interface for ctypes:
-//   int <name>(const long long* ptrs, const long long* ints, cudaStream_t stream)
-// `ptrs` holds device addresses, `ints` sizes, strides and flags, both host
-// arrays read before the launch; or, for an entry point called through
-// kernels/build.py `entry` (segment_aggregates, broker_topk,
-// score_candidates, score_swaps, pair_picks, window_sum, cluster_stats,
-// grid_shortlist), the arguments one by one: device
-// addresses (K3, K5 and K9 first the host address of their packed ScoreCtx,
-// score_goal.cuh), 64-bit integers, the stream last. The return
-// value is the cudaError_t of the launch (0 on success); cc_error_string
-// names it.
+// Every entry point has a plain C interface for ctypes, called through
+// kernels/build.py `entry`: the arguments one by one, device addresses (K3,
+// K5 and K9 first the host address of their packed ScoreCtx,
+// score_goal.cuh), then 64-bit integers, the stream last. The return value
+// is the cudaError_t of the launch (0 on success); cc_error_string names it.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -19,14 +19,15 @@
 #include "common.cuh"
 
 __global__ void k_elect_preferred(const int* assignment, const unsigned char* demoted,
-                                  const unsigned char* dead, int p_count, int r, int* out) {
+                                  const unsigned char* dead, long long p_count, long long r,
+                                  int* out) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= p_count) return;
   const int* row = assignment + p * r;
   int* dst = out + p * r;
-  int best = 0;
+  long long best = 0;
   bool found = false;
-  for (int s = 0; s < r; ++s) {
+  for (long long s = 0; s < r; ++s) {
     const int a = row[s];
     const bool valid = a >= 0;
     const int holder = valid ? a : 0;
@@ -40,21 +41,20 @@ __global__ void k_elect_preferred(const int* assignment, const unsigned char* de
   const int h0 = a0 >= 0 ? a0 : 0;
   const bool leader_bad = (demoted[h0] || dead[h0]) && a0 >= 0;
   const bool swap = leader_bad && found && best != 0;
-  for (int s = 0; s < r; ++s) dst[s] = row[s];
+  for (long long s = 0; s < r; ++s) dst[s] = row[s];
   if (swap) {
     dst[0] = row[best];
     dst[best] = a0;
   }
 }
 
-// ptrs: assignment i32[P, R], demoted bool[B], dead bool[B], out i32[P, R]
-// ints: P, R
-CC_EXPORT int elect_preferred(const long long* ptrs, const long long* ints, cudaStream_t stream) {
-  const int p_count = (int)ints[0], r = (int)ints[1];
+// assignment i32[P, R], demoted bool[B], dead bool[B], out i32[P, R]
+CC_EXPORT int elect_preferred(const void* assignment, const void* demoted, const void* dead,
+                              void* out, long long p_count, long long r, cudaStream_t stream) {
   if (p_count < 0 || r <= 0) return cudaErrorInvalidValue;
   if (p_count == 0) return cudaSuccess;
-  k_elect_preferred<<<(p_count + 255) / 256, 256, 0, stream>>>(
-      (const int*)ptrs[0], (const unsigned char*)ptrs[1], (const unsigned char*)ptrs[2], p_count,
-      r, (int*)ptrs[3]);
+  k_elect_preferred<<<(unsigned)((p_count + 255) / 256), 256, 0, stream>>>(
+      (const int*)assignment, (const unsigned char*)demoted, (const unsigned char*)dead,
+      p_count, r, (int*)out);
   return cudaGetLastError();
 }

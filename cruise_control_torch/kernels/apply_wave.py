@@ -172,6 +172,25 @@ def apply_wave_plain(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=
     return sel
 
 
+_ARGTYPES = (build.PTR,) * 27 + (build.INT,) * 9 + (build.PTR,)
+
+
+def _refuse(legs, score, ok, tensors):
+    """Raise the first reason the kernel does not take these inputs."""
+    dev = score.device
+    n = score.shape[0] if score.dim() else 0
+    for t, name in zip(legs, ("p", "kind", "slot", "dst", "p2", "kind2", "slot2", "dst2")):
+        build.require(t, torch.int32, 1, name, dev)
+        if t.shape[0] != n:
+            raise ValueError(f"apply_wave: {name} has {t.shape[0]} entries, score {n}")
+    build.require(score, torch.float32, 1, "score", dev)
+    build.require(ok, torch.bool, 1, "ok", dev)
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("apply_wave: context tensors must be contiguous and on " + str(dev))
+    raise ValueError(f"apply_wave: ok has {ok.shape[0]} entries, score {n}")
+
+
 def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
                brokers3: bool = False):
     """`apply_wave_plain` for CPU tensors, the CUDA kernel for CUDA tensors.
@@ -191,19 +210,19 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
     if brokers3 and leg2 is None:
         raise ValueError("apply_wave: brokers3 needs a second leg")
     legs = (p, kind, slot, dst) + (tuple(leg2) if leg2 is not None else (p, kind, slot, dst))
-    for t, name in zip(legs, ("p", "kind", "slot", "dst", "p2", "kind2", "slot2", "dst2")):
-        build.require(t, torch.int32, 1, name, dev)
-        if t.shape[0] != n:
-            raise ValueError(f"apply_wave: {name} has {t.shape[0]} entries, score {n}")
-    build.require(score, torch.float32, 1, "score", dev)
-    build.require(ok, torch.bool, 1, "ok", dev)
     tensors = (agg.assignment, static.part_load, static.topic_id, static.broker_rack,
                static.broker_host, agg.broker_load, agg.replica_count, agg.leader_count,
                agg.potential_nw_out, agg.leader_nw_in, agg.rack_replica_count,
                agg.topic_replica_count, agg.host_cpu_load, agg.touch_tag)
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("apply_wave: context tensors must be contiguous and on " + str(dev))
+    idx = score.get_device()
+    shape = score.shape
+    if not (idx >= 0 and score.dtype is torch.float32 and ok.dtype is torch.bool
+            and score.dim() == 1 and ok.shape == shape and ok.get_device() == idx
+            and score.is_contiguous() and ok.is_contiguous()
+            and all(t.dtype is torch.int32 and t.shape == shape and t.get_device() == idx
+                    and t.is_contiguous() for t in legs)
+            and all(t.get_device() == idx and t.is_contiguous() for t in tensors)):
+        _refuse(legs, score, ok, tensors)
     num_brokers, num_hosts = agg.broker_load.shape[0], agg.host_cpu_load.shape[0]
     groups = max(num_brokers, num_hosts)
     if n >= 2**31 - 1:
@@ -220,15 +239,15 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
         if scratch is None or scratch.numel() < n * WIDE_BYTES_PER_ENTRY:
             scratch = torch.empty(n * WIDE_BYTES_PER_ENTRY, dtype=torch.uint8, device=dev)
             _SCRATCH[dev] = scratch
-    sel = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = build.load("apply_wave")
-    code = lib.apply_wave(
-        build.ptrs(*legs, score, ok, sel, *tensors, ws, scratch),
-        build.ints(n, agg.assignment.shape[1], agg.rack_replica_count.shape[1], num_brokers,
-                   tag, 2 if leg2 is not None else 1, 1 if brokers3 else 0, num_hosts,
-                   ws.shape[1]),
-        build.stream())
-    build.check(lib, code, "apply_wave")
+    sel = ok.new_empty(n)
+    code = build.entry("apply_wave", _ARGTYPES)(
+        *(t.data_ptr() for t in legs), score.data_ptr(), ok.data_ptr(), sel.data_ptr(),
+        *(t.data_ptr() for t in tensors), ws.data_ptr(), scratch.data_ptr(), n,
+        agg.assignment.shape[1], agg.rack_replica_count.shape[1], num_brokers, tag,
+        2 if leg2 is not None else 1, 1 if brokers3 else 0, num_hosts, ws.shape[1],
+        build.raw_stream(idx))
+    if code:
+        build.check(build.load("apply_wave"), code, "apply_wave")
     apply_wave.launches += 1
     return sel
 

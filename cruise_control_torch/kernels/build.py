@@ -13,10 +13,9 @@ their source (and of the shared headers `*.cuh`), so an edited source
 rebuilds and an unchanged one is reused. Builds happen at first use, never at import;
 `build_all()` starts one `nvcc` per source, all at once.
 
-A wrapper calls its entry point with `ptrs`/`ints` argument arrays and
-`stream()` (K4, K7, K10, K11), or through `entry()`, whose argument types
-are set once, with `raw_stream()` (K1, K2, K3, K5, K6, window_sum, K8,
-K9).
+Every wrapper calls its C entry point through `entry()`, whose argument
+types are set once (each argument one by one: a device address, a 64-bit
+integer, the stream last), with the stream from `raw_stream()`.
 """
 
 from __future__ import annotations
@@ -114,15 +113,6 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def ptrs(*tensors) -> "ctypes.Array":
-    """A C array of the tensors' device addresses."""
-    return (ctypes.c_longlong * len(tensors))(*(t.data_ptr() for t in tensors))
-
-
-def ints(*values) -> "ctypes.Array":
-    return (ctypes.c_longlong * len(values))(*(int(v) for v in values))
-
-
 def require(t, dtype, ndim: int, name: str, device=None):
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` and rank `ndim`
     (on `device` when given): what the C kernels take."""
@@ -136,12 +126,6 @@ def require(t, dtype, ndim: int, name: str, device=None):
         raise ValueError(f"{name}: expected rank {ndim}, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-
-
-def stream() -> ctypes.c_void_p:
-    import torch
-
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 #: argument types of a fast entry point: a device address or a stream, an integer

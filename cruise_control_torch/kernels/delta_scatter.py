@@ -26,6 +26,9 @@ KIND_NOOP = 0
 KIND_STATE = 1
 KIND_LOAD = 2
 KIND_PART_ADD = 3
+#: partition rows (and brokers) a block of the kernel owns
+#: (csrc/delta_scatter.cu DS_TILE)
+TILE = 512
 
 
 def _landing(kind_ok: torch.Tensor, idx: torch.Tensor, n: int):
@@ -76,16 +79,12 @@ def delta_scatter_plain(static, batch, base_replica_dst: torch.Tensor,
     )
 
 
-def delta_scatter(static, batch, base_replica_dst: torch.Tensor,
-                  base_leadership_dst: torch.Tensor):
-    """`delta_scatter_plain` for a context on the CPU, the CUDA kernel for
-    one on the card (one launch, for a batch of any size)."""
-    if static.part_load.device.type == "cpu":
-        return delta_scatter_plain(static, batch, base_replica_dst, base_leadership_dst)
+def _refuse(static, batch, base_replica_dst, base_leadership_dst):
+    """Raise the first reason the kernel does not take these inputs."""
     dev = static.part_load.device
-    p, m = static.part_load.shape
-    b = static.broker_state.shape[0]
-    d = batch.kind.shape[0]
+    p, m = static.part_load.shape if static.part_load.dim() == 2 else (0, 0)
+    b = static.broker_state.shape[0] if static.broker_state.dim() else 0
+    d = batch.kind.shape[0] if batch.kind.dim() else 0
     for name, t in (("kind", batch.kind), ("broker", batch.broker), ("state", batch.state),
                     ("row", batch.row), ("topic", batch.topic)):
         build.require(t, torch.int32, 1, f"batch.{name}", dev)
@@ -106,21 +105,63 @@ def delta_scatter(static, batch, base_replica_dst: torch.Tensor,
         build.require(t, dtype, len(shape), name, dev)
         if tuple(t.shape) != shape:
             raise ValueError(f"delta_scatter: {name} has shape {tuple(t.shape)}, expected {shape}")
-    state = torch.empty_like(static.broker_state)
-    masks = [torch.empty(b, dtype=torch.bool, device=dev) for _ in range(6)]
-    part_load = torch.empty_like(static.part_load)
-    topic_id = torch.empty_like(static.topic_id)
-    nvp = torch.empty_like(static.num_valid_partitions)
-    lib = build.load("delta_scatter")
-    code = lib.delta_scatter(
-        build.ptrs(batch.kind, batch.broker, batch.state, batch.row, batch.topic, batch.load,
-                   static.broker_state, static.broker_valid, base_replica_dst,
-                   base_leadership_dst, static.part_load, static.topic_id,
-                   static.num_valid_partitions, state, *masks, part_load, topic_id, nvp),
-        build.ints(d, m, b, p), build.stream())
-    build.check(lib, code, "delta_scatter")
+    raise ValueError("delta_scatter: the inputs disagree")
+
+
+_ARGTYPES = (build.PTR,) * 18 + (build.INT,) * 4 + (build.PTR,)
+_I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
+
+
+def delta_scatter(static, batch, base_replica_dst: torch.Tensor,
+                  base_leadership_dst: torch.Tensor):
+    """`delta_scatter_plain` for a context on the CPU, the CUDA kernel for
+    one on the card (one launch, for a batch of any size). The six broker
+    masks are the rows of one [6, B] tensor."""
+    pl = static.part_load
+    if pl.device.type == "cpu":
+        return delta_scatter_plain(static, batch, base_replica_dst, base_leadership_dst)
+    kind, brk, stt, row, top, load = batch
+    state_in, valid, topic_in, nvp_in = (static.broker_state, static.broker_valid,
+                                         static.topic_id, static.num_valid_partitions)
+    rep, lead = base_replica_dst, base_leadership_dst
+    idx = pl.get_device()
+    d, b = kind.shape[0], state_in.shape[0]
+    if not (idx >= 0 and pl.dtype is _F32 and load.dtype is _F32 and nvp_in.dtype is _F32
+            and kind.dtype is _I32 and brk.dtype is _I32 and stt.dtype is _I32
+            and row.dtype is _I32 and top.dtype is _I32 and state_in.dtype is _I32
+            and topic_in.dtype is _I32 and valid.dtype is _BOOL and rep.dtype is _BOOL
+            and lead.dtype is _BOOL and pl.dim() == 2 and kind.dim() == 1
+            and state_in.dim() == 1 and brk.shape == (d,)
+            and stt.shape == (d,) and row.shape == (d,) and top.shape == (d,)
+            and load.shape == (d, pl.shape[1]) and valid.shape == (b,) and rep.shape == (b,)
+            and lead.shape == (b,) and topic_in.shape == (pl.shape[0],) and nvp_in.dim() == 0
+            and kind.get_device() == idx and brk.get_device() == idx
+            and stt.get_device() == idx and row.get_device() == idx
+            and top.get_device() == idx and load.get_device() == idx
+            and state_in.get_device() == idx and valid.get_device() == idx
+            and rep.get_device() == idx and lead.get_device() == idx
+            and topic_in.get_device() == idx and nvp_in.get_device() == idx
+            and kind.is_contiguous() and brk.is_contiguous() and stt.is_contiguous()
+            and row.is_contiguous() and top.is_contiguous() and load.is_contiguous()
+            and state_in.is_contiguous() and valid.is_contiguous() and rep.is_contiguous()
+            and lead.is_contiguous() and pl.is_contiguous() and topic_in.is_contiguous()):
+        _refuse(static, batch, base_replica_dst, base_leadership_dst)
+    p, m = pl.shape
+    state = state_in.new_empty(b)
+    masks = valid.new_empty((6, b))
+    part_load = pl.new_empty((p, m))
+    topic_id = topic_in.new_empty(p)
+    nvp = nvp_in.new_empty(())
+    code = build.entry("delta_scatter", _ARGTYPES)(
+        kind.data_ptr(), brk.data_ptr(), stt.data_ptr(), row.data_ptr(), top.data_ptr(),
+        load.data_ptr(), state_in.data_ptr(), valid.data_ptr(), rep.data_ptr(),
+        lead.data_ptr(), pl.data_ptr(), topic_in.data_ptr(), nvp_in.data_ptr(),
+        state.data_ptr(), masks.data_ptr(), part_load.data_ptr(), topic_id.data_ptr(),
+        nvp.data_ptr(), d, m, b, p, build.raw_stream(idx))
+    if code:
+        build.check(build.load("delta_scatter"), code, "delta_scatter")
     delta_scatter.launches += 1
-    alive, dead, new, demoted, replica_dst_ok, leadership_dst_ok = masks
+    alive, dead, new, demoted, replica_dst_ok, leadership_dst_ok = masks.unbind(0)
     return static._replace(
         broker_state=state, alive=alive, dead=dead, new=new, demoted=demoted,
         replica_dst_ok=replica_dst_ok, leadership_dst_ok=leadership_dst_ok,

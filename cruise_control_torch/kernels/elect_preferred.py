@@ -37,25 +37,41 @@ def elect_preferred_plain(assignment: torch.Tensor, demoted: torch.Tensor,
     return out
 
 
+def _refuse(assignment, demoted, dead):
+    """Raise the first reason the kernel does not take these inputs."""
+    dev = assignment.device
+    build.require(assignment, torch.int32, 2, "assignment", dev)
+    b = demoted.shape[0] if demoted.dim() else 0
+    for name, t in (("demoted", demoted), ("dead", dead)):
+        build.require(t, torch.bool, 1, name, dev)
+        if t.shape[0] != b:
+            raise ValueError(f"elect_preferred: {name} has {t.shape[0]} brokers, expected {b}")
+    raise ValueError("elect_preferred: the inputs disagree")
+
+
+_ARGTYPES = (build.PTR,) * 4 + (build.INT,) * 2 + (build.PTR,)
+
+
 def elect_preferred(assignment: torch.Tensor, demoted: torch.Tensor,
                     dead: torch.Tensor) -> torch.Tensor:
     """`elect_preferred_plain` for CPU tensors, the CUDA kernel for CUDA
     ones."""
     if assignment.device.type == "cpu":
         return elect_preferred_plain(assignment, demoted, dead)
-    dev = assignment.device
-    build.require(assignment, torch.int32, 2, "assignment", dev)
-    b = demoted.shape[0]
-    for name, t in (("demoted", demoted), ("dead", dead)):
-        build.require(t, torch.bool, 1, name, dev)
-        if t.shape[0] != b:
-            raise ValueError(f"elect_preferred: {name} has {t.shape[0]} brokers, expected {b}")
+    idx = assignment.get_device()
+    if not (idx >= 0 and assignment.dtype is torch.int32 and assignment.dim() == 2
+            and demoted.dtype is torch.bool and dead.dtype is torch.bool and demoted.dim() == 1
+            and demoted.shape == dead.shape and demoted.get_device() == idx
+            and dead.get_device() == idx and assignment.is_contiguous()
+            and demoted.is_contiguous() and dead.is_contiguous()):
+        _refuse(assignment, demoted, dead)
     p, r = assignment.shape
-    out = torch.empty_like(assignment)
-    lib = build.load("elect_preferred")
-    code = lib.elect_preferred(build.ptrs(assignment, demoted, dead, out), build.ints(p, r),
-                               build.stream())
-    build.check(lib, code, "elect_preferred")
+    out = assignment.new_empty((p, r))
+    code = build.entry("elect_preferred", _ARGTYPES)(
+        assignment.data_ptr(), demoted.data_ptr(), dead.data_ptr(), out.data_ptr(), p, r,
+        build.raw_stream(idx))
+    if code:
+        build.check(build.load("elect_preferred"), code, "elect_preferred")
     elect_preferred.launches += 1
     return out
 

@@ -1,4 +1,4 @@
-"""Where K1, K2, window_sum, K3, K5, K6 and K8 spend their time, on one NVIDIA GPU.
+"""Where K1, K2, window_sum, K3, K5, K6, K7, K8 and K10 spend their time, on one NVIDIA GPU.
 
     python3 scripts/kernel_variants.py [--out build/kernel_variants.json]
 
@@ -67,14 +67,32 @@ same model: DiskUsageDistributionGoal's replica-swap grids [N, N, K, K] (N
 staged path wins sets `score_swaps.STAGED_MIN_CELLS`; its topic-swap and
 relay grids and a wave's 128-swap re-validation (a thread a cell); K6 on
 512 surplus pairs at k = 1, 4 and 8; and the host's share of a K5 wave
-call and a K6 call beside their C entries alone. Prints the card's name
-and power limit and every number; writes them as JSON to --out. Needs a
-GPU.
+call and a K6 call beside their C entries alone. Then K7 and K10 (alone
+with `--only K7,K10`):
+
+  K7          its layouts at the bucketed main path's 3,072 brokers (and at
+              2,600 and 300,001): blocks of 256 threads, 2 vectors a thread
+              (full: 11 blocks at 3,072, the last adding their partial sums
+              after an atomic ticket); one block of 1,024 x 6; blocks of
+              1,024, 512 or 128 threads, 1, 2 or 4 vectors each; at most
+              1,056 blocks (264 in full); 64-bit indices at every size; the
+              vectors read through the read-only path (__ldg);
+              empty (each block returns at once: a launch's floor)
+  K10         a 64-row batch into [212,992, 6] partition rows and 3,072
+              brokers: tiles of 512 rows, 4 vectors a thread (full), of 256
+              or 1,024; 128 threads a block (256 in full); the copy a word at
+              a time (no 16-byte vectors); empty (a launch's floor)
+
+and the host's share of a K7, a K10 and a K11 call beside their C entries
+alone.
+Prints the card's name and power limit and every number; writes them as
+JSON to --out. Needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import pathlib
@@ -221,6 +239,40 @@ K8_VARIANTS = {
                    "    if (g.b < 0) series(g, blockIdx.x, s_stage[warp], s_w, s_i);")],
     "stage clocks": K8_CLOCKS,
 }
+#: K7's layouts (csrc/state_fingerprint.cu): threads a block and vectors a
+#: thread, so one block or several cover 3,072 brokers; the most blocks; its
+#: 64-bit configuration at every size
+K7_LAYOUT = ("constexpr int FP_THREADS = 256;\nconstexpr int FP_UNROLL = 2;",
+             "constexpr int FP_THREADS = %d;\nconstexpr int FP_UNROLL = %d;")
+K7_VARIANTS = {
+    **{f"{'one block' if t * u >= 5376 else 'blocks'} of {t} x {u}": [
+        (K7_LAYOUT[0], K7_LAYOUT[1] % (t, u))]
+       for t, u in ((1024, 6), (1024, 2), (1024, 1), (512, 4), (512, 2), (512, 1), (256, 4),
+                    (256, 1), (128, 4), (128, 2), (128, 1))},
+    "at most 1,056 blocks": [("constexpr int FP_MAX_BLOCKS = 264;",
+                              "constexpr int FP_MAX_BLOCKS = 1056;")],
+    "64-bit indices": [("  if (4 * b + FP_MAX_BLOCKS * FP_BLOCK_VECTORS < 0x7FFFFFFFLL)",
+                        "  if (b < 0)")],
+    "read-only loads": [("      x[u] = *reinterpret_cast<const uint4*>(FP_FIELD(g, s, p) + word);",
+                         "      x[u] = __ldg(reinterpret_cast<const uint4*>(FP_FIELD(g, s, p) + word));")],
+    "empty": [("  const int tid = threadIdx.x;\n  uint32_t acc = 0u;",
+               "  const int tid = threadIdx.x;\n  if (g.v >= 0) return;\n  uint32_t acc = 0u;")],
+}
+#: K10: tiles of 256 or 1,024 rows (512 in full, 4 vectors a thread), 128
+#: threads a block (256 in full), the copy a word at a time
+K10_TILE = ("constexpr int DS_TILE = 512;  // partition rows (and brokers) a block owns\n"
+            "constexpr int DS_VEC = 4;", "constexpr int DS_TILE = %d;\nconstexpr int DS_VEC = %d;")
+K10_VARIANTS = {
+    "tiles of 256": [(K10_TILE[0], K10_TILE[1] % (256, 2))],
+    "tiles of 1024": [(K10_TILE[0], K10_TILE[1] % (1024, 8))],
+    "128 threads": [(K10_TILE[0], K10_TILE[1] % (512, 8)),
+                    ("constexpr int DS_THREADS = 256;", "constexpr int DS_THREADS = 128;")],
+    "no vectors": [("  a.vec_rows = aligned16(part_load_in) && aligned16(part_load_out);\n"
+                    "  a.vec_topic = aligned16(topic_in) && aligned16(topic_out);",
+                    "  a.vec_rows = a.vec_topic = false;")],
+    "empty": [("  const int tid = threadIdx.x;\n  const long long r0",
+               "  const int tid = threadIdx.x;\n  if (a.d >= 0) return;\n  const long long r0")],
+}
 WS_VARIANTS = {
     "empty": [("  const int tid = threadIdx.x;\n",
                "  const int tid = threadIdx.x;\n  if (cols > 0) return;\n")],
@@ -235,15 +287,20 @@ def variant(src: str, edits) -> str:
     return src
 
 
-def build_variants(build, out_dir: pathlib.Path) -> dict:
-    """{(kernel, variant): .so path}, compiled in parallel."""
+VARIANTS = {"broker_topk": K2_VARIANTS, "window_sum": WS_VARIANTS, "score_swaps": K5_VARIANTS,
+            "segment_aggregates": K1_VARIANTS, "cluster_stats": K8_VARIANTS,
+            "state_fingerprint": K7_VARIANTS, "delta_scatter": K10_VARIANTS}
+
+
+def build_variants(build, out_dir: pathlib.Path, names=tuple(VARIANTS)) -> dict:
+    """{(kernel, variant): .so path} of the sources `names`, compiled in
+    parallel."""
     out_dir.mkdir(parents=True, exist_ok=True)
     for h in build.CSRC.glob("*.cuh"):
         (out_dir / h.name).write_text(h.read_text())
     jobs = {}
-    for name, variants in (("broker_topk", K2_VARIANTS), ("window_sum", WS_VARIANTS),
-                           ("score_swaps", K5_VARIANTS), ("segment_aggregates", K1_VARIANTS),
-                           ("cluster_stats", K8_VARIANTS)):
+    for name in names:
+        variants = VARIANTS[name]
         src = (build.CSRC / f"{name}.cu").read_text()
         for label, edits in {"full": [], **variants}.items():
             cu = out_dir / f"{name}-{re.sub(r'[^A-Za-z0-9]+', '_', label)}.cu"
@@ -304,9 +361,106 @@ def entry(so: pathlib.Path, name: str, argtypes):
     return fn
 
 
+def k7_k10(build, libs, res: dict) -> None:
+    """K7's layouts and K10's variants, device microseconds a launch, and
+    the host's share of a call of each wrapper beside its C entry alone."""
+    from cruise_control_torch.analyzer.context import StaticCtx
+    from cruise_control_torch.analyzer.incremental import DeltaBatch
+    from cruise_control_torch.kernels import delta_scatter as k10
+    from cruise_control_torch.kernels import elect_preferred as k11
+    from cruise_control_torch.kernels import state_fingerprint as k7
+
+    rng = np.random.default_rng(13)
+    res["K7"], res["K10"] = {}, {}
+    fp_args = {}
+    for b in (3_072, 2_600, 300_001):
+        w = torch.from_numpy(rng.integers(-2**31, 2**31, 7 * b, dtype=np.int64).astype(np.int32))
+        w = w.cuda()
+        fp_args[b] = (w[:4 * b].view(torch.float32).view(b, 4), w[4 * b:5 * b].view(torch.float32),
+                      w[5 * b:6 * b], w[6 * b:])
+    want = {b: int(k7.state_fingerprint_plain(k7_agg(*a))) for b, a in fp_args.items()}
+    scratch = k7._scratch(0)
+    out = torch.empty((), dtype=torch.int64, device="cuda")
+    for label in ("full", *K7_VARIANTS):
+        so = libs[("state_fingerprint", label)]
+        fn = entry(so, "state_fingerprint", k7._ARGTYPES)
+        words = torch.zeros(k7.scratch_words(ctypes.CDLL(str(so))), dtype=torch.int32,
+                            device="cuda")  # the variant's own: its block count may differ
+        for b, a in fp_args.items():
+            def call(a=a, b=b):
+                launched(fn(*(t.data_ptr() for t in a), out.data_ptr(), words.data_ptr(), b,
+                            build.raw_stream(0)))
+            out.fill_(-1)
+            call()
+            if int(out) != want[b] and label != "empty":
+                raise SystemExit(f"kernel_variants: K7 {label} at {b} brokers differs from the "
+                                 "plain version")
+            res["K7"][f"{label}, {b} brokers"] = device_us(call)
+            print(f"K7 {label:22s} {b:7d} brokers {json.dumps(res['K7'][f'{label}, {b} brokers'])}")
+
+    p, m, b, d = 212_992, 6, 3_072, 64
+    st = {"part_load": torch.from_numpy(rng.random((p, m), dtype=np.float32)).cuda(),
+          "topic_id": torch.from_numpy(rng.integers(0, 4000, p).astype(np.int32)).cuda(),
+          "broker_state": torch.from_numpy(rng.integers(0, 4, b).astype(np.int32)).cuda(),
+          "broker_valid": torch.from_numpy(rng.random(b) < 0.9).cuda(),
+          "num_valid_partitions": torch.tensor(float(p - 8), device="cuda")}
+    kinds = np.zeros(d, np.int32)
+    kinds[:40] = rng.integers(1, 4, 40)
+    batch = [torch.from_numpy(x).cuda() for x in (
+        kinds, rng.integers(0, b, d).astype(np.int32), rng.integers(0, 4, d).astype(np.int32),
+        rng.integers(0, p, d).astype(np.int32), rng.integers(0, 4000, d).astype(np.int32),
+        rng.random((d, m), dtype=np.float32))]
+    base = torch.from_numpy(rng.random(b) < 0.9).cuda()
+    outs = (torch.empty(b, dtype=torch.int32, device="cuda"),
+            torch.empty((6, b), dtype=torch.bool, device="cuda"), torch.empty_like(st["part_load"]),
+            torch.empty_like(st["topic_id"]), torch.empty((), device="cuda"))
+    ptrs10 = (*(t.data_ptr() for t in batch), st["broker_state"].data_ptr(),
+              st["broker_valid"].data_ptr(), base.data_ptr(), base.data_ptr(),
+              st["part_load"].data_ptr(), st["topic_id"].data_ptr(),
+              st["num_valid_partitions"].data_ptr(), *(t.data_ptr() for t in outs))
+    for label in ("full", *K10_VARIANTS):
+        fn = entry(libs[("delta_scatter", label)], "delta_scatter", k10._ARGTYPES)
+        res["K10"][label] = device_us(lambda: launched(fn(*ptrs10, d, m, b, p,
+                                                          build.raw_stream(0))))
+        print(f"K10 {label:14s} {json.dumps(res['K10'][label])}")
+
+    agg = k7_agg(*fp_args[3_072])
+    fn7 = build.entry("state_fingerprint", k7._ARGTYPES)
+    fn10 = build.entry("delta_scatter", k10._ARGTYPES)
+    spare = torch.zeros(1, device="cuda")  # the fields K10 does not read
+    static = StaticCtx(**{f: st.get(f, spare) for f in StaticCtx._fields})
+    db = DeltaBatch(*batch)
+    a11 = torch.from_numpy(rng.integers(0, 2_600, (199_518, 3)).astype(np.int32)).cuda()
+    dead11 = torch.from_numpy(rng.random(2_600) < 0.01).cuda()
+    dem11 = torch.from_numpy(rng.random(2_600) < 0.01).cuda()
+    o11 = torch.empty_like(a11)
+    fn11 = build.entry("elect_preferred", k11._ARGTYPES)
+    for label, call in (
+            ("K7 wrapper, 3,072 brokers", lambda: k7.state_fingerprint(agg)),
+            ("K7 C entry, output made once", lambda: fn7(
+                *(t.data_ptr() for t in fp_args[3_072]), out.data_ptr(), scratch, 3_072,
+                build.raw_stream(0))),
+            ("K10 wrapper, 64-row batch", lambda: k10.delta_scatter(static, db, base, base)),
+            ("K10 C entry, outputs made once", lambda: fn10(*ptrs10, d, m, b, p,
+                                                            build.raw_stream(0))),
+            ("K11 wrapper, [199,518, 3]", lambda: k11.elect_preferred(a11, dem11, dead11)),
+            ("K11 C entry, output made once", lambda: fn11(
+                a11.data_ptr(), dem11.data_ptr(), dead11.data_ptr(), o11.data_ptr(), 199_518, 3,
+                build.raw_stream(0)))):
+        res["host_us"][label] = host_us(call, 5000)
+        print(f"host {label:30s} {res['host_us'][label]:.2f} us per call")
+
+
+def k7_agg(load, lnw, lc, rc):
+    return collections.namedtuple("FpAgg", "broker_load leader_nw_in leader_count replica_count")(
+        load, lnw, lc, rc)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "kernel_variants.json"))
+    ap.add_argument("--only", choices=("K7,K10",), default=None,
+                    help="time K7's and K10's variants alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs an NVIDIA GPU")
@@ -317,9 +471,14 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card)
+    res = {"card": card, "broker_topk": {}, "window_sum": {}, "host_us": {}}
+    if args.only:
+        libs = build_variants(build, ROOT / "build" / "kernel_variants",
+                              ("state_fingerprint", "delta_scatter"))
+        k7_k10(build, libs, res)
+        return write(args.out, res)
     libs = build_variants(build, ROOT / "build" / "kernel_variants")
     rng = np.random.default_rng(0)
-    res = {"card": card, "broker_topk": {}, "window_sum": {}, "host_us": {}}
 
     p, r, b, k = 199_518, 3, 2_600, 8
     a = torch.from_numpy(rng.integers(0, b, (p, r)).astype(np.int32)).cuda()
@@ -647,7 +806,12 @@ def main() -> int:
                 nb, 512, 4, build.raw_stream(0)))):
         res["host_us"][label] = host_us(call)
         print(f"host {label:30s} {res['host_us'][label]:.2f} us per call")
-    path = pathlib.Path(args.out)
+    k7_k10(build, libs, res)
+    return write(args.out, res)
+
+
+def write(out: str, res: dict) -> int:
+    path = pathlib.Path(out)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(res, indent=1))
     return 0

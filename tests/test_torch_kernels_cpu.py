@@ -807,3 +807,159 @@ def test_k11_elect_preferred_plain_equals_jax(ctx):
     got = elect_preferred_plain(torch.from_numpy(a), torch.from_numpy(st == 2),
                                 torch.from_numpy(st == 3)).numpy()
     assert np.array_equal(want, got) and (got != a).any()
+
+
+# -- the wrappers' refusals (K4, K7, K10, K11) ------------------------------------------
+
+
+class _OnCard:
+    """A CPU tensor that reports itself on a CUDA device: what a wrapper's
+    checks read (dtype, shape, rank, contiguity, device), so that its refusal
+    runs on the CPU. Nothing here reaches a launch: every case is refused."""
+
+    def __init__(self, t, device="cuda:0"):
+        self._t, self.device = t, torch.device(device)
+
+    @property
+    def is_cuda(self):
+        return self.device.type == "cuda"
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _on_card(tup, **swap):
+    """The namedtuple `tup` with every tensor reported on cuda:0, then the
+    fields in `swap` put in as they are given."""
+    fields = {k: _OnCard(v) if isinstance(v, torch.Tensor) else v for k, v in tup._asdict().items()}
+    fields.update(swap)
+    return type(tup)(**fields)
+
+
+def _k7_case(ctx, case):
+    from cruise_control_torch.kernels.state_fingerprint import state_fingerprint
+
+    ta = ctx["ta"]
+    swap = {"dtype": {"leader_count": _OnCard(ta.leader_count.long())},
+            "shape": {"replica_count": _OnCard(ta.replica_count[1:])},
+            "rank": {"broker_load": _OnCard(ta.broker_load.reshape(-1))},
+            "device": {"leader_nw_in": ta.leader_nw_in},
+            "other card": {"leader_nw_in": _OnCard(ta.leader_nw_in, "cuda:1")},
+            "contiguity": {"broker_load": _OnCard(ta.broker_load.t().contiguous().t())}}[case]
+    return lambda: state_fingerprint(_on_card(ta, **swap))
+
+
+def _k10_case(ctx, case):
+    from cruise_control_torch.analyzer.incremental import build_delta_batch
+    from cruise_control_torch.kernels.delta_scatter import delta_scatter
+
+    ts = ctx["ts"]
+    batch = build_delta_batch([], 64, ts.part_load.shape[1])
+    base = _OnCard(ts.replica_dst_ok.clone())
+    st_swap, b_swap = {
+        "dtype": ({}, {"row": _OnCard(batch.row.long())}),
+        "shape": ({"topic_id": _OnCard(ts.topic_id[1:])}, {}),
+        "rank": ({}, {"load": _OnCard(batch.load.reshape(-1))}),
+        "device": ({"broker_valid": ts.broker_valid}, {}),
+        "other card": ({}, {"kind": _OnCard(batch.kind, "cuda:1")}),
+        "contiguity": ({"part_load": _OnCard(ts.part_load.t().contiguous().t())}, {}),
+    }[case]
+    return lambda: delta_scatter(_on_card(ts, **st_swap), _on_card(batch, **b_swap), base, base)
+
+
+def _k11_case(ctx, case):
+    from cruise_control_torch.kernels.elect_preferred import elect_preferred
+
+    a = torch.from_numpy(ctx["arrays"]["assignment"])
+    dead = torch.from_numpy(ctx["arrays"]["broker_state"] == 3)
+    args = {"dtype": (_OnCard(a.long()), _OnCard(dead), _OnCard(dead)),
+            "shape": (_OnCard(a), _OnCard(dead), _OnCard(dead[1:])),
+            "rank": (_OnCard(a.reshape(-1)), _OnCard(dead), _OnCard(dead)),
+            "device": (_OnCard(a), dead, _OnCard(dead)),
+            "other card": (_OnCard(a), _OnCard(dead), _OnCard(dead, "cuda:1")),
+            "contiguity": (_OnCard(a.t().contiguous().t()), _OnCard(dead), _OnCard(dead))}[case]
+    return lambda: elect_preferred(*args)
+
+
+def _k4_case(ctx, case):
+    from cruise_control_torch.kernels.apply_wave import apply_wave
+
+    ts, ta = _on_card(ctx["ts"]), _on_card(ctx["ta"])
+    n = 8
+    i32 = torch.zeros(n, dtype=torch.int32)
+    legs = [_OnCard(i32.clone()) for _ in range(4)]
+    score, ok = _OnCard(torch.zeros(n)), _OnCard(torch.ones(n, dtype=torch.bool))
+    if case == "dtype":
+        legs[1] = _OnCard(i32.long())
+    elif case == "shape":
+        legs[3] = _OnCard(i32[1:])
+    elif case == "rank":
+        score = _OnCard(torch.zeros(n, 1))
+    elif case == "device":
+        ok = torch.ones(n, dtype=torch.bool)
+    elif case == "other card":
+        ta = ta._replace(broker_load=_OnCard(ctx["ta"].broker_load, "cuda:1"))
+    else:
+        ta = ta._replace(touch_tag=_OnCard(ctx["ta"].touch_tag.t().contiguous().t()))
+    return lambda: apply_wave(ts, ta, *legs, score, ok, 3)
+
+
+#: (kernel, case) -> (exception, message): the messages the wrappers gave
+#: when they checked every argument one by one
+REFUSALS = {
+    ("K7", "dtype"): (TypeError, "leader_count: expected torch.int32, got torch.int64"),
+    ("K7", "shape"): (ValueError, r"state_fingerprint: replica_count has shape \(23,\), "
+                                  r"expected \(24,\)"),
+    ("K7", "rank"): (ValueError, r"broker_load: expected rank 2, got shape \(96,\)"),
+    ("K7", "device"): (ValueError, "leader_nw_in: expected a CUDA tensor, got cpu"),
+    ("K7", "other card"): (ValueError, "leader_nw_in: on cuda:1, expected cuda:0"),
+    ("K7", "contiguity"): (ValueError, "broker_load: must be contiguous"),
+    ("K10", "dtype"): (TypeError, "batch.row: expected torch.int32, got torch.int64"),
+    ("K10", "shape"): (ValueError, r"delta_scatter: topic_id has shape \(\d+,\), expected"),
+    ("K10", "rank"): (ValueError, r"batch.load: expected rank 2, got shape \(\d+,\)"),
+    ("K10", "device"): (ValueError, "broker_valid: expected a CUDA tensor, got cpu"),
+    ("K10", "other card"): (ValueError, "batch.kind: on cuda:1, expected cuda:0"),
+    ("K10", "contiguity"): (ValueError, "part_load: must be contiguous"),
+    ("K11", "dtype"): (TypeError, "assignment: expected torch.int32, got torch.int64"),
+    ("K11", "shape"): (ValueError, "elect_preferred: dead has 23 brokers, expected 24"),
+    ("K11", "rank"): (ValueError, r"assignment: expected rank 2, got shape \(\d+,\)"),
+    ("K11", "device"): (ValueError, "demoted: expected a CUDA tensor, got cpu"),
+    ("K11", "other card"): (ValueError, "dead: on cuda:1, expected cuda:0"),
+    ("K11", "contiguity"): (ValueError, "assignment: must be contiguous"),
+    ("K4", "dtype"): (TypeError, "kind: expected torch.int32, got torch.int64"),
+    ("K4", "shape"): (ValueError, "apply_wave: dst has 7 entries, score 8"),
+    ("K4", "rank"): (ValueError, r"score: expected rank 1, got shape \(8, 1\)"),
+    ("K4", "device"): (ValueError, "ok: expected a CUDA tensor, got cpu"),
+    ("K4", "other card"): (ValueError, "apply_wave: context tensors must be contiguous and on "
+                                       "cuda:0"),
+    ("K4", "contiguity"): (ValueError, "apply_wave: context tensors must be contiguous and on "
+                                      "cuda:0"),
+}
+
+
+@pytest.mark.parametrize("kernel,case", list(REFUSALS), ids=[" ".join(k) for k in REFUSALS])
+def test_wrappers_refuse_what_their_kernels_do_not_take(ctx, kernel, case):
+    """The reworked wrappers (one fast-path condition, the message built only
+    on failure) refuse a wrong dtype, shape, rank, device, card or layout
+    with the message each gave before, and launch nothing."""
+    from cruise_control_torch import kernels
+
+    call = {"K4": _k4_case, "K7": _k7_case, "K10": _k10_case, "K11": _k11_case}[kernel](ctx, case)
+    exc, msg = REFUSALS[kernel, case]
+    before = kernels.launches()
+    with pytest.raises(exc, match=msg):
+        call()
+    assert kernels.launches() == before
+
+
+@pytest.mark.parametrize("cut", [1, 5, 96])
+def test_k7_plain_counts_positions_from_start(ctx, cut):
+    """`_mix(x, salt, start)` of a slice starting at flat position `start`
+    adds up, mod 2^32, to `_mix` of the whole: the card test past 2**31
+    words sums its reference in such slices."""
+    from cruise_control_torch.kernels.state_fingerprint import _mix
+
+    flat = ctx["ta"].broker_load.reshape(-1)
+    whole = int(_mix(flat, 0x9E3779B9))
+    parts = int(_mix(flat[:cut], 0x9E3779B9)) + int(_mix(flat[cut:], 0x9E3779B9, start=cut))
+    assert whole == parts & 0xFFFFFFFF

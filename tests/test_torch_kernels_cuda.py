@@ -525,6 +525,84 @@ def test_k7_state_fingerprint(pair):
     assert int(plain) == int(state_fingerprint(flipped)) != int(state_fingerprint(pair["ag"]))
 
 
+FpAgg = collections.namedtuple("FpAgg", "broker_load leader_nw_in leader_count replica_count")
+
+
+def _fp_agg(b, seed, offset=0):
+    """K7's four arrays on the card from one buffer of random words (planted
+    -0.0, +0.0 and NaN bit patterns among them), each a view `offset` words
+    past a 16-byte boundary of its own."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    words = torch.randint(-2**31, 2**31, (7 * b + 16,), dtype=torch.int32, device="cuda",
+                          generator=g)
+    for k, bits in enumerate((-2**31, 0, 0x7FC00000, -0x003FFFFF, 0x7F800001)):
+        words[k::97] = bits
+    parts, at = [], 0
+    for n in (4 * b, b, b, b):
+        at = (at + 3) // 4 * 4 + offset  # every view starts `offset` words past a boundary
+        parts.append(words[at:at + n])
+        at += n
+    load, lnw, lc, rc = parts
+    return FpAgg(load.view(torch.float32).view(b, 4), lnw.view(torch.float32), lc, rc)
+
+
+@pytest.mark.parametrize("b", [0, 1, 3, 2600, 3072, 300_001])
+def test_k7_state_fingerprint_sizes(b):
+    """K7 bit-equal to its plain version from one broker to 300,001 (the
+    several-block layout and its ticket), on random words with signed zeros
+    and NaN bit patterns."""
+    _card()
+    agg = _fp_agg(b, b)
+    got = state_fingerprint(agg)
+    assert got.dtype == torch.int64 and got.numel() == 1
+    assert int(got) == int(state_fingerprint_plain(agg))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("b", [5, 3072, 300_001])
+def test_k7_state_fingerprint_on_misaligned_views(b, offset):
+    """Every array a slice of a larger tensor whose data pointer is not
+    16-byte aligned: the scalar heads and tails and the vector bodies."""
+    _card()
+    agg = _fp_agg(b, 7 * b + offset, offset)
+    assert all(t.data_ptr() % 16 == 4 * offset for t in agg)
+    assert int(state_fingerprint(agg)) == int(state_fingerprint_plain(agg))
+
+
+@pytest.mark.parametrize("b", [3072, 300_001])
+def test_k7_back_to_back_calls_on_one_stream(b):
+    """1,000 calls in a row on one stream, each a fresh output: the
+    several-block layout's ticket is left at 0 by every launch."""
+    _card()
+    from cruise_control_torch.kernels import state_fingerprint as k7
+
+    agg = _fp_agg(b, 11)
+    want = int(state_fingerprint_plain(agg))
+    outs = [state_fingerprint(agg) for _ in range(1000)]
+    assert len({o.data_ptr() for o in outs}) == 1000
+    assert torch.stack(outs).eq(want).all()
+    assert int(k7._SCRATCH[torch.cuda.current_device()][0][0]) == 0
+
+
+def test_k7_state_fingerprint_past_2_31_words():
+    """4 * B = 2**31 load words (B = 2**29, 15 GB of aggregates): the 64-bit
+    configuration, against the plain version summed in slices."""
+    _card()
+    from cruise_control_torch.kernels import state_fingerprint as k7
+
+    b = 2**29
+    agg = _fp_agg(b, 29)
+    got = int(state_fingerprint(agg))
+    want, step = 0, 2**26
+    for (name, salt), t in zip(k7._SALTS, agg):
+        flat = t.reshape(-1)
+        for i in range(0, flat.shape[0], step):
+            want += int(k7._mix(flat[i:i + step], salt, start=i))
+    del agg
+    torch.cuda.empty_cache()
+    assert got == want & 0xFFFFFFFF
+
+
 @pytest.mark.parametrize("dead_all", [False, True])
 def test_k8_cluster_stats(pair, dead_all):
     ac, ag = pair["ac"], pair["ag"]
@@ -1539,8 +1617,8 @@ def test_k9_replication_factor_17(name):
 
 @pytest.mark.parametrize("unique", [True, False], ids=["distinct-targets", "repeated-targets"])
 def test_k10_batch_of_4096_rows(unique):
-    """A 4,096-row batch (past the 2,048 rows one tile of shared memory
-    stages), the later of two rows to one target landing across tiles."""
+    """A 4,096-row batch (the later of two rows to one target at any
+    distance in the batch), on a 600-broker model's bucketed context."""
     _card()
     from cruise_control_torch.kernels.delta_scatter import delta_scatter, delta_scatter_plain
 
@@ -1558,6 +1636,91 @@ def test_k10_batch_of_4096_rows(unique):
                         base_lead.cuda())
     for f in want._fields:
         assert _bits(getattr(got, f), getattr(want, f)), f
+
+
+def _k10_static(pair, b, p, m, seed, misaligned=False):
+    """(CPU, card) StaticCtx whose fields K10 reads are random: [P, M] loads
+    with signed zeros and NaN bits, topic ids, states 0-3, validity and a
+    partition count; `misaligned`: the card's loads a view one float past a
+    16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    load = rng.random((p, m), dtype=np.float32)
+    load.reshape(-1)[::13] = -0.0
+    load.view(np.int32).reshape(-1)[5::101] = 0x7FC00001
+    fields = dict(part_load=load, topic_id=rng.integers(0, 500, p).astype(np.int32),
+                  broker_state=rng.integers(0, 4, b).astype(np.int32),
+                  broker_valid=rng.random(b) < 0.9,
+                  num_valid_partitions=np.float32(p - 3))
+    sc = pair["sc"]._replace(**{k: torch.from_numpy(np.asarray(v)) for k, v in fields.items()})
+    sg = type(sc)(*(t.cuda() for t in sc))
+    if misaligned:
+        buf = torch.empty(p * m + 1, device="cuda")
+        buf[1:] = sg.part_load.reshape(-1)
+        sg = sg._replace(part_load=buf[1:].view(p, m))
+        assert sg.part_load.data_ptr() % 16 == 4
+    return sc, sg
+
+
+def _k10_both(sc, sg, batch, base_rep, base_lead):
+    from cruise_control_torch.kernels.delta_scatter import delta_scatter, delta_scatter_plain
+
+    want = delta_scatter_plain(sc, batch, base_rep, base_lead)
+    before = [t.clone() for t in sg]
+    got = delta_scatter(sg, type(batch)(*(t.cuda() for t in batch)), base_rep.cuda(),
+                        base_lead.cuda())
+    torch.cuda.synchronize()
+    for f in want._fields:
+        assert _bits(getattr(got, f), getattr(want, f)), f
+    assert all(_bits(x, y) for x, y in zip(before, sg))  # NaN bits too
+
+
+@pytest.mark.parametrize("d", [0, 1, 64, 2049, 4096])
+@pytest.mark.parametrize("unique", [True, False], ids=["distinct-targets", "repeated-targets"])
+def test_k10_batch_sizes(pair, d, unique):
+    """Batches of 0 to 4,096 rows (all landing rows, then NOOPs) into 2,600
+    brokers and 9,000 partition rows of 6 floats (several tiles, a ragged
+    last one)."""
+    b, p, m = 2600, 9000, 6
+    sc, sg = _k10_static(pair, b, p, m, d)
+    rng = np.random.default_rng(d + 1)
+    batch = _k10_batch(rng, d, d - d // 8, b, p, m, unique, "cpu")
+    base_rep, base_lead = (torch.from_numpy(rng.random(b) < 0.9) for _ in range(2))
+    _k10_both(sc, sg, batch, base_rep, base_lead)
+
+
+@pytest.mark.parametrize("m,misaligned", [(6, False), (5, True)], ids=["aligned", "misaligned"])
+def test_k10_targets_at_tile_edges(pair, m, misaligned):
+    """Targets on the last row of a block's tile and the first of the next
+    (state, load row and topic), each named twice, directly and from the end,
+    in both orders; the ragged last tile; and, misaligned, load rows that are
+    a view off a 16-byte boundary (the word-at-a-time copy)."""
+    from cruise_control_torch.analyzer.incremental import DeltaBatch
+    from cruise_control_torch.kernels.delta_scatter import TILE
+
+    b, p = 2 * TILE + 5, 3 * TILE + 7
+    sc, sg = _k10_static(pair, b, p, m, m, misaligned)
+    edges = [TILE - 1, TILE, 2 * TILE - 1, 2 * TILE, p - 1, 0]
+    rows = []
+    for i, e in enumerate(edges):
+        for kind in (1, 2, 3):
+            n = b if kind == 1 else p
+            if e >= n:
+                continue
+            first, second = (e, e - n) if i % 2 else (e - n, e)
+            rows += [(kind, first, i), (kind, second, i + 10)]
+    d = len(rows) + 3
+    cols = {k: np.zeros(d, np.int32) for k in ("kind", "broker", "state", "row", "topic")}
+    load = np.zeros((d, m), np.float32)
+    for k, (kind, idx, tag) in enumerate(rows):
+        cols["kind"][k] = kind
+        cols["broker" if kind == 1 else "row"][k] = idx
+        cols["state"][k], cols["topic"][k] = tag % 4, 1000 + tag
+        load[k] = tag + np.arange(m, dtype=np.float32) / 8
+    batch = DeltaBatch(**{k: torch.from_numpy(v) for k, v in cols.items()},
+                       load=torch.from_numpy(load))
+    rng = np.random.default_rng(m)
+    base_rep, base_lead = (torch.from_numpy(rng.random(b) < 0.9) for _ in range(2))
+    _k10_both(sc, sg, batch, base_rep, base_lead)
 
 
 @pytest.fixture(scope="module")
