@@ -92,6 +92,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      destinations, 26 others excluded from replica moves), 17 kafka-assigner
      (the two kafka-assigner goals; K3's case 15 must launch). Replicas of
      excluded partitions may stay on dead brokers.
+ 18. monitored: the load monitor's path on the smoke model
+     (monitored_model): a SimulatedCluster publishes every alive broker's
+     metrics into an InMemoryTransport once a window, a LoadMonitor samples
+     them for MONITOR_WINDOWS windows and builds the model under the
+     facade's default requirements; every array of that model must equal the
+     JAX monitor's (SHA-256, host numpy), then the service solve of it on the
+     card (SERVICE_SETTINGS, pinned) is held to the JAX CPU run's digest; the
+     host times of emission, sampling and model build, the solve's wall, the
+     sensor registry's names and counts and the tracer's span kinds are
+     printed.
   Around each solve every kernel's launch count is set to 0 and read after
   (K3's and K5's also by path; the service bucketed solve must take all
   three of K3's);
@@ -109,7 +119,7 @@ The smoke model is BASELINE config 5's cluster (2,600 brokers, 52 racks,
 4,000 topics, ~200k partitions at RF 3) with config 3's pareto load at mean
 utilisation 0.5 and 26 dead brokers, from seed 42.
 
-Phases 4-17 are held to the JAX package's runs of the same mode: JAX's
+Phases 4-18 are held to the JAX package's runs of the same mode: JAX's
 bucketed and exact runs differ on config 5 and on the smoke model. Every
 chunked solve, here and in the JAX references, runs one pinned call
 schedule (PINNED_TARGET_S).
@@ -496,6 +506,49 @@ JAX_CPU_DIGESTS["kafka-assigner"] = (
 #: of the demoted model's initial and final assignments
 JAX_CPU_K11_SHA256 = {"initial": "796f7442ade0f78ec4b88d3e030d73a9b31bd911643f13623e79f6312f8df3b0",
                       "final": "e8db5ea8b9a078bd47b4d7f2f9ffe555a2ac7fefd202061d7a2a5fec47b30a6b"}
+#: Phase 18: the smoke model's metrics through the load monitor (monitored_model:
+#: MONITOR_WINDOWS windows of LoadMonitorConfig(), the facade's default
+#: requirements), then the service solve (SERVICE_SETTINGS, pinned) of the
+#: monitored model: the JAX monitor's model (each field's SHA-256) and the JAX
+#: CPU run of that solve.
+JAX_CPU_MONITORED_MODEL_SHA256 = {
+    "assignment": "490b9400173b272cd7c18ac799e957b71ca5add1cceadbbecdc4cdcf4c981144",
+    "part_load": "4ecf44761f2b0f9bbb12ecd52ea3bcbca24ebfa445382c0bf445a64cacbe7a34",
+    "topic_id": "cba1f20666b904dceb56216397ce4720e6070c14a31aacb1493e853c49d68488",
+    "broker_capacity": "e4b6cff8d053e2ffb078e254f904e142145b834cac0e1c6e8d155536f1c901cf",
+    "broker_rack": "6620932676efb027c46e7826760abd2a044cc219636461aa86cbc4e81e1610b0",
+    "broker_host": "46738181cf1bf5359008200a556c9561270ce89b42a8dc45d345d24230db60b0",
+    "broker_state": "5f2e86732a874f47361b6541ffb1dd2a37a8e7774f499da8f7ef4af5636f9f97",
+}
+JAX_CPU_MONITORED_REFERENCE = {
+    "RackAwareGoal": (0, 0, 37, True, 0, 0),
+    "ReplicaCapacityGoal": (0, 0, 1, True, 0, 0),
+    "DiskCapacityGoal": (105, 30, 39, True, 5.577e+07, 3.202e+07),
+    "NetworkInboundCapacityGoal": (139, 24, 56, True, 6.805e+06, 3.83e+06),
+    "NetworkOutboundCapacityGoal": (10, 7, 12, True, 1.64e+06, 1.517e+06),
+    "CpuCapacityGoal": (131, 4, 45, True, 8547, 297.9),
+    "ReplicaDistributionGoal": (633, 137, 64, False, 1.971e+04, 1.326e+04),
+    "PotentialNwOutGoal": (127, 38, 64, False, 6.903e+06, 5.148e+06),
+    "DiskUsageDistributionGoal": (1893, 596, 64, False, 178.7, 78.52),
+    "NetworkInboundUsageDistributionGoal": (1857, 897, 64, False, 183.4, 112.8),
+    "NetworkOutboundUsageDistributionGoal": (2116, 217, 64, False, 125.1, 42.77),
+    "CpuUsageDistributionGoal": (1764, 540, 27, True, 171.1, 74.52),
+    "TopicReplicaDistributionGoal": (2515, 1355, 64, False, 1.749e+04, 6285),
+    "LeaderReplicaDistributionGoal": (1248, 694, 37, True, 1.89e+04, 1.484e+04),
+    "LeaderBytesInDistributionGoal": (766, 595, 60, True, 6.489e+06, 5.708e+06),
+}
+JAX_CPU_DIGESTS["monitored"] = (
+    "99518476c2eab44e", {
+        "RackAwareGoal": 6006, "DiskCapacityGoal": 7690, "NetworkInboundCapacityGoal": 6945,
+        "NetworkOutboundCapacityGoal": 891, "CpuCapacityGoal": 1960,
+        "ReplicaDistributionGoal": 5164, "PotentialNwOutGoal": 782,
+        "DiskUsageDistributionGoal": 2961, "NetworkInboundUsageDistributionGoal": 1936,
+        "NetworkOutboundUsageDistributionGoal": 26389, "CpuUsageDistributionGoal": 9481,
+        "TopicReplicaDistributionGoal": 11206, "LeaderReplicaDistributionGoal": 5849,
+        "LeaderBytesInDistributionGoal": 3235,
+    },
+    "ba223496d447d46fa9c9e252794364e3907fe7cb39981124f1f509bd28d3cfd7")
+JAX_CPU_MONITORED_MOVES = {"replica": 43143, "leadership": 16951}
 #: the kernels of each solve's path
 HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
              "window_sum", "state_fingerprint", "cluster_stats")
@@ -706,16 +759,69 @@ def option_recipes(fields: dict):
     }
 
 
+#: windows the monitored phase publishes and samples
+MONITOR_WINDOWS = 2
+
+
+def monitored_model(model, ns):
+    """Phase 18's front half, the load monitor's path: a SimulatedCluster of
+    `model` publishes every alive broker's metrics into an InMemoryTransport
+    once a window, and a LoadMonitor (a MetadataClient on the simulator's
+    topology, a TransportMetricSampler, LoadMonitorConfig()'s windows, a
+    scripted clock) samples once a window, as tests/test_monitor.py's `pump`
+    does, for MONITOR_WINDOWS windows; then `cluster_model` under the
+    facade's default requirements (one window, half of the partitions).
+    `ns` names the package's SimulatedCluster, InMemoryTransport,
+    MetadataClient, TransportMetricSampler, LoadMonitor, LoadMonitorConfig and
+    ModelCompletenessRequirements, so that the JAX package's monitor runs the
+    same recipe for the references. Returns (model, metadata, host seconds
+    of emission, sampling and model build, samples ingested)."""
+    sim = ns.SimulatedCluster(model)
+    transport = ns.InMemoryTransport()
+    config = ns.LoadMonitorConfig()
+    clock = {"now": 0.0}
+    monitor = ns.LoadMonitor(ns.MetadataClient(sim.fetch_topology, ttl_s=0.0),
+                             ns.TransportMetricSampler(transport), config=config,
+                             clock=lambda: clock["now"])
+    monitor.start_up()
+    seconds = {"emit": 0.0, "sample": 0.0, "build": 0.0}
+    ingested = 0
+    w = config.window_ms
+    for r in range(MONITOR_WINDOWS):
+        t_ms = r * w + w // 2
+        t0 = time.perf_counter()
+        transport.publish(sim.all_metrics(t_ms))
+        seconds["emit"] += time.perf_counter() - t0
+        clock["now"] = (t_ms + w // 4) / 1000.0
+        t0 = time.perf_counter()
+        ingested += monitor.sample_once()
+        seconds["sample"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, meta = monitor.cluster_model(ns.ModelCompletenessRequirements(
+        min_required_num_windows=1, min_monitored_partitions_percentage=0.5))
+    seconds["build"] = time.perf_counter() - t0
+    return out, meta, seconds, ingested
+
+
+def model_sha256(fields: dict) -> dict:
+    """{field: SHA-256 of its bytes} of a model's numpy fields, in the
+    model's field order (int32 and float32, C order)."""
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in fields.items()}
+
+
 #: device and call ms at chip_smoke's rows in the designs they replaced
 #: (K2: one atomicMax pass per k; window_sum: one block per column; K1: two
 #: library sorts and a thread per broker; K8: one block per topic, then one
 #: block for the seven series; K7: one block of scalar loads and a
-#: shared-memory tree; K10: every thread scanning the whole batch), as
+#: shared-memory tree; K10: every thread scanning the whole batch; K11: a
+#: thread a partition, its slots and flags read from device memory), as
 #: PERF.md section 6 records them, printed beside the new times
 PREVIOUS_MS = {"disk drain": (0.143, 0.170), "leader bytes-in": (0.0034, 0.0284),
                "broker loads": (0.0035, 0.0271), "partition leader bytes-in": (0.1087, 0.1112),
                "K1 smoke model": (0.481, 0.532), "K8 4000 topics": (0.184, 0.191),
-               "K7 smoke model": (0.0041, 0.0418), "K10 64 rows": (0.0126, 0.204)}
+               "K7 smoke model": (0.0041, 0.0418), "K10 64 rows": (0.0126, 0.204),
+               "K11 smoke model": (0.0043, 0.0198)}
 
 
 def previous(label: str) -> str:
@@ -1888,15 +1994,17 @@ def main() -> int:
     moved11 = int((o11_c[:, 0] != m11_c.assignment[:, 0]).sum())
     # the assignment read once and written once, the two masks; per slot a
     # few compares and selects
-    row("elect_preferred", "elect_preferred.cu",
-        "cruise_control_tpu/analyzer/goals/preferred.py:22", max_abs_err(o11_g, o11_c),
-        lambda i: elect_preferred(m11_g.assignment, st11_g.demoted, st11_g.dead),
-        lambda i: elect_preferred_plain(m11_g.assignment, st11_g.demoted, st11_g.dead),
-        2 * p_count * r * 4 + 2 * dims.num_brokers, 4 * p_count * r,
-        f"one thread per partition over its {r} slots, a fresh [{p_count}, {r}] output; "
-        f"{moved11} leaders moved")
+    r11 = row("elect_preferred", "elect_preferred.cu",
+              "cruise_control_tpu/analyzer/goals/preferred.py:22", max_abs_err(o11_g, o11_c),
+              lambda i: elect_preferred(m11_g.assignment, st11_g.demoted, st11_g.dead),
+              lambda i: elect_preferred_plain(m11_g.assignment, st11_g.demoted, st11_g.dead),
+              2 * p_count * r * 4 + 2 * dims.num_brokers, 4 * p_count * r,
+              f"tiles of 512 rows staged flat in 16-byte vectors, the flags merged into a "
+              f"byte a broker in shared memory, a fresh [{p_count}, {r}] output; "
+              f"{moved11} leaders moved")
     print(f"K11 elect_preferred: {moved11} of {p_count} leaders moved off demoted or dead "
-          "brokers, bit-equal to the plain version, the input unchanged")
+          f"brokers, bit-equal to the plain version, the input unchanged; {r11['ms']:.4f} ms "
+          f"on the device, {r11['call_ms']:.4f} ms per call, {previous('K11 smoke model')}")
     del m11_g, st11_g, o11_g
 
     # -- 4.-7. the solves -------------------------------------------------------
@@ -2192,6 +2300,50 @@ def main() -> int:
                 print(f"{label}: K11 on the {which} assignment moved {moved} leaders, SHA-256 "
                       "equal to JAX's elect_preferred_leaders")
         del res, o
+
+    # -- 18. monitored proposal: the load monitor's path, then the service solve --
+    from types import SimpleNamespace
+
+    from cruise_control_torch.common.sensors import REGISTRY
+    from cruise_control_torch.common.tracing import TRACER
+    from cruise_control_torch.models.flat_model import to_numpy
+    from cruise_control_torch.monitor.completeness import ModelCompletenessRequirements
+    from cruise_control_torch.monitor.load_monitor import LoadMonitor, LoadMonitorConfig
+    from cruise_control_torch.monitor.metadata import MetadataClient
+    from cruise_control_torch.monitor.sampler import TransportMetricSampler
+    from cruise_control_torch.reporter.transport import InMemoryTransport
+    from cruise_control_torch.testing.simulator import SimulatedCluster
+
+    card = nvidia_smi_line()
+    monitor_ns = SimpleNamespace(
+        SimulatedCluster=SimulatedCluster, InMemoryTransport=InMemoryTransport,
+        MetadataClient=MetadataClient, TransportMetricSampler=TransportMetricSampler,
+        LoadMonitor=LoadMonitor, LoadMonitorConfig=LoadMonitorConfig,
+        ModelCompletenessRequirements=ModelCompletenessRequirements)
+    model_m, _, host_s, ingested = monitored_model(model_cpu, monitor_ns)
+    print(f"monitored: {MONITOR_WINDOWS} windows of {model_cpu.num_brokers} brokers' metrics: "
+          f"emission {host_s['emit']:.3f} s, sampling {host_s['sample']:.3f} s ({ingested} "
+          f"samples), model build {host_s['build']:.3f} s of host time ({card})")
+    for k, v in model_sha256(to_numpy(model_m)).items():
+        if v != JAX_CPU_MONITORED_MODEL_SHA256[k]:
+            fail(f"monitored: the monitored model's {k} differs from the JAX monitor's (host "
+                 "numpy, before any solve)")
+    print("monitored: every array of the monitored model equals the JAX monitor's (SHA-256)")
+    zero = int((model_m.part_load.sum(dim=1) == 0).sum())
+    print(f"monitored: {model_m.num_partitions} partitions, {zero} with no load (led by dead "
+          "brokers, which report nothing)")
+    o_m = opt.GoalOptimizer(device="cuda", settings=pinned_service)
+    res = run_and_check("monitored", model_m,
+                        lambda: o_m.optimizations(model_m, None, raise_on_hard_failure=False),
+                        STACK_PATH, JAX_CPU_MONITORED_REFERENCE, JAX_CPU_MONITORED_MOVES)
+    if res.bucketed != JAX_CPU_SERVICE_BUCKETED_BLOCK:
+        fail("monitored: the bucket record differs from the JAX CPU run's")
+    print(f"monitored: the solve took {solves['monitored']['wall_s']:.2f} s ({card})")
+    sensors = {k: (v.get("count") if isinstance(v, dict) else v)
+               for k, v in REGISTRY.snapshot().items()}
+    print(f"monitored: REGISTRY sensors (count or value) {json.dumps(sensors, default=str)}")
+    print(f"monitored: TRACER span kinds {json.dumps(TRACER.summarize())}")
+    del res, o_m, model_m
 
     if results["service"][:2] != results["stack"][:2]:
         fail("service: the chunked solve's final assignment or touch tags differ from the "

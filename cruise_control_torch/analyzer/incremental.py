@@ -24,10 +24,11 @@ the same perturbed model, since both run `GoalOptimizer._solve_prepared` on
 equal inputs. Anything the lane cannot do in place is a typed fallback
 reason; it never guesses.
 
-Left out, with the host service (ROADMAP.md Queue 1 item 7): the sensor
-registry's meters and the tracer's spans, and `IncrementalConfig`'s reading
-of the service configuration. There is no mesh branch: the port runs on one
-card.
+The lane marks the JAX lane's sensors (common/sensors.py: `Incremental.*`)
+and opens its `incremental-delta-apply` span (common/tracing.py). Left out,
+with the host service (ROADMAP.md Queue 1 item 7): `IncrementalConfig`'s
+reading of the service configuration. There is no mesh branch: the port
+runs on one card.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ import torch
 
 from cruise_control_torch.analyzer.context import OptimizationOptions, StaticCtx
 from cruise_control_torch.common.resources import BrokerState
+from cruise_control_torch.common.sensors import REGISTRY
+from cruise_control_torch.common.tracing import TRACER
 from cruise_control_torch.kernels.delta_scatter import (  # noqa: F401  (KIND_NOOP re-exported)
     KIND_LOAD,
     KIND_NOOP,
@@ -318,6 +321,7 @@ class IncrementalLane:
         self._armed: Optional[_ArmedState] = None
         self._last: Optional[IncrementalOutcome] = None
         self._goals_skipped = 0
+        REGISTRY.gauge("Incremental.goals-skipped", lambda: self._goals_skipped)
 
     @property
     def config(self) -> IncrementalConfig:
@@ -366,6 +370,7 @@ class IncrementalLane:
                 base_replica_dst=torch.from_numpy(base_replica).to(dev),
                 base_leadership_dst=torch.from_numpy(base_lead).to(dev),
             )
+        REGISTRY.meter("Incremental.lane-armed").mark()
         return True
 
     def propose(self, new_model: FlatClusterModel,
@@ -398,14 +403,16 @@ class IncrementalLane:
         if affected is None:
             return self._fallback(deltas, FALLBACK_SENSITIVITY_ALL, t0)
 
-        dims = armed.dims
-        batch = build_delta_batch(deltas, self._config.max_deltas,
-                                  armed.pmodel.part_load.shape[1],
-                                  armed.static_canon.part_load.device)
-        new_canon = delta_scatter(armed.static_canon, batch, armed.base_replica_dst,
-                                  armed.base_leadership_dst)
-        new_static = new_canon
-        pmodel = self._updated_pmodel(armed, deltas, new_model)
+        with TRACER.span("incremental-delta-apply", kind="incremental", deltas=len(deltas),
+                         goals=len(affected)):
+            dims = armed.dims
+            batch = build_delta_batch(deltas, self._config.max_deltas,
+                                      armed.pmodel.part_load.shape[1],
+                                      armed.static_canon.part_load.device)
+            new_canon = delta_scatter(armed.static_canon, batch, armed.base_replica_dst,
+                                      armed.base_leadership_dst)
+            new_static = new_canon
+            pmodel = self._updated_pmodel(armed, deltas, new_model)
         p_valid = new_model.num_partitions
         result = self._optimizer.incremental_optimizations(
             pmodel, dims, new_static, new_canon, dict(armed.bucketed, incremental=True),
@@ -418,9 +425,14 @@ class IncrementalLane:
                 generation=generation if generation is not None else armed.generation,
                 p_valid=p_valid, pmodel=pmodel, static=new_static, static_canon=new_canon)
             self._goals_skipped = skipped
+        REGISTRY.meter("Incremental.deltas-applied").mark(len(deltas))
+        for d in deltas:
+            REGISTRY.meter(f"Incremental.deltas-applied.{d.kind}").mark()
+        duration = time.monotonic() - t0
+        REGISTRY.histogram("Incremental.reproposal-timer").record(duration)
         outcome = IncrementalOutcome(result=result, deltas=deltas, affected=affected,
                                      goals_skipped=skipped, fallback_reason=None,
-                                     duration_s=time.monotonic() - t0)
+                                     duration_s=duration)
         with self._lock:
             self._last = outcome
         return outcome
@@ -463,6 +475,8 @@ class IncrementalLane:
                            broker_state=broker_state)
 
     def _fallback(self, deltas: List[ModelDelta], reason: str, t0: float) -> IncrementalOutcome:
+        REGISTRY.meter("Incremental.fallback-to-full").mark()
+        REGISTRY.meter(f"Incremental.fallback-to-full.{reason}").mark()
         outcome = IncrementalOutcome(result=None, deltas=deltas, affected=(), goals_skipped=0,
                                      fallback_reason=reason, duration_s=time.monotonic() - t0)
         with self._lock:

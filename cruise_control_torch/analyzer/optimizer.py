@@ -29,6 +29,17 @@ machine's cursor (phase, rounds in it, empty-round streak) is therefore
 already on the host, and a machine call reads back only the per-goal round
 counts (and, entering a polish phase, the goal's converged flag and
 fingerprint).
+
+Observability is the JAX optimizer's, on common/sensors.py's REGISTRY and
+common/tracing.py's TRACER: a `proposal` span around each computation (an
+armed profile dir captures one with the torch profiler), a `device-call`
+span and `cc-machine-call` profiler range per machine call, synthetic `goal`
+spans, a `provenance` span around the ledger, the prep cache's hit and miss
+meters and the round, call, proposal and stack timers. Left out: the JAX
+package's program-cache meters, its stack-compile timers and its
+`TELEMETRY` and `HISTORY` calls, which are tied to XLA compilation and its
+cost analysis; they wait for the port's kernel-build cache and device
+telemetry (ROADMAP.md Queue 1 item 7, step 6).
 """
 
 from __future__ import annotations
@@ -73,6 +84,8 @@ from cruise_control_torch.analyzer.proposals import ExecutionProposal, proposal_
 from cruise_control_torch.analyzer.provenance import LEDGER, build_run_ledger, new_run_id
 from cruise_control_torch.analyzer.stats import ClusterModelStats, compute_stats, stats_to_host
 from cruise_control_torch.analyzer.swaps import make_swap_round
+from cruise_control_torch.common.sensors import REGISTRY
+from cruise_control_torch.common.tracing import TRACER, maybe_profile
 from cruise_control_torch.config.balancing import BalancingConstraint
 from cruise_control_torch.kernels.apply_wave import apply_wave
 from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
@@ -732,7 +745,9 @@ class GoalOptimizer:
         hit = self._prep_cache.get(key)
         if hit is not None:
             self._prep_cache.move_to_end(key)
+            REGISTRY.meter("GoalOptimizer.static-ctx-cache-hits").mark()
         else:
+            REGISTRY.meter("GoalOptimizer.static-ctx-cache-misses").mark()
             hit = (*self._build_ctx(model, options), model, options)
             self._prep_cache[key] = hit
             while len(self._prep_cache) > _PREP_CACHE_SIZE:
@@ -863,12 +878,20 @@ class GoalOptimizer:
         options: OptimizationOptions = OptimizationOptions(),
         raise_on_hard_failure: bool = True,
     ) -> OptimizerResult:
-        """Run the requested goal stack and diff initial vs final placement."""
-        t0 = time.monotonic()
-        goals, p_orig, pmodel, dims, static, agg, bucketed = self._prepare(
-            model, goal_names, options)
-        return self._solve_prepared(goals, p_orig, pmodel, dims, static, agg, bucketed,
-                                    raise_on_hard_failure, t0)
+        """Run the requested goal stack and diff initial vs final placement,
+        under a `proposal` tracer span (optimizer.py:1951)."""
+        with maybe_profile() as profiled, TRACER.span(
+                "proposal-computation", kind="proposal", brokers=int(model.num_brokers),
+                partitions=int(model.num_partitions), profiled=bool(profiled)) as root:
+            t0 = time.monotonic()
+            goals, p_orig, pmodel, dims, static, agg, bucketed = self._prepare(
+                model, goal_names, options)
+            result = self._solve_prepared(goals, p_orig, pmodel, dims, static, agg, bucketed,
+                                          raise_on_hard_failure, t0)
+            root.attributes.update(numProposals=len(result.proposals),
+                                   replicaMoves=result.num_replica_moves,
+                                   leadershipMoves=result.num_leadership_moves)
+        return result
 
     def incremental_optimizations(self, pmodel: FlatClusterModel, dims: Dims, static,
                                   static_canon, bucketed, p_orig: int,
@@ -880,13 +903,22 @@ class GoalOptimizer:
         device tensors), `goal_names` the affected subset. Only the initial
         aggregates are computed; the solve is `_solve_prepared`, the code the
         scratch lane runs."""
-        t0 = time.monotonic()
-        goals = goals_by_priority(goal_names)
-        check_supported(goals, self._settings, OptimizationOptions())
-        pmodel = pmodel.to(self._device)
-        agg = self._initial_aggregates(pmodel, dims, static, static_canon)
-        return self._solve_prepared(goals, p_orig, pmodel, dims, static, agg, bucketed,
-                                    raise_on_hard_failure, t0)
+        with maybe_profile() as profiled, TRACER.span(
+                "incremental-proposal", kind="proposal", brokers=int(dims.num_brokers),
+                partitions=int(dims.num_partitions),
+                goals=len(tuple(goal_names)) if goal_names is not None else -1,
+                profiled=bool(profiled)) as root:
+            t0 = time.monotonic()
+            goals = goals_by_priority(goal_names)
+            check_supported(goals, self._settings, OptimizationOptions())
+            pmodel = pmodel.to(self._device)
+            agg = self._initial_aggregates(pmodel, dims, static, static_canon)
+            result = self._solve_prepared(goals, p_orig, pmodel, dims, static, agg, bucketed,
+                                          raise_on_hard_failure, t0)
+            root.attributes.update(numProposals=len(result.proposals),
+                                   replicaMoves=result.num_replica_moves,
+                                   leadershipMoves=result.num_leadership_moves)
+        return result
 
     def _run_chunked(self, goals, enabled: np.ndarray, dims: Dims, static, agg):
         """Drive the goal machine (optimizer.py:1553-1653): calls of at most
@@ -912,13 +944,30 @@ class GoalOptimizer:
         durs = np.zeros(n, np.float64)
         rounds_seen = np.zeros(n, np.int64)
         last_gi = 0
+        round_hist = REGISTRY.histogram("GoalOptimizer.optimizer-round-timer")
+        call_hist = REGISTRY.histogram("GoalOptimizer.device-call-timer")
+        dispatches = REGISTRY.meter("GoalOptimizer.device-dispatches")
         t_stack = time.monotonic()
         while True:
             t_call = time.monotonic()
-            agg, tables, gi, rig, emp, metrics, spent, snap = machine(
-                static, agg, tables, gi, rig, emp, metrics, max(1, chunk), enabled, snap)
-            rounds_h = metrics.rounds.cpu().numpy().astype(np.int64)
+            # one tracer span a machine call, and a profiler range of the
+            # same call, so a capture joins the /trace spans
+            with TRACER.span("optimizer.device-call", kind="device-call",
+                             goal=goals[min(gi % n, n - 1)].name,
+                             phase="polish" if gi >= n else "main",
+                             budget=int(max(1, chunk))) as call_span, \
+                    torch.profiler.record_function("cc-machine-call"):
+                agg, tables, gi, rig, emp, metrics, spent, snap = machine(
+                    static, agg, tables, gi, rig, emp, metrics, max(1, chunk), enabled, snap)
+                rounds_h = metrics.rounds.cpu().numpy().astype(np.int64)
+                call_span.attributes["rounds"] = int(spent)
+                call_span.attributes["goalIndexAfter"] = int(gi)
             call_s = time.monotonic() - t_call
+            dispatches.mark()
+            call_hist.record(call_s)
+            if spent > 0:
+                # one sample a call of its mean round time
+                round_hist.record(call_s / spent)
             delta = np.maximum(rounds_h - rounds_seen, 0)
             if delta.sum() > 0:
                 durs += call_s * delta / delta.sum()
@@ -964,15 +1013,23 @@ class GoalOptimizer:
             goal_durs = goal_durs[rows]
         else:
             t_stack = time.monotonic()
-            agg, metrics, prov = run_stack(goals, dims, self._settings, static, agg)
+            with TRACER.span("optimizer.stack-call", kind="device-call", goal="<fused-stack>",
+                             phase="main"), torch.profiler.record_function("cc-stack-call"):
+                agg, metrics, prov = run_stack(goals, dims, self._settings, static, agg)
             metrics_full = metrics
             stack_s = time.monotonic() - t_stack
+            REGISTRY.meter("GoalOptimizer.device-dispatches").mark()
+            REGISTRY.histogram("GoalOptimizer.device-call-timer").record(stack_s)
         stats_after = compute_stats(model._replace(assignment=agg.assignment), dims.num_topics)
         final_np = agg.assignment[:p_orig].cpu().numpy()
         touch_np = agg.touch_tag[:p_orig].cpu().numpy()
         stats_before, stats_after = stats_to_host(stats_before), stats_to_host(stats_after)
 
         total_rounds = max(1, int(metrics.rounds.sum()))
+        if goal_durs is None and int(metrics.rounds.sum()) > 0:
+            # fused: a round's time is observable only as the stack's mean
+            REGISTRY.histogram("GoalOptimizer.optimizer-round-timer").record(
+                stack_s / int(metrics.rounds.sum()))
         goal_results: List[GoalResult] = []
         first_hard_failure: Optional[GoalResult] = None
         for i, goal in enumerate(goals):
@@ -990,6 +1047,13 @@ class GoalOptimizer:
                             else stack_s * int(metrics.rounds[i]) / total_rounds),
             )
             goal_results.append(gr)
+            # a synthetic span: the goal's interval is attributed, not observed
+            TRACER.record_span(
+                f"goal:{goal.name}", kind="goal", duration_s=gr.duration_s, goal=goal.name,
+                engine=goal_engine(goal, dims, self._settings), rounds=gr.rounds,
+                converged=gr.converged, costBefore=gr.cost_before, costAfter=gr.cost_after,
+                violatedBefore=gr.violated_brokers_before,
+                violatedAfter=gr.violated_brokers_after)
             if gr.is_hard and gr.violated_brokers_after > 0 and first_hard_failure is None:
                 first_hard_failure = gr
         if first_hard_failure is not None and raise_on_hard_failure:
@@ -1005,6 +1069,9 @@ class GoalOptimizer:
         )
         provenance = self._build_ledger(ledger_names, ledger_enabled, metrics_full, prov,
                                         init_full, p_orig, dims, bucketed, len(proposals))
+        wall = time.monotonic() - t0
+        REGISTRY.histogram("GoalOptimizer.proposal-computation-timer").record(wall)
+        REGISTRY.histogram("GoalOptimizer.stack-execution-timer").record(stack_s)
         return OptimizerResult(
             proposals=proposals,
             goal_results=goal_results,
@@ -1014,7 +1081,7 @@ class GoalOptimizer:
             num_replica_moves=n_moves,
             num_leadership_moves=n_leader,
             data_to_move_mb=float(sum(pr.data_to_move_mb for pr in proposals)),
-            duration_s=time.monotonic() - t0,
+            duration_s=wall,
             touch_tag=touch_np,
             provenance=provenance,
             bucketed=bucketed,
@@ -1048,18 +1115,21 @@ class GoalOptimizer:
                 "rounds": int(m.rounds[gi]),
                 "converged": bool(m.converged[gi]),
             })
-        ledger = build_run_ledger(
-            new_run_id(), phases, init_assignment, prov[0], prov[1],
-            valid_partitions=p_orig,
-            meta={"bucket": (bucketed or {}).get("bucket"), "numProposals": num_proposals,
-                  "goals": list(ledger_names)},
-        )
-        if enabled is not None:
-            keep = [i for i in range(n_phases) if bool(enabled[i % g])]
-            index_map = {old: new for new, old in enumerate(keep)}
-            ledger.segments = [dataclasses.replace(s, index=index_map[s.index])
-                               for s in ledger.segments if s.index in index_map]
-            ledger.moves = [mv._replace(goal_index=index_map[mv.goal_index])
-                            for mv in ledger.moves if mv.goal_index in index_map]
-        LEDGER.record(ledger)
+        run_id = new_run_id()
+        with TRACER.span("provenance-collect", kind="provenance", runId=run_id) as span:
+            ledger = build_run_ledger(
+                run_id, phases, init_assignment, prov[0], prov[1],
+                valid_partitions=p_orig,
+                meta={"bucket": (bucketed or {}).get("bucket"), "numProposals": num_proposals,
+                      "goals": list(ledger_names)},
+            )
+            if enabled is not None:
+                keep = [i for i in range(n_phases) if bool(enabled[i % g])]
+                index_map = {old: new for new, old in enumerate(keep)}
+                ledger.segments = [dataclasses.replace(s, index=index_map[s.index])
+                                   for s in ledger.segments if s.index in index_map]
+                ledger.moves = [mv._replace(goal_index=index_map[mv.goal_index])
+                                for mv in ledger.moves if mv.goal_index in index_map]
+            span.attributes["moves"] = len(ledger.moves)
+            LEDGER.record(ledger)
         return ledger

@@ -8,10 +8,9 @@ consecutive snapshots into attributed `MoveRecord`s. The JSON schema is the
 JAX package's, so its unchanged `scripts/diff_runs.py` and
 `scripts/perf_gate.py` read the port's ledgers.
 
-Left out: the JAX package's meter, histogram and gauge calls on its process
-sensor registry (`MoveLedger.build-timer`, `runs-recorded`, `moves-recorded`,
-`runs-retained`). They come with the host service's sensors, ROADMAP.md
-Queue 1 item 7.
+It marks the JAX package's sensors on the process registry
+(common/sensors.py): `MoveLedger.build-timer`, `runs-recorded`,
+`moves-recorded` and the `runs-retained` gauge.
 """
 
 from __future__ import annotations
@@ -26,6 +25,8 @@ from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
+
+from cruise_control_torch.common.sensors import REGISTRY
 
 
 #: touch-tag packing width — mirrors context.TAG_WAVE_BASE (kept literal so
@@ -319,6 +320,7 @@ def build_run_ledger(
     diff touches only changed cells (np.nonzero prefilter), so build cost
     scales with moves made, not partitions examined.
     """
+    t0 = time.monotonic()
     init = np.asarray(init_assignment)
     snaps = np.asarray(snap_assignment)
     tags = np.asarray(snap_tag)
@@ -377,7 +379,9 @@ def build_run_ledger(
             )
         )
         prev = cur
-    return RunLedger(run_id, segments, moves, meta=meta)
+    ledger = RunLedger(run_id, segments, moves, meta=meta)
+    REGISTRY.histogram("MoveLedger.build-timer").record(time.monotonic() - t0)
+    return ledger
 
 
 # -- the bounded process registry ----------------------------------------------
@@ -430,6 +434,8 @@ class MoveLedger:
             self._total_recorded += 1
             while len(self._runs) > self._max_runs:
                 self._runs.popitem(last=False)
+        REGISTRY.meter("MoveLedger.runs-recorded").mark()
+        REGISTRY.meter("MoveLedger.moves-recorded").mark(n_moves)
 
     def get(self, run_id: str) -> Optional[RunLedger]:
         with self._lock:
@@ -471,6 +477,8 @@ class MoveLedger:
 
 #: process-wide ledger registry (the /explain surface)
 LEDGER = MoveLedger()
+
+REGISTRY.gauge("MoveLedger.runs-retained", lambda: len(LEDGER.run_ids()))
 
 
 # -- run-pair diffing (scripts/diff_runs.py core) ------------------------------

@@ -10,9 +10,18 @@ PyTorch version. Both write a fresh [P, R] output.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cruise_control_torch.kernels import build
+
+#: the C entry's `flags` codes (csrc/elect_preferred.cu FlagMode): 0 chooses
+#: the layout by the broker count, the others force one
+FLAGS = {"auto": 0, "bytes": 1, "global": 2}
+#: past this many brokers (EP_BYTE_FLAGS) or slots a row (EP_TILE_WORDS / 4)
+#: the kernel reads its flags from the bits workspace
+BYTE_FLAGS, TILE_SLOTS = 49_152, 3_072
 
 
 def elect_preferred_plain(assignment: torch.Tensor, demoted: torch.Tensor,
@@ -49,7 +58,26 @@ def _refuse(assignment, demoted, dead):
     raise ValueError("elect_preferred: the inputs disagree")
 
 
-_ARGTYPES = (build.PTR,) * 4 + (build.INT,) * 2 + (build.PTR,)
+_ARGTYPES = (build.PTR,) * 5 + (build.INT,) * 4 + (build.PTR,)
+#: per device: the kernel's bits workspace (a bit a broker, grown as needed),
+#: made on the first call that needs it, and its address
+_WORKSPACE = {}
+
+
+def workspace_words(b: int) -> int:
+    """The u32 words of the bits workspace for `b` brokers."""
+    fn = build.load("elect_preferred").elect_preferred_workspace_words
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_longlong]
+    return int(fn(b))
+
+
+def _workspace(idx: int, b: int) -> int:
+    """The address of device `idx`'s bits workspace, at least `b` brokers'."""
+    ws = _WORKSPACE.get(idx)
+    if ws is None or ws[0] < b:
+        t = torch.empty(workspace_words(b), dtype=torch.int32, device=torch.device("cuda", idx))
+        ws = _WORKSPACE[idx] = (b, t, t.data_ptr())
+    return ws[2]
 
 
 def elect_preferred(assignment: torch.Tensor, demoted: torch.Tensor,
@@ -66,10 +94,12 @@ def elect_preferred(assignment: torch.Tensor, demoted: torch.Tensor,
             and demoted.is_contiguous() and dead.is_contiguous()):
         _refuse(assignment, demoted, dead)
     p, r = assignment.shape
+    b = demoted.shape[0]
     out = assignment.new_empty((p, r))
+    bits = _workspace(idx, b) if b > BYTE_FLAGS or r > TILE_SLOTS else None
     code = build.entry("elect_preferred", _ARGTYPES)(
-        assignment.data_ptr(), demoted.data_ptr(), dead.data_ptr(), out.data_ptr(), p, r,
-        build.raw_stream(idx))
+        assignment.data_ptr(), demoted.data_ptr(), dead.data_ptr(), out.data_ptr(), bits, p, r,
+        b, 0, build.raw_stream(idx))
     if code:
         build.check(build.load("elect_preferred"), code, "elect_preferred")
     elect_preferred.launches += 1

@@ -18,6 +18,7 @@ segment helpers (`broker_loads`, `replica_counts`, ...) are the JAX model's
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, NamedTuple
 
 import numpy as np
@@ -68,6 +69,30 @@ class FlatClusterModel(NamedTuple):
 
     def to(self, device) -> "FlatClusterModel":
         return FlatClusterModel(*(t.to(device) for t in self))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ClusterMetadata:
+    """Host-side naming metadata kept beside the model's tensors (the JAX
+    model's :71).
+
+    eq=False: ndarray fields make the generated __eq__ ambiguous; identity
+    comparison is the meaningful one for a metadata handle.
+    """
+
+    topic_names: tuple
+    partition_index: np.ndarray  # i32[P] partition number within its topic
+    broker_ids: np.ndarray  # i32[B] external broker ids
+    rack_names: tuple = ()
+    host_names: tuple = ()
+    topic_of_partition: np.ndarray = None  # i32[P]
+
+    def topic_partition(self, p: int) -> str:
+        """Render partition p as 'topic-partitionIndex' for proposals/REST."""
+        if self.topic_of_partition is None:
+            raise ValueError("ClusterMetadata built without topic_of_partition")
+        t = int(self.topic_of_partition[p])
+        return f"{self.topic_names[t]}-{int(self.partition_index[p])}"
 
 
 # -- masks and segment helpers (the JAX model's :96-246) -------------------------
@@ -126,6 +151,38 @@ def potential_nw_out(model: FlatClusterModel) -> torch.Tensor:
 def topic_replica_counts(model: FlatClusterModel, num_topics: int) -> torch.Tensor:
     """i32[T, B]: replicas of each topic on each broker."""
     return segment_sums(model, num_topics)[6]
+
+
+# -- single-action edits (the JAX model's :271-312) -----------------------------
+# Each returns a new model whose assignment is a copy with the edit made; the
+# model given is not changed (the JAX model's `.at[].set` on an immutable
+# array).
+
+
+def relocate_replica(model: FlatClusterModel, p, slot, dst_broker) -> FlatClusterModel:
+    """Move the replica in (partition p, slot) to dst_broker; leadership stays
+    with the slot, so moving slot 0 moves the leadership load too."""
+    a = model.assignment.clone()
+    a[p, slot] = dst_broker
+    return model._replace(assignment=a)
+
+
+def relocate_leadership(model: FlatClusterModel, p, slot) -> FlatClusterModel:
+    """Make the replica in (p, slot) the leader by swapping slots 0 and slot."""
+    a = model.assignment.clone()
+    old_leader, new_leader = a[p, 0].clone(), a[p, slot].clone()
+    a[p, 0] = new_leader
+    a[p, slot] = old_leader
+    return model._replace(assignment=a)
+
+
+def swap_replicas(model: FlatClusterModel, p1, slot1, p2, slot2) -> FlatClusterModel:
+    """Swap the brokers of (p1, slot1) and (p2, slot2)."""
+    a = model.assignment.clone()
+    b1, b2 = a[p1, slot1].clone(), a[p2, slot2].clone()
+    a[p1, slot1] = b2
+    a[p2, slot2] = b1
+    return model._replace(assignment=a)
 
 
 def from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> FlatClusterModel:

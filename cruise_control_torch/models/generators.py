@@ -23,7 +23,7 @@ from cruise_control_torch.common.resources import (
     PartMetric,
     Resource,
 )
-from cruise_control_torch.models.flat_model import FlatClusterModel, from_numpy
+from cruise_control_torch.models.flat_model import ClusterMetadata, FlatClusterModel, from_numpy
 
 
 def make_model(
@@ -308,6 +308,33 @@ def topic_names(model: FlatClusterModel) -> tuple:
     as the JAX package's `metadata_for` names them (generators.py:281):
     what `resolve_options` matches an excluded-topic pattern against."""
     return tuple(f"topic-{t}" for t in range(model.num_topics))
+
+
+def metadata_for(model: FlatClusterModel) -> ClusterMetadata:
+    """Default naming metadata for generated models (the JAX generators'
+    :262): `topic_names(model)`, each partition's index within its topic in
+    file order, broker ids 0..B-1."""
+    topic_ids = model.topic_id.cpu().numpy()
+    # partition index within its topic, in file order (works for any topic-id
+    # ordering, grouped or interleaved): stable-sort by topic, rank within the
+    # run, scatter the ranks back.
+    n = topic_ids.shape[0]
+    order = np.argsort(topic_ids, kind="stable")
+    sorted_ids = topic_ids[order]
+    if n:
+        _, first_idx = np.unique(sorted_ids, return_index=True)
+        run_id = np.cumsum(np.r_[0, sorted_ids[1:] != sorted_ids[:-1]])
+        rank_in_run = np.arange(n) - first_idx[run_id]
+    else:
+        rank_in_run = np.zeros(0, dtype=np.int64)
+    part_index = np.empty(n, dtype=np.int32)
+    part_index[order] = rank_in_run.astype(np.int32)
+    return ClusterMetadata(
+        topic_names=topic_names(model),
+        partition_index=part_index,
+        broker_ids=np.arange(model.num_brokers, dtype=np.int32),
+        topic_of_partition=topic_ids,
+    )
 
 
 # -- benchmark configs (BASELINE.md) ------------------------------------------

@@ -1,6 +1,6 @@
-"""Where K1, K2, window_sum, K3, K5, K6, K7, K8 and K10 spend their time, on one NVIDIA GPU.
+"""Where K1, K2, window_sum, K3, K5, K6, K7, K8, K10 and K11 spend their time, on one NVIDIA GPU.
 
-    python3 scripts/kernel_variants.py [--out build/kernel_variants.json]
+    python3 scripts/kernel_variants.py [--only K7,K10 | --only K11 [--parent DIR]] [--out build/kernel_variants.json]
 
 Builds variants of cruise_control_torch/csrc/broker_topk.cu and window_sum.cu
 into build/kernel_variants/ with the package's nvcc flags, each the source
@@ -83,8 +83,22 @@ with `--only K7,K10`):
               or 1,024; 128 threads a block (256 in full); the copy a word at
               a time (no 16-byte vectors); empty (a launch's floor)
 
-and the host's share of a K7, a K10 and a K11 call beside their C entries
-alone.
+and the host's share of a K7 and a K10 call beside their C entries alone.
+Then K11 (alone with `--only K11`), on [199,518, 3] assignments over 2,600
+brokers (26 demoted and 26 dead, as the demote phase; then half of them
+demoted) and over 300,001 brokers:
+
+  K11         tiles of 512 rows, 256 threads (full); tiles of 1,024, 256 or
+              2,048 rows; 128 threads; the masks read in place (no staged flags);
+              each under every flag layout the broker count allows, forced
+              at the C entry (bytes, global); empty (a launch's floor)
+
+and the host's share of a K11 call beside its C entry alone. With `--parent
+DIR` (another checkout of the repo, such as the parent commit unpacked by
+`git archive` into build/parent), K11's wrapper is then timed in each tree
+in turns, DIR, this one, this one, DIR, each in a process of its own
+importing its own package: device microseconds and the call's host
+microseconds on the same cases.
 Prints the card's name and power limit and every number; writes them as
 JSON to --out. Needs a GPU.
 """
@@ -102,7 +116,11 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+#: the checkout whose cruise_control_torch is imported: this one, or the one
+#: that `--k11-turn DIR` names
+TREE = (pathlib.Path(sys.argv[sys.argv.index("--k11-turn") + 1]).resolve()
+        if "--k11-turn" in sys.argv else ROOT)
+sys.path.insert(0, str(TREE))
 sys.path.insert(0, str(ROOT / "tests"))
 
 import numpy as np  # noqa: E402
@@ -273,6 +291,22 @@ K10_VARIANTS = {
     "empty": [("  const int tid = threadIdx.x;\n  const long long r0",
                "  const int tid = threadIdx.x;\n  if (a.d >= 0) return;\n  const long long r0")],
 }
+#: K11: tiles of 1,024, 256 or 2,048 rows (512 in full); 128 threads a block (256
+#: in full); the two masks read in place with no staged flags; an empty
+#: kernel (a launch's floor). The flag layouts are forced at the C entry
+#: (its `flags` argument), not in the source
+K11_VARIANTS = {
+    "tiles of 1024": [("constexpr int EP_TILE = 512; ", "constexpr int EP_TILE = 1024;")],
+    "tiles of 256": [("constexpr int EP_TILE = 512; ", "constexpr int EP_TILE = 256; ")],
+    "tiles of 2048": [("constexpr int EP_TILE = 512; ", "constexpr int EP_TILE = 2048;")],
+    "128 threads": [("constexpr int EP_THREADS = 256;", "constexpr int EP_THREADS = 128;")],
+    "masks in place": [
+        ("  if (MODE == FLAGS_BYTES) return s_flags[h] != 0;",
+         "  if (MODE == FLAGS_BYTES) return (__ldg(g.demoted + h) | __ldg(g.dead + h)) != 0;"),
+        ("  if (MODE == FLAGS_BYTES) {\n    const I b", "  if (MODE == FLAGS_BYTES && g.b < 0) {\n    const I b")],
+    "empty": [("  const int r = (int)g.r;\n  const I span",
+               "  if (g.p >= 0) return;\n  const int r = (int)g.r;\n  const I span")],
+}
 WS_VARIANTS = {
     "empty": [("  const int tid = threadIdx.x;\n",
                "  const int tid = threadIdx.x;\n  if (cols > 0) return;\n")],
@@ -289,7 +323,8 @@ def variant(src: str, edits) -> str:
 
 VARIANTS = {"broker_topk": K2_VARIANTS, "window_sum": WS_VARIANTS, "score_swaps": K5_VARIANTS,
             "segment_aggregates": K1_VARIANTS, "cluster_stats": K8_VARIANTS,
-            "state_fingerprint": K7_VARIANTS, "delta_scatter": K10_VARIANTS}
+            "state_fingerprint": K7_VARIANTS, "delta_scatter": K10_VARIANTS,
+            "elect_preferred": K11_VARIANTS}
 
 
 def build_variants(build, out_dir: pathlib.Path, names=tuple(VARIANTS)) -> dict:
@@ -367,7 +402,6 @@ def k7_k10(build, libs, res: dict) -> None:
     from cruise_control_torch.analyzer.context import StaticCtx
     from cruise_control_torch.analyzer.incremental import DeltaBatch
     from cruise_control_torch.kernels import delta_scatter as k10
-    from cruise_control_torch.kernels import elect_preferred as k11
     from cruise_control_torch.kernels import state_fingerprint as k7
 
     rng = np.random.default_rng(13)
@@ -430,11 +464,6 @@ def k7_k10(build, libs, res: dict) -> None:
     spare = torch.zeros(1, device="cuda")  # the fields K10 does not read
     static = StaticCtx(**{f: st.get(f, spare) for f in StaticCtx._fields})
     db = DeltaBatch(*batch)
-    a11 = torch.from_numpy(rng.integers(0, 2_600, (199_518, 3)).astype(np.int32)).cuda()
-    dead11 = torch.from_numpy(rng.random(2_600) < 0.01).cuda()
-    dem11 = torch.from_numpy(rng.random(2_600) < 0.01).cuda()
-    o11 = torch.empty_like(a11)
-    fn11 = build.entry("elect_preferred", k11._ARGTYPES)
     for label, call in (
             ("K7 wrapper, 3,072 brokers", lambda: k7.state_fingerprint(agg)),
             ("K7 C entry, output made once", lambda: fn7(
@@ -442,11 +471,105 @@ def k7_k10(build, libs, res: dict) -> None:
                 build.raw_stream(0))),
             ("K10 wrapper, 64-row batch", lambda: k10.delta_scatter(static, db, base, base)),
             ("K10 C entry, outputs made once", lambda: fn10(*ptrs10, d, m, b, p,
-                                                            build.raw_stream(0))),
-            ("K11 wrapper, [199,518, 3]", lambda: k11.elect_preferred(a11, dem11, dead11)),
+                                                            build.raw_stream(0)))):
+        res["host_us"][label] = host_us(call, 5000)
+        print(f"host {label:30s} {res['host_us'][label]:.2f} us per call")
+
+
+def k11_cases(p: int = 199_518, r: int = 3) -> dict:
+    """{label: (assignment, demoted, dead)} on the card: [p, r] assignments
+    over 2,600 brokers with 26 demoted and 26 dead (the demote phase's
+    counts), half of them demoted, and 300,001 brokers (past the byte
+    flags), from seed 11."""
+    rng = np.random.default_rng(11)
+    cases = {}
+    for label, b, n_dem, n_dead in (("2,600 brokers, 26 + 26", 2_600, 26, 26),
+                                    ("2,600 brokers, half demoted", 2_600, 1_300, 26),
+                                    ("300,001 brokers, 1% + 1%", 300_001, 3_000, 3_000)):
+        a = torch.from_numpy(np.stack([rng.choice(b, r, replace=False) for _ in range(64)]
+                                      )[rng.integers(0, 64, p)].astype(np.int32))
+        a = (a + torch.from_numpy(rng.integers(0, b, (p, 1)).astype(np.int32))) % b
+        flags = rng.permutation(b)
+        dem = np.zeros(b, bool)
+        dead = np.zeros(b, bool)
+        dem[flags[:n_dem]] = True
+        dead[flags[n_dem:n_dem + n_dead]] = True
+        cases[label] = (a.cuda(), torch.from_numpy(dem).cuda(), torch.from_numpy(dead).cuda())
+    return cases
+
+
+def k11_turn() -> int:
+    """K11's wrapper in this process's checkout (TREE) on `k11_cases`:
+    device microseconds a call by kernel, and the call's host microseconds,
+    held equal to the plain version first; one JSON line."""
+    from cruise_control_torch.kernels import elect_preferred as k11m
+
+    out = {"tree": str(TREE)}
+    for case, (a, dem, dead) in k11_cases().items():
+        if not torch.equal(k11m.elect_preferred(a, dem, dead),
+                           k11m.elect_preferred_plain(a, dem, dead)):
+            raise SystemExit(f"kernel_variants: K11 in {TREE} ({case}) differs from the plain "
+                             "version")
+        us = device_us(lambda: k11m.elect_preferred(a, dem, dead))
+        out[case] = {"device_us": dict(us, total=sum(us.values())),
+                     "call_us": host_us(lambda: k11m.elect_preferred(a, dem, dead), 5000)}
+    print(json.dumps(out))
+    return 0
+
+
+def k11_turns(parent: pathlib.Path, res: dict) -> None:
+    """K11's wrapper timed in `parent` and in this checkout in turns
+    (parent, this, this, parent), each in a process of its own."""
+    res["K11 turns"] = []
+    for tree in (parent, ROOT, ROOT, parent):
+        proc = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
+                               "--k11-turn", str(tree)], cwd=tree, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode:
+            raise SystemExit(f"kernel_variants: the K11 turn in {tree} failed:\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        turn = json.loads(proc.stdout.strip().splitlines()[-1])
+        turn["tree"] = "parent" if tree == parent else "this"
+        res["K11 turns"].append(turn)
+        print(f"K11 turn {json.dumps(turn)}")
+
+
+def k11(build, libs, res: dict) -> None:
+    """K11's layouts, device microseconds a call (the bits merge launch
+    included where a layout has one), on `k11_cases`; each variant held
+    equal to the plain version first."""
+    from cruise_control_torch.kernels import elect_preferred as k11m
+
+    p, r = 199_518, 3
+    cases = k11_cases(p, r)
+    res["K11"] = {}
+    out = torch.empty((p, r), dtype=torch.int32, device="cuda")
+    for label in ("full", *K11_VARIANTS):
+        fn = entry(libs[("elect_preferred", label)], "elect_preferred", k11m._ARGTYPES)
+        for case, (a, dem, dead) in cases.items():
+            b = dem.shape[0]
+            ws = k11m._workspace(0, b)
+            want = k11m.elect_preferred_plain(a, dem, dead)
+            for flags in (("bytes", "global") if b <= k11m.BYTE_FLAGS else ("global",)):
+                def call(a=a, dem=dem, dead=dead, b=b, ws=ws, flags=flags):
+                    launched(fn(a.data_ptr(), dem.data_ptr(), dead.data_ptr(), out.data_ptr(),
+                                ws, p, r, b, k11m.FLAGS[flags], build.raw_stream(0)))
+                out.fill_(-2)
+                call()
+                if label != "empty" and not torch.equal(out, want):
+                    raise SystemExit(f"kernel_variants: K11 {label} ({case}, {flags}) differs "
+                                     "from the plain version")
+                key = f"{label}, {case}, {flags}"
+                us = device_us(call)
+                res["K11"][key] = dict(us, total=sum(us.values()))
+                print(f"K11 {key:50s} {json.dumps(res['K11'][key])}")
+    a, dem, dead = cases["2,600 brokers, 26 + 26"]
+    fn11 = build.entry("elect_preferred", k11m._ARGTYPES)
+    for label, call in (
+            ("K11 wrapper, [199,518, 3]", lambda: k11m.elect_preferred(a, dem, dead)),
             ("K11 C entry, output made once", lambda: fn11(
-                a11.data_ptr(), dem11.data_ptr(), dead11.data_ptr(), o11.data_ptr(), 199_518, 3,
-                build.raw_stream(0)))):
+                a.data_ptr(), dem.data_ptr(), dead.data_ptr(), out.data_ptr(), None, p, r,
+                2_600, 0, build.raw_stream(0)))):
         res["host_us"][label] = host_us(call, 5000)
         print(f"host {label:30s} {res['host_us'][label]:.2f} us per call")
 
@@ -459,11 +582,18 @@ def k7_agg(load, lnw, lc, rc):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "kernel_variants.json"))
-    ap.add_argument("--only", choices=("K7,K10",), default=None,
-                    help="time K7's and K10's variants alone")
+    ap.add_argument("--only", choices=("K7,K10", "K11"), default=None,
+                    help="time K7's and K10's variants, or K11's, alone")
+    ap.add_argument("--parent", default=None,
+                    help="with --only K11: another checkout whose K11 wrapper is timed in "
+                         "turns with this one's")
+    ap.add_argument("--k11-turn", default=None, metavar="DIR",
+                    help="time K11's wrapper in the checkout DIR alone (one JSON line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs an NVIDIA GPU")
+    if args.k11_turn:
+        return k11_turn()
     from cruise_control_torch.kernels import broker_topk as k2
     from cruise_control_torch.kernels import build
     from cruise_control_torch.kernels import window_sum as ws
@@ -472,6 +602,12 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card)
     res = {"card": card, "broker_topk": {}, "window_sum": {}, "host_us": {}}
+    if args.only == "K11":
+        k11(build, build_variants(build, ROOT / "build" / "kernel_variants",
+                                  ("elect_preferred",)), res)
+        if args.parent:
+            k11_turns(pathlib.Path(args.parent).resolve(), res)
+        return write(args.out, res)
     if args.only:
         libs = build_variants(build, ROOT / "build" / "kernel_variants",
                               ("state_fingerprint", "delta_scatter"))
@@ -807,6 +943,7 @@ def main() -> int:
         res["host_us"][label] = host_us(call)
         print(f"host {label:30s} {res['host_us'][label]:.2f} us per call")
     k7_k10(build, libs, res)
+    k11(build, libs, res)
     return write(args.out, res)
 
 

@@ -58,7 +58,8 @@ OWN_KERNELS = {
     "k_state_fingerprint": "K7 state_fingerprint", "k_cluster_stats": "K8 cluster_stats",
     "k_grid_bid": "K9 grid_shortlist",
     "k_grid_take": "K9 grid_shortlist", "k_delta_scatter": "K10 delta_scatter",
-    "k_elect_preferred": "K11 elect_preferred",
+    "k_elect_preferred": "K11 elect_preferred", "k_elect_wide": "K11 elect_preferred",
+    "k_merge_bits": "K11 elect_preferred",
 }
 #: the chunked solves, whose per-goal times come from the solve itself
 CHUNKED = ("service", "bench", "greedy")

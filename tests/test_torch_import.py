@@ -34,6 +34,17 @@ def test_no_jax_import(rel):
     assert not roots & set(FORBIDDEN), f"{rel} imports {sorted(roots & set(FORBIDDEN))}"
 
 
+#: the load monitor's path: the modules it ported from the JAX package, each
+#: imported below with JAX and the JAX package made unimportable
+MONITOR_PATH = tuple(f"cruise_control_torch.{m}" for m in (
+    "common.sensors", "common.tracing", "models.model_utils", "reporter", "reporter.metrics",
+    "reporter.transport", "reporter.reporter", "monitor", "monitor.metricdef",
+    "monitor.samples", "monitor.metadata", "monitor.processor", "monitor.sampler",
+    "monitor.aggregator", "monitor.completeness", "monitor.sample_store",
+    "monitor.load_monitor", "monitor.fetcher", "monitor.task_runner", "testing",
+    "testing.simulator"))
+
+
 def test_every_module_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -44,6 +55,7 @@ def test_every_module_imports_without_jax():
         " 'cruise_control_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        f"assert set({MONITOR_PATH!r}) <= set(names), sorted(set({MONITOR_PATH!r}) - set(names))\n"
         "import chip_smoke\n"
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v is not None}\n"
         "print(len(names))\n"

@@ -1050,6 +1050,139 @@ def test_k11_elect_preferred(shape):
     assert _bits(want, got) and torch.equal(ag.cpu(), a)
 
 
+def _k11_inputs(p, r, b, seed, empty=0.2, dead_share=0.2, demoted_share=0.3):
+    """A random [p, r] assignment over b brokers (distinct brokers a row
+    where r <= b, -1 slots anywhere) and demoted and dead masks, on the
+    card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randint(0, b, (p, r), dtype=torch.int32, device="cuda", generator=g)
+    a[torch.rand((p, r), device="cuda", generator=g) < empty] = -1
+    dead = torch.rand(b, device="cuda", generator=g) < dead_share
+    demoted = (torch.rand(b, device="cuda", generator=g) < demoted_share) & ~dead
+    return a, demoted, dead
+
+
+def _k11_forced(a, demoted, dead, flags):
+    """K11's C entry with its flag layout forced ("bytes" or "global"): the
+    output, or None where the entry refuses."""
+    from cruise_control_torch.kernels import build
+    from cruise_control_torch.kernels import elect_preferred as k11m
+
+    p, r = a.shape
+    b = demoted.shape[0]
+    out = torch.full((p, r), -2, dtype=torch.int32, device="cuda")
+    code = build.entry("elect_preferred", k11m._ARGTYPES)(
+        a.data_ptr(), demoted.data_ptr(), dead.data_ptr(), out.data_ptr(),
+        k11m._workspace(a.get_device(), b), p, r, b, k11m.FLAGS[flags], build.raw_stream(0))
+    return None if code else out
+
+
+def _k11_check(a, demoted, dead, flags=None):
+    """K11 (the wrapper, or its C entry with the flag layout `flags` forced)
+    equal to the plain version, the input unchanged."""
+    from cruise_control_torch.kernels.elect_preferred import elect_preferred, elect_preferred_plain
+
+    before = a.clone()
+    got = (elect_preferred(a, demoted, dead) if flags is None
+           else _k11_forced(a, demoted, dead, flags))
+    assert got is not None
+    want = elect_preferred_plain(a, demoted, dead)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(a, before)
+    return got
+
+
+@pytest.mark.parametrize("flags", [None, "global"])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 6, 7, 8, 24, 25])
+def test_k11_rows_and_flag_layouts(r, flags):
+    """R from 1 to 8, 24 (512-row tiles at the tile's word limit) and 25
+    (fewer rows a tile) over 1,027 and 5,001 rows (no multiple of a tile)
+    and one row, with the flags chosen by the wrapper (bytes) and forced
+    to the bits read in place: equal to the plain version, the input
+    unchanged."""
+    _card()
+    for p in (1, 1_027, 5_001):
+        _k11_check(*_k11_inputs(p, r, 40, seed=p * 10 + r), flags=flags)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k11_misaligned_view(offset):
+    """An assignment that starts 1-3 words past a 16-byte boundary (a view
+    into a larger tensor), and masks that do: the scalar heads and tails."""
+    _card()
+    a, demoted, dead = _k11_inputs(4_099, 3, 50, seed=offset)
+    big = torch.full((4_099 * 3 + 8,), -7, dtype=torch.int32, device="cuda")
+    view = big[offset:offset + a.numel()].view(4_099, 3)
+    view.copy_(a)
+    both =torch.zeros(2 * 50 + offset, dtype=torch.bool, device="cuda")
+    dem_v, dead_v = both[offset:offset + 50], both[offset + 50:]
+    dem_v.copy_(demoted)
+    dead_v.copy_(dead)
+    _k11_check(view, dem_v, dead_v)
+    _k11_check(view, demoted, dead)
+    assert bool((big[:offset] == -7).all()) and bool((big[offset + a.numel():] == -7).all())
+
+
+def test_k11_every_leader_ineligible():
+    """Every leader on a dead or demoted broker: each row with an eligible
+    follower swaps with its first; rows without one keep theirs."""
+    _card()
+    a, _, _ = _k11_inputs(3_001, 3, 60, seed=5, empty=0.1)
+    a[:, 0] = a[:, 0].abs() % 30  # every leader among brokers 0-29, every one of them out
+    dead = torch.arange(60, device="cuda") < 15
+    demoted = (torch.arange(60, device="cuda") >= 15) & (torch.arange(60, device="cuda") < 30)
+    got = _k11_check(a, demoted, dead)
+    assert bool((got[:, 0] != a[:, 0]).any()) and bool((got[:, 0] == a[:, 0]).any())
+
+
+@pytest.mark.parametrize("b", [49_152, 49_153, 393_217])
+def test_k11_past_the_byte_flag_limit(b):
+    """49,152 brokers (the byte flags' 48 KB), 49,153 and 393,217 (past it:
+    the bits read in place), and the byte flags forced past their limit
+    refused by the C entry."""
+    _card()
+    a, demoted, dead = _k11_inputs(200_003, 3, b, seed=b % 97, dead_share=0.05,
+                                   demoted_share=0.05)
+    _k11_check(a, demoted, dead)
+    _k11_check(a, demoted, dead, flags="global")
+    if b > 49_152:
+        assert _k11_forced(a, demoted, dead, "bytes") is None
+    else:
+        _k11_check(a, demoted, dead, flags="bytes")
+
+
+@pytest.mark.parametrize("r", [3_072, 3_073, 4_000])
+def test_k11_rows_too_wide_for_a_tile(r):
+    """R at the 4-row tile's limit and past it (a block a row)."""
+    _card()
+    _k11_check(*_k11_inputs(301, r, 5_000, seed=r, dead_share=0.3, demoted_share=0.3))
+
+
+def test_k11_past_2_31_words():
+    """P * R past 2**31 words (715,827,884 rows of 3, about 17 GB with the
+    output): the 64-bit configuration, equal to the plain version in
+    slices."""
+    _card()
+    from cruise_control_torch.kernels.elect_preferred import elect_preferred, elect_preferred_plain
+
+    p, r, b = 2**31 // 3 + 1_001, 3, 2_600
+    g = torch.Generator(device="cuda").manual_seed(31)
+    a = torch.empty((p, r), dtype=torch.int32, device="cuda")
+    step = 2**24
+    for i in range(0, p, step):
+        n = min(step, p - i)
+        a[i:i + n] = torch.randint(-1, b, (n, r), dtype=torch.int32, device="cuda", generator=g)
+    dead = torch.rand(b, device="cuda", generator=g) < 0.01
+    demoted = (torch.rand(b, device="cuda", generator=g) < 0.01) & ~dead
+    got = elect_preferred(a, demoted, dead)
+    torch.cuda.synchronize()
+    for i in range(0, p, step):
+        n = min(step, p - i)
+        assert torch.equal(got[i:i + n], elect_preferred_plain(a[i:i + n], demoted, dead)), i
+    del a, got
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("b", [24, 40])
 @pytest.mark.parametrize("t", [1, 2, 7, 20, 28, 32, 33])
 def test_k8_cluster_stats_over_few_topics(t, b):

@@ -74,3 +74,69 @@ def test_sanity_check_passes_and_catches_duplicates():
 def test_model_to_moves_every_field():
     tm = tgen.unbalanced().to("cpu")
     assert all(t.device == torch.device("cpu") for t in tm)
+
+
+# -- the single-action edits and the naming metadata (JAX flat_model.py :71,
+# :271-312; generators.py :262) ------------------------------------------------
+
+EDIT_CASES = {
+    # tests/test_flat_model.py :80 and :95 on the 3-broker fixture, a
+    # slot-0 move, a no-op leadership swap and a follower swap
+    "unbalanced": {"relocate_replica": [(0, 1, 2), (3, 0, 1)],
+                   "relocate_leadership": [(0, 1), (2, 0)],
+                   "swap_replicas": [(0, 1, 2, 1)]},
+    # :125's 8-broker cluster, and one partition's two slots swapped
+    "random": {"relocate_replica": [(3, 0, 5), (7, 1, 0)],
+               "relocate_leadership": [(5, 1), (9, 0)],
+               "swap_replicas": [(0, 1, 6, 1), (4, 0, 4, 1)]},
+}
+
+
+@pytest.mark.parametrize("edit", list(EDIT_CASES["random"]))
+@pytest.mark.parametrize("fixture", ["unbalanced", "random"])
+def test_single_action_edits_equal_jitted_jax(edit, fixture):
+    """Each edit, on the port's model and jitted on the JAX model, gives the
+    same model and the same broker loads; the port's input is unchanged."""
+    import jax
+
+    from cruise_control_tpu.models import flat_model as jfm
+    from cruise_control_torch.models import flat_model as tfm
+
+    if fixture == "unbalanced":
+        jm, tm = jgen.unbalanced(), tgen.unbalanced()
+    else:
+        def prop(mod):
+            return mod.ClusterProperty(num_brokers=8, num_racks=4, num_topics=4,
+                                       rack_aware_placement=False)
+
+        jm, tm = jgen.random_cluster(3, prop(jgen)), tgen.random_cluster(3, prop(tgen))
+    before = tm.assignment.clone()
+    for args in EDIT_CASES[fixture][edit]:
+        j = jax.jit(getattr(jfm, edit))(jm, *args)
+        t = getattr(tfm, edit)(tm, *args)
+        _assert_same(j, t)
+        assert np.array_equal(np.asarray(jax.jit(jfm.broker_loads)(j)),
+                              tfm.broker_loads(t).numpy()), args
+        assert torch.equal(tm.assignment, before)
+
+
+def test_metadata_for_equals_jax():
+    """`metadata_for` names a generated model's topics, partitions and
+    brokers as the JAX generator does; `topic_partition` renders alike."""
+    from cruise_control_tpu.models.flat_model import ClusterMetadata as JMeta
+    from cruise_control_torch.models.flat_model import ClusterMetadata as TMeta
+
+    prop = dataclasses.replace(jgen.BASELINE_CONFIGS[1], num_dead_brokers=1)
+    jmeta = jgen.metadata_for(jgen.random_cluster(5, prop))
+    tmeta = tgen.metadata_for(tgen.random_cluster(5, dataclasses.replace(
+        tgen.BASELINE_CONFIGS[1], num_dead_brokers=1)))
+    assert [f.name for f in dataclasses.fields(JMeta)] == \
+        [f.name for f in dataclasses.fields(TMeta)]
+    for f in dataclasses.fields(JMeta):
+        a, b = getattr(jmeta, f.name), getattr(tmeta, f.name)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    assert [jmeta.topic_partition(p) for p in range(0, 900, 37)] == \
+        [tmeta.topic_partition(p) for p in range(0, 900, 37)]

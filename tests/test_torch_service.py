@@ -271,7 +271,10 @@ def test_chip_smoke_jax_references_are_current():
     and the bench, bucketed; then the JAX lane armed on the bucketed service
     solve and its two proposals (chip_smoke.lane_perturbations): each solve's
     decision digest, per-goal move counts, final assignment hash and goal
-    rows, and the bucketed service solve's bucket record."""
+    rows, and the bucketed service solve's bucket record; then the option
+    flows; then the JAX monitor's model of the smoke recipe's metrics
+    (chip_smoke.monitored_model, each array's SHA-256) and its bucketed
+    service solve."""
     import hashlib
 
     sys.path.insert(0, str(REPO))
@@ -369,3 +372,29 @@ def test_chip_smoke_jax_references_are_current():
                 out = np.asarray(jax.jit(elect_preferred_leaders)(st, np.asarray(a)))
                 assert hashlib.sha256(np.ascontiguousarray(out, dtype=np.int32).tobytes()) \
                     .hexdigest() == chip_smoke.JAX_CPU_K11_SHA256[which], which
+    # phase 18: the JAX monitor on the smoke recipe (chip_smoke.monitored_model),
+    # each array of its model, then the bucketed service solve of that model
+    from types import SimpleNamespace
+
+    from cruise_control_tpu.monitor.completeness import ModelCompletenessRequirements
+    from cruise_control_tpu.monitor.load_monitor import LoadMonitor, LoadMonitorConfig
+    from cruise_control_tpu.monitor.metadata import MetadataClient
+    from cruise_control_tpu.monitor.sampler import TransportMetricSampler
+    from cruise_control_tpu.reporter.transport import InMemoryTransport
+    from cruise_control_tpu.testing.simulator import SimulatedCluster
+
+    ns = SimpleNamespace(
+        SimulatedCluster=SimulatedCluster, InMemoryTransport=InMemoryTransport,
+        MetadataClient=MetadataClient, TransportMetricSampler=TransportMetricSampler,
+        LoadMonitor=LoadMonitor, LoadMonitorConfig=LoadMonitorConfig,
+        ModelCompletenessRequirements=ModelCompletenessRequirements)
+    monitored = chip_smoke.monitored_model(model, ns)[0]
+    assert chip_smoke.model_sha256({k: np.asarray(v) for k, v in monitored._asdict().items()}) \
+        == chip_smoke.JAX_CPU_MONITORED_MODEL_SHA256
+    opt = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(
+        **dict(base, chunk_rounds=32, **bucketed), chunk_target_s=chip_smoke.PINNED_TARGET_S))
+    res = opt.optimizations(monitored, None, raise_on_hard_failure=False)
+    check("monitored", res, chip_smoke.JAX_CPU_MONITORED_REFERENCE)
+    assert res.bucketed == chip_smoke.JAX_CPU_SERVICE_BUCKETED_BLOCK
+    assert {"replica": res.num_replica_moves, "leadership": res.num_leadership_moves} == \
+        chip_smoke.JAX_CPU_MONITORED_MOVES
