@@ -102,6 +102,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      host times of emission, sampling and model build, the solve's wall, the
      sensor registry's names and counts and the tracer's span kinds are
      printed.
+ 19. executed: phase 18's result named and stamped as the JAX facade does
+     (stamp: topic-partition names, the monitor's generation, the topology
+     fingerprint), then (a) executed by the port's Executor on a
+     SimulatorClusterDriver of the simulator that emitted the metrics
+     (LATENCY_POLLS polls a movement), under the monitor, with
+     ExecutorConfig.from_config of the default configuration at a 10 ms poll
+     (EXECUTION_CONFIG): the per-state counts, the validation's trims, the
+     dispatch order (partitions per batch) and the simulator's assignment
+     afterwards must equal the JAX executor's run of the JAX solve's
+     proposals (JAX_CPU_EXECUTED), every task must complete, sampling must be
+     paused at every dispatch and resumed after, and a second model build by
+     the monitor must hold the executed assignment; (b) a ChaosHarness on a
+     fresh simulator of the monitored model executes the same stamped
+     proposals while the broker that receives the most added replicas dies at
+     poll CHAOS_KILL_POLL: no invariant violation, the replication factor
+     kept, and the counts and trims of the JAX run (JAX_CPU_CHAOS); (c) the
+     host seconds of stamping, admission, execution and chaos are printed
+     with the card's name and power limit. The executor is host Python and
+     launches no kernel.
   Around each solve every kernel's launch count is set to 0 and read after
   (K3's and K5's also by path; the service bucketed solve must take all
   three of K3's);
@@ -119,7 +138,7 @@ The smoke model is BASELINE config 5's cluster (2,600 brokers, 52 racks,
 4,000 topics, ~200k partitions at RF 3) with config 3's pareto load at mean
 utilisation 0.5 and 26 dead brokers, from seed 42.
 
-Phases 4-18 are held to the JAX package's runs of the same mode: JAX's
+Phases 4-19 are held to the JAX package's runs of the same mode: JAX's
 bucketed and exact runs differ on config 5 and on the smoke model. Every
 chunked solve, here and in the JAX references, runs one pinned call
 schedule (PINNED_TARGET_S).
@@ -549,6 +568,50 @@ JAX_CPU_DIGESTS["monitored"] = (
     },
     "ba223496d447d46fa9c9e252794364e3907fe7cb39981124f1f509bd28d3cfd7")
 JAX_CPU_MONITORED_MOVES = {"replica": 43143, "leadership": 16951}
+#: Phase 19: phase 18's JAX solve stamped (stamp), executed by the JAX
+#: executor on the simulator that emitted the metrics (execute_monitored),
+#: and a chaos run of the same proposals that kills broker 223 at poll 2
+#: (chaos_run): each run's execution_record
+JAX_CPU_EXECUTED = {
+    "numTotalMovements": 55884,
+    "numFinishedMovements": 55884,
+    "numInProgressMovements": 0,
+    "numAbortedOrDead": 0,
+    "byState": {
+        "PENDING": 0, "IN_PROGRESS": 0, "ABORTING": 0, "ABORTED": 0,
+        "DEAD": 0, "COMPLETED": 55884},
+    "stopped": False,
+    "failedTasks": "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+    "admitted": 55884,
+    "numTrimmed": 0,
+    "trimmedByReason": {},
+    "aborted": False,
+    "generationSkew": 0,
+    "batchRevalidations": 43,
+    "trimmed": "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+    "batches": 44,
+    "dispatchSha256": "5c83d05647043ebbab25921bef66bbd1fe0188f6847591f5e65c7505c90b7a2b",
+    "assignmentSha256": "d48809b5f5b417c8804c20d0cfa1ff2da27df2c43e6547101e7a4f175bfc634f",
+}
+JAX_CPU_CHAOS = {
+    "numTotalMovements": 55884,
+    "numFinishedMovements": 55884,
+    "numInProgressMovements": 0,
+    "numAbortedOrDead": 89,
+    "byState": {
+        "PENDING": 0, "IN_PROGRESS": 0, "ABORTING": 0, "ABORTED": 89,
+        "DEAD": 0, "COMPLETED": 55795},
+    "stopped": False,
+    "failedTasks": "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+    "admitted": 55884,
+    "numTrimmed": 89,
+    "trimmedByReason": {"DEST_DEAD": 89},
+    "aborted": False,
+    "generationSkew": 1,
+    "batchRevalidations": 65,
+    "trimmed": "9343aadf88e81c5a7a1dfe36d53acb9ae429f6fe4e7832dfccd8ec633c6de62e",
+    "assignmentSha256": "45abc42587cd4b27f63e49f2953aa9d683fcdd54209dd84bdc6db25745873f0e",
+}
 #: the kernels of each solve's path
 HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
              "window_sum", "state_fingerprint", "cluster_stats")
@@ -775,7 +838,8 @@ def monitored_model(model, ns):
     MetadataClient, TransportMetricSampler, LoadMonitor, LoadMonitorConfig and
     ModelCompletenessRequirements, so that the JAX package's monitor runs the
     same recipe for the references. Returns (model, metadata, host seconds
-    of emission, sampling and model build, samples ingested)."""
+    of emission, sampling and model build, samples ingested, the simulator,
+    the monitor): phase 19 executes on that simulator under that monitor."""
     sim = ns.SimulatedCluster(model)
     transport = ns.InMemoryTransport()
     config = ns.LoadMonitorConfig()
@@ -800,7 +864,217 @@ def monitored_model(model, ns):
     out, meta = monitor.cluster_model(ns.ModelCompletenessRequirements(
         min_required_num_windows=1, min_monitored_partitions_percentage=0.5))
     seconds["build"] = time.perf_counter() - t0
-    return out, meta, seconds, ingested
+    return out, meta, seconds, ingested, sim, monitor
+
+
+#: phase 19's executor: ExecutorConfig.from_config of the default
+#: configuration but for the poll interval. The configuration's default,
+#: execution.progress.check.interval.ms = 10,000, paces a real cluster's
+#: movements; a simulated movement completes after a count of polls, not of
+#: seconds, so the dispatch order is the same at 10 ms, ExecutorConfig()'s
+#: own default and what the JAX service runs on a simulated cluster when it
+#: is started without a properties file (main.py)
+EXECUTION_CONFIG = {"execution.progress.check.interval.ms": 10}
+#: polls a simulated movement takes (the JAX service's SimulatorClusterDriver)
+LATENCY_POLLS = 2
+#: the chaos run's perturbation: at this driver poll, the broker that
+#: receives the most added replicas dies
+CHAOS_KILL_POLL = 2
+
+
+def stamp(result, monitor, metadata, ns):
+    """The JAX facade's stamping of a monitored solve (facade.py:133-141 and
+    :158-167): each proposal named by its topic-partition, and the result
+    stamped with the monitor's generation and the fingerprint of a metadata
+    refresh. `ns` names the package's TopologyFingerprint."""
+    result.proposals = [dataclasses.replace(p, topic_partition=metadata.topic_partition(
+        p.partition)) for p in result.proposals]
+    result.generation = monitor.generation
+    result.fingerprint = ns.TopologyFingerprint.from_topology(monitor._metadata.refresh_metadata())
+    return result
+
+
+def executor_config(ns):
+    return ns.ExecutorConfig.from_config(ns.CruiseControlConfig(EXECUTION_CONFIG))
+
+
+def execute_monitored(result, sim, monitor, ns):
+    """Phase 19 (a): a stamped result through the package's Executor on a
+    SimulatorClusterDriver of `sim` (LATENCY_POLLS polls a movement), under
+    `monitor`. The driver records the partitions of each dispatch batch, in
+    order (the executor polls between two batches), and whether the
+    monitor's sampling was paused at each dispatch. Returns (the execution
+    summary, the batches, those flags, host seconds)."""
+    paused = []
+
+    class RecordingDriver(ns.SimulatorClusterDriver):
+        def __init__(self):
+            super().__init__(sim, latency_polls=LATENCY_POLLS)
+            self.batches = []
+            self._open = None
+
+        def poll(self):
+            self._open = None
+            super().poll()
+
+        def _record(self, kind, task):
+            paused.append(monitor.sampling_paused)
+            if self._open != kind:
+                self.batches.append([kind, []])
+                self._open = kind
+            self.batches[-1][1].append(int(task.proposal.partition))
+
+        def start_replica_movement(self, task):
+            self._record("replica", task)
+            super().start_replica_movement(task)
+
+        def start_leadership_movement(self, task):
+            self._record("leadership", task)
+            super().start_leadership_movement(task)
+
+    driver = RecordingDriver()
+    executor = ns.Executor(driver, executor_config(ns), load_monitor=monitor)
+    t0 = time.perf_counter()
+    summary = executor.execute_proposals(
+        result.proposals, generation=result.generation, fingerprint=result.fingerprint,
+        provenance_run=result.provenance.run_id if result.provenance is not None else None)
+    return summary, driver.batches, paused, time.perf_counter() - t0
+
+
+def chaos_run(model, result, ns):
+    """Phase 19 (b): a ChaosHarness on a fresh SimulatedCluster of `model`
+    with the executor of `executor_config`, the stamped result's proposals
+    and a ChaosPlan that kills, at poll CHAOS_KILL_POLL, the broker that
+    receives the most added replicas (the lowest index of a tie). Returns
+    (that broker, the execution summary, the harness, host seconds)."""
+    adds = {}
+    for p in result.proposals:
+        for b in p.replicas_to_add:
+            adds[b] = adds.get(b, 0) + 1
+    victim = int(min(adds, key=lambda b: (-adds[b], b)))
+    plan = ns.ChaosPlan([ns.Perturbation(at_poll=CHAOS_KILL_POLL, action="kill_broker",
+                                         broker=victim)])
+    t0 = time.perf_counter()
+    harness = ns.ChaosHarness(ns.SimulatedCluster(model), plan, latency_polls=LATENCY_POLLS,
+                              config=executor_config(ns))
+    summary = harness.execute((result.proposals, result.generation, result.fingerprint))
+    return victim, summary, harness, time.perf_counter() - t0
+
+
+def digest_json(obj) -> str:
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def execution_record(summary, assignment, batches=None) -> dict:
+    """What phase 19 holds to the JAX run: an execution summary without its
+    ids, times and run ids (the per-state counts, the failed tasks' types,
+    states and reasons, the proposal validation's admissions and trims),
+    the SHA-256 of the dispatch order (`batches`, when recorded) and of the
+    simulator's assignment afterwards."""
+    v = summary["proposalValidation"]
+    out = {k: summary[k] for k in ("numTotalMovements", "numFinishedMovements",
+                                   "numInProgressMovements", "numAbortedOrDead", "byState",
+                                   "stopped")}
+    out["failedTasks"] = digest_json([[e["type"], e["state"], e["reason"]]
+                                      for e in summary["failedTasks"]])
+    out.update({k: v[k] for k in ("admitted", "numTrimmed", "trimmedByReason", "aborted",
+                                  "generationSkew", "batchRevalidations")})
+    out["trimmed"] = digest_json([[t["partition"], t["topicPartition"], t["reason"], t["phase"]]
+                                  for t in v["trimmed"]])
+    if batches is not None:
+        out["batches"] = len(batches)
+        out["dispatchSha256"] = digest_json(batches)
+    out["assignmentSha256"] = hashlib.sha256(
+        np.ascontiguousarray(assignment, dtype=np.int32).tobytes()).hexdigest()
+    return out
+
+
+def executed_phase(res, model_m, meta_m, sim_m, monitor_m, card: str) -> dict:
+    """Phase 19 on phase 18's result, model, metadata, simulator and monitor:
+    stamp, execute, check against JAX_CPU_EXECUTED, rebuild the model, run
+    the chaos harness, check against JAX_CPU_CHAOS, print the host seconds.
+    Returns those seconds and both records; any failed check exits."""
+    from types import SimpleNamespace
+
+    from cruise_control_torch.common.tracing import TRACER
+    from cruise_control_torch.config import CruiseControlConfig
+    from cruise_control_torch.executor import (
+        Executor,
+        ExecutorConfig,
+        SimulatorClusterDriver,
+        TopologyFingerprint,
+    )
+    from cruise_control_torch.monitor.completeness import ModelCompletenessRequirements
+    from cruise_control_torch.testing.chaos import ChaosHarness, ChaosPlan, Perturbation
+    from cruise_control_torch.testing.simulator import SimulatedCluster
+
+    exec_ns = SimpleNamespace(
+        SimulatedCluster=SimulatedCluster, Executor=Executor, ExecutorConfig=ExecutorConfig,
+        SimulatorClusterDriver=SimulatorClusterDriver, TopologyFingerprint=TopologyFingerprint,
+        CruiseControlConfig=CruiseControlConfig, ChaosHarness=ChaosHarness, ChaosPlan=ChaosPlan,
+        Perturbation=Perturbation)
+    t0 = time.perf_counter()
+    stamp(res, monitor_m, meta_m, exec_ns)
+    stamp_s = time.perf_counter() - t0
+    print(f"executed: stamped generation {res.generation}, fingerprint "
+          f"{json.dumps(res.fingerprint.to_dict())}, {len(res.proposals)} proposals named")
+    summary, batches, paused, exec_s = execute_monitored(res, sim_m, monitor_m, exec_ns)
+    v = summary["proposalValidation"]
+    spans = {sp["name"]: sp["durationS"] for sp in reversed(TRACER.recent(limit=4096))
+             if sp["kind"] in ("validation", "executor")}
+    after = sim_m.fetch_topology().assignment
+    rec = execution_record(summary, after, batches)
+    print(f"executed: {json.dumps(rec)}")
+    print("executed: proposal validation "
+          f"{json.dumps({k: x for k, x in v.items() if k != 'trimmed'})}")
+    for key, want in JAX_CPU_EXECUTED.items():
+        if rec[key] != want:
+            fail(f"executed: {key} {rec[key]} differs from the JAX executor's {want}")
+    print("executed: per-state counts, trims, dispatch order and the simulator's assignment "
+          "equal the JAX executor's run of the JAX solve's proposals")
+    by = rec["byState"]
+    if by["PENDING"] or by["IN_PROGRESS"] or by["ABORTING"] or rec["numInProgressMovements"]:
+        fail(f"executed: tasks left non-terminal {by}")
+    if by["COMPLETED"] != rec["numTotalMovements"] or summary["failedTasks"]:
+        fail(f"executed: not every task completed {by}")
+    if not paused or not all(paused) or monitor_m.sampling_paused:
+        fail("executed: the monitor's sampling was not paused through every dispatch and "
+             "resumed after")
+    print(f"executed: sampling paused at all {len(paused)} dispatches, resumed after "
+          f"(monitor state {monitor_m.state})")
+    want = res.final_assignment
+    same = all(set(x[x >= 0]) == set(w[w >= 0]) for x, w in zip(after, want)) and bool(
+        (after[:, 0] == want[:, 0]).all())
+    print(f"executed: the simulator's assignment {'equals' if same else 'DIFFERS from'} the "
+          "solve's final assignment as replica sets with their leaders")
+    rebuilt, _ = monitor_m.cluster_model(ModelCompletenessRequirements(
+        min_required_num_windows=1, min_monitored_partitions_percentage=0.5))
+    if not np.array_equal(rebuilt.assignment.numpy(), after):
+        fail("executed: the model rebuilt from the monitor does not hold the executed "
+             "assignment")
+    print("executed: the model rebuilt by the monitor holds the executed assignment")
+    victim, csummary, harness, chaos_s = chaos_run(model_m, res, exec_ns)
+    crec = execution_record(csummary, harness.sim.fetch_topology().assignment)
+    print(f"executed: chaos (broker {victim} killed at poll {CHAOS_KILL_POLL}): "
+          f"{json.dumps(crec)}")
+    violations = harness.checker.violations + harness.checker.check_final()
+    if violations:
+        fail(f"executed: chaos invariant violations {violations[:5]}")
+    cby = crec["byState"]
+    if cby["PENDING"] or cby["IN_PROGRESS"] or cby["ABORTING"]:
+        fail(f"executed: chaos left tasks non-terminal {cby}")
+    for key, want in JAX_CPU_CHAOS.items():
+        if crec[key] != want:
+            fail(f"executed: chaos {key} {crec[key]} differs from the JAX run's {want}")
+    print("executed: chaos run holds every invariant and equals the JAX run's counts and trims")
+    print(f"executed: host seconds: stamping {stamp_s:.3f}, admission "
+          f"{spans.get('proposal-admission', 0.0):.3f}, execution {exec_s:.3f} (replica phase "
+          f"{spans.get('executor.replica-movement-phase', 0.0):.3f}, leadership phase "
+          f"{spans.get('executor.leadership-movement-phase', 0.0):.3f}, validation "
+          f"{v['overheadS']:.3f}), chaos {chaos_s:.3f}; {rec['numTotalMovements']} tasks in "
+          f"{rec['batches']} batches ({card})")
+    return dict(stamp_s=stamp_s, admission_s=spans.get("proposal-admission"),
+                execution_s=exec_s, chaos_s=chaos_s, record=rec, chaos=crec)
 
 
 def model_sha256(fields: dict) -> dict:
@@ -2320,7 +2594,7 @@ def main() -> int:
         MetadataClient=MetadataClient, TransportMetricSampler=TransportMetricSampler,
         LoadMonitor=LoadMonitor, LoadMonitorConfig=LoadMonitorConfig,
         ModelCompletenessRequirements=ModelCompletenessRequirements)
-    model_m, _, host_s, ingested = monitored_model(model_cpu, monitor_ns)
+    model_m, meta_m, host_s, ingested, sim_m, monitor_m = monitored_model(model_cpu, monitor_ns)
     print(f"monitored: {MONITOR_WINDOWS} windows of {model_cpu.num_brokers} brokers' metrics: "
           f"emission {host_s['emit']:.3f} s, sampling {host_s['sample']:.3f} s ({ingested} "
           f"samples), model build {host_s['build']:.3f} s of host time ({card})")
@@ -2343,7 +2617,11 @@ def main() -> int:
                for k, v in REGISTRY.snapshot().items()}
     print(f"monitored: REGISTRY sensors (count or value) {json.dumps(sensors, default=str)}")
     print(f"monitored: TRACER span kinds {json.dumps(TRACER.summarize())}")
-    del res, o_m, model_m
+    del o_m
+
+    # -- 19. executed: phase 18's proposal executed on the simulated cluster --
+    executed = executed_phase(res, model_m, meta_m, sim_m, monitor_m, card)
+    del res, model_m, sim_m, monitor_m
 
     if results["service"][:2] != results["stack"][:2]:
         fail("service: the chunked solve's final assignment or touch tags differ from the "
@@ -2376,8 +2654,8 @@ def main() -> int:
         for label in solves:
             v["launches_" + label.replace(" ", "_")] = solves[label]["launches"][key]
     total_s = time.monotonic() - t_start
-    print(json.dumps({"solves": solves, "build_s": build_s, "kernel_rows_s": kernel_rows_s,
-                      "chip_smoke_s": total_s}))
+    print(json.dumps({"solves": solves, "executed": executed, "build_s": build_s,
+                      "kernel_rows_s": kernel_rows_s, "chip_smoke_s": total_s}))
     for k, v in rows.items():
         print(f"{k:20s} {v['ms']:9.4f} ms on the device per call, {v['call_ms']:9.4f} ms per "
               f"call (plain {v['plain_ms']:9.4f} ms, bound {v['bound_ms']:.6f} ms by "

@@ -35,11 +35,12 @@ common/tracing.py's TRACER: a `proposal` span around each computation (an
 armed profile dir captures one with the torch profiler), a `device-call`
 span and `cc-machine-call` profiler range per machine call, synthetic `goal`
 spans, a `provenance` span around the ledger, the prep cache's hit and miss
-meters and the round, call, proposal and stack timers. Left out: the JAX
+meters, the round, call, proposal and stack timers, and a sensor history
+point at each proposal boundary (common/history.py). Left out: the JAX
 package's program-cache meters, its stack-compile timers and its
-`TELEMETRY` and `HISTORY` calls, which are tied to XLA compilation and its
-cost analysis; they wait for the port's kernel-build cache and device
-telemetry (ROADMAP.md Queue 1 item 7, step 6).
+`TELEMETRY` calls, which are tied to XLA compilation and its cost analysis;
+they wait for the port's kernel-build cache and device telemetry (ROADMAP.md
+Queue 1 item 7, step 6).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,8 +83,14 @@ from cruise_control_torch.analyzer.goals import (
 from cruise_control_torch.analyzer.goals.base import SCORE_EPS
 from cruise_control_torch.analyzer.proposals import ExecutionProposal, proposal_diff
 from cruise_control_torch.analyzer.provenance import LEDGER, build_run_ledger, new_run_id
-from cruise_control_torch.analyzer.stats import ClusterModelStats, compute_stats, stats_to_host
+from cruise_control_torch.analyzer.stats import (
+    ClusterModelStats,
+    compute_stats,
+    stats_to_dict,
+    stats_to_host,
+)
 from cruise_control_torch.analyzer.swaps import make_swap_round
+from cruise_control_torch.common.history import HISTORY
 from cruise_control_torch.common.sensors import REGISTRY
 from cruise_control_torch.common.tracing import TRACER, maybe_profile
 from cruise_control_torch.config.balancing import BalancingConstraint
@@ -703,6 +710,13 @@ class OptimizerResult:
     #: the exact and padded shapes (`exact`, `padded`, `bucket`,
     #: `paddedPartitions`, `paddedBrokers`; `incremental` on a lane solve)
     bucketed: Optional[dict] = None
+    #: drift-safety stamps (executor/validation.py), set at model-build time
+    #: by whoever built the model from the monitor: the monitor generation
+    #: and the topology fingerprint (broker set + alive mask + per-topic
+    #: partition counts); the executor revalidates against them before and
+    #: during dispatch. None when the result was computed on a caller model.
+    generation: Optional[int] = None
+    fingerprint: Optional[object] = None
 
     @property
     def violated_goals_before(self) -> List[str]:
@@ -711,6 +725,50 @@ class OptimizerResult:
     @property
     def violated_goals_after(self) -> List[str]:
         return [g.name for g in self.goal_results if g.violated_brokers_after]
+
+    def summary(self) -> Dict:
+        """Movement + stats summary (OptimizerResult.getProposalSummary analog)."""
+        stamp = None
+        if self.generation is not None or self.fingerprint is not None:
+            stamp = {
+                "generation": self.generation,
+                "fingerprint": (
+                    self.fingerprint.to_dict() if self.fingerprint is not None else None
+                ),
+            }
+        prov = None
+        if self.provenance is not None:
+            prov = {
+                "runId": self.provenance.run_id,
+                "digest": self.provenance.digest(),
+            }
+        return {
+            **({"proposalStamp": stamp} if stamp else {}),
+            **({"provenance": prov} if prov else {}),
+            "numReplicaMovements": self.num_replica_moves,
+            "numLeaderMovements": self.num_leadership_moves,
+            "dataToMoveMB": round(self.data_to_move_mb, 3),
+            "numProposals": len(self.proposals),
+            "violatedGoalsBefore": self.violated_goals_before,
+            "violatedGoalsAfter": self.violated_goals_after,
+            "onDemandBalancednessScoreBefore": stats_to_dict(self.stats_before),
+            "onDemandBalancednessScoreAfter": stats_to_dict(self.stats_after),
+            "goals": [
+                {
+                    "goal": g.name,
+                    "hard": g.is_hard,
+                    "violatedBrokersBefore": g.violated_brokers_before,
+                    "violatedBrokersAfter": g.violated_brokers_after,
+                    "costBefore": g.cost_before,
+                    "costAfter": g.cost_after,
+                    "rounds": g.rounds,
+                    "converged": g.converged,
+                    "durationS": round(g.duration_s, 4),
+                }
+                for g in self.goal_results
+            ],
+            "durationS": round(self.duration_s, 4),
+        }
 
 
 #: entries of the prep cache (the JAX package's two-entry LRU)
@@ -891,6 +949,9 @@ class GoalOptimizer:
             root.attributes.update(numProposals=len(result.proposals),
                                    replicaMoves=result.num_replica_moves,
                                    leadershipMoves=result.num_leadership_moves)
+        # a sensor time-series point at the proposal boundary (rate-limited;
+        # the point records the registry as this computation left it)
+        HISTORY.record_boundary("proposal")
         return result
 
     def incremental_optimizations(self, pmodel: FlatClusterModel, dims: Dims, static,
@@ -918,6 +979,7 @@ class GoalOptimizer:
             root.attributes.update(numProposals=len(result.proposals),
                                    replicaMoves=result.num_replica_moves,
                                    leadershipMoves=result.num_leadership_moves)
+        HISTORY.record_boundary("proposal")
         return result
 
     def _run_chunked(self, goals, enabled: np.ndarray, dims: Dims, static, agg):

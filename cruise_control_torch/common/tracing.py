@@ -1,8 +1,7 @@
 """Structured span tracer: the end-to-end story of one operation.
 
 The reference's operability rests on two pillars: the Dropwizard sensor
-table (common/sensors.py) and the operation log (the JAX package's
-common/oplog.py, not ported yet). Both are
+table (common/sensors.py) and the operation log (common/oplog.py). Both are
 aggregates — neither can answer "where did THIS proposal computation spend
 its 9 seconds?". This module adds the missing pillar: a thread-safe span
 tracer in the spirit of OpenTelemetry (trace-id/span-id/parent-id,
@@ -27,6 +26,7 @@ Span kinds used across the pipeline (as the JAX package's docs/OBSERVABILITY.md)
   detector   anomaly-detector sweeps
   facade     get_proposals (cache hit/miss)
   validation proposal admission + batch-boundary revalidation
+             (executor/validation.py; trimmed/admitted counts as attrs)
   drift      proposal-batch aborts on generation skew (recompute handoff)
 
 Correlation with torch profiler captures: the optimizer wraps its machine

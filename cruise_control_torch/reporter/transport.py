@@ -138,7 +138,7 @@ class TcpMetricsTransport(MetricsTransport):
         except ImportError as e:
             raise NotPortedError(
                 "TcpMetricsTransport needs the executor's tcp_driver, which the port does "
-                "not have yet (ROADMAP.md Queue 1 item 7, step 3)") from e
+                "not have yet (ROADMAP.md Queue 1 item 7, step 3b)") from e
 
         self._client = _LineClient(host, port, timeout_s, ssl_context=ssl_context,
                                    server_hostname=server_hostname)

@@ -43,6 +43,13 @@ MONITOR_PATH = tuple(f"cruise_control_torch.{m}" for m in (
     "monitor.aggregator", "monitor.completeness", "monitor.sample_store",
     "monitor.load_monitor", "monitor.fetcher", "monitor.task_runner", "testing",
     "testing.simulator"))
+#: the executor's path: the executor, the configuration, retry, oplog and
+#: history modules it needs, and the chaos harness
+EXECUTOR_PATH = tuple(f"cruise_control_torch.{m}" for m in (
+    "common.oplog", "common.retry", "common.history", "config", "config.configdef",
+    "config.cruise_config", "executor", "executor.task", "executor.strategy",
+    "executor.planner", "executor.tracker", "executor.manager", "executor.driver",
+    "executor.validation", "executor.notifier", "executor.executor", "testing.chaos"))
 
 
 def test_every_module_imports_without_jax():
@@ -56,6 +63,8 @@ def test_every_module_imports_without_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         f"assert set({MONITOR_PATH!r}) <= set(names), sorted(set({MONITOR_PATH!r}) - set(names))\n"
+        f"assert set({EXECUTOR_PATH!r}) <= set(names), \\\n"
+        f"    sorted(set({EXECUTOR_PATH!r}) - set(names))\n"
         "import chip_smoke\n"
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v is not None}\n"
         "print(len(names))\n"
@@ -64,3 +73,33 @@ def test_every_module_imports_without_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_executor_path_imports_without_jax_and_configures_the_port():
+    """The executor's path with JAX and the JAX package made unimportable:
+    every class-name default of the port's configuration names a class of
+    the port, and those the port has resolve and instantiate."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'cruise_control_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import cruise_control_torch.executor, cruise_control_torch.common.history\n"
+        "import cruise_control_torch.testing.chaos\n"
+        "from cruise_control_torch.config import configdef, cruise_config\n"
+        "from cruise_control_torch.executor import ExecutorConfig\n"
+        "from cruise_control_torch.executor.notifier import ExecutorNotifier\n"
+        "c = cruise_config.CruiseControlConfig({})\n"
+        "paths = [v for k in cruise_config._DEF.keys().values() for v in\n"
+        "         (k.default if isinstance(k.default, (list, tuple)) else [k.default])\n"
+        "         if isinstance(v, str) and 'cruise_control' in v]\n"
+        "assert paths and all(p.startswith('cruise_control_torch.') for p in paths), paths\n"
+        "for p in paths:\n"
+        "    if '.detector.' not in p:\n"
+        "        configdef.resolve_class(p)\n"
+        "c.get_configured_instance('executor.notifier.class', ExecutorNotifier)\n"
+        "print(ExecutorConfig.from_config(c).max_generation_skew, len(paths))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["8", "13"]

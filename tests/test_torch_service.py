@@ -165,6 +165,75 @@ def test_stats_before_and_after_equal_jax(runs, chunk):
     assert stats_to_dict(tres.stats_after) != stats_to_dict(tres.stats_before)
 
 
+#: goal costs, and the ledger's cost deltas, are float32 sums that the port
+#: takes in another order than XLA for some soft goals: they agree to a few
+#: float32 ulps (test_stack_metrics_integers_equal_jax compares the integers)
+COST_RTOL = 1e-6
+COST_KEYS = ("costBefore", "costAfter")
+
+
+def _without_durations(summary):
+    """A result summary less what a run cannot repeat (durations, the
+    provenance run id) and less its float costs, which come back apart: the
+    goals' costs, and the ledger digest's cost deltas and the checksum that
+    covers them."""
+    out = {k: v for k, v in summary.items() if k != "durationS"}
+    out["goals"] = [{k: v for k, v in g.items() if k != "durationS" and k not in COST_KEYS}
+                    for g in out["goals"]]
+    if "provenance" in out:
+        out["provenance"] = {k: v for k, v in out["provenance"].items() if k != "runId"}
+        out["provenance"]["digest"] = {k: v for k, v in out["provenance"]["digest"].items()
+                                       if k not in ("costDelta", "checksum")}
+    return out
+
+
+def _costs(summary):
+    """(the goals' costs, the ledger's cost deltas, which it rounds to 1e-6)"""
+    deltas = summary["provenance"]["digest"]["costDelta"]
+    return ([g[k] for g in summary["goals"] for k in COST_KEYS],
+            [deltas[k] for k in sorted(deltas)])
+
+
+def test_result_summary_and_stamps_equal_jax(runs):
+    """The port's OptimizerResult carries the JAX class's drift-safety stamps
+    and its summary(): each result named and stamped as the JAX facade does
+    it (facade.py:133-141 and :158-167) against its package's simulated
+    topology of fixture C, then summarized, equal key for key less durations
+    and run ids."""
+    from cruise_control_tpu.facade import CruiseControl
+    from cruise_control_tpu.testing.simulator import SimulatedCluster as JSim
+    from cruise_control_torch.executor.validation import TopologyFingerprint
+    from cruise_control_torch.models import generators as tgen
+    from cruise_control_torch.testing.simulator import SimulatedCluster as TSim
+
+    jres, tres = dataclasses.replace(runs[32][0]), dataclasses.replace(runs[32][3])
+    assert (tres.generation, tres.fingerprint) == (jres.generation, jres.fingerprint) == \
+        (None, None)
+    assert "proposalStamp" not in tres.summary()
+    jmodel = _model()
+    jres = CruiseControl._stamp_result(
+        CruiseControl._attach_topic_names(jres, jgen.metadata_for(jmodel)), 7,
+        JSim(jmodel).fetch_topology())
+    tmodel = from_numpy({k: np.asarray(v) for k, v in jmodel._asdict().items()})
+    meta = tgen.metadata_for(tmodel)
+    tres.proposals = [dataclasses.replace(p, topic_partition=meta.topic_partition(p.partition))
+                      for p in tres.proposals]
+    tres.generation = 7
+    tres.fingerprint = TopologyFingerprint.from_topology(TSim(tmodel).fetch_topology())
+    js, ts = jres.summary(), tres.summary()
+    assert list(ts) == list(js)
+    assert _without_durations(ts) == _without_durations(js)
+    assert sorted(ts["provenance"]["digest"]["costDelta"]) == \
+        sorted(js["provenance"]["digest"]["costDelta"])
+    (tcost, tdelta), (jcost, jdelta) = _costs(ts), _costs(js)
+    np.testing.assert_allclose(tcost, jcost, rtol=COST_RTOL, atol=0)
+    np.testing.assert_allclose(tdelta, jdelta, rtol=COST_RTOL, atol=1e-6)
+    assert ts["proposalStamp"]["generation"] == 7
+    assert ts["proposalStamp"]["fingerprint"]["numBrokers"] == 32
+    assert ts["provenance"]["runId"] == tres.provenance.run_id
+    assert [p.to_dict() for p in tres.proposals] == [p.to_dict() for p in jres.proposals]
+
+
 @pytest.mark.parametrize("chunk", CHUNKS)
 def test_decision_digest_equals_jax(runs, chunk):
     jres, _, _, tres, _ = runs[chunk]
@@ -274,7 +343,11 @@ def test_chip_smoke_jax_references_are_current():
     rows, and the bucketed service solve's bucket record; then the option
     flows; then the JAX monitor's model of the smoke recipe's metrics
     (chip_smoke.monitored_model, each array's SHA-256) and its bucketed
-    service solve."""
+    service solve; then phase 19: that solve stamped (chip_smoke.stamp) and
+    executed by the JAX executor on the simulator that emitted the metrics
+    (chip_smoke.execute_monitored), and a chaos run of the same proposals
+    (chip_smoke.chaos_run), each held to its record
+    (chip_smoke.execution_record)."""
     import hashlib
 
     sys.path.insert(0, str(REPO))
@@ -388,7 +461,7 @@ def test_chip_smoke_jax_references_are_current():
         MetadataClient=MetadataClient, TransportMetricSampler=TransportMetricSampler,
         LoadMonitor=LoadMonitor, LoadMonitorConfig=LoadMonitorConfig,
         ModelCompletenessRequirements=ModelCompletenessRequirements)
-    monitored = chip_smoke.monitored_model(model, ns)[0]
+    monitored, meta, _, _, sim, monitor = chip_smoke.monitored_model(model, ns)
     assert chip_smoke.model_sha256({k: np.asarray(v) for k, v in monitored._asdict().items()}) \
         == chip_smoke.JAX_CPU_MONITORED_MODEL_SHA256
     opt = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(
@@ -398,3 +471,31 @@ def test_chip_smoke_jax_references_are_current():
     assert res.bucketed == chip_smoke.JAX_CPU_SERVICE_BUCKETED_BLOCK
     assert {"replica": res.num_replica_moves, "leadership": res.num_leadership_moves} == \
         chip_smoke.JAX_CPU_MONITORED_MOVES
+    # phase 19: the stamped solve through the JAX executor on the simulator
+    # that emitted the metrics, the model rebuilt after it, then the chaos run
+    from cruise_control_tpu.config import CruiseControlConfig
+    from cruise_control_tpu.executor import (
+        Executor,
+        ExecutorConfig,
+        SimulatorClusterDriver,
+        TopologyFingerprint,
+    )
+    from cruise_control_tpu.testing.chaos import ChaosHarness, ChaosPlan, Perturbation
+
+    ns = SimpleNamespace(
+        SimulatedCluster=SimulatedCluster, Executor=Executor, ExecutorConfig=ExecutorConfig,
+        SimulatorClusterDriver=SimulatorClusterDriver, TopologyFingerprint=TopologyFingerprint,
+        CruiseControlConfig=CruiseControlConfig, ChaosHarness=ChaosHarness, ChaosPlan=ChaosPlan,
+        Perturbation=Perturbation)
+    chip_smoke.stamp(res, monitor, meta, ns)
+    summary, batches, paused, _ = chip_smoke.execute_monitored(res, sim, monitor, ns)
+    after = np.asarray(sim.fetch_topology().assignment)
+    assert chip_smoke.execution_record(summary, after, batches) == chip_smoke.JAX_CPU_EXECUTED
+    assert all(paused) and not monitor.sampling_paused
+    rebuilt, _ = monitor.cluster_model(ModelCompletenessRequirements(
+        min_required_num_windows=1, min_monitored_partitions_percentage=0.5))
+    assert np.array_equal(np.asarray(rebuilt.assignment), after)
+    _, summary, harness, _ = chip_smoke.chaos_run(monitored, res, ns)
+    assert harness.checker.violations == [] and harness.checker.check_final() == []
+    assert chip_smoke.execution_record(
+        summary, np.asarray(harness.sim.fetch_topology().assignment)) == chip_smoke.JAX_CPU_CHAOS
