@@ -121,6 +121,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      host seconds of stamping, admission, execution and chaos are printed
      with the card's name and power limit. The executor is host Python and
      launches no kernel.
+ 20. self-healing (self_healing): on phase 19 (a)'s simulator and monitor,
+     the service built as the JAX package's main.py builds it from a
+     configuration (SELF_HEALING_CONFIG: `default.goals` trimmed to the two
+     hard goals the smoke model can satisfy; OptimizerSettings.from_config
+     on the card, the pinned schedule; a CruiseControl facade with
+     IncrementalConfig.from_config; an Executor on a TcpClusterDriver to a
+     FakeClusterAgent of the simulator on loopback, LATENCY_POLLS polls a
+     movement, named_agent's row map), the alive
+     broker that holds the most replicas is killed; an AnomalyDetector with a
+     SelfHealingNotifier of the configuration's thresholds (broker-failure
+     self-healing on) sweeps on a scripted clock and handles the anomaly the
+     self-healing threshold later, so the ladder decides FIX at once:
+     BrokerFailures.fix decommissions the broker through the facade, whose
+     solve runs on the card (every kernel of its path must launch, its
+     digest and final assignment equal the JAX run's) and whose execution
+     crosses the wire; the anomalies, the decision, the fix counts, the
+     goal-violation detector's silence while a broker is dead, and the
+     execution's counts, trims, dispatch order and cluster afterwards must
+     equal the JAX run's (JAX_CPU_SELF_HEALING), with no replica left on a
+     dead broker. The host seconds of detection, model build, solve,
+     stamping and execution are printed with the card's name and power
+     limit.
   Around each solve every kernel's launch count is set to 0 and read after
   (K3's and K5's also by path; the service bucketed solve must take all
   three of K3's);
@@ -138,7 +160,7 @@ The smoke model is BASELINE config 5's cluster (2,600 brokers, 52 racks,
 4,000 topics, ~200k partitions at RF 3) with config 3's pareto load at mean
 utilisation 0.5 and 26 dead brokers, from seed 42.
 
-Phases 4-19 are held to the JAX package's runs of the same mode: JAX's
+Phases 4-20 are held to the JAX package's runs of the same mode: JAX's
 bucketed and exact runs differ on config 5 and on the smoke model. Every
 chunked solve, here and in the JAX references, runs one pinned call
 schedule (PINNED_TARGET_S).
@@ -612,6 +634,46 @@ JAX_CPU_CHAOS = {
     "trimmed": "9343aadf88e81c5a7a1dfe36d53acb9ae429f6fe4e7832dfccd8ec633c6de62e",
     "assignmentSha256": "45abc42587cd4b27f63e49f2953aa9d683fcdd54209dd84bdc6db25745873f0e",
 }
+#: Phase 20: chip_smoke.self_healing on the JAX package after phase 19 (a):
+#: the victim, the detector's anomalies, decision and fix counts, the
+#: decommission's moves and its execution over the TCP wire
+#: (self_healing_record), then the decommission solve's digest and goal rows
+JAX_CPU_SELF_HEALING = {
+    "victim": 176,
+    "queued": 1,
+    "detected": [{"anomalyType": "BROKER_FAILURE", "failedBrokers": {"176": 7200000}}],
+    "action": "FIX",
+    "fixesTriggered": {"GOAL_VIOLATION": 0, "BROKER_FAILURE": 1, "METRIC_ANOMALY": 0},
+    "fixFailures": {"GOAL_VIOLATION": 0, "BROKER_FAILURE": 0, "METRIC_ANOMALY": 0},
+    "moves": {"replica": 302, "leadership": 0},
+    "executed": {
+        "numTotalMovements": 302,
+        "numFinishedMovements": 302,
+        "numInProgressMovements": 0,
+        "numAbortedOrDead": 0,
+        "byState": {"PENDING": 0, "IN_PROGRESS": 0, "ABORTING": 0, "ABORTED": 0, "DEAD": 0,
+                    "COMPLETED": 302},
+        "stopped": False,
+        "failedTasks": "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+        "admitted": 302,
+        "numTrimmed": 0,
+        "trimmedByReason": {},
+        "aborted": False,
+        "generationSkew": 0,
+        "batchRevalidations": 30,
+        "trimmed": "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+        "batches": 31,
+        "dispatchSha256": "bd93d09a10d1dbf607020d15dec01e74481250d0b19bdfd6de863baeb6e23cb4",
+        "assignmentSha256": "85eea2e06ea42159987ea887ea84eaedb8adf9d5246f4c8c1c48fd5eb2e96492",
+    },
+}
+JAX_CPU_DIGESTS["broker failure"] = (
+    "97daf219525b7620", {"RackAwareGoal": 302},
+    "85eea2e06ea42159987ea887ea84eaedb8adf9d5246f4c8c1c48fd5eb2e96492")
+JAX_CPU_SELF_HEALING_REFERENCE = {
+    "RackAwareGoal": (0, 0, 38, True, 0.0, 0.0),
+    "ReplicaCapacityGoal": (0, 0, 1, True, 0.0, 0.0),
+}
 #: the kernels of each solve's path
 HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
              "window_sum", "state_fingerprint", "cluster_stats")
@@ -634,6 +696,10 @@ OPTION_PATH = {
     "destinations": _MACHINE_PATH + ("window_sum", "score_swaps"),
     "kafka-assigner": _MACHINE_PATH + ("window_sum", "score_swaps"),
 }
+#: phase 20's decommission solve: the service's settings from the
+#: configuration, its two hard goals through the chunked machine (no soft
+#: goal runs, so neither the windows' sums nor the swaps and pair drains)
+SELF_HEALING_PATH = _MACHINE_PATH
 #: the kernels of the JSON line, in the order of build.KERNEL_SOURCES
 ALL_KERNELS = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
                "score_swaps", "pair_picks", "window_sum", "state_fingerprint", "cluster_stats",
@@ -987,6 +1053,210 @@ def execution_record(summary, assignment, batches=None) -> dict:
     out["assignmentSha256"] = hashlib.sha256(
         np.ascontiguousarray(assignment, dtype=np.int32).tobytes()).hexdigest()
     return out
+
+
+#: phase 20's detector clock (s): the sweep runs at this time, the handler the
+#: configuration's self-healing threshold later, when the ladder fixes at once
+SELF_HEALING_T0_S = 7200.0
+#: phase 20's configuration: phase 19's, with `default.goals` (the goals the
+#: facade runs when a request names none, as a broker failure's fix does)
+#: trimmed to the hard goals the smoke model can satisfy, which a broker's
+#: evacuation needs. Its capacity goals cannot be: 24 alive brokers hold a
+#: partition larger than their disk capacity (up to 3.17 times), so with
+#: them the decommission raises OptimizationFailureException in both
+#: packages and nothing executes. The soft goals, unconverged on this
+#: cluster, would go on rebalancing it through the fake agent, whose apply
+#: costs O(brokers) a movement.
+SELF_HEALING_CONFIG = dict(EXECUTION_CONFIG,
+                           **{"default.goals": "RackAwareGoal,ReplicaCapacityGoal"})
+
+
+#: the classes phase 20 builds its service from, by the module of the package
+#: that holds each (`package_classes`)
+SELF_HEALING_CLASSES = {
+    "CruiseControlConfig": "config", "BalancingConstraint": "config.balancing",
+    "GoalOptimizer": "analyzer.optimizer", "OptimizerSettings": "analyzer.optimizer",
+    "IncrementalConfig": "analyzer.incremental", "FakeClusterAgent": "testing.fake_agent",
+    "TcpClusterDriver": "executor", "RetryPolicy": "common.retry", "Executor": "executor",
+    "ExecutorConfig": "executor", "CruiseControl": "facade", "FacadeConfig": "facade",
+    "ModelCompletenessRequirements": "monitor.completeness",
+    "SelfHealingNotifier": "detector", "AnomalyDetector": "detector"}
+
+
+def package_classes(package: str, table: dict):
+    """A namespace of the classes `table` names ({class: module}) from
+    `package` (cruise_control_torch here; the references' scripts and tests
+    pass the JAX package's name)."""
+    import importlib
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**{name: getattr(importlib.import_module(f"{package}.{module}"), name)
+                              for name, module in table.items()})
+
+
+def named_agent(ns):
+    """The package's FakeClusterAgent class, addressing a reassignment or
+    election by its topic's name and its partition's index in the topic, as
+    a Kafka controller does. The fake agent itself reads `partition` as the
+    simulator's dense row, which only an unnamed proposal sends; the
+    facade names every proposal (fault F5, ROADMAP.md Queue 3)."""
+
+    class NamedAgent(ns.FakeClusterAgent):
+        def __init__(self, sim, **kwargs):
+            super().__init__(sim, **kwargs)
+            topo = sim.fetch_topology()
+            self._rows = {(topo.topic_names[t], int(k)): p
+                          for p, (t, k) in enumerate(zip(topo.topic_id, topo.partition_index))}
+
+        def _dispatch(self, req):
+            row = self._rows.get((req.get("topic"), req.get("partition")))
+            if row is not None and req.get("op") in ("reassign", "leader"):
+                req = dict(req, partition=row)
+            return super()._dispatch(req)
+
+    return NamedAgent
+
+
+def recording_tcp_driver(ns):
+    """The package's TcpClusterDriver class, recording the partitions of each
+    dispatch batch in order (the executor polls between two batches), as
+    execute_monitored's driver does."""
+
+    class RecordingTcpDriver(ns.TcpClusterDriver):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.batches = []
+            self._open = None
+
+        def poll(self):
+            self._open = None
+            super().poll()
+
+        def _record(self, kind, task):
+            if self._open != kind:
+                self.batches.append([kind, []])
+                self._open = kind
+            self.batches[-1][1].append(int(task.proposal.partition))
+
+        def start_replica_movement(self, task):
+            self._record("replica", task)
+            super().start_replica_movement(task)
+
+        def start_leadership_movement(self, task):
+            self._record("leadership", task)
+            super().start_leadership_movement(task)
+
+    return RecordingTcpDriver
+
+
+def self_healing(sim, monitor, ns, **optimizer_kw):
+    """Phase 20 on phase 19 (a)'s simulator and monitor, the self-healing
+    loop as the JAX package's main.py builds the service from a
+    configuration (SELF_HEALING_CONFIG): a GoalOptimizer of
+    BalancingConstraint.from_config and OptimizerSettings.from_config (the
+    pinned schedule), a CruiseControl facade (the service's requirements,
+    the configuration's `default.goals`, IncrementalConfig.from_config), an
+    Executor (ExecutorConfig.from_config) on a TcpClusterDriver
+    (RetryPolicy.from_config) to a FakeClusterAgent of `sim` on loopback
+    (named_agent, LATENCY_POLLS polls a movement), and an AnomalyDetector with
+    a SelfHealingNotifier of the configuration's thresholds, broker-failure
+    self-healing on. The alive broker that holds the most replicas (the
+    lowest index of a tie) is killed; the detector sweeps at
+    SELF_HEALING_T0_S and handles the anomaly the self-healing threshold
+    later: BrokerFailures.fix decommissions the broker through the facade
+    (`decommission_brokers(dryrun=False)`), which solves and executes over
+    the wire. `ns` names the package's classes; `optimizer_kw` goes to the
+    GoalOptimizer (the port's device). Returns the victim, what the detector
+    found and decided, its state, the facade's decommission model, result
+    and execution summary, the dispatch batches and the host seconds of
+    detection, model build, solve, stamping and execution."""
+    cfg = ns.CruiseControlConfig(SELF_HEALING_CONFIG)
+    optimizer = ns.GoalOptimizer(
+        constraint=ns.BalancingConstraint.from_config(cfg),
+        settings=dataclasses.replace(ns.OptimizerSettings.from_config(cfg),
+                                     chunk_target_s=PINNED_TARGET_S), **optimizer_kw)
+    agent = named_agent(ns)(sim, latency_polls=LATENCY_POLLS).start()
+    driver = recording_tcp_driver(ns)(*agent.address,
+                                      retry_policy=ns.RetryPolicy.from_config(cfg))
+    try:
+        executor = ns.Executor(driver, ns.ExecutorConfig.from_config(cfg), load_monitor=monitor)
+        facade = ns.CruiseControl(monitor, executor, optimizer=optimizer, config=ns.FacadeConfig(
+            default_requirements=ns.ModelCompletenessRequirements(1, 0.5, False),
+            default_goal_names=tuple(cfg.goal_names("default.goals")),
+            incremental=ns.IncrementalConfig.from_config(cfg)))
+        notifier = ns.SelfHealingNotifier(
+            self_healing_broker_failure_enabled=True,
+            broker_failure_alert_threshold_s=cfg.get_long(
+                "broker.failure.alert.threshold.ms") / 1000.0,
+            self_healing_threshold_s=cfg.get_long(
+                "broker.failure.self.healing.threshold.ms") / 1000.0,
+            breaker_threshold=cfg.get_int("selfhealing.breaker.threshold"),
+            breaker_cooldown_s=cfg.get_double("selfhealing.breaker.cooldown.s"))
+        topo = sim.fetch_topology()
+        a = np.asarray(topo.assignment)
+        held = np.bincount(a[a >= 0], minlength=topo.num_brokers)
+        victim = int(np.argmax(np.where(np.asarray(topo.broker_state) != 3, held, -1)))
+        sim.kill_broker(victim)
+        clock = {"now": SELF_HEALING_T0_S}
+        detector = ns.AnomalyDetector(facade, notifier=notifier, clock=lambda: clock["now"])
+        seconds = {}
+        t0 = time.perf_counter()
+        queued = detector.detect_once()
+        seconds["detection"] = time.perf_counter() - t0
+        detected = detector.state()["recentAnomalies"]
+        clock["now"] += notifier.self_healing_threshold_s
+        # the fix's steps, timed where the facade calls them
+        out = {}
+        build, solve = monitor.cluster_model, optimizer.optimizations
+        execute = executor.execute_proposals
+
+        def timed_build(*args, **kwargs):
+            t = time.perf_counter()
+            built = build(*args, **kwargs)
+            seconds["model build"] = time.perf_counter() - t
+            return built
+
+        def timed_solve(model, **kwargs):
+            t = time.perf_counter()
+            out["result"], out["model"] = solve(model, **kwargs), model
+            out["solved_at"] = time.perf_counter()
+            seconds["solve"] = out["solved_at"] - t
+            return out["result"]
+
+        def timed_execute(*args, **kwargs):
+            t = time.perf_counter()
+            seconds["stamping"] = t - out["solved_at"]
+            out["summary"] = execute(*args, **kwargs)
+            seconds["execution"] = time.perf_counter() - t
+            return out["summary"]
+
+        monitor.cluster_model, optimizer.optimizations = timed_build, timed_solve
+        executor.execute_proposals = timed_execute
+        try:
+            action = detector.handle_once()
+        finally:
+            del monitor.cluster_model, optimizer.optimizations, executor.execute_proposals
+    finally:
+        driver.close()
+        agent.stop()
+    state = detector.state()
+    return dict(victim=victim, queued=queued, detected=detected, action=action,
+                fixes=state["fixesTriggered"], fix_failures=state["fixFailures"],
+                model=out.get("model"), result=out.get("result"), summary=out.get("summary"),
+                batches=driver.batches, seconds=seconds)
+
+
+def self_healing_record(out, sim) -> dict:
+    """What phase 20 holds to the JAX run: the victim, the detector's
+    anomalies, decision and fix counts, the solve's moves, and the
+    execution's record (execution_record, the dispatch order included)."""
+    res = out["result"]
+    return dict(
+        victim=out["victim"], queued=out["queued"], detected=out["detected"],
+        action=out["action"], fixesTriggered=out["fixes"], fixFailures=out["fix_failures"],
+        moves={"replica": res.num_replica_moves, "leadership": res.num_leadership_moves},
+        executed=execution_record(out["summary"], np.asarray(sim.fetch_topology().assignment),
+                                  out["batches"]))
 
 
 def executed_phase(res, model_m, meta_m, sim_m, monitor_m, card: str) -> dict:
@@ -2322,8 +2592,8 @@ def main() -> int:
         JAX run's row is worse too), no replica on a dead broker (but those of
         the `excluded` partitions, bool[P], which may not move),
         sanity_check, the proposals replay, and the decision digest and final
-        assignment equal the JAX CPU run's. Returns the result."""
-        dead_ids = np.nonzero(model_s.broker_state.numpy() == 3)[0]
+        assignment equal the JAX CPU run's. `model_s` may be a function that
+        returns the solved model once `solve()` has run. Returns the result."""
         polish_skips.update(tests=0, skipped=0, k7=0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2333,6 +2603,9 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = kernels.launches()
+        if callable(model_s):
+            model_s = model_s()
+        dead_ids = np.nonzero(model_s.broker_state.numpy() == 3)[0]
         k3_paths = dict(score_candidates.paths)
         k5_paths = dict(score_swaps.paths)
         peak = torch.cuda.max_memory_allocated()
@@ -2621,7 +2894,52 @@ def main() -> int:
 
     # -- 19. executed: phase 18's proposal executed on the simulated cluster --
     executed = executed_phase(res, model_m, meta_m, sim_m, monitor_m, card)
-    del res, model_m, sim_m, monitor_m
+
+    # -- 20. self-healing: a broker of phase 19's cluster killed, detected,
+    # decommissioned through the facade on the card, executed over the wire --
+    healed = {}
+
+    def heal():
+        healed.update(self_healing(sim_m, monitor_m, package_classes(
+            "cruise_control_torch", SELF_HEALING_CLASSES), device="cuda"))
+        if healed["action"] != "FIX" or healed["result"] is None or any(
+                healed["fix_failures"].values()):
+            fail(f"self-healing: the detector decided {healed['action']}, fix failures "
+                 f"{healed['fix_failures']}")
+        return healed["result"]
+
+    res = run_and_check("broker failure", lambda: healed["model"], heal, SELF_HEALING_PATH,
+                        JAX_CPU_SELF_HEALING_REFERENCE, JAX_CPU_SELF_HEALING["moves"])
+    solves["broker failure"]["wall_s"] = healed["seconds"]["solve"]
+    rec = self_healing_record(healed, sim_m)
+    print(f"self-healing: broker {rec['victim']} killed; the sweep queued {rec['queued']} "
+          f"anomalies {json.dumps(rec['detected'])}; the handler decided {rec['action']}, "
+          f"fixes {json.dumps(rec['fixesTriggered'])}; bucketed {json.dumps(res.bucketed)}")
+    print(f"self-healing: executed over the wire {json.dumps(rec['executed'])}")
+    for key, want in JAX_CPU_SELF_HEALING.items():
+        if rec[key] != want:
+            fail(f"self-healing: {key} {rec[key]} differs from the JAX run's {want}")
+    if any(a["anomalyType"] == "GOAL_VIOLATION" for a in rec["detected"]):
+        fail("self-healing: the goal-violation detector reported with a broker dead")
+    by = rec["executed"]["byState"]
+    if by["COMPLETED"] != rec["executed"]["numTotalMovements"] or healed["summary"][
+            "failedTasks"]:
+        fail(f"self-healing: not every task completed {by}")
+    topo = sim_m.fetch_topology()
+    dead = np.nonzero(topo.broker_state == 3)[0]
+    if np.isin(topo.assignment, dead).any():
+        fail(f"self-healing: {int(np.isin(topo.assignment, dead).sum())} replicas left on dead "
+             "brokers after the execution")
+    print("self-healing: the victim, the anomalies, the decision, the decommission's moves and "
+          "the execution over the wire (counts, trims, dispatch order, the cluster afterwards) "
+          f"equal the JAX run's; no replica on the {len(dead)} dead brokers")
+    sec = healed["seconds"]
+    print("self-healing: host seconds: " + ", ".join(
+        f"{k} {sec[k]:.3f}" for k in ("detection", "model build", "solve", "stamping",
+                                      "execution")) + f"; {rec['executed']['numTotalMovements']}"
+          f" tasks in {rec['executed']['batches']} batches ({card})")
+    executed["self_healing"] = dict(seconds=sec, record=rec)
+    del res, model_m, sim_m, monitor_m, healed
 
     if results["service"][:2] != results["stack"][:2]:
         fail("service: the chunked solve's final assignment or touch tags differ from the "

@@ -18,7 +18,7 @@ from cruise_control_torch.analyzer.context import utilization
 from cruise_control_torch.analyzer.goals.base import SCORE_EPS, BulkCounts, Goal
 from cruise_control_torch.common.resources import PartMetric, Resource
 from cruise_control_torch.common.xla_math import fma, xla_tanh
-from cruise_control_torch.kernels.window_sum import window_sum
+from cruise_control_torch.kernels.window_sum import EXCESS_COST, window_sum
 
 
 def _neg_inf(like: torch.Tensor) -> torch.Tensor:
@@ -176,7 +176,7 @@ class CapacityGoal(Goal):
 
     def cost(self, static, gs, agg):
         excess = torch.clamp(agg.broker_load[:, self.resource] - gs.limit, min=0.0)
-        total = window_sum(torch.where(static.alive, excess, _zero(excess)))
+        total = window_sum(torch.where(static.alive, excess, _zero(excess)), EXCESS_COST)
         if self.resource == Resource.CPU:
             total = total + window_sum(
                 torch.clamp(agg.host_cpu_load - static.host_cpu_capacity_limit, min=0.0))

@@ -10,7 +10,8 @@
 Each derives its balance window from the current aggregates, flags brokers
 outside it, and scores an action by the out-of-window distance it removes,
 as the JAX package's goals/soft.py. Float sums go through `window_sum`
-(XLA:CPU's summation order) and every `a * b + c` that XLA fuses goes
+(XLA:CPU's summation order, a fused cost's vectorized one where XLA's
+compiler takes it) and every `a * b + c` that XLA fuses goes
 through `fma`, so the CPU, the card and the JAX package agree bit for bit.
 The count goals' costs and source ranks sum whole numbers (counts against
 floored and ceiled windows), which are exact in any order: they keep
@@ -34,7 +35,7 @@ from cruise_control_torch.analyzer.goals.base import (
 )
 from cruise_control_torch.common.resources import PartMetric, Resource
 from cruise_control_torch.common.xla_math import fma
-from cruise_control_torch.kernels.window_sum import window_sum
+from cruise_control_torch.kernels.window_sum import EXCESS_COST, UTILIZATION_COST, window_sum
 
 
 class WindowState(NamedTuple):
@@ -138,7 +139,7 @@ class ResourceDistributionGoal(Goal):
 
     def cost(self, static, gs, agg):
         dist = imbalance(self._util(static, agg), gs.lower, gs.upper)
-        total = window_sum(torch.where(static.alive, dist, _zero(dist)))
+        total = window_sum(torch.where(static.alive, dist, _zero(dist)), UTILIZATION_COST)
         return torch.where(gs.active, total, _zero(total))
 
     def _endpoints(self, static, agg, act):
@@ -391,7 +392,7 @@ class PotentialNwOutGoal(Goal):
 
     def cost(self, static, gs, agg):
         excess = torch.clamp(agg.potential_nw_out - self.limit(static), min=0.0)
-        return window_sum(torch.where(static.alive, excess, _zero(excess)))
+        return window_sum(torch.where(static.alive, excess, _zero(excess)), EXCESS_COST)
 
     def acceptance(self, static, gs, agg, act: ActionBatch):
         after = agg.potential_nw_out[act.dst.long()] + act.dpnw

@@ -25,10 +25,10 @@ equal inputs. Anything the lane cannot do in place is a typed fallback
 reason; it never guesses.
 
 The lane marks the JAX lane's sensors (common/sensors.py: `Incremental.*`)
-and opens its `incremental-delta-apply` span (common/tracing.py). Left out,
-with the host service (ROADMAP.md Queue 1 item 7): `IncrementalConfig`'s
-reading of the service configuration. There is no mesh branch: the port
-runs on one card.
+and opens its `incremental-delta-apply` span (common/tracing.py). The facade
+(facade.py) arms it after every stamped solve and reads its knobs from the
+service configuration (`IncrementalConfig.from_config`). There is no mesh
+branch: the port runs on one card.
 """
 
 from __future__ import annotations
@@ -259,6 +259,14 @@ class IncrementalConfig:
     enabled: bool = True
     max_deltas: int = 64
     fallback_full: bool = True
+
+    @classmethod
+    def from_config(cls, config) -> "IncrementalConfig":
+        return cls(
+            enabled=config.get_boolean("optimizer.incremental.enabled"),
+            max_deltas=config.get_int("optimizer.incremental.max.deltas"),
+            fallback_full=config.get_boolean("optimizer.incremental.fallback.full"),
+        )
 
 
 @dataclasses.dataclass

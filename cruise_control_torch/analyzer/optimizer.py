@@ -154,6 +154,31 @@ class OptimizerSettings:
     polish_rounds: int = 0
     ledger: bool = True
 
+    @classmethod
+    def from_config(cls, config) -> "OptimizerSettings":
+        """The service's settings from the `optimizer.*` keys (the other
+        fields keep their defaults)."""
+        return cls(
+            batch_k=config.get_int("optimizer.batch.actions.per.round"),
+            max_rounds_per_goal=config.get_int("optimizer.max.rounds.per.goal"),
+            num_dst_candidates=config.get_int("optimizer.candidate.replicas.per.broker"),
+            num_swap_pairs=config.get_int("optimizer.swap.broker.pairs"),
+            swap_candidates=config.get_int("optimizer.swap.candidate.replicas"),
+            chunk_rounds=config.get_int("optimizer.chunk.rounds"),
+            apply_waves=config.get_int("optimizer.apply.waves"),
+            drain_src=config.get_int("optimizer.drain.source.brokers"),
+            drain_per_broker=config.get_int("optimizer.drain.candidates.per.broker"),
+            drain_dst=config.get_int("optimizer.drain.destination.brokers"),
+            bulk_waves=config.get_int("optimizer.bulk.count.waves"),
+            bulk_min_brokers=config.get_int("optimizer.bulk.min.brokers"),
+            polish_rounds=config.get_int("optimizer.polish.rounds"),
+            bucket_partitions=config.get_boolean("optimizer.bucket.partitions"),
+            bucket_brokers=config.get_boolean("optimizer.bucket.brokers"),
+            bucket_ratio=config.get_double("optimizer.bucket.ratio"),
+            bucket_floor=config.get_int("optimizer.bucket.floor"),
+            ledger=config.get_boolean("optimizer.provenance.ledger"),
+        )
+
 
 #: The hard-goal slice's settings: the service defaults on the fused stack
 #: without the bulk planner, shape bucketing or the provenance ledger.

@@ -13,8 +13,7 @@ NetworkClient/consumers — bootstrap.servers, client.id, connections.max.idle.m
 metadata.max.age.ms, receive.buffer.bytes, send.buffer.bytes,
 reconnect.backoff.ms, request.timeout.ms (KafkaCruiseControlConfig.java:724-806).
 Neither package has an in-process Kafka client: cluster I/O rides the agent
-wire protocol (the JAX package's executor/tcp_driver.py, docs/CLUSTER_AGENT.md;
-this package takes it in step 3b of ROADMAP.md Queue 1 item 7), whose
+wire protocol (executor/tcp_driver.py, docs/CLUSTER_AGENT.md), whose
 transport knobs live on the agent command line / driver constructor instead.
 Every other reference key exists here under the identical name.
 
@@ -22,10 +21,8 @@ This is the JAX package's configuration key for key and default for default,
 its `tpu.*` and optimizer keys included under their own names and with their
 own documentation (which describes the JAX package's use of them), so that
 one properties file configures both packages. Each class-name default names
-this package's class. Two of them name detector classes this package has
-not yet: `detector.notifier.NoopNotifier` resolves once the anomaly detector
-is ported (step 4 of that item), and `detector.metric_anomaly.
-NoopMetricAnomalyFinder` names a module the JAX package lacks as well, so
+this package's class. One of them, `detector.metric_anomaly.
+NoopMetricAnomalyFinder`, names a module the JAX package lacks as well, so
 `get_configured_instance` raises ConfigException for it in both packages.
 """
 

@@ -30,8 +30,12 @@
 // that block) copies them back into shared memory where they fit. The later
 // levels run there (over the scratch where they do not fit), then the final
 // add of 32 or fewer terms. Columns of 32 or fewer terms are added in index
-// order by one thread each. Any n < 2**31 and any column count: past 65,535
-// column tiles each row of the grid takes its tiles in turn.
+// order by one thread each, or, for a reduce that XLA fuses with its
+// producers (a goal's cost), in the vectorized loop's order: the first
+// `lanes` terms in 8 lanes, the lanes added by halves, then the rest one by
+// one (kernels/window_sum.py `FusedOrder`). Any n < 2**31 and any column
+// count: past 65,535 column tiles each row of the grid takes its tiles in
+// turn.
 #include "common.cuh"
 
 constexpr int WS_THREADS = 256;
@@ -76,6 +80,35 @@ __device__ __forceinline__ float window(const float* src, int base, Ix stride, i
   return acc;
 }
 
+// Terms 0 .. n - 1 (n <= 32) of column c in the vectorized loop's order: the
+// first `lanes` (a multiple of 8) in 8 lanes, lane j adding the terms j, j +
+// 8, ... from +0.0, the lanes added by halves (j and j + 4, j + 2, j + 1),
+// then the terms from `lanes` on one by one. Every load is issued first.
+template <typename Ix>
+__device__ __forceinline__ float lane_sum(const float* src, int n, int lanes, Ix stride, Ix c) {
+  float v[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    float t = src[(Ix)min(k, n - 1) * stride + c];
+    v[k] = k < n ? t : 0.0f;
+  }
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 32; ++k)
+    if (k < lanes) acc[k & 7] = __fadd_rn(acc[k & 7], v[k]);
+#pragma unroll
+  for (int h = 4; h >= 1; h >>= 1)
+#pragma unroll
+    for (int j = 0; j < h; ++j) acc[j] = __fadd_rn(acc[j], acc[j + h]);
+  float s = acc[0];
+#pragma unroll
+  for (int k = 0; k < 32; ++k)
+    if (k >= lanes && k < n) s = __fadd_rn(s, v[k]);
+  return s;
+}
+
 // Windows [w0, w0 + nwl) (nwl <= 256 / CT) of the terms src[i * stride + col],
 // i = w * 32 + k - lo, zero outside [0, len), for the block's CT columns
 // c0 + c < cols: staged through the tile, coalesced along the columns, 33
@@ -117,7 +150,7 @@ __device__ float stage_sum(const float* src, Ix stride, int len, int lo, int w0,
 template <bool WIDE>
 __device__ __forceinline__ void column_tile(const float* __restrict__ x, int n,
                                             typename IndexOf<WIDE>::T cols, int ct_shift,
-                                            long long ty, float* __restrict__ scratch,
+                                            int lanes, long long ty, float* __restrict__ scratch,
                                             unsigned int* tickets, float* __restrict__ out,
                                             float* tile, float (*small)[WS_SMALL], bool* s_last) {
   typedef typename IndexOf<WIDE>::T Ix;
@@ -131,10 +164,13 @@ __device__ __forceinline__ void column_tile(const float* __restrict__ x, int n,
   const Ix c0 = (Ix)ty * ct;
   const bool mine = c0 + c < cols;  // this thread's column exists
 
-  if (n <= 32) {  // index order from +0.0; one term is returned as it is
+  if (n <= 32) {  // index order from +0.0 (one term is returned as it is), or the lanes'
     const Ix col = c0 + tid;
     if (tid < ct && col < cols)
-      out[col] = n == 0 ? 0.0f : n == 1 ? x[col] : window<false, false, Ix>(x, 0, cols, n, col);
+      out[col] = n == 0    ? 0.0f
+                 : lanes   ? lane_sum<Ix>(x, n, lanes, cols, col)
+                 : n == 1  ? x[col]
+                           : window<false, false, Ix>(x, 0, cols, n, col);
     return;
   }
 
@@ -208,19 +244,19 @@ __device__ __forceinline__ void column_tile(const float* __restrict__ x, int n,
 // (gridDim.y <= 65,535; only WIDE launches have more tiles than rows).
 template <bool WIDE>
 __global__ void __launch_bounds__(WS_THREADS)
-    k_window_sum(const float* __restrict__ x, int n, long long cols, int ct_shift,
+    k_window_sum(const float* __restrict__ x, int n, long long cols, int ct_shift, int lanes,
                  long long tiles, float* __restrict__ scratch, unsigned int* tickets,
                  float* __restrict__ out) {
   __shared__ float tile[WS_TILE];
   __shared__ float small[2][WS_SMALL];
   __shared__ bool s_last;
   if (!WIDE) {
-    column_tile<false>(x, n, (int)cols, ct_shift, blockIdx.y, scratch, tickets, out, tile, small,
-                       &s_last);
+    column_tile<false>(x, n, (int)cols, ct_shift, lanes, blockIdx.y, scratch, tickets, out, tile,
+                       small, &s_last);
     return;
   }
   for (long long ty = blockIdx.y; ty < tiles; ty += gridDim.y) {
-    column_tile<true>(x, n, cols, ct_shift, ty, scratch, tickets, out, tile, small, &s_last);
+    column_tile<true>(x, n, cols, ct_shift, lanes, ty, scratch, tickets, out, tile, small, &s_last);
     __syncthreads();  // the shared memory is free again for the next tile
   }
 }
@@ -228,11 +264,13 @@ __global__ void __launch_bounds__(WS_THREADS)
 // x f32[n, cols] (row-major, contiguous, n < 2**31, any cols), out
 // f32[cols]; scratch f32 of at least (n / 16 + 8) * cols floats (every
 // level's sums); tickets u32 of at least ceil(cols / 32), all 0 (every
-// launch leaves them at 0).
+// launch leaves them at 0); lanes: 0, or the terms of a fused sum of n <= 32
+// that the vectorized loop takes, a multiple of 8 up to n.
 CC_EXPORT int window_sum(const float* x, float* out, float* scratch, unsigned int* tickets,
-                         long long n, long long cols, cudaStream_t stream) {
+                         long long n, long long cols, long long lanes, cudaStream_t stream) {
   if (cols <= 0) return cudaSuccess;
   if (n < 0 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (lanes < 0 || lanes % 8 || lanes > n || (lanes && n > 32)) return cudaErrorInvalidValue;
   // CT: the columns a block takes, a power of two up to 32 that covers
   // cols, but no more than lets one block hold a short column's windows
   long long nw = (n + 31) / 32, wb;
@@ -247,10 +285,10 @@ CC_EXPORT int window_sum(const float* x, float* out, float* scratch, unsigned in
   dim3 grid(n <= 32 ? 1u : (unsigned)((nw + wb - 1) / wb),
             (unsigned)(tiles < 65535 ? tiles : 65535));
   if (tiles > 65535 || cols > 0x7fffffffLL || n * cols > 0x7fffffffLL - 64)
-    k_window_sum<true><<<grid, WS_THREADS, 0, stream>>>(x, (int)n, cols, ct_shift, tiles, scratch,
-                                                       tickets, out);
+    k_window_sum<true><<<grid, WS_THREADS, 0, stream>>>(x, (int)n, cols, ct_shift, (int)lanes,
+                                                       tiles, scratch, tickets, out);
   else
-    k_window_sum<false><<<grid, WS_THREADS, 0, stream>>>(x, (int)n, cols, ct_shift, tiles, scratch,
-                                                        tickets, out);
+    k_window_sum<false><<<grid, WS_THREADS, 0, stream>>>(x, (int)n, cols, ct_shift, (int)lanes,
+                                                        tiles, scratch, tickets, out);
   return cudaGetLastError();
 }

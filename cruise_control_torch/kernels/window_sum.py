@@ -18,9 +18,22 @@ order of XLA:CPU's tree-reduction rewrite (window 32):
 Each add rounds to float32. The padding adds +0.0, so a window holding only
 -0.0 sums to +0.0, as XLA's does. A reduction over one axis of a matrix takes
 each column (or row) in this order on its own.
+
+A reduce of 32 or fewer terms that XLA fuses with its elementwise producers
+(a goal's cost: `jnp.sum(jnp.where(alive, f(...), 0.0))`) is a loop that
+LLVM's vectorizer may take instead, from a number of terms that depends on
+the loop's body. It then adds the first `lane_terms(n, order)` terms in
+VECTOR_LANES lanes (lane j the terms j, j + 8, ... in order, from +0.0), adds
+the lanes by halves (lane j and lane j + 4, then j + 2, then 1), and adds the
+terms left over one by one after them. A `FusedOrder` names a site's choice,
+read from the LLVM IR that XLA:CPU emits (`--xla_dump_to`, `*ir-with-opt.ll`)
+on an x86-64 host with AVX-512 and 256-bit vectors, and probed at every n up
+to 256 against the jitted JAX function (tests/test_torch_cost_order.py).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,13 +46,59 @@ WINDOW = 32
 #: column tiles' tickets (int32, 0 between launches), grown on demand, with
 #: their addresses. Calls on one stream use them in turn.
 _SCRATCH = {}
-_ARGTYPES = (build.PTR,) * 4 + (build.INT, build.INT, build.PTR)
+_ARGTYPES = (build.PTR,) * 4 + (build.INT,) * 3 + (build.PTR,)
+#: the vectorized loop's lanes (8 floats: 256-bit vectors)
+VECTOR_LANES = 8
 
 
-def xla_sum(a: np.ndarray) -> np.ndarray:
+class FusedOrder(NamedTuple):
+    """Where the vectorizer takes a fused reduce of n <= 32 terms (module
+    docstring): from `min_terms` terms; `strided` where a producer reads one
+    column of an [n, 4] matrix (an interleaved load group with gaps), which
+    leaves the last whole vector to the scalar loop."""
+
+    min_terms: int
+    strided: bool
+
+
+#: ResourceDistributionGoal.cost (cruise_control_tpu/analyzer/goals/soft.py:84)
+UTILIZATION_COST = FusedOrder(25, False)
+#: CapacityGoal.cost (goals/hard.py:198) and PotentialNwOutGoal.cost (goals/soft.py:412)
+EXCESS_COST = FusedOrder(30, True)
+
+
+def lane_terms(n: int, order: FusedOrder | None) -> int:
+    """How many leading terms of an n-term fused sum go through the lanes: 0
+    (index order) without an order, outside [order.min_terms, 32]."""
+    if order is None or n < order.min_terms or n > WINDOW:
+        return 0
+    if order.strided:
+        return (n - 1) // VECTOR_LANES * VECTOR_LANES
+    return n - n % VECTOR_LANES
+
+
+def _lanes(x, main: int, zeros):
+    """The lanes' order over the first axis of `x` (numpy or torch):
+    x[:main] in VECTOR_LANES lanes, added by halves, then x[main:] one by one."""
+    acc = zeros((VECTOR_LANES,) + tuple(x.shape[1:]))
+    for i in range(main):
+        acc[i % VECTOR_LANES] = acc[i % VECTOR_LANES] + x[i]
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    s = acc[0]
+    for i in range(main, x.shape[0]):
+        s = s + x[i]
+    return s
+
+
+def xla_sum(a: np.ndarray, order: FusedOrder | None = None) -> np.ndarray:
     """f32[...]: the sum over the first axis of the float32 array `a`, in
-    XLA:CPU's order (module docstring)."""
+    XLA:CPU's order (module docstring), vectorized as `order` says."""
     a = np.asarray(a, dtype=np.float32)
+    main = lane_terms(a.shape[0], order)
+    if main:
+        return _lanes(a, main, lambda shape: np.zeros(shape, dtype=np.float32))
     if a.shape[0] == 1:
         return a[0]
     while a.shape[0] > WINDOW:
@@ -58,10 +117,13 @@ def xla_sum(a: np.ndarray) -> np.ndarray:
     return acc
 
 
-def xla_order_sum(x: torch.Tensor) -> torch.Tensor:
+def xla_order_sum(x: torch.Tensor, order: FusedOrder | None = None) -> torch.Tensor:
     """f32[...]: the sum over the first axis of the float32 tensor `x`, in
     XLA:CPU's order (module docstring), on `x`'s device: `xla_sum` in
     PyTorch."""
+    main = lane_terms(x.shape[0], order)
+    if main:
+        return _lanes(x, main, x.new_zeros)
     if x.shape[0] == 1:
         return x[0].clone()
     while x.shape[0] > WINDOW:
@@ -81,9 +143,9 @@ def xla_order_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def window_sum_plain(x: torch.Tensor) -> torch.Tensor:
+def window_sum_plain(x: torch.Tensor, order: FusedOrder | None = None) -> torch.Tensor:
     """f32[...]: the sum over the first axis, in XLA:CPU's order."""
-    return xla_order_sum(x.detach())
+    return xla_order_sum(x.detach(), order)
 
 
 def _scratch(dev: int, floats: int, tiles: int):
@@ -98,16 +160,17 @@ def _scratch(dev: int, floats: int, tiles: int):
     return ws
 
 
-def window_sum(x: torch.Tensor) -> torch.Tensor:
+def window_sum(x: torch.Tensor, order: FusedOrder | None = None) -> torch.Tensor:
     """`window_sum_plain` for a CPU tensor, the CUDA kernel for a CUDA one.
     `x` is f32[n] or f32[n, cols], n < 2**31; returns f32[] or f32[cols].
-    Past 65,535 column tiles (of up to 32 columns), each row of the grid
-    takes its tiles in turn."""
+    `order`: a fused reduce's vectorized order (module docstring). Past
+    65,535 column tiles (of up to 32 columns), each row of the grid takes
+    its tiles in turn."""
     if x.dtype != torch.float32 or x.dim() not in (1, 2):
         raise TypeError(f"window_sum: expected f32 of rank 1 or 2, got {x.dtype} {tuple(x.shape)}")
     if not x.is_cuda:
         if x.device.type == "cpu":
-            return window_sum_plain(x)
+            return window_sum_plain(x, order)
         raise ValueError(f"window_sum: expected a CPU or CUDA tensor, got {x.device}")
     n = x.shape[0]
     if not x.is_contiguous():
@@ -117,7 +180,8 @@ def window_sum(x: torch.Tensor) -> torch.Tensor:
     ws = _scratch(dev, (n // 16 + 8) * cols, (cols + 31) // 32)
     out = x.new_empty((cols,) if x.dim() == 2 else ())
     code = build.entry("window_sum", _ARGTYPES)(x.data_ptr(), out.data_ptr(), ws[2], ws[3], n,
-                                                cols, build.raw_stream(dev))
+                                                cols, lane_terms(n, order),
+                                                build.raw_stream(dev))
     if code:
         build.check(build.load("window_sum"), code, "window_sum")
     window_sum.launches += 1

@@ -116,10 +116,6 @@ class JsonlFileTransport(MetricsTransport):
             return out
 
 
-class NotPortedError(NotImplementedError):
-    """A part of the JAX package that the port has not ported yet."""
-
-
 class TcpMetricsTransport(MetricsTransport):
     """Metrics over the cluster-agent wire protocol (executor/tcp_driver.py):
     the socket analog of the `__CruiseControlMetrics` topic for deployments
@@ -133,12 +129,7 @@ class TcpMetricsTransport(MetricsTransport):
 
     def __init__(self, host: str, port: int, timeout_s: float = 10.0,
                  ssl_context=None, server_hostname: Optional[str] = None):
-        try:
-            from cruise_control_torch.executor.tcp_driver import _LineClient
-        except ImportError as e:
-            raise NotPortedError(
-                "TcpMetricsTransport needs the executor's tcp_driver, which the port does "
-                "not have yet (ROADMAP.md Queue 1 item 7, step 3b)") from e
+        from cruise_control_torch.executor.tcp_driver import _LineClient
 
         self._client = _LineClient(host, port, timeout_s, ssl_context=ssl_context,
                                    server_hostname=server_hostname)

@@ -5,11 +5,10 @@ The analog of the reference's embedded-cluster integration tier
 simulated cluster that produces real raw metrics through the reporter
 transport and accepts executor operations, so the full
 reporter -> monitor -> analyzer -> executor loop runs without Kafka.
-`testing.chaos` streams perturbations into that loop mid-execution; the JAX
-package's wire-level fault plans (testing/faults.py) come with the cluster
-agent's wire (ROADMAP.md Queue 1 item 7, step 3b).
+`testing.chaos` streams perturbations into that loop mid-execution.
 """
 
+from cruise_control_torch.testing.faults import FaultPlan, FaultRule
 from cruise_control_torch.testing.simulator import SimulatedCluster
 
-__all__ = ["SimulatedCluster"]
+__all__ = ["FaultPlan", "FaultRule", "SimulatedCluster"]

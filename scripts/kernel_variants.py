@@ -662,7 +662,8 @@ def main() -> int:
         for label in ("full", *WS_VARIANTS):
             fn = entry(libs[("window_sum", label)], "window_sum", ws._ARGTYPES)
             us = device_us(lambda: fn(x.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-                                      tickets.data_ptr(), shape[0], cols, build.raw_stream(0)))
+                                      tickets.data_ptr(), shape[0], cols, 0,
+                                      build.raw_stream(0)))
             res["window_sum"][f"{shape} {label}"] = us
             print(f"window_sum {str(shape):12s} {label:6s} {json.dumps(us)}")
 
@@ -673,7 +674,7 @@ def main() -> int:
     for label, call in (("window_sum wrapper", lambda: ws.window_sum(x)),
                         ("torch.sum", lambda: torch.sum(x, dim=0)),
                         ("C entry, output made once", lambda: fn(
-                            x.data_ptr(), y.data_ptr(), scratch[2], scratch[3], 2_600, 1,
+                            x.data_ptr(), y.data_ptr(), scratch[2], scratch[3], 2_600, 1, 0,
                             build.raw_stream(0))),
                         ("torch.empty", lambda: torch.empty((), device=x.device)),
                         ("Tensor.new_empty", lambda: x.new_empty(()))):

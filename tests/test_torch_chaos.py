@@ -9,8 +9,8 @@ same hand-diffed stamped proposals. Both sides must hold every invariant
 agree on everything a run decides: the proposals, the perturbations fired
 and when, the per-state counts, the trims by reason and phase, the abort
 and the cluster's assignment afterwards. Execution ids (seeded from the
-clock) and durations are left out. The wire-level fault plans
-(testing/faults.py) come with the cluster agent's wire, and the JAX suite's
+clock) and durations are left out. A wire-level fault plan
+(testing/faults.py) composes with a chaos plan as in the JAX suite; its
 wall-clock overhead share is not mirrored. Tolerance: exact.
 """
 
@@ -184,3 +184,44 @@ def test_dense_masks_and_name_keyed_addressing_equal_jax():
     _assert_invariants(out)
     assert h.checker.check_dense_masks() == []
     assert out["dispatches"] > 0
+
+
+def _protocol_faults_run(pkg):
+    """The JAX suite's protocol-fault case on the package: a FaultPlan that
+    fails the first dispatch and a ChaosPlan that kills broker 2 at poll 3."""
+    gen, chaos, faults = (_m(pkg, n) for n in ("models.generators", "testing.chaos",
+                                               "testing.faults"))
+    sim = _m(pkg, "testing.simulator").SimulatedCluster(gen.random_cluster(
+        23, gen.ClusterProperty(num_racks=3, num_brokers=8, num_topics=6,
+                                replication_factor=2)))
+    plan = chaos.ChaosPlan([chaos.Perturbation(at_poll=3, action="kill_broker", broker=2)])
+    h = chaos.ChaosHarness(sim, plan)
+    fault_plan = faults.FaultPlan([faults.FaultRule(op="*", action="fail", times=1)])
+    inner_start = h.driver.start_replica_movement
+
+    def flaky_start(task):
+        injected = fault_plan.server_intercept({"op": "reassign",
+                                                "partition": task.proposal.partition})
+        if injected is not None:
+            raise ConnectionError(injected["error"])
+        inner_start(task)
+
+    h.driver.start_replica_movement = flaky_start
+    summary = h.execute(h.stamped_proposals(seed=31, count=30))
+    record = chip_smoke.execution_record(summary, np.asarray(sim.fetch_topology().assignment))
+    return dict(record=record, fired=fault_plan.fired, applied=plan.applied,
+                violations=h.checker.violations, state=h.executor.state,
+                reasons=[t["reason"] for t in summary["failedTasks"]])
+
+
+def test_protocol_faults_compose_with_chaos():
+    """A FaultPlan on the wire and a ChaosPlan on the cluster at once: the
+    resilience layer kills the failed dispatch, the drift layer trims for the
+    dead broker, the invariants hold, and both packages agree."""
+    out = _protocol_faults_run(PORT)
+    assert out == _protocol_faults_run(JAX)
+    assert out["violations"] == [] and out["state"] == "NO_TASK_IN_PROGRESS"
+    by = out["record"]["byState"]
+    assert by["PENDING"] == by["IN_PROGRESS"] == by["ABORTING"] == 0
+    assert by["DEAD"] == 1 and out["fired"] == [{"rule": 0, "action": "fail", "op": "reassign"}]
+    assert any("dispatch failure" in r for r in out["reasons"])

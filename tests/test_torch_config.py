@@ -65,13 +65,13 @@ def test_class_path_defaults_name_the_port():
         assert v.startswith(PORT), (name, v)
 
 
-#: class-name keys whose default the port resolves, and those naming detector
-#: classes it has not yet (the anomaly detector comes later; the JAX package
-#: has no detector.metric_anomaly module either)
+#: class-name keys whose default the port resolves, and the detector's two
+#: (the notifier's resolves; the metric anomaly finder's names a module that
+#: the JAX package has no more than the port)
 RESOLVED = ("metric.sampler.class", "sample.store.class",
             "broker.capacity.config.resolver.class", "executor.notifier.class",
             "metric.sampler.partition.assignor.class", "network.client.provider.class")
-UNRESOLVED = ("anomaly.notifier.class", "metric.anomaly.finder.class")
+DETECTOR_KEYS = ("anomaly.notifier.class", "metric.anomaly.finder.class")
 
 
 @pytest.mark.parametrize("key", RESOLVED + ("replica.movement.strategies",))
@@ -84,12 +84,24 @@ def test_class_defaults_resolve_in_the_port(key):
         assert cls.__qualname__ == jcls.__qualname__
 
 
-@pytest.mark.parametrize("key", UNRESOLVED)
+@pytest.mark.parametrize("key", DETECTOR_KEYS)
 def test_detector_class_defaults_wait_for_the_detector(key):
-    t = tcfg.CruiseControlConfig({})
+    """The notifier's default instantiates the port's NoopNotifier, as the
+    JAX default does the JAX class; the finder's raises in both packages."""
+    t, j = tcfg.CruiseControlConfig({}), jcfg.CruiseControlConfig({})
     assert t.get(key).startswith(PORT + "detector.")
-    with pytest.raises(tdef.ConfigException, match="Could not load class"):
-        tdef.resolve_class(t.get(key))
+    if key == "metric.anomaly.finder.class":
+        for config, defs in ((t, tdef), (j, jdef)):
+            with pytest.raises(defs.ConfigException, match="Could not load class"):
+                defs.resolve_class(config.get(key))
+        return
+    from cruise_control_torch.detector.notifier import AnomalyNotifier as TNotifier
+    from cruise_control_tpu.detector.notifier import AnomalyNotifier as JNotifier
+
+    tn = t.get_configured_instance(key, TNotifier)
+    jn = j.get_configured_instance(key, JNotifier)
+    assert type(tn).__module__ == type(jn).__module__.replace(JAX, PORT)
+    assert type(tn).__qualname__ == type(jn).__qualname__ == "NoopNotifier"
 
 
 def test_pluggable_defaults_instantiate_as_in_jax():
@@ -222,3 +234,35 @@ def test_retry_policy_from_config_equal_jax(props):
     assert (tp.max_attempts, tp.backoff_s, tp.max_backoff_s, tp.deadline_s) == \
         (jp.max_attempts, jp.backoff_s, jp.max_backoff_s, jp.deadline_s)
     assert [tp.backoff_for(a) for a in range(8)] == [jp.backoff_for(a) for a in range(8)]
+
+
+@pytest.mark.parametrize("props", [{}, {
+    "optimizer.batch.actions.per.round": "32", "optimizer.max.rounds.per.goal": "48",
+    "optimizer.candidate.replicas.per.broker": "5", "optimizer.swap.broker.pairs": "12",
+    "optimizer.swap.candidate.replicas": "6", "optimizer.chunk.rounds": "0",
+    "optimizer.apply.waves": "4", "optimizer.drain.source.brokers": "256",
+    "optimizer.drain.candidates.per.broker": "4", "optimizer.drain.destination.brokers": "32",
+    "optimizer.bulk.count.waves": "0", "optimizer.bulk.min.brokers": "64",
+    "optimizer.polish.rounds": "24", "optimizer.bucket.partitions": "false",
+    "optimizer.bucket.brokers": "false", "optimizer.bucket.ratio": "1.5",
+    "optimizer.bucket.floor": "128", "optimizer.provenance.ledger": "false",
+    "optimizer.incremental.enabled": "false", "optimizer.incremental.max.deltas": "16",
+    "optimizer.incremental.fallback.full": "false"}], ids=("defaults", "set"))
+def test_optimizer_and_incremental_settings_from_config_equal_jax(props):
+    """OptimizerSettings and IncrementalConfig read from the same keys equal
+    the JAX classes' field for field."""
+    import dataclasses
+
+    from cruise_control_torch.analyzer.incremental import IncrementalConfig as TInc
+    from cruise_control_torch.analyzer.optimizer import OptimizerSettings as TSettings
+    from cruise_control_tpu.analyzer.incremental import IncrementalConfig as JInc
+    from cruise_control_tpu.analyzer.optimizer import OptimizerSettings as JSettings
+
+    jc, tc = jcfg.CruiseControlConfig(props), tcfg.CruiseControlConfig(props)
+    for jcls, tcls in ((JSettings, TSettings), (JInc, TInc)):
+        want, got = jcls.from_config(jc), tcls.from_config(tc)
+        assert [f.name for f in dataclasses.fields(got)] == \
+            [f.name for f in dataclasses.fields(want)]
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        if props:
+            assert got != tcls(), "every crafted key moves a field off its default"

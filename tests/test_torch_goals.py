@@ -3,8 +3,11 @@ same seeded 32-broker cluster (CPU): windows, violations, costs, drain
 priorities, source ranks, destination preferences, bulk counts and the
 merged acceptance tables, all bit-equal. Float sums follow XLA:CPU's order
 (`window_sum`), up to the 766-partition mean of LeaderBytesInDistributionGoal.
+The costs are compared with the jitted JAX goal's, which XLA fuses and may
+vectorize at 32 brokers (kernels/window_sum.py FusedOrder).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -73,7 +76,8 @@ def test_goal_hooks_equal_jax(ctx, gi):
     if jg.count_family and not getattr(jg, "pair_drain", False):
         hooks.append("bulk_counts")
     for h in hooks:
-        jv, tv = getattr(jg, h)(js, jgs, ja), getattr(tg, h)(ts, tgs, ta)
+        jhook = jax.jit(jg.cost) if h == "cost" else getattr(jg, h)
+        jv, tv = jhook(js, jgs, ja), getattr(tg, h)(ts, tgs, ta)
         if h == "bulk_counts":
             # LeaderBytesInDistributionGoal's unit is the mean leader weight
             # over all P = 766 partitions: window_sum takes it in XLA:CPU's

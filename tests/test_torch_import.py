@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: it imports without JAX, and no file of it
-(nor chip_smoke.py) imports JAX or the JAX package."""
+"""The PyTorch port stands alone: it imports without JAX (and the Kafka
+agent without the `kafka` client, which only its admin adapter imports when
+it is made), and no file of it (nor chip_smoke.py) imports JAX or the JAX
+package."""
 
 import ast
 import pathlib
@@ -50,12 +52,18 @@ EXECUTOR_PATH = tuple(f"cruise_control_torch.{m}" for m in (
     "config.cruise_config", "executor", "executor.task", "executor.strategy",
     "executor.planner", "executor.tracker", "executor.manager", "executor.driver",
     "executor.validation", "executor.notifier", "executor.executor", "testing.chaos"))
+#: the self-healing loop: the detector, the facade, the async operations and
+#: the cluster agent's wire
+SELF_HEALING_PATH = tuple(f"cruise_control_torch.{m}" for m in (
+    "detector", "detector.anomalies", "detector.notifier", "detector.detectors",
+    "detector.anomaly_detector", "facade", "async_ops", "common.lineserver", "testing.faults",
+    "executor.tcp_driver", "testing.fake_agent", "executor.kafka_agent"))
 
 
 def test_every_module_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'jaxlib', 'cruise_control_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'cruise_control_tpu', 'kafka'):\n"
         "    sys.modules[name] = None\n"
         "import cruise_control_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(cruise_control_torch.__path__,"
@@ -65,6 +73,13 @@ def test_every_module_imports_without_jax():
         f"assert set({MONITOR_PATH!r}) <= set(names), sorted(set({MONITOR_PATH!r}) - set(names))\n"
         f"assert set({EXECUTOR_PATH!r}) <= set(names), \\\n"
         f"    sorted(set({EXECUTOR_PATH!r}) - set(names))\n"
+        f"assert set({SELF_HEALING_PATH!r}) <= set(names), \\\n"
+        f"    sorted(set({SELF_HEALING_PATH!r}) - set(names))\n"
+        "from cruise_control_torch.config import CruiseControlConfig\n"
+        "from cruise_control_torch.detector import AnomalyNotifier, NoopNotifier\n"
+        "n = CruiseControlConfig({}).get_configured_instance('anomaly.notifier.class',\n"
+        "                                                    AnomalyNotifier)\n"
+        "assert type(n) is NoopNotifier\n"
         "import chip_smoke\n"
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v is not None}\n"
         "print(len(names))\n"

@@ -506,6 +506,23 @@ def test_window_sum_columns(n, cols):
     assert _window_tickets_clean()
 
 
+@pytest.mark.parametrize("order", (ws.UTILIZATION_COST, ws.EXCESS_COST),
+                         ids=["utilization", "excess"])
+@pytest.mark.parametrize("cols", (None, 1, 4, 40))
+def test_window_sum_fused_orders(order, cols):
+    """A fused cost's vectorized order (fault F4) at every length from 1 to
+    33: the lanes from the order's first length to 32, index order around
+    them; a vector and [n, cols] matrices."""
+    _card()
+    rng = np.random.default_rng(cols or 0)
+    for n in range(1, 34):
+        x = rng.uniform(0, 10, n if cols is None else (n, cols)).astype(np.float32)
+        want = window_sum_plain(torch.from_numpy(x), order)
+        got = window_sum(torch.from_numpy(x).cuda(), order)
+        assert _bits(want, got), (n, cols)
+    assert _window_tickets_clean()
+
+
 def test_window_sum_bucketed_broker_axis():
     """3,072 brokers, the last 472 padding at 0.0, and the [3,072, 4] loads."""
     _card()

@@ -2,7 +2,8 @@
 against the JAX package's on the same inputs: the cases of
 tests/test_reporter.py run on both packages with equal results, the wire
 bytes of every metric scope equal (each package reads the other's), and the
-TCP transport's typed refusal until the executor is ported. Host-only."""
+TCP transport across the packages: either package's transport publishes to
+and polls from either package's fake cluster agent. Host-only."""
 
 import importlib
 
@@ -117,7 +118,21 @@ def test_each_package_reads_the_others_wire_bytes(writer, reader):
 
 
 def test_tcp_transport_is_refused_until_the_executor_is_ported():
-    from cruise_control_torch.reporter.transport import NotPortedError, TcpMetricsTransport
-
-    with pytest.raises(NotPortedError, match="tcp_driver"):
-        TcpMetricsTransport("localhost", 1)
+    """The executor's wire is ported: each package's transport publishes the
+    metrics through either package's fake cluster agent, and polls them back
+    once, as the same metrics."""
+    for client, agent in (PACKAGES, PACKAGES[::-1], PACKAGES[1:] * 2):
+        sim = importlib.import_module(f"{agent}.testing.simulator")
+        gen = importlib.import_module(f"{agent}.models.generators")
+        fake = importlib.import_module(f"{agent}.testing.fake_agent").FakeClusterAgent(
+            sim.SimulatedCluster(gen.unbalanced())).start()
+        try:
+            transport = importlib.import_module(f"{client}.reporter.transport") \
+                .TcpMetricsTransport(*fake.address)
+            transport.publish(_metrics(client))
+            got, again = transport.poll(), transport.poll()
+            transport.close()
+        finally:
+            fake.stop()
+        assert [_plain(m) for m in got] == [_plain(m) for m in _metrics(client)]
+        assert again == []

@@ -152,9 +152,12 @@ def test_stack_metrics_integers_equal_jax(runs, chunk):
     for field in INT_METRICS:
         assert np.array_equal(np.asarray(getattr(jm, field)).astype(np.int64),
                               np.asarray(getattr(tm, field)).astype(np.int64)), field
-    # costs are float sums that XLA may take in another order inside its
-    # machine program
-    np.testing.assert_allclose(tm.cost_after, np.asarray(jm.cost_after), rtol=1e-5)
+    # the goals' costs: float32 sums in XLA:CPU's order, a fused cost's
+    # vectorized one included (kernels/window_sum.py FusedOrder), bit for bit
+    for field in ("cost_before", "cost_after"):
+        want = np.asarray(getattr(jm, field), dtype=np.float32)
+        got = np.asarray(getattr(tm, field), dtype=np.float32)
+        assert np.array_equal(want.view(np.int32), got.view(np.int32)), field
 
 
 @pytest.mark.parametrize("chunk", CHUNKS)
@@ -165,33 +168,14 @@ def test_stats_before_and_after_equal_jax(runs, chunk):
     assert stats_to_dict(tres.stats_after) != stats_to_dict(tres.stats_before)
 
 
-#: goal costs, and the ledger's cost deltas, are float32 sums that the port
-#: takes in another order than XLA for some soft goals: they agree to a few
-#: float32 ulps (test_stack_metrics_integers_equal_jax compares the integers)
-COST_RTOL = 1e-6
-COST_KEYS = ("costBefore", "costAfter")
-
-
 def _without_durations(summary):
-    """A result summary less what a run cannot repeat (durations, the
-    provenance run id) and less its float costs, which come back apart: the
-    goals' costs, and the ledger digest's cost deltas and the checksum that
-    covers them."""
+    """A result summary less what a run cannot repeat: durations and the
+    provenance run id."""
     out = {k: v for k, v in summary.items() if k != "durationS"}
-    out["goals"] = [{k: v for k, v in g.items() if k != "durationS" and k not in COST_KEYS}
-                    for g in out["goals"]]
+    out["goals"] = [{k: v for k, v in g.items() if k != "durationS"} for g in out["goals"]]
     if "provenance" in out:
         out["provenance"] = {k: v for k, v in out["provenance"].items() if k != "runId"}
-        out["provenance"]["digest"] = {k: v for k, v in out["provenance"]["digest"].items()
-                                       if k not in ("costDelta", "checksum")}
     return out
-
-
-def _costs(summary):
-    """(the goals' costs, the ledger's cost deltas, which it rounds to 1e-6)"""
-    deltas = summary["provenance"]["digest"]["costDelta"]
-    return ([g[k] for g in summary["goals"] for k in COST_KEYS],
-            [deltas[k] for k in sorted(deltas)])
 
 
 def test_result_summary_and_stamps_equal_jax(runs):
@@ -222,12 +206,9 @@ def test_result_summary_and_stamps_equal_jax(runs):
     tres.fingerprint = TopologyFingerprint.from_topology(TSim(tmodel).fetch_topology())
     js, ts = jres.summary(), tres.summary()
     assert list(ts) == list(js)
+    # the goals' costs and the ledger's cost deltas and checksum included,
+    # exactly (fault F4)
     assert _without_durations(ts) == _without_durations(js)
-    assert sorted(ts["provenance"]["digest"]["costDelta"]) == \
-        sorted(js["provenance"]["digest"]["costDelta"])
-    (tcost, tdelta), (jcost, jdelta) = _costs(ts), _costs(js)
-    np.testing.assert_allclose(tcost, jcost, rtol=COST_RTOL, atol=0)
-    np.testing.assert_allclose(tdelta, jdelta, rtol=COST_RTOL, atol=1e-6)
     assert ts["proposalStamp"]["generation"] == 7
     assert ts["proposalStamp"]["fingerprint"]["numBrokers"] == 32
     assert ts["provenance"]["runId"] == tres.provenance.run_id
@@ -288,11 +269,18 @@ def test_machine_goal_plan_matches_jax():
 
 
 def test_ledger_json_reads_back_through_the_jax_package(runs, tmp_path):
+    """The port's ledger JSON reads back through both packages' RunLedger to
+    the digest the JAX package reads back from its own run's JSON, and its
+    decisions survive. The JSON rounds each cost to 1e-6, so a cost delta
+    recomputed from it can differ by 1e-6 from the run's own: on fixture C
+    CpuUsageDistributionGoal's does, in the JAX package's round trip too."""
     jres, _, _, tres, _ = runs[32]
     doc = json.loads(json.dumps(tres.provenance.to_dict()))
     back = JRunLedger.from_dict(doc)
-    assert back.digest() == tres.provenance.digest()
-    assert RunLedger.from_dict(doc).digest() == tres.provenance.digest()
+    want = JRunLedger.from_dict(json.loads(json.dumps(jres.provenance.to_dict()))).digest()
+    assert back.digest() == RunLedger.from_dict(doc).digest() == want
+    names = _all_goals(tres)
+    assert back.digest(goals=names) == tres.provenance.digest(goals=names)
     port_file, jax_file = tmp_path / "port.json", tmp_path / "jax.json"
     port_file.write_text(json.dumps(doc))
     jax_file.write_text(json.dumps(jres.provenance.to_dict()))
@@ -347,7 +335,10 @@ def test_chip_smoke_jax_references_are_current():
     executed by the JAX executor on the simulator that emitted the metrics
     (chip_smoke.execute_monitored), and a chaos run of the same proposals
     (chip_smoke.chaos_run), each held to its record
-    (chip_smoke.execution_record)."""
+    (chip_smoke.execution_record); then phase 20: a broker of that simulator
+    killed, detected, decommissioned through the JAX facade and executed over
+    the TCP wire (chip_smoke.self_healing), held to its record
+    (chip_smoke.self_healing_record), digest and goal rows."""
     import hashlib
 
     sys.path.insert(0, str(REPO))
@@ -499,3 +490,8 @@ def test_chip_smoke_jax_references_are_current():
     assert harness.checker.violations == [] and harness.checker.check_final() == []
     assert chip_smoke.execution_record(
         summary, np.asarray(harness.sim.fetch_topology().assignment)) == chip_smoke.JAX_CPU_CHAOS
+    # phase 20: the self-healing loop on the executed simulator and its monitor
+    healed = chip_smoke.self_healing(sim, monitor, chip_smoke.package_classes(
+        "cruise_control_tpu", chip_smoke.SELF_HEALING_CLASSES))
+    assert chip_smoke.self_healing_record(healed, sim) == chip_smoke.JAX_CPU_SELF_HEALING
+    check("broker failure", healed["result"], chip_smoke.JAX_CPU_SELF_HEALING_REFERENCE)

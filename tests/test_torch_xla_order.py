@@ -10,7 +10,12 @@ import pytest
 import torch
 from test_torch_window_order import BOUNDARIES, LENGTHS
 
-from cruise_control_torch.kernels.window_sum import xla_order_sum, xla_sum
+from cruise_control_torch.kernels.window_sum import (
+    EXCESS_COST,
+    UTILIZATION_COST,
+    xla_order_sum,
+    xla_sum,
+)
 
 
 @pytest.mark.parametrize("cols", (None, 4), ids=["vector", "n-by-4"])
@@ -30,3 +35,16 @@ def test_xla_order_sum_equals_the_numpy_spec(n, cols):
     assert np.array_equal(np.isnan(want), np.isnan(got))
     ok = ~np.isnan(want)
     assert np.array_equal(want[ok].view(np.int32), got[ok].view(np.int32))
+
+
+@pytest.mark.parametrize("cols", (None, 4), ids=["vector", "n-by-4"])
+@pytest.mark.parametrize("order", (UTILIZATION_COST, EXCESS_COST), ids=["utilization", "excess"])
+def test_fused_orders_equal_the_numpy_spec(order, cols):
+    """A fused cost's vectorized order (fault F4), PyTorch against numpy, at
+    every length up to 40: the lanes from `order.min_terms` to 32 terms."""
+    for n in range(1, 41):
+        rng = np.random.default_rng(n)
+        x = rng.uniform(0, 10, n if cols is None else (n, cols)).astype(np.float32)
+        want = np.asarray(xla_sum(x, order), dtype=np.float32)
+        got = xla_order_sum(torch.from_numpy(x), order).numpy()
+        assert np.array_equal(want.view(np.int32), got.view(np.int32)), n
