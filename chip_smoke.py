@@ -143,6 +143,32 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      dead broker. The host seconds of detection, model build, solve,
      stamping and execution are printed with the card's name and power
      limit.
+ 21. served (served): on phase 20's simulator and monitor, the service built
+     from SELF_HEALING_CONFIG as the port's main.py builds it (the facade,
+     AsyncCruiseControl, an AnomalyDetector, an Executor on a fresh
+     TcpClusterDriver to named_agent), wrapped in the port's
+     CruiseControlApp, served on loopback by its standard-library server and
+     driven by the port's CruiseControlClient: GET state, load (2,600
+     brokers' BrokerStats, K1 on the card), partition_load,
+     kafka_cluster_state, proposals twice (the second from the cache), POST
+     rebalance (a dry run of SERVED_GOALS), POST demote_broker of the broker
+     leading the most partitions with dryrun=false (answered 202, then
+     attached to until 200; its leadership moves execute over the wire),
+     GET user_tasks, then /metrics and /perf. Every body less
+     SERVED_VOLATILE, the three solves' digests and final assignments, the
+     demote's execution and /metrics' sensor names must equal the JAX
+     package's run of the same recipe (JAX_CPU_SERVED); each request's
+     kernels (SERVED_PATHS) must launch; K11 on the demote's assignments
+     must equal its plain version and JAX's election; /perf must name the
+     card with a nonzero device-memory peak. Each request's host seconds
+     are printed with the card's name and power limit.
+ 22. main (entry_point_phase): `python -m cruise_control_torch.main` as a
+     subprocess on its default 12-broker simulated cluster, driven by
+     `python -m cruise_control_torch.client.cccli` (state, proposals after
+     the monitor's first window, rebalance --dryrun true): every command
+     exits 0, the proposals replay with no replica on a dead broker, /perf
+     names the card with a nonzero device-memory peak, /metrics counts a
+     solve, and SIGINT stops the service within MAIN_SIGINT_S.
   Around each solve every kernel's launch count is set to 0 and read after
   (K3's and K5's also by path; the service bucketed solve must take all
   three of K3's);
@@ -160,7 +186,7 @@ The smoke model is BASELINE config 5's cluster (2,600 brokers, 52 racks,
 4,000 topics, ~200k partitions at RF 3) with config 3's pareto load at mean
 utilisation 0.5 and 26 dead brokers, from seed 42.
 
-Phases 4-20 are held to the JAX package's runs of the same mode: JAX's
+Phases 4-21 are held to the JAX package's runs of the same mode: JAX's
 bucketed and exact runs differ on config 5 and on the smoke model. Every
 chunked solve, here and in the JAX references, runs one pinned call
 schedule (PINNED_TARGET_S).
@@ -673,6 +699,187 @@ JAX_CPU_DIGESTS["broker failure"] = (
 JAX_CPU_SELF_HEALING_REFERENCE = {
     "RackAwareGoal": (0, 0, 38, True, 0.0, 0.0),
     "ReplicaCapacityGoal": (0, 0, 1, True, 0.0, 0.0),
+}
+#: Phase 21: chip_smoke.served on the JAX package after phase 20, its aiohttp
+#: server driven by its client (scripts/executor_references.py --no-chaos
+#: --served): the record (served_record), then each solve's digest, goal
+#: rows and moves, and JAX's elect_preferred_leaders on the demote's
+#: initial and final assignments
+JAX_CPU_SERVED = {
+    "bodies": {
+        "state": "790356d2bcf950b6f9552a4edf4cf3e64c74ae56ec7e065b44e818a929580e66",
+        "load": "865a41ed78a023333ac38329a8501810cac346ef5eb81c8c09b36a75d70fa068",
+        "partition_load": "e940591748286c821f880e09339ffe21b79d9a5a7a2541de961189aca36d0c27",
+        "kafka_cluster_state": "504ad24a93087bd611e0796ef49aa3fdd9ed794ce248ed6cd9f4386501b62a8c",
+        "proposals": "a718da38913a116197c23fc5ad81a39b27b8d80c1c9a97603e6b96153a9235f2",
+        "proposals again": "a718da38913a116197c23fc5ad81a39b27b8d80c1c9a97603e6b96153a9235f2",
+        "rebalance": "639dbce65b40c60858f856d6c219ee2ab8114486de82441bf496dbd588a664ac",
+        "demote": "77335a0a6f126a74352f98c490541f9f6730feb833bcb955efd5ebd95fd51bfb",
+        "user_tasks": "0d4e69b42e4841d81d0db05e293010d20586b0cf08acc97a23a3338b222fd33f"
+    },
+    "sections": {
+        "proposals": {
+            "summary": "7409a0f7c95e679c9fb154c976775413cb7e0ca3c9314b161948c3ff05ffd898",
+            "goalSummary": "018644c967fa1003699b7d232d0b913b89af6ad2145ac76287240ba93967bec6",
+            "proposals": "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+            "version": "6b86b273ff34fce19d6b804eff5a3f5747ada4eaa22f1d49c01e52ddb7875b4b"
+        },
+        "proposals again": {
+            "summary": "7409a0f7c95e679c9fb154c976775413cb7e0ca3c9314b161948c3ff05ffd898",
+            "goalSummary": "018644c967fa1003699b7d232d0b913b89af6ad2145ac76287240ba93967bec6",
+            "proposals": "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+            "version": "6b86b273ff34fce19d6b804eff5a3f5747ada4eaa22f1d49c01e52ddb7875b4b"
+        },
+        "rebalance": {
+            "summary": "33f2ea45f17a93eaa20e26976aab4fe86d2e154e99548b7d27bd94ee6b1781d5",
+            "goalSummary": "5e48c41402627acd77b08ccc529e45667822dd20e254d6c24bb53c5a30c452bb",
+            "proposals": "c9e3c79025963211e59940dc1f25571ab674aa82ddbcbf041d77d0c8185bb3df",
+            "version": "6b86b273ff34fce19d6b804eff5a3f5747ada4eaa22f1d49c01e52ddb7875b4b"
+        },
+        "demote": {
+            "summary": "eb1f25b5c0b006a1f896e0dba463b7a8f1a1ad423cbb62e6fea0f52f5ce0b723",
+            "goalSummary": "e2f66e1bd7ac9ca0bc83aee7ef148f076a27fb65ef1a13df9e4f7c91207424ba",
+            "proposals": "9707c6ee26ed3e650b71266239f1ee2857d45bff841c214cc4fed41a4a7c1285",
+            "version": "6b86b273ff34fce19d6b804eff5a3f5747ada4eaa22f1d49c01e52ddb7875b4b"
+        }
+    },
+    "demoteFirst": [
+        "progress"
+    ],
+    "solves": 3,
+    "proposalsCached": True,
+    "demoted": 1866,
+    "executed": {
+        "numTotalMovements": 11630,
+        "numFinishedMovements": 11630,
+        "numInProgressMovements": 0,
+        "numAbortedOrDead": 0,
+        "byState": {
+            "PENDING": 0,
+            "IN_PROGRESS": 0,
+            "ABORTING": 0,
+            "ABORTED": 0,
+            "DEAD": 0,
+            "COMPLETED": 11630
+        },
+        "stopped": False,
+        "failedTasks": "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+        "admitted": 11630,
+        "numTrimmed": 0,
+        "trimmedByReason": {},
+        "aborted": False,
+        "generationSkew": 0,
+        "batchRevalidations": 14,
+        "trimmed": "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+        "batches": 15,
+        "dispatchSha256": "2566e462fa0fb1ba110ea70e1c6669ebe1db4d6200d703a0518c085cc9432144",
+        "assignmentSha256": "abf2349475c698139b47cca11907b2d4d5d4366b266150e2b7d0611194037427"
+    },
+    "metricsSensors": [
+        "AnomalyDetector.breaker-state",
+        "AnomalyDetector.detection-timer",
+        "DeviceTelemetry.device-memory",
+        "DeviceTelemetry.device-to-host-bytes",
+        "DeviceTelemetry.device-to-host-transfers",
+        "DeviceTelemetry.host-to-device-bytes",
+        "DeviceTelemetry.host-to-device-transfers",
+        "DeviceTelemetry.overhead-seconds",
+        "Executor.batch-dispatch-timer",
+        "Executor.execution-timer",
+        "Executor.generation-skew",
+        "Executor.revalidation-timer",
+        "Executor.task-completed",
+        "GoalOptimizer.device-call-timer",
+        "GoalOptimizer.device-dispatches",
+        "GoalOptimizer.optimizer-round-timer",
+        "GoalOptimizer.proposal-computation-timer",
+        "GoalOptimizer.stack-execution-timer",
+        "GoalOptimizer.static-ctx-cache-misses",
+        "History.overhead-seconds",
+        "History.points",
+        "History.snapshots",
+        "Incremental.goals-skipped",
+        "Incremental.lane-armed",
+        "LoadMonitor.cluster-model-creation-timer",
+        "MoveLedger.build-timer",
+        "MoveLedger.moves-recorded",
+        "MoveLedger.runs-recorded",
+        "MoveLedger.runs-retained",
+        "Retry.TcpDriver.finished.failures",
+        "Retry.TcpDriver.finished.recoveries",
+        "Retry.TcpDriver.finished.retries",
+        "SessionManager.active-sessions",
+        "Tracer.overhead-seconds",
+        "Tracer.ring-size",
+        "Tracer.spans-recorded"
+    ],
+    "perfKeys": [
+        "fingerprint",
+        "history",
+        "memory",
+        "programs",
+        "telemetryOverheadS",
+        "timers",
+        "transfers",
+        "version"
+    ],
+    "perfFingerprintKeys": [
+        "deviceCount",
+        "deviceKind",
+        "gitSha",
+        "platform",
+        "probeFallback"
+    ]
+}
+JAX_CPU_DIGESTS["served proposals"] = (
+    "e3b0c44298fc1c14",
+    {},
+    "85eea2e06ea42159987ea887ea84eaedb8adf9d5246f4c8c1c48fd5eb2e96492")
+JAX_CPU_DIGESTS["served rebalance"] = (
+    "c6d2555b680086b5",
+    {"ReplicaDistributionGoal": 12674,
+     "DiskUsageDistributionGoal": 3365,
+     "TopicReplicaDistributionGoal": 7081,
+     "LeaderBytesInDistributionGoal": 15377},
+    "61fc675ab5d069f7ad51f42bcc7f8260a04dd0ff9c90b0f0e38bc040f6213c5c")
+JAX_CPU_DIGESTS["served demote"] = (
+    "34df3fc032ea2759",
+    {"LeaderReplicaDistributionGoal": 13026},
+    "abf2349475c698139b47cca11907b2d4d5d4366b266150e2b7d0611194037427")
+JAX_CPU_SERVED_REFERENCE = {
+    "served proposals": {
+        "RackAwareGoal": (0, 0, 1, True, 0.0, 0.0),
+        "ReplicaCapacityGoal": (0, 0, 1, True, 0.0, 0.0),
+    },
+    "served rebalance": {
+        "RackAwareGoal": (0, 0, 1, True, 0.0, 0.0),
+        "ReplicaCapacityGoal": (0, 0, 1, True, 0.0, 0.0),
+        "ReplicaDistributionGoal": (153, 0, 61, True, 13170.0, 0.0),
+        "DiskUsageDistributionGoal": (583, 48, 64, False, 77.44, 43.56),
+        "TopicReplicaDistributionGoal": (1430, 0, 41, True, 6387.0, 0.0),
+        "LeaderBytesInDistributionGoal": (631, 87, 64, False, 5829000.0, 3073000.0),
+    },
+    "served demote": {
+        "LeaderReplicaDistributionGoal": (703, 0, 46, True, 14850.0, 0.0),
+    },
+}
+JAX_CPU_SERVED_MOVES = {
+    "served proposals": {
+        "replica": 0,
+        "leadership": 0
+    },
+    "served rebalance": {
+        "replica": 24071,
+        "leadership": 5757
+    },
+    "served demote": {
+        "replica": 10234,
+        "leadership": 1396
+    }
+}
+JAX_CPU_SERVED_K11_SHA256 = {
+    "initial": "ecf3d379930542175e8dee7238654de4fb70e1696103db098cc8a1d19fbc5834",
+    "final": "8d054843f040570b7608c01285f9cfff6b879c6bd28f7efdaa92d148aca8e8b8"
 }
 #: the kernels of each solve's path
 HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
@@ -1257,6 +1464,419 @@ def self_healing_record(out, sim) -> dict:
         moves={"replica": res.num_replica_moves, "leadership": res.num_leadership_moves},
         executed=execution_record(out["summary"], np.asarray(sim.fetch_topology().assignment),
                                   out["batches"]))
+
+
+#: the classes phase 21 builds its service from: phase 20's, the async
+#: operations, the REST app and the client
+SERVED_CLASSES = dict(SELF_HEALING_CLASSES, AsyncCruiseControl="async_ops",
+                      CruiseControlApp="servlet.server", CruiseControlClient="client.cccli")
+#: phase 21's rebalance: the two hard goals the smoke model can satisfy and
+#: soft goals whose solve runs window_sum's sums, the usage goal's replica
+#: swaps and the leader goal's relays (K5) and the topic goal's pair drain
+#: (K6); the capacity goals are left out (they cannot be satisfied,
+#: SELF_HEALING_CONFIG)
+SERVED_GOALS = ("RackAwareGoal", "ReplicaCapacityGoal", "ReplicaDistributionGoal",
+                "DiskUsageDistributionGoal", "TopicReplicaDistributionGoal",
+                "LeaderBytesInDistributionGoal")
+#: keys phase 21 takes out of a body before it is compared: task ids, clock
+#: readings and durations, run ids, and the process-wide sensor snapshots
+#: (their counts and times depend on everything the process ran before)
+SERVED_VOLATILE = frozenset({"UserTaskId", "StartMs", "SubmitTimeMs", "startMs", "endMs",
+                             "durationS", "provenanceRun", "Sensors", "sensors", "overheadS"})
+#: /metrics sensors whose existence depends on what the process built or
+#: compiled before (XLA programs in the JAX package, kernel libraries in the
+#: port), left out of phase 21's comparison of the sensor names
+SERVED_PROCESS_SENSORS = ("GoalOptimizer.program-cache-", "GoalOptimizer.stack-compile-timer",
+                          "DeviceTelemetry.program-cost.")
+
+
+def served_normalized(body):
+    """`body` without the SERVED_VOLATILE keys, at any depth."""
+    if isinstance(body, dict):
+        return {k: served_normalized(v) for k, v in body.items() if k not in SERVED_VOLATILE}
+    if isinstance(body, (list, tuple)):
+        return [served_normalized(v) for v in body]
+    return body
+
+
+def metric_sensors(text: str) -> list:
+    """The sensor names a /metrics page lists, less SERVED_PROCESS_SENSORS."""
+    import re
+
+    names = set(re.findall(r'sensor="([^"]+)"', text))
+    return sorted(n for n in names if not n.startswith(SERVED_PROCESS_SENSORS))
+
+
+def served(sim, monitor, ns, serve, around=None, **optimizer_kw):
+    """Phase 21 on phase 20's simulator and monitor: the service built from
+    SELF_HEALING_CONFIG as main.py builds it from a configuration (the
+    optimizer of phase 20, a CruiseControl facade, AsyncCruiseControl, an
+    AnomalyDetector, an Executor on a fresh TcpClusterDriver to named_agent),
+    wrapped in the package's CruiseControlApp, served on loopback by
+    `serve(app)` -> (url, stop), and driven by the package's
+    CruiseControlClient: GET state, load, partition_load,
+    kafka_cluster_state, proposals twice (the second a cache hit), POST
+    rebalance (dry run, SERVED_GOALS, the hard-goal check skipped), POST
+    demote_broker of the alive broker leading the most partitions (lowest
+    index of a tie) with dryrun=false, answered 202 and then attached to by
+    the client's session until 200 (its leadership moves execute over the
+    wire), GET user_tasks, then /metrics and /perf, which the client cannot
+    fetch (it sends what it does not know as a POST), with urllib.
+    `around(label, call)` runs each request (the port's chip run counts the
+    kernels' launches there). Returns the bodies, the demote's first answer,
+    the solves' (model, result) in order, the execution summaries and the
+    dispatch batches, the demoted broker and each request's host seconds."""
+    import urllib.request
+
+    cfg = ns.CruiseControlConfig(SELF_HEALING_CONFIG)
+    optimizer = ns.GoalOptimizer(
+        constraint=ns.BalancingConstraint.from_config(cfg),
+        settings=dataclasses.replace(ns.OptimizerSettings.from_config(cfg),
+                                     chunk_target_s=PINNED_TARGET_S), **optimizer_kw)
+    agent = named_agent(ns)(sim, latency_polls=LATENCY_POLLS).start()
+    driver = recording_tcp_driver(ns)(*agent.address,
+                                      retry_policy=ns.RetryPolicy.from_config(cfg))
+    executor = ns.Executor(driver, ns.ExecutorConfig.from_config(cfg), load_monitor=monitor)
+    facade = ns.CruiseControl(monitor, executor, optimizer=optimizer, config=ns.FacadeConfig(
+        default_requirements=ns.ModelCompletenessRequirements(1, 0.5, False),
+        default_goal_names=tuple(cfg.goal_names("default.goals")),
+        incremental=ns.IncrementalConfig.from_config(cfg)))
+    acc = ns.AsyncCruiseControl(facade)
+    detector = ns.AnomalyDetector(facade, notifier=ns.SelfHealingNotifier(
+        breaker_threshold=cfg.get_int("selfhealing.breaker.threshold"),
+        breaker_cooldown_s=cfg.get_double("selfhealing.breaker.cooldown.s")),
+        clock=lambda: SELF_HEALING_T0_S)
+    app = ns.CruiseControlApp(acc, anomaly_detector=detector)
+    out = {"solves": [], "executions": [], "bodies": {}, "seconds": {}}
+    solve, execute = optimizer.optimizations, executor.execute_proposals
+
+    def recorded_solve(model, *args, **kwargs):
+        result = solve(model, *args, **kwargs)
+        out["solves"].append((model, result))
+        return result
+
+    def recorded_execute(*args, **kwargs):
+        summary = execute(*args, **kwargs)
+        out["executions"].append(summary)
+        return summary
+
+    optimizer.optimizations, executor.execute_proposals = recorded_solve, recorded_execute
+    topo = sim.fetch_topology()
+    leaders = np.bincount(np.asarray(topo.assignment)[:, 0], minlength=topo.num_brokers)
+    demoted = int(np.argmax(np.where(np.asarray(topo.broker_state) != 3, leaders, -1)))
+    url, stop = serve(app)
+    client = ns.CruiseControlClient(url, poll_interval_s=0.05, timeout_s=3600)
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=600) as resp:
+            return resp.read().decode()
+
+    demote = {"brokerid": str(demoted), "dryrun": "false"}
+
+    def demote_call():
+        out["demote_first"] = client.request("demote_broker", demote, wait=False)
+        if "progress" not in out["demote_first"]:
+            return out["demote_first"]
+        return client.request("demote_broker", demote)
+
+    requests = [
+        ("state", lambda: client.request("state")),
+        ("load", lambda: client.request("load")),
+        ("partition_load", lambda: client.request("partition_load")),
+        ("kafka_cluster_state", lambda: client.request("kafka_cluster_state")),
+        ("proposals", lambda: client.request("proposals")),
+        ("proposals again", lambda: client.request("proposals")),
+        ("rebalance", lambda: client.request("rebalance", {
+            "dryrun": "true", "skip_hard_goal_check": "true", "goals": ",".join(SERVED_GOALS)})),
+        ("demote", demote_call),
+        ("user_tasks", lambda: client.request("user_tasks")),
+        ("metrics", lambda: get("/kafkacruisecontrol/metrics")),
+        ("perf", lambda: json.loads(get("/kafkacruisecontrol/perf"))),
+    ]
+    around = around or (lambda label, call: call())
+    try:
+        for label, call in requests:
+            t0 = time.perf_counter()
+            out["bodies"][label] = around(label, call)
+            out["seconds"][label] = time.perf_counter() - t0
+    finally:
+        stop()
+        acc.shutdown()
+        driver.close()
+        agent.stop()
+        del optimizer.optimizations, executor.execute_proposals
+    out.update(demoted=demoted, batches=driver.batches)
+    return out
+
+
+def served_record(out, sim) -> dict:
+    """What phase 21 holds to the JAX run: each body's SHA-256 without the
+    SERVED_VOLATILE keys (an optimization result's also section by section),
+    how the demote first answered, the number of solves (the second
+    proposals request is the cache's), the demoted broker, the demote's
+    execution (execution_record), /metrics' sensor names (metric_sensors)
+    and /perf's keys."""
+    bodies = out["bodies"]
+    rec = {"bodies": {}, "sections": {}}
+    for label, body in bodies.items():
+        if label in ("metrics", "perf"):
+            continue
+        norm = served_normalized(body)
+        rec["bodies"][label] = digest_json(norm)
+        if isinstance(norm, dict) and "goalSummary" in norm:
+            rec["sections"][label] = {k: digest_json(v) for k, v in norm.items()}
+    perf = bodies["perf"]
+    rec.update(
+        demoteFirst=sorted(out["demote_first"]), solves=len(out["solves"]),
+        proposalsCached=bodies["proposals"] == bodies["proposals again"],
+        demoted=out["demoted"],
+        executed=execution_record(out["executions"][0],
+                                  np.asarray(sim.fetch_topology().assignment), out["batches"])
+        if out["executions"] else None,
+        metricsSensors=metric_sensors(bodies["metrics"]),
+        perfKeys=sorted(perf), perfFingerprintKeys=sorted(set(perf["fingerprint"]) - {
+            "jax", "jaxlib", "torch", "cuda"}))
+    return rec
+
+
+#: the JAX facade's solves behind phase 21's requests, in order
+SERVED_SOLVES = ("served proposals", "served rebalance", "served demote")
+#: each of phase 21's requests that runs on the card, with the kernels its
+#: path must launch: /load's broker loads (K1), the default goals' proposals
+#: (the two hard goals through the machine), the rebalance's soft goals (the
+#: windows' sums, the swaps and relays, the pair drain) and the demote's
+#: LeaderReplicaDistributionGoal
+SERVED_PATHS = {"proposals": SELF_HEALING_PATH,
+                "rebalance": _MACHINE_PATH + ("window_sum", "score_swaps", "pair_picks"),
+                "demote": _MACHINE_PATH, "load": ("segment_aggregates",)}
+#: seconds phase 22's service has to exit after SIGINT
+MAIN_SIGINT_S = 30
+#: seconds phase 22 waits for the service to listen and for its monitor's
+#: first window (the typed 503 before it)
+MAIN_DEADLINE_S = 240
+
+
+def served_phase(sim, monitor, name: str, card: str, run_and_check, device="cuda") -> dict:
+    """Phase 21 on phase 20's simulator and monitor (served) with the port's
+    classes on `device`: each request's kernel launches counted around it,
+    each solve checked by `run_and_check` against its JAX digest, K11 on the
+    demote's assignments, every record against JAX_CPU_SERVED, /perf against
+    the card `name`. Returns the host seconds, the record and the launches;
+    any failed check exits (the bodies go to chiprun_out/ when that
+    directory exists)."""
+    from cruise_control_torch import kernels
+    from cruise_control_torch.analyzer.context import build_static_ctx, dims_of
+    from cruise_control_torch.analyzer.goals import elect_preferred_leaders
+    from cruise_control_torch.config import CruiseControlConfig
+    from cruise_control_torch.config.balancing import BalancingConstraint
+    from cruise_control_torch.kernels.elect_preferred import elect_preferred_plain
+    from cruise_control_torch.servlet.server import serve as serve_http
+
+    def serve_port(app):
+        handle = serve_http(app, "127.0.0.1", 0)
+        return handle.url, handle.shutdown
+
+    request_launches = {}
+
+    def counted(label, call):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t_req = time.monotonic()
+        body = call()
+        torch.cuda.synchronize()
+        request_launches[label] = (kernels.launches(), time.monotonic() - t_req)
+        return body
+
+    srv = served(sim, monitor, package_classes("cruise_control_torch", SERVED_CLASSES),
+                 serve_port, around=counted, device=device)
+    rec = served_record(srv, sim)
+    if len(srv["solves"]) != 3:
+        fail(f"served: {len(srv['solves'])} solves, expected 3 (proposals, rebalance, demote; "
+             "the second proposals request answered from the cache)")
+    for (model_s, res_s), label, request in zip(srv["solves"], SERVED_SOLVES,
+                                                ("proposals", "rebalance", "demote")):
+        run_and_check(label, model_s, lambda r=res_s: r, SERVED_PATHS[request],
+                      JAX_CPU_SERVED_REFERENCE[label], JAX_CPU_SERVED_MOVES[label],
+                      measured=request_launches[request])
+    for request, path in SERVED_PATHS.items():
+        counts = request_launches[request][0]
+        if any(counts[k] == 0 for k in path):
+            fail(f"served: {request} never launched {[k for k in path if counts[k] == 0]}")
+    print(f"served: each request's launches "
+          f"{json.dumps({k: v[0] for k, v in request_launches.items()})}")
+    # K11 on the demote's initial and final assignments against its plain
+    # version and JAX's election: a check beside the request, whose path (the
+    # facade's demote, in both packages) runs no preferred-leader election
+    model_d, res_d = srv["solves"][2]
+    constraint = BalancingConstraint.from_config(CruiseControlConfig(SELF_HEALING_CONFIG))
+    st_d = build_static_ctx(model_d.to(device), constraint, dims_of(model_d))
+    st_dc = build_static_ctx(model_d, constraint, dims_of(model_d))
+    for which, a_ in (("initial", model_d.assignment),
+                      ("final", torch.from_numpy(res_d.final_assignment))):
+        out = elect_preferred_leaders(st_d, a_.to(device)).cpu()
+        if not bits_equal(out, elect_preferred_plain(a_, st_dc.demoted, st_dc.dead)):
+            fail(f"served: K11 on the demote's {which} assignment differs from its plain version")
+        sha = hashlib.sha256(np.ascontiguousarray(out.numpy(), dtype=np.int32)
+                             .tobytes()).hexdigest()
+        if sha != JAX_CPU_SERVED_K11_SHA256[which]:
+            fail(f"served: K11 on the demote's {which} assignment differs from JAX's election")
+    print("served: K11 on the demote's initial and final assignments equals its plain version "
+          "and JAX's elect_preferred_leaders")
+    print(f"served: {json.dumps(rec)}")
+    mismatched = [k for k, want in JAX_CPU_SERVED.items() if k != "metricsSensors" and
+                  rec[k] != want]
+    missing = sorted(set(JAX_CPU_SERVED["metricsSensors"]) - set(rec["metricsSensors"]))
+    if mismatched or missing:
+        import pathlib
+
+        dump = pathlib.Path("chiprun_out")
+        if dump.is_dir():
+            (dump / "chip_smoke_served.json").write_text(json.dumps(
+                {k: served_normalized(v) for k, v in srv["bodies"].items() if k != "metrics"}))
+        for k in mismatched:
+            print(f"served: {k} {json.dumps(rec[k])} differs from the JAX run's "
+                  f"{json.dumps(JAX_CPU_SERVED[k])}")
+        fail(f"served: {mismatched} differ from the JAX run's; /metrics lacks {missing}")
+    perf = srv["bodies"]["perf"]
+    fp, mem = perf["fingerprint"], perf["memory"]
+    if fp.get("platform") != "gpu" or fp.get("deviceKind") != name or \
+            mem.get("peakBytesInUse", 0) <= 0 or mem.get("fallback") != 0:
+        fail(f"served: /perf does not name the card or shows no device-memory peak: {fp}, {mem}")
+    print("served: every body (less the volatile keys), the demote's first answer, the proposal "
+          "cache's hit, the three solves and the demote's execution over the wire equal the JAX "
+          f"run's; /perf names {fp['deviceKind']} with a "
+          f"{mem['peakBytesInUse'] / 2**30:.2f} GiB device-memory peak")
+    print("served: host seconds per request: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in srv["seconds"].items()) + f" ({card})")
+    return dict(seconds=srv["seconds"], record=rec,
+                launches={k: v[0] for k, v in request_launches.items()})
+
+
+def entry_point_phase(name: str, card: str) -> dict:
+    """Phase 22: `python -m cruise_control_torch.main --port <free>` as a
+    subprocess (its default 12-broker simulated cluster, the solves on the
+    card), driven by `python -m cruise_control_torch.client.cccli`: state,
+    then proposals until the monitor has its first window (the typed 503
+    before it, retried until MAIN_DEADLINE_S), kafka_cluster_state --verbose
+    and rebalance --dryrun true. The background loops run on the wall clock,
+    so the phase holds invariants: every command exits 0, the proposals
+    replay from the cluster's assignment and leave no replica on a dead
+    broker, /perf names the card `name` with a nonzero device-memory peak
+    and the kernel libraries found in the build cache, /metrics counts at
+    least one solve, and SIGINT stops the service within MAIN_SIGINT_S.
+    Returns the host seconds of each step."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    import urllib.request
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    seconds = {}
+    log = tempfile.TemporaryFile(mode="w+")
+    t0 = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", "cruise_control_torch.main", "--port",
+                             str(port)], stdout=log, stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+
+    def output() -> str:
+        log.seek(0)
+        return log.read()[-4000:]
+
+    def cli(*args):
+        t = time.monotonic()
+        out = subprocess.run([sys.executable, "-m", "cruise_control_torch.client.cccli", "-a",
+                              url, "--json", *args], capture_output=True, text=True, timeout=600)
+        seconds[args[0]] = time.monotonic() - t
+        body = json.loads(out.stdout) if out.stdout.strip() else {}
+        return out.returncode, body, out.stderr
+
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"main: the service exited with {proc.returncode} before it listened:\n"
+                     f"{output()}")
+            with socket.socket() as sock:
+                if sock.connect_ex(("127.0.0.1", port)) == 0:
+                    break
+            if time.monotonic() - t0 > MAIN_DEADLINE_S:
+                fail(f"main: the service did not listen within {MAIN_DEADLINE_S} s")
+            time.sleep(0.2)
+        seconds["listening"] = time.monotonic() - t0
+        rc, state, err = cli("state")
+        if rc != 0 or "MonitorState" not in state:
+            fail(f"main: cccli state exited {rc}: {err or state}")
+        t1, retries = time.monotonic(), 0
+        while True:
+            rc, proposals, err = cli("proposals")
+            if rc == 0:
+                break
+            if proposals.get("status") != 503 or time.monotonic() - t0 > MAIN_DEADLINE_S:
+                fail(f"main: cccli proposals exited {rc}: {err or proposals}")
+            retries += 1
+            time.sleep(1.0)
+        seconds["first proposals"] = time.monotonic() - t1
+        rc, cluster, err = cli("kafka_cluster_state", "--verbose")
+        if rc != 0:
+            fail(f"main: cccli kafka_cluster_state exited {rc}: {err or cluster}")
+        rc, rebalance, err = cli("rebalance", "--dryrun", "true")
+        if rc != 0 or "goalSummary" not in rebalance:
+            fail(f"main: cccli rebalance --dryrun true exited {rc}: {err or rebalance}")
+        dead = {b["Broker"] for b in cluster["KafkaBrokerState"] if b["BrokerState"] == "DEAD"}
+        replicas = {p["topicPartition"]: p["replicas"] for p in cluster["KafkaPartitionState"]}
+        for p in proposals["proposals"]:
+            if replicas.get(p["topicPartition"]) != p["oldReplicas"]:
+                fail(f"main: proposal {p['topicPartition']} does not start from the cluster's "
+                     f"replicas {replicas.get(p['topicPartition'])}")
+            replicas[p["topicPartition"]] = p["newReplicas"]
+        on_dead = sum(b in dead for r in replicas.values() for b in r)
+        if on_dead:
+            fail(f"main: {on_dead} replicas left on dead brokers after the proposals")
+        with urllib.request.urlopen(url + "/perf", timeout=120) as resp:
+            perf = json.loads(resp.read().decode())
+        with urllib.request.urlopen(url + "/metrics", timeout=120) as resp:
+            metrics = resp.read().decode()
+        fp, mem = perf["fingerprint"], perf["memory"]
+        if fp.get("platform") != "gpu" or fp.get("deviceKind") != name or \
+                mem.get("peakBytesInUse", 0) <= 0 or mem.get("fallback") != 0:
+            fail(f"main: /perf does not name the card or shows no device-memory peak: {fp}, "
+                 f"{mem}")
+        libraries = sorted((p["library"], p["built"]) for p in perf["programs"])
+        import re
+
+        solves = re.search(r'cruise_control_latency_seconds_count\{sensor="GoalOptimizer\.'
+                           r'proposal-computation-timer"\} (\d+)', metrics)
+        if solves is None or int(solves.group(1)) < 1:
+            fail("main: /metrics counts no proposal computation")
+        t2 = time.monotonic()
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=MAIN_SIGINT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"main: the service did not stop within {MAIN_SIGINT_S} s of SIGINT")
+        seconds["stop after SIGINT"] = time.monotonic() - t2
+        if rc != 0:
+            fail(f"main: the service exited {rc} after SIGINT:\n{output()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    print(f"main: {len(proposals['proposals'])} proposals over {len(replicas)} partitions replay "
+          f"from the cluster's assignment, none on the {len(dead)} dead brokers; rebalance "
+          f"--dryrun true: {rebalance['summary']['numReplicaMovements']} replica moves; the "
+          f"monitor's first window after {retries} typed 503s")
+    print(f"main: /perf names {fp['deviceKind']} ({fp['deviceCount']} card, torch {fp['torch']}, "
+          f"CUDA {fp['cuda']}), device-memory peak {mem['peakBytesInUse'] / 2**20:.1f} MiB; "
+          f"kernel libraries (name, built by nvcc) {libraries}; /metrics counts "
+          f"{solves.group(1)} solves; stopped {seconds['stop after SIGINT']:.2f} s after SIGINT")
+    print("main: host seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()) +
+          f" ({card})")
+    return dict(seconds=seconds, solves=int(solves.group(1)), libraries=libraries,
+                retries=retries, peak_bytes=mem["peakBytesInUse"])
 
 
 def executed_phase(res, model_m, meta_m, sim_m, monitor_m, card: str) -> dict:
@@ -2585,7 +3205,8 @@ def main() -> int:
     solves = {}
     results = {}
 
-    def run_and_check(label, model_s, solve, path, ref, ref_moves, polish=False, excluded=None):
+    def run_and_check(label, model_s, solve, path, ref, ref_moves, polish=False, excluded=None,
+                      measured=None):
         """Run `solve()` (it returns an OptimizerResult) with every kernel's
         launch count set to 0 just before and read just after, and check its
         result: the kernels of its path launched, no goal worse (unless the
@@ -2593,16 +3214,21 @@ def main() -> int:
         the `excluded` partitions, bool[P], which may not move),
         sanity_check, the proposals replay, and the decision digest and final
         assignment equal the JAX CPU run's. `model_s` may be a function that
-        returns the solved model once `solve()` has run. Returns the result."""
+        returns the solved model once `solve()` has run. `measured` =
+        (launch counts, wall seconds) of a solve the caller ran and counted
+        itself (`solve()` then returns its result). Returns the result."""
         polish_skips.update(tests=0, skipped=0, k7=0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.monotonic()
-        res = solve()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        counts = kernels.launches()
+        if measured is None:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.monotonic()
+            res = solve()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts = kernels.launches()
+        else:
+            res, (counts, wall) = solve(), measured
         if callable(model_s):
             model_s = model_s()
         dead_ids = np.nonzero(model_s.broker_state.numpy() == 3)[0]
@@ -2939,7 +3565,14 @@ def main() -> int:
                                       "execution")) + f"; {rec['executed']['numTotalMovements']}"
           f" tasks in {rec['executed']['batches']} batches ({card})")
     executed["self_healing"] = dict(seconds=sec, record=rec)
-    del res, model_m, sim_m, monitor_m, healed
+    del res, healed
+
+    # -- 21. served: the REST front end on phase 20's cluster, on the card --
+    executed["served"] = served_phase(sim_m, monitor_m, name, card, run_and_check)
+    del model_m, sim_m, monitor_m
+
+    # -- 22. main: the entry point as users start it --------------------------
+    executed["main"] = entry_point_phase(name, card)
 
     if results["service"][:2] != results["stack"][:2]:
         fail("service: the chunked solve's final assignment or touch tags differ from the "

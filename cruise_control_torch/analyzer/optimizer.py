@@ -36,11 +36,19 @@ armed profile dir captures one with the torch profiler), a `device-call`
 span and `cc-machine-call` profiler range per machine call, synthetic `goal`
 spans, a `provenance` span around the ledger, the prep cache's hit and miss
 meters, the round, call, proposal and stack timers, and a sensor history
-point at each proposal boundary (common/history.py). Left out: the JAX
-package's program-cache meters, its stack-compile timers and its
-`TELEMETRY` calls, which are tied to XLA compilation and its cost analysis;
-they wait for the port's kernel-build cache and device telemetry (ROADMAP.md
-Queue 1 item 7, step 6).
+point at each proposal boundary (common/history.py). The JAX package's
+program cache is the kernel-build cache here: before a solve on the card
+`_kernel_libraries` loads every kernel library (kernels/build.py: built by
+nvcc, or found in the build cache that compile_cache.py makes durable) and
+marks `GoalOptimizer.program-cache-hits` when they were all loaded already,
+else `-misses`, with the libraries' seconds on `stack-compile-timer` and its
+`.bucket.<label>` twin and one `TELEMETRY.record_program` row a library
+(`-evictions` counts the stale libraries the cache dropped, `-size` the
+libraries loaded). `TELEMETRY` meters the host<->device transfers the port
+makes (the prep cache's miss path up, the result's read-back down; the
+assignment then stays on the card, so the JAX package's per-call aggregates
+upload has no counterpart) and polls device memory at each proposal
+boundary.
 """
 
 from __future__ import annotations
@@ -92,8 +100,10 @@ from cruise_control_torch.analyzer.stats import (
 from cruise_control_torch.analyzer.swaps import make_swap_round
 from cruise_control_torch.common.history import HISTORY
 from cruise_control_torch.common.sensors import REGISTRY
+from cruise_control_torch.common.telemetry import TELEMETRY, tree_nbytes
 from cruise_control_torch.common.tracing import TRACER, maybe_profile
 from cruise_control_torch.config.balancing import BalancingConstraint
+from cruise_control_torch.kernels import build
 from cruise_control_torch.kernels.apply_wave import apply_wave
 from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
 from cruise_control_torch.kernels.score_candidates import ScoreContext, score_candidates
@@ -105,6 +115,9 @@ from cruise_control_torch.parallel.sharding import (
     pad_partitions_to,
     partition_bucket,
 )
+
+
+REGISTRY.gauge("GoalOptimizer.program-cache-size", build.loaded)
 
 
 class OptimizationFailureException(Exception):
@@ -835,7 +848,11 @@ class GoalOptimizer:
             self._prep_cache[key] = hit
             while len(self._prep_cache) > _PREP_CACHE_SIZE:
                 self._prep_cache.popitem(last=False)
+            # a prep miss is the upload of every static model array; the hit
+            # path moves nothing (that asymmetry is what the h2d meter shows)
+            TELEMETRY.record_transfer("h2d", tree_nbytes((hit[1], hit[3])))
         p_orig, pmodel, dims, static, static_canon, bucketed = hit[:6]
+        self._kernel_libraries(dims)
         agg = self._initial_aggregates(pmodel, dims, static, static_canon)
         return goals, p_orig, pmodel, dims, static, agg, bucketed
 
@@ -844,6 +861,35 @@ class GoalOptimizer:
         `_prepare` and the incremental lane. There is no mesh, so the
         canonical context is the context."""
         return compute_aggregates(static_canon, pmodel.assignment, dims)
+
+    def _kernel_libraries(self, dims: Dims) -> None:
+        """The build cache's lookup before a solve on the card (the JAX
+        package's `_compile_cached`, optimizer.py:1290): load every kernel
+        library not loaded yet (nvcc builds it, or the build cache holds it)
+        and meter the lookup. The CPU path runs the plain versions and looks
+        nothing up."""
+        if self._device.type != "cuda":
+            return
+        seen = len(build.records())
+        evicted = build.evictions()
+        build.build_all()
+        fresh = build.records()[seen:]
+        if not fresh:
+            REGISTRY.meter("GoalOptimizer.program-cache-hits").mark()
+            return
+        REGISTRY.meter("GoalOptimizer.program-cache-misses").mark()
+        if build.evictions() > evicted:
+            REGISTRY.meter("GoalOptimizer.program-cache-evictions").mark(
+                build.evictions() - evicted)
+        # the span that triggered the builds pays them; flag it so span
+        # readers can split cold from warm
+        TRACER.add_attributes(recompile=True)
+        label = bucket_label(dims)
+        seconds = max(r.seconds for r in fresh)
+        REGISTRY.histogram("GoalOptimizer.stack-compile-timer").record(seconds)
+        REGISTRY.histogram("GoalOptimizer.stack-compile-timer.bucket." + label).record(seconds)
+        for r in fresh:
+            TELEMETRY.record_program(f"kernel library {r.name}", label, r)
 
     def prepared_entry(self, model: FlatClusterModel, options: OptimizationOptions):
         """(p_orig, pmodel, dims, static, static_canon, bucketed) of the prep
@@ -924,15 +970,12 @@ class GoalOptimizer:
     def warmup(self, model: FlatClusterModel, goal_names: Optional[Sequence[str]] = None,
                options: OptimizationOptions = OptimizationOptions()) -> float:
         """Pay the first-use costs outside a timed solve (optimizer.py:1860):
-        build the kernels (on the card), prepare the model (the prep cache's
-        entry), compute its statistics, then make one budget-1 machine call
-        and, with the polish pass, the final re-measure; the fused stack has
-        no short call, so it runs whole. Returns the seconds spent."""
+        build the kernels (on the card) and prepare the model (`_prepare`:
+        the prep cache's entry), compute its statistics, then make one
+        budget-1 machine call and, with the polish pass, the final
+        re-measure; the fused stack has no short call, so it runs whole.
+        Returns the seconds spent."""
         t0 = time.monotonic()
-        if self._device.type == "cuda":
-            from cruise_control_torch.kernels import build
-
-            build.build_all()
         goals, _, pmodel, dims, static, agg, _ = self._prepare(model, goal_names, options)
         compute_stats(pmodel, dims.num_topics)
         names = tuple(g.name for g in goals)
@@ -974,8 +1017,10 @@ class GoalOptimizer:
             root.attributes.update(numProposals=len(result.proposals),
                                    replicaMoves=result.num_replica_moves,
                                    leadershipMoves=result.num_leadership_moves)
-        # a sensor time-series point at the proposal boundary (rate-limited;
-        # the point records the registry as this computation left it)
+        # advance the device-memory watermark and snapshot the sensor
+        # time-series at the proposal boundary (rate-limited; the history
+        # point records the registry as this computation left it)
+        TELEMETRY.update_memory()
         HISTORY.record_boundary("proposal")
         return result
 
@@ -997,13 +1042,17 @@ class GoalOptimizer:
             t0 = time.monotonic()
             goals = goals_by_priority(goal_names)
             check_supported(goals, self._settings, OptimizationOptions())
+            if pmodel.assignment.device != self._device:
+                TELEMETRY.record_transfer("h2d", tree_nbytes(pmodel))
             pmodel = pmodel.to(self._device)
+            self._kernel_libraries(dims)
             agg = self._initial_aggregates(pmodel, dims, static, static_canon)
             result = self._solve_prepared(goals, p_orig, pmodel, dims, static, agg, bucketed,
                                           raise_on_hard_failure, t0)
             root.attributes.update(numProposals=len(result.proposals),
                                    replicaMoves=result.num_replica_moves,
                                    leadershipMoves=result.num_leadership_moves)
+        TELEMETRY.update_memory()
         HISTORY.record_boundary("proposal")
         return result
 
@@ -1111,6 +1160,8 @@ class GoalOptimizer:
         final_np = agg.assignment[:p_orig].cpu().numpy()
         touch_np = agg.touch_tag[:p_orig].cpu().numpy()
         stats_before, stats_after = stats_to_host(stats_before), stats_to_host(stats_after)
+        TELEMETRY.record_transfer("d2h", tree_nbytes(
+            (metrics_full, stats_before, stats_after, init_full, final_np, touch_np, prov)))
 
         total_rounds = max(1, int(metrics.rounds.sum()))
         if goal_durs is None and int(metrics.rounds.sum()) > 0:

@@ -13,6 +13,13 @@ their source (and of the shared headers `*.cuh`), so an edited source
 rebuilds and an unchanged one is reused. Builds happen at first use, never at import;
 `build_all()` starts one `nvcc` per source, all at once.
 
+That directory is the build cache: `compile_cache.enable_persistent_cache`
+points it elsewhere (`set_build_dir`). Each library loaded into this process
+leaves a `BuildRecord` (its name, the seconds its build or load took, and
+whether nvcc built it or the cache held it) in `records()`; building a
+library removes the stale ones of the same kernel from the cache
+(`evictions()`).
+
 Every wrapper calls its C entry point through `entry()`, whose argument
 types are set once (each argument one by one: a device address, a 64-bit
 integer, the stream last), with the stream from `raw_stream()`.
@@ -28,7 +35,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Sequence
+from typing import Dict, List, NamedTuple, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "cruise_control_torch"
@@ -42,6 +49,41 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+class BuildRecord(NamedTuple):
+    """One kernel library loaded into this process."""
+
+    name: str
+    seconds: float  # from the start of its build_all call until it was loaded
+    built: bool  # True: nvcc built it; False: the build cache held it
+
+
+_RECORDS: List[BuildRecord] = []
+_EVICTIONS = [0]
+
+
+def set_build_dir(path) -> pathlib.Path:
+    """Build and look up the libraries in `path` from now on."""
+    global BUILD_DIR
+    BUILD_DIR = pathlib.Path(path)
+    return BUILD_DIR
+
+
+def records() -> List[BuildRecord]:
+    """Every library loaded into this process so far, in load order."""
+    with _LOCK:
+        return list(_RECORDS)
+
+
+def loaded() -> int:
+    """How many kernel libraries this process holds."""
+    return len(_LIBS)
+
+
+def evictions() -> int:
+    """Stale libraries removed from the build cache by this process."""
+    return _EVICTIONS[0]
 
 
 def _nvcc() -> str:
@@ -81,6 +123,14 @@ def _finish(name: str, out: pathlib.Path, pending) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} ({' '.join(cmd)}):\n{log}")
     os.replace(tmp, out)
+    # the library of an older source of the same kernel is stale for good
+    for stale in out.parent.glob(f"lib{name}-*.so"):
+        if stale != out:
+            try:
+                stale.unlink()
+                _EVICTIONS[0] += 1
+            except OSError:
+                pass
 
 
 def build_all(names: Sequence[str] = KERNEL_SOURCES) -> float:
@@ -90,9 +140,10 @@ def build_all(names: Sequence[str] = KERNEL_SOURCES) -> float:
     with _LOCK:
         started = [(n, *_start(n)) for n in names if n not in _LIBS]
         for n, out, pending in started:
+            # every nvcc started at t0: a library is ready when its own ends
             _finish(n, out, pending)
-        for n, out, _ in started:
             _LIBS[n] = ctypes.CDLL(str(out))
+            _RECORDS.append(BuildRecord(n, time.monotonic() - t0, pending is not None))
     return time.monotonic() - t0
 
 

@@ -1,7 +1,8 @@
-"""chip_smoke.py's phase-19 and phase-20 references, computed on the JAX
-package on the CPU.
+"""chip_smoke.py's phase-19, phase-20 and phase-21 references, computed on
+the JAX package on the CPU.
 
-    JAX_PLATFORMS=cpu python scripts/executor_references.py [--no-chaos]
+    JAX_PLATFORMS=cpu python scripts/executor_references.py [--no-chaos] \
+        [--served [--bodies PATH]]
 
 Runs phase 18's recipe on the JAX package (the smoke model's metrics through
 chip_smoke.monitored_model, then the pinned bucketed service solve, held to
@@ -14,9 +15,19 @@ over the TCP wire). Prints each run's execution_record beside chip_smoke's
 JAX_CPU_EXECUTED / JAX_CPU_CHAOS, phase 20's record, decision digest, final
 assignment SHA-256 and goal rows beside JAX_CPU_SELF_HEALING /
 JAX_CPU_DIGESTS["broker failure"] / JAX_CPU_SELF_HEALING_REFERENCE, and the
-host seconds of each step. About 12 minutes and 2 GB on 8 CPU cores; the
-slow-lane test_torch_service.py::test_chip_smoke_jax_references_are_current
-asserts the same records.
+host seconds of each step. With --served, then phase 21's:
+chip_smoke.served on that simulator and monitor, the JAX service served by
+its aiohttp server and driven by its client; prints the record
+(chip_smoke.served_record) beside JAX_CPU_SERVED, each solve's digest, final
+assignment SHA-256, goal rows and moves beside JAX_CPU_DIGESTS["served
+..."], JAX_CPU_SERVED_REFERENCE and JAX_CPU_SERVED_MOVES, JAX's
+elect_preferred_leaders on the demote's initial and final assignments beside
+JAX_CPU_SERVED_K11_SHA256, and each request's host seconds; --bodies writes
+the normalized bodies (chip_smoke.served_normalized) to PATH as JSON. About
+12 minutes and 2 GB on 8 CPU cores without --served, and about twice that
+with it; the slow-lane
+test_torch_service.py::test_chip_smoke_jax_references_are_current asserts
+the same records.
 """
 
 import dataclasses
@@ -66,6 +77,81 @@ def oversized(model, assignment, dead) -> dict:
     held = np.unique(assignment[big][assignment[big] >= 0])
     return {"partitions": int(big.sum()), "max_ratio": float(disk.max() / cap),
             "alive_brokers_holding_one": int(np.setdiff1d(held, dead).size)}
+
+
+def aiohttp_serve(app):
+    """Serve the JAX package's app on loopback with aiohttp on a thread:
+    (url, stop)."""
+    import asyncio
+    import socket
+    import threading
+
+    from aiohttp import web
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    loop = asyncio.new_event_loop()
+    started = threading.Event()
+    runner = web.AppRunner(app.build_app())
+
+    def run():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
+        started.set()
+        loop.run_forever()
+        loop.run_until_complete(runner.cleanup())
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    started.wait(30)
+
+    def stop():
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=10)
+
+    return f"http://127.0.0.1:{port}", stop
+
+
+def served_references(sim, monitor) -> dict:
+    """Phase 21 on the JAX package: its record, each solve's digest, final
+    assignment SHA-256, goal rows and moves, K11's SHA-256s on the demote's
+    assignments and the requests' host seconds."""
+    from cruise_control_tpu.analyzer.context import build_static_ctx, dims_of
+    from cruise_control_tpu.analyzer.goals.preferred import elect_preferred_leaders
+    from cruise_control_tpu.config.balancing import BalancingConstraint
+
+    out = chip_smoke.served(sim, monitor, chip_smoke.package_classes(
+        "cruise_control_tpu", chip_smoke.SERVED_CLASSES), aiohttp_serve)
+    record = chip_smoke.served_record(out, sim)
+    solves = {}
+    for label, (model, res) in zip(("served proposals", "served rebalance", "served demote"),
+                                   out["solves"]):
+        names = [g.name for g in res.goal_results]
+        dg = res.provenance.digest(goals=names)
+        sha = hashlib.sha256(np.ascontiguousarray(res.final_assignment, dtype=np.int32)
+                             .tobytes()).hexdigest()
+        solves[label] = {
+            "digest": [dg["checksum"], dg["byGoal"], sha],
+            "digest_equal": (dg["checksum"], dg["byGoal"], sha) ==
+            chip_smoke.JAX_CPU_DIGESTS.get(label),
+            "reference": {g.name: [g.violated_brokers_before, g.violated_brokers_after, g.rounds,
+                                   g.converged, float(f"{g.cost_before:.4g}"),
+                                   float(f"{g.cost_after:.4g}")] for g in res.goal_results},
+            "moves": {"replica": res.num_replica_moves, "leadership": res.num_leadership_moves}}
+    model, res = out["solves"][2]
+    cfg = chip_smoke.package_classes("cruise_control_tpu", chip_smoke.SERVED_CLASSES) \
+        .CruiseControlConfig(chip_smoke.SELF_HEALING_CONFIG)
+    st = build_static_ctx(model, BalancingConstraint.from_config(cfg), dims_of(model))
+    k11 = {which: hashlib.sha256(np.ascontiguousarray(np.asarray(jax.jit(
+        elect_preferred_leaders)(st, np.asarray(a))), dtype=np.int32).tobytes()).hexdigest()
+        for which, a in (("initial", model.assignment), ("final", res.final_assignment))}
+    return dict(served=record, served_equal=record == getattr(chip_smoke, "JAX_CPU_SERVED", None),
+                served_solves=solves, served_k11_sha256=k11,
+                served_seconds=out["seconds"], bodies={
+                    k: chip_smoke.served_normalized(v) for k, v in out["bodies"].items()
+                    if k != "metrics"})
 
 
 def main() -> int:
@@ -135,6 +221,12 @@ def main() -> int:
         replicas_on_dead_brokers_after=int(np.isin(final, dead).sum()),
         oversized_partitions=oversized(monitored, final, dead),
         host_seconds=seconds)
+    if "--served" in sys.argv:
+        served = served_references(sim, monitor)
+        bodies = served.pop("bodies")
+        if "--bodies" in sys.argv:
+            Path(sys.argv[sys.argv.index("--bodies") + 1]).write_text(json.dumps(bodies))
+        out.update(served)
     print(json.dumps(out, indent=1))
     return 0
 

@@ -58,6 +58,12 @@ SELF_HEALING_PATH = tuple(f"cruise_control_torch.{m}" for m in (
     "detector", "detector.anomalies", "detector.notifier", "detector.detectors",
     "detector.anomaly_detector", "facade", "async_ops", "common.lineserver", "testing.faults",
     "executor.tcp_driver", "testing.fake_agent", "executor.kafka_agent"))
+#: the service's front door: the CUDA probe, device telemetry, the
+#: kernel-build cache, the REST servlet, the CLI client and the entry point
+FRONT_DOOR_PATH = tuple(f"cruise_control_torch.{m}" for m in (
+    "platform_probe", "common.telemetry", "compile_cache", "servlet", "servlet.purgatory",
+    "servlet.user_tasks", "servlet.responses", "servlet.server", "client", "client.endpoint",
+    "client.display", "client.cccli", "main"))
 
 
 def test_every_module_imports_without_jax():
@@ -75,6 +81,9 @@ def test_every_module_imports_without_jax():
         f"    sorted(set({EXECUTOR_PATH!r}) - set(names))\n"
         f"assert set({SELF_HEALING_PATH!r}) <= set(names), \\\n"
         f"    sorted(set({SELF_HEALING_PATH!r}) - set(names))\n"
+        f"assert set({FRONT_DOOR_PATH!r}) <= set(names), \\\n"
+        f"    sorted(set({FRONT_DOOR_PATH!r}) - set(names))\n"
+        "assert 'aiohttp' not in sys.modules, 'the port serves on the standard library'\n"
         "from cruise_control_torch.config import CruiseControlConfig\n"
         "from cruise_control_torch.detector import AnomalyNotifier, NoopNotifier\n"
         "n = CruiseControlConfig({}).get_configured_instance('anomaly.notifier.class',\n"

@@ -2268,3 +2268,74 @@ def test_k9_replication_factor_2000(name):
     for k in (4, 16):
         cands = torch.from_numpy(np.random.default_rng(k).permutation(24)[:k].astype(np.int32))
         _k9_both(sc, sg, ac, ag, dims, name, cands)
+
+
+def _served_service(device):
+    """A 24-broker simulated cluster sampled for two 1 s windows on a
+    scripted clock, the facade's optimizer on `device`, served on loopback
+    by the port's server: (client, stop)."""
+    from cruise_control_torch.async_ops import AsyncCruiseControl
+    from cruise_control_torch.client.cccli import CruiseControlClient
+    from cruise_control_torch.executor import Executor, SimulatorClusterDriver
+    from cruise_control_torch.facade import CruiseControl, FacadeConfig
+    from cruise_control_torch.monitor.completeness import ModelCompletenessRequirements
+    from cruise_control_torch.monitor.load_monitor import LoadMonitor, LoadMonitorConfig
+    from cruise_control_torch.monitor.metadata import MetadataClient
+    from cruise_control_torch.monitor.sampler import TransportMetricSampler
+    from cruise_control_torch.reporter.transport import InMemoryTransport
+    from cruise_control_torch.servlet.server import CruiseControlApp, serve
+    from cruise_control_torch.testing.simulator import SimulatedCluster
+
+    sim = SimulatedCluster(generators.random_cluster(42, PROP))
+    transport = InMemoryTransport()
+    clock = {"now": 0.0}
+    monitor = LoadMonitor(MetadataClient(sim.fetch_topology, ttl_s=0.0),
+                          TransportMetricSampler(transport),
+                          config=LoadMonitorConfig(window_ms=1000, num_windows=3,
+                                                   min_samples_per_window=1),
+                          clock=lambda: clock["now"])
+    monitor.start_up()
+    for r in range(3):
+        transport.publish(sim.all_metrics(r * 1000 + 500))
+        clock["now"] = r + 0.8
+        monitor.sample_once()
+    facade = CruiseControl(
+        monitor, Executor(SimulatorClusterDriver(sim), load_monitor=monitor),
+        optimizer=opt.GoalOptimizer(settings=opt.SERVICE_SETTINGS, device=device),
+        config=FacadeConfig(default_requirements=ModelCompletenessRequirements(1, 0.5, False)))
+    acc = AsyncCruiseControl(facade)
+    handle = serve(CruiseControlApp(acc), "127.0.0.1", 0)
+
+    def stop():
+        handle.shutdown()
+        acc.shutdown()
+
+    return CruiseControlClient(handle.url, poll_interval_s=0.05), stop
+
+
+def test_service_on_the_card_answers_rest_like_the_cpu():
+    """The port's REST service with its solves on the card answers /load
+    (K1 on the card) and a dry-run rebalance with the bodies the same
+    service on the CPU gives, run ids and durations aside."""
+    _card()
+    from cruise_control_torch import kernels
+
+    def strip(body):
+        if isinstance(body, dict):
+            return {k: strip(v) for k, v in body.items()
+                    if k not in ("durationS", "provenanceRun")}
+        return [strip(v) for v in body] if isinstance(body, list) else body
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        client, stop = _served_service(device)
+        try:
+            kernels.reset_launches()
+            load = client.request("load")
+            out[device] = (load, kernels.launches()["segment_aggregates"],
+                           strip(client.request("rebalance", {"dryrun": "true"})))
+        finally:
+            stop()
+    assert out["cuda"][1] > 0 and out["cpu"][1] == 0
+    assert out["cuda"][0] == out["cpu"][0] and len(out["cuda"][0]["brokers"]) == 24
+    assert out["cuda"][2] == out["cpu"][2] and out["cuda"][2]["proposals"]

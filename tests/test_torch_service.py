@@ -338,7 +338,11 @@ def test_chip_smoke_jax_references_are_current():
     (chip_smoke.execution_record); then phase 20: a broker of that simulator
     killed, detected, decommissioned through the JAX facade and executed over
     the TCP wire (chip_smoke.self_healing), held to its record
-    (chip_smoke.self_healing_record), digest and goal rows."""
+    (chip_smoke.self_healing_record), digest and goal rows; then phase 21: the
+    JAX service on that cluster, served by aiohttp and driven by its client
+    (chip_smoke.served), held to its record (chip_smoke.served_record), the
+    three solves' digests and goal rows and K11 on the demote's
+    assignments."""
     import hashlib
 
     sys.path.insert(0, str(REPO))
@@ -495,3 +499,16 @@ def test_chip_smoke_jax_references_are_current():
         "cruise_control_tpu", chip_smoke.SELF_HEALING_CLASSES))
     assert chip_smoke.self_healing_record(healed, sim) == chip_smoke.JAX_CPU_SELF_HEALING
     check("broker failure", healed["result"], chip_smoke.JAX_CPU_SELF_HEALING_REFERENCE)
+    # phase 21: the JAX service on that cluster, served by its aiohttp server
+    # and driven by its client (scripts/executor_references.py --served)
+    sys.path.insert(0, str(REPO / "scripts"))
+    import executor_references
+
+    served = executor_references.served_references(sim, monitor)
+    assert served["served"] == chip_smoke.JAX_CPU_SERVED
+    for label, row in served["served_solves"].items():
+        assert tuple(row["digest"]) == chip_smoke.JAX_CPU_DIGESTS[label], label
+        assert row["moves"] == chip_smoke.JAX_CPU_SERVED_MOVES[label], label
+        assert {g: tuple(r[:4]) for g, r in row["reference"].items()} == {
+            g: r[:4] for g, r in chip_smoke.JAX_CPU_SERVED_REFERENCE[label].items()}, label
+    assert served["served_k11_sha256"] == chip_smoke.JAX_CPU_SERVED_K11_SHA256
