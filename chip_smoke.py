@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the twelve CUDA kernels from cruise_control_torch/csrc,
+  2. build: compile the fourteen CUDA kernels from cruise_control_torch/csrc,
      one nvcc per source, all at once;
   3. kernels: run each kernel on the card at the shapes the solves give it,
      on the smoke model's own state, and hold it against its plain PyTorch
@@ -169,6 +169,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      exits 0, the proposals replay with no replica on a dead broker, /perf
      names the card with a nonzero device-memory peak, /metrics counts a
      solve, and SIGINT stops the service within MAIN_SIGINT_S.
+ 23. mesh (mesh_phase): the partition-axis mesh, its shards row blocks of
+     the one card: K12 shard_merge and K13 partition_stats against their
+     plain versions (K12 on generated record sets, K13 on the smoke model
+     padded to 199,520 rows, also against the host's counts) and timed; the
+     sharded shortlist on 8 row blocks at the smoke model's full greedy grid
+     equal to the unsharded K9; the parity model under GREEDY_SETTINGS on 4
+     shards (K9 a shard and K12 a grid round) held to phase 9's JAX digest;
+     the bucketed service solve on 8 shards held to phase 10's, K13's
+     coverage certificate on its placed context, lane (a) under that mesh
+     held to phase 12's; `make_mesh_from_config` refusing a mesh larger than
+     the card count with the JAX package's message.
   Around each solve every kernel's launch count is set to 0 and read after
   (K3's and K5's also by path; the service bucketed solve must take all
   three of K3's);
@@ -365,6 +376,11 @@ JAX_CPU_BENCH_BUCKETED_MOVES = {"replica": 24356, "leadership": 1955}
 JAX_CPU_BENCH_MOVES = {"replica": 24356, "leadership": 1955}
 JAX_CPU_PARITY_GREEDY_MOVES = {"replica": 15916, "leadership": 313}
 JAX_CPU_PARITY_BATCHED_MOVES = {"replica": 15896, "leadership": 325}
+#: Phase 23: the mesh's solves pad nothing, so they are held to phases 9, 10
+#: and 12's constants; the JAX package's own mesh-4 greedy run of the parity
+#: model on 4 virtual CPU devices makes phase 9's decisions too
+#: (scripts/executor_references.py --mesh).
+JAX_CPU_DIGESTS["mesh parity greedy"] = JAX_CPU_DIGESTS["parity greedy"]
 #: Phases 10 and 12: the smoke model under SERVICE_SETTINGS (shape bucketing
 #: on), then the lane armed on that solve: (a) lane_perturbations' load spike and partition adds, (b)
 #: one more dead broker. JAX's bucketed service run decides otherwise than
@@ -464,6 +480,8 @@ JAX_CPU_DIGESTS["lane b"] = (
     },
     "f34bf71fa6a72713ec7edb9cd332d84a68e46dbc0854c4a574d408e2480980d6")
 JAX_CPU_LANE_B_MOVES = {"replica": 48901, "leadership": 20175}
+JAX_CPU_DIGESTS["mesh service bucketed"] = JAX_CPU_DIGESTS["service bucketed"]
+JAX_CPU_DIGESTS["mesh lane a"] = JAX_CPU_DIGESTS["lane a"]
 #: the option phases (13-17): JAX's CPU runs of option_recipes under the
 #: pinned SERVICE_SETTINGS: each goal's row, the moves, the decision digest
 #: with per-goal move counts and the final assignment's SHA-256
@@ -907,10 +925,22 @@ OPTION_PATH = {
 #: configuration, its two hard goals through the chunked machine (no soft
 #: goal runs, so neither the windows' sums nor the swaps and pair drains)
 SELF_HEALING_PATH = _MACHINE_PATH
+#: phase 23's greedy solve on the mesh: K9 once a shard and K12 once a grid round
+MESH_PATH = GREEDY_PATH + ("shard_merge",)
 #: the kernels of the JSON line, in the order of build.KERNEL_SOURCES
 ALL_KERNELS = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
                "score_swaps", "pair_picks", "window_sum", "state_fingerprint", "cluster_stats",
-               "grid_shortlist", "delta_scatter", "elect_preferred")
+               "grid_shortlist", "delta_scatter", "elect_preferred", "shard_merge",
+               "partition_stats")
+#: phase 23's meshes, shards of the one card: 4 for the parity model (40,316
+#: = 4 x 10,079 partitions, so the mesh pads nothing), 8 for the smoke
+#: model's bucketed service solve (212,992 = 8 x 26,624) and for the kernel
+#: rows (the smoke model's 199,518 partitions padded to 199,520)
+MESH_PARITY_SHARDS, MESH_SERVICE_SHARDS = 4, 8
+#: phase 23's K12 record sets: (shards, records a shard), and their kinds
+MESH_MERGE_SHAPES = ((2, 1), (4, 1), (8, 1), (2, 16), (4, 16), (8, 16))
+MESH_MERGE_KINDS = ("random", "equal scores across shards", "-0.0 against +0.0",
+                    "shards all -inf", "all -inf")
 #: partitions the lane phase's first proposal adds (inside the bucket)
 LANE_ADDS = 8
 #: `_run_chunked`'s target wall time per machine call in every solve:
@@ -1877,6 +1907,291 @@ def entry_point_phase(name: str, card: str) -> dict:
           f" ({card})")
     return dict(seconds=seconds, solves=int(solves.group(1)), libraries=libraries,
                 retries=retries, peak_bytes=mem["peakBytesInUse"])
+
+
+def merge_records(kind: str, n_dev: int, k_loc: int, rng):
+    """Phase 23's K12 input: the [n_dev * k_loc] records a mesh of n_dev
+    shards gathers, each shard's k_loc (score f32, global partition i32 in
+    its 10,079-row block, kind, slot, dst), as CPU tensors."""
+    n = n_dev * k_loc
+    p = np.concatenate([np.sort(rng.choice(10079, k_loc, replace=False)) + 10079 * d
+                        for d in range(n_dev)]).astype(np.int32)
+    if kind == "random":
+        s = rng.standard_normal(n).astype(np.float32)
+    elif kind == "equal scores across shards":
+        s = rng.choice(np.float32([2.5, 0.125, -1.0]), n).astype(np.float32)
+    elif kind == "-0.0 against +0.0":
+        s = rng.choice(np.float32([0.0, -0.0, -1.0]), n).astype(np.float32)
+    elif kind == "shards all -inf":
+        s = rng.standard_normal(n).astype(np.float32)
+        s[: (n_dev // 2) * k_loc] = -np.inf
+    else:
+        s = np.full(n, -np.inf, np.float32)
+    rest = np.stack([rng.integers(0, 2, n), rng.integers(0, 3, n), rng.integers(0, 520, n)], 1)
+    return (torch.from_numpy(s),
+            torch.from_numpy(np.concatenate([p[:, None], rest.astype(np.int32)], axis=1)))
+
+
+def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
+               device="cuda:0") -> dict:
+    """Phase 23: the partition-axis mesh on one card, its shards row blocks
+    of cuda:0 (parallel/sharding.make_mesh may name a device several times).
+    (a) K12 bit-equal to its plain version on MESH_MERGE_SHAPES x
+    MESH_MERGE_KINDS at k_sel 1, k_loc and every record, and timed at (b)'s
+    shape; K13 on the smoke model padded to 8 shards (199,520 rows)
+    bit-equal to its plain version and to the host's counts, and timed; the
+    sharded shortlist on 8 row blocks at the smoke model's full greedy grid
+    (phase 3's hard goal with dead brokers and LeaderReplicaDistributionGoal)
+    equal to the unsharded K9 and to the plain sharded version, bit for bit,
+    its 8 K9 launches and K12 timed against one K9 launch. (b) The parity
+    model under GREEDY_SETTINGS (pinned) on a mesh of MESH_PARITY_SHARDS:
+    phase 9's JAX digest and SHA-256, K9 launched 4 times and K12 once a
+    grid round, as many grid rounds as phase 9's, each gathered once
+    (`collective_totals`). (c) The smoke model's bucketed service solve on
+    a mesh of MESH_SERVICE_SHARDS: phase 10's JAX digest and SHA-256; K13's
+    coverage certificate on its placed context equal to the host's counts
+    (its own launch count, the path of the JSON line's partition_stats row);
+    lane (a) under that mesh: lane (a)'s JAX digest, the lane's context
+    placed again after K10. (d) `make_mesh_from_config` on the card:
+    `tpu.mesh.devices=0` gives no mesh on one card, 2 raises JAX's message.
+    Every shard is a row block of `device`. Returns the phase's host seconds
+    and counts."""
+    from cruise_control_torch import kernels
+    from cruise_control_torch.analyzer import incremental as inc
+    from cruise_control_torch.analyzer import optimizer as opt
+    from cruise_control_torch.analyzer.acceptance import build_tables
+    from cruise_control_torch.analyzer.context import (
+        OptimizationOptions,
+        build_static_ctx,
+        compute_aggregates,
+        dims_of,
+    )
+    from cruise_control_torch.analyzer.goals import goals_by_priority
+    from cruise_control_torch.common.telemetry import TELEMETRY
+    from cruise_control_torch.config import CruiseControlConfig
+    from cruise_control_torch.config.balancing import BalancingConstraint
+    from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
+    from cruise_control_torch.kernels.partition_stats import partition_stats, partition_stats_plain
+    from cruise_control_torch.kernels.score_candidates import ScoreContext
+    from cruise_control_torch.kernels.shard_merge import shard_merge, shard_merge_plain
+    from cruise_control_torch.models.flat_model import from_numpy
+    from cruise_control_torch.parallel import sharding, spmd
+
+    t_phase = time.monotonic()
+    dev = torch.device(device)
+    out = {}
+
+    # (a) K12 on generated record sets, against its plain version on the CPU
+    rng = np.random.default_rng(SEED)
+    checked = 0
+    for n_dev, k_loc in MESH_MERGE_SHAPES:
+        for kind in MESH_MERGE_KINDS:
+            sc, rc = merge_records(kind, n_dev, k_loc, rng)
+            for k_sel in sorted({1, k_loc, n_dev * k_loc}):
+                want, got = shard_merge_plain(sc, rc, k_sel), shard_merge(sc.to(dev), rc.to(dev),
+                                                                          k_sel)
+                torch.cuda.synchronize()
+                if not (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1])):
+                    fail(f"mesh: K12 shard_merge ({kind}, {n_dev} x {k_loc}, k_sel {k_sel}) "
+                         "differs from the plain version")
+                checked += 1
+    sc, rc = merge_records("equal scores across shards", MESH_PARITY_SHARDS, 1, rng)
+    sg, rg = sc.to(dev), rc.to(dev)
+    n12 = sc.shape[0]
+    err12 = max(max_abs_err(a, b) for a, b in zip(shard_merge(sg, rg, 1),
+                                                   shard_merge_plain(sc, rc, 1)))
+    # a first profiler session after a long pause can hold no device time
+    # (phase 3's first row shows it too): warm it up on this call
+    device_ms(lambda i: shard_merge(sg, rg, 1))
+    # the records read once and the winner written; n^2 comparisons
+    r12 = row("shard_merge", "shard_merge.cu", "cruise_control_tpu/parallel/spmd.py:183", err12,
+              lambda i: shard_merge(sg, rg, 1), lambda i: shard_merge_plain(sg, rg, 1),
+              (n12 + 1) * 20, n12 * n12,
+              f"one block, a thread a record ranking it against the {n12} gathered records "
+              "(scores and partitions staged in shared memory), the winner written at rank 0")
+    print(f"mesh: K12 shard_merge bit-equal to its plain version on {checked} record sets "
+          f"(shards x records {list(MESH_MERGE_SHAPES)}, kinds {list(MESH_MERGE_KINDS)}); "
+          f"{r12['ms']:.4f} ms on the device at {n12} records, {r12['call_ms']:.4f} ms per "
+          f"call, plain {r12['plain_ms']:.4f} ms, bound {r12['bound_ms']:.8f} ms ({card})")
+
+    # K13 on the smoke model padded to MESH_SERVICE_SHARDS shards
+    padded = sharding.pad_partitions(model_cpu, MESH_SERVICE_SHARDS)
+    dims8 = dims_of(padded)
+    constraint = BalancingConstraint.default()
+    st_c = build_static_ctx(padded, constraint, dims8, valid_partitions=model_cpu.num_partitions)
+    padded_g = padded.to(dev)
+    st_g = build_static_ctx(padded_g, constraint, dims8,
+                            valid_partitions=model_cpu.num_partitions)
+    agg_g = compute_aggregates(st_g, padded_g.assignment, dims8)
+    p8, r = dims8.num_partitions, dims8.max_rf
+    mov_g, a_g = st_g.movable_partition, agg_g.assignment
+    host = [int(st_c.movable_partition.numpy().sum()), int((padded.assignment.numpy() >= 0).sum()),
+            p8]
+    got13 = partition_stats(mov_g, a_g)
+    torch.cuda.synchronize()
+    plain13 = partition_stats_plain(st_c.movable_partition, padded.assignment)
+    if not bits_equal(got13, plain13) or got13.tolist() != host:
+        fail(f"mesh: K13 partition_stats {got13.tolist()} differs from its plain version "
+             f"{plain13.tolist()} or the host's counts {host}")
+    r13 = row("partition_stats", "partition_stats.cu", "cruise_control_tpu/parallel/spmd.py:218",
+              max_abs_err(got13, plain13), lambda i: partition_stats(mov_g, a_g),
+              lambda i: partition_stats_plain(mov_g, a_g), p8 * (1 + 4 * r) + 12, p8 * (1 + r),
+              f"[{p8}, {r}] slots and {p8} flags: one launch, block counts, an atomic a block "
+              "and count, the last block writes the totals",
+              library=lambda i: (torch.sum(mov_g), torch.sum(a_g >= 0)))
+    print(f"mesh: K13 partition_stats on the smoke model padded to {p8} rows: {host} (movable, "
+          f"populated slots, rows), bit-equal to the plain version and the host's counts; "
+          f"{r13['ms']:.4f} ms on the device, {r13['call_ms']:.4f} ms per call, plain "
+          f"{r13['plain_ms']:.4f} ms, two integer torch.sum {r13['library_ms']:.4f} ms, bound "
+          f"{r13['bound_ms']:.6f} ms ({card})")
+
+    # the sharded shortlist on 8 row blocks of the card at the full grid
+    mesh8 = sharding.make_mesh(MESH_SERVICE_SHARDS, devices=[dev] * MESH_SERVICE_SHARDS)
+    placed = sharding.place_static(st_g, mesh8)
+    goals = goals_by_priority(None)
+    by_name = {g.name: g for g in goals}
+    out["shortlist"] = {}
+    for label, goal in (("hard goal", by_name["DiskCapacityGoal"]),
+                        ("leader count goal", by_name["LeaderReplicaDistributionGoal"])):
+        tables = build_tables(goals[:goals.index(goal)], st_g, agg_g, dims8)
+        gs = goal.prepare(st_g, agg_g, dims8)
+        cands = opt.dst_candidates(st_g, gs, agg_g, goal, dims8,
+                                   opt.GREEDY_SETTINGS.num_dst_candidates, tables)
+        shortlist = spmd.make_grid_shortlist(mesh8, goal, dims8, opt.GREEDY_SETTINGS)
+        k9, k12 = grid_shortlist.launches, shard_merge.launches
+        sharded = shortlist(placed, agg_g, gs, tables, cands)
+        torch.cuda.synchronize()
+        if (grid_shortlist.launches - k9, shard_merge.launches - k12) != (MESH_SERVICE_SHARDS, 1):
+            fail(f"mesh: the sharded shortlist ({label}) did not launch K9 once a shard and K12 "
+                 "once")
+        whole = grid_shortlist(st_g, agg_g, tables, goal, gs, cands)
+        plain = shortlist.plain(placed, agg_g, gs, tables, cands)
+        for name_, a_, b_, c_ in zip(("score", "p", "kind", "slot", "dst"), sharded, whole, plain):
+            if not (bits_equal(a_, b_) and bits_equal(a_, c_)):
+                fail(f"mesh: the sharded shortlist ({label}) {name_} differs from the unsharded "
+                     f"K9's or the plain version's ({a_.tolist()}, {b_.tolist()}, {c_.tolist()})")
+        if not bool(torch.isfinite(sharded[0]).all()):
+            fail(f"mesh: the sharded shortlist ({label}) found no finite cell")
+        ctx = ScoreContext(st_g, agg_g, tables, goal, gs)
+        ms_sharded = device_ms(lambda i: shortlist(placed, agg_g, gs, tables, cands))
+        ms_whole = device_ms(lambda i: grid_shortlist(st_g, agg_g, tables, goal, gs, cands,
+                                                      ctx=ctx))
+        call_sharded = time_ms(lambda i: shortlist(placed, agg_g, gs, tables, cands))
+        call_whole = time_ms(lambda i: grid_shortlist(st_g, agg_g, tables, goal, gs, cands,
+                                                      ctx=ctx))
+        out["shortlist"][label] = {"record": [float(sharded[0])] + [int(x) for x in sharded[1:]],
+                                   "ms_sharded": ms_sharded, "ms_whole": ms_whole,
+                                   "call_ms_sharded": call_sharded, "call_ms_whole": call_whole}
+        print(f"mesh: the shortlist ({label}) on {MESH_SERVICE_SHARDS} row blocks of "
+              f"[{p8 // MESH_SERVICE_SHARDS}, {r}, {cands.shape[0]}]: p {int(sharded[1])} kind "
+              f"{int(sharded[2])} slot {int(sharded[3])} dst {int(sharded[4])} score "
+              f"{float(sharded[0]):.6g}, bit-equal to the unsharded K9 and the plain sharded "
+              f"version; {MESH_SERVICE_SHARDS} K9 launches, the gather and K12 {ms_sharded} ms "
+              f"on the device ({call_sharded:.4f} ms per call) against one K9 launch "
+              f"{ms_whole} ms ({call_whole:.4f} ms per call) ({card})")
+    del padded_g, st_g, agg_g, placed, mov_g, a_g
+
+    # (b) the parity model's greedy pass on a mesh of MESH_PARITY_SHARDS
+    if parity_model.num_partitions % MESH_PARITY_SHARDS:
+        fail(f"mesh: the parity model's {parity_model.num_partitions} partitions are not a "
+             f"multiple of {MESH_PARITY_SHARDS}")
+    mesh4 = sharding.make_mesh(MESH_PARITY_SHARDS, devices=[dev] * MESH_PARITY_SHARDS)
+    o4 = opt.GoalOptimizer(settings=dataclasses.replace(opt.GREEDY_SETTINGS,
+                                                        chunk_target_s=PINNED_TARGET_S),
+                           mesh=mesh4)
+    before = TELEMETRY.collective_totals()["byOp"].get("all-gather", {"count": 0})["count"]
+    res = run_and_check("mesh parity greedy", parity_model,
+                        lambda: o4.optimizations(parity_model, None, raise_on_hard_failure=False),
+                        MESH_PATH, JAX_CPU_PARITY_GREEDY_REFERENCE, JAX_CPU_PARITY_GREEDY_MOVES)
+    gathers = TELEMETRY.collective_totals()["byOp"]["all-gather"]["count"] - before
+    counts = solves["mesh parity greedy"]["launches"]
+    rounds = solves["parity greedy"]["launches"]["grid_shortlist"]
+    if (counts["grid_shortlist"], counts["shard_merge"], gathers) != (
+            MESH_PARITY_SHARDS * rounds, rounds, rounds):
+        fail(f"mesh parity greedy: K9 {counts['grid_shortlist']} and K12 "
+             f"{counts['shard_merge']} launches, {gathers} gathers; phase 9 ran {rounds} grid "
+             "rounds")
+    if res.bucketed["paddedPartitions"]:
+        fail("mesh parity greedy: the mesh padded the partition axis")
+    print(f"mesh parity greedy: {rounds} grid rounds as in phase 9, each K9 x "
+          f"{MESH_PARITY_SHARDS}, one all-gather and K12; {solves['mesh parity greedy']['wall_s']:.2f}"
+          f" s against phase 9's {solves['parity greedy']['wall_s']:.2f} s ({card})")
+    del res, o4
+
+    # (c) the bucketed service solve and lane (a) on a mesh of MESH_SERVICE_SHARDS
+    pinned = dataclasses.replace(opt.SERVICE_SETTINGS, chunk_target_s=PINNED_TARGET_S)
+    o8 = opt.GoalOptimizer(settings=pinned, mesh=mesh8)
+    res = run_and_check("mesh service bucketed", model_cpu,
+                        lambda: o8.optimizations(model_cpu, None, raise_on_hard_failure=False),
+                        STACK_PATH, JAX_CPU_SERVICE_BUCKETED_REFERENCE,
+                        JAX_CPU_SERVICE_BUCKETED_MOVES)
+    if res.bucketed != JAX_CPU_SERVICE_BUCKETED_BLOCK:
+        fail("mesh service bucketed: the bucket record differs from the JAX CPU run's")
+    del res
+    options = OptimizationOptions()
+    p_orig, pmodel, dims_s, static, static_canon, _ = o8.prepared_entry(model_cpu, options)
+    if not (isinstance(static, sharding.PlacedStatic) and static.mesh == mesh8):
+        fail("mesh service bucketed: the prepared context is not placed on the mesh")
+    agg_s = compute_aggregates(static_canon, pmodel.assignment, dims_s)
+    host = [int(static_canon.movable_partition.sum()), int((pmodel.assignment >= 0).sum()),
+            dims_s.num_partitions]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    got = [int(x) for x in spmd.make_partition_stats(mesh8)(static, agg_s)]
+    torch.cuda.synchronize()
+    solves["mesh certificate"] = {"launches": kernels.launches(), "wall_s": time.monotonic() - t0,
+                                  "counts": got}
+    if got != host or solves["mesh certificate"]["launches"]["partition_stats"] != \
+            MESH_SERVICE_SHARDS:
+        fail(f"mesh certificate: {got} against the host's {host}, K13 launched "
+             f"{solves['mesh certificate']['launches']['partition_stats']} times")
+    print(f"mesh certificate: K13 on the {MESH_SERVICE_SHARDS} shards of the placed service "
+          f"context, summed: {got} (movable, populated slots, rows), the host's counts")
+    del agg_s
+    lane = inc.IncrementalLane(o8)
+    if not lane.arm(model_cpu, options, [g.name for g in goals], generation=1):
+        fail("mesh lane a: the mesh service solve left no prep-cache entry to arm from")
+    lane_a, _ = lane_perturbations({k: v.numpy() for k, v in model_cpu._asdict().items()})
+    fresh = from_numpy(lane_a)
+
+    def propose():
+        outcome = lane.propose(fresh, generation=2)
+        if not outcome.ok:
+            fail(f"mesh lane a: the proposal fell back ({outcome.fallback_reason})")
+        return outcome.result
+
+    run_and_check("mesh lane a", fresh, propose, LANE_PATH, JAX_CPU_LANE_A_REFERENCE,
+                  JAX_CPU_LANE_A_MOVES)
+    armed = lane._armed.static
+    if not (isinstance(armed, sharding.PlacedStatic) and armed.mesh == mesh8):
+        fail("mesh lane a: the lane's context was not placed on the mesh again after K10")
+    print(f"mesh lane a: K10 scattered into the canonical context and the lane placed it on "
+          f"the {MESH_SERVICE_SHARDS} shards again; {solves['mesh lane a']['wall_s']:.2f} s "
+          f"against phase 12's {solves['lane a']['wall_s']:.2f} s ({card})")
+    del lane, o8, static, static_canon, pmodel, fresh
+
+    # (d) the configuration's mesh on this machine
+    count = torch.cuda.device_count()
+    auto = sharding.make_mesh_from_config(CruiseControlConfig({"tpu.mesh.devices": "0"}))
+    print(f"mesh config: tpu.mesh.devices=0 on {count} card(s) -> "
+          f"{'no mesh' if auto is None else auto}")
+    if count == 1 and auto is not None:
+        fail("mesh config: tpu.mesh.devices=0 made a mesh of one card")
+    try:
+        two = sharding.make_mesh_from_config(CruiseControlConfig({"tpu.mesh.devices": "2"}))
+        print(f"mesh config: tpu.mesh.devices=2 -> {two}")
+        if count < 2:
+            fail("mesh config: tpu.mesh.devices=2 made a mesh on one card")
+    except ValueError as e:
+        print(f"mesh config: tpu.mesh.devices=2 -> ValueError: {e}")
+        if str(e) != f"need 2 devices, have {count}":
+            fail(f"mesh config: the refusal differs from the JAX package's message: {e}")
+    totals = TELEMETRY.collective_totals()
+    print(f"mesh: collective totals {json.dumps(totals)}")
+    out.update(seconds=time.monotonic() - t_phase, k12_record_sets=checked, collectives=totals)
+    print(f"mesh: phase 23 took {out['seconds']:.1f} s ({card})")
+    return out
 
 
 def executed_phase(res, model_m, meta_m, sim_m, monitor_m, card: str) -> dict:
@@ -3574,6 +3889,9 @@ def main() -> int:
     # -- 22. main: the entry point as users start it --------------------------
     executed["main"] = entry_point_phase(name, card)
 
+    # -- 23. mesh: the partition-axis mesh on shards of the card --------------
+    executed["mesh"] = mesh_phase(model_cpu, parity_model, card, row, run_and_check, solves)
+
     if results["service"][:2] != results["stack"][:2]:
         fail("service: the chunked solve's final assignment or touch tags differ from the "
              "fused stack solve's")
@@ -3590,10 +3908,12 @@ def main() -> int:
     solves["parity batched"]["parity"] = gate
 
     # `launches` is the count of the path each kernel carries: the service's
-    # default solve's (bucketed, the main path), for K9 the greedy pass's and
-    # for K10 the lane's first proposal; every solve's count is kept beside it
+    # default solve's (bucketed, the main path), for K9 the greedy pass's, for
+    # K10 the lane's first proposal, for K12 the mesh's greedy pass and for
+    # K13 the mesh's coverage certificate; every solve's count is kept beside it
     main = {"grid_shortlist": "parity greedy", "delta_scatter": "lane a",
-            "elect_preferred": "demote"}
+            "elect_preferred": "demote", "shard_merge": "mesh parity greedy",
+            "partition_stats": "mesh certificate"}
     n_k4 = solves["service bucketed"]["launches"]["apply_wave"]
     print(f"K4 apply_wave on the service bucketed solve: {n_k4} launches x "
           f"{k4_bulk['ms']:.4f} ms (bulk wave) = {n_k4 * k4_bulk['ms'] / 1e3:.3f} s, x "

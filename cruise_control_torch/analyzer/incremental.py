@@ -27,8 +27,10 @@ reason; it never guesses.
 The lane marks the JAX lane's sensors (common/sensors.py: `Incremental.*`)
 and opens its `incremental-delta-apply` span (common/tracing.py). The facade
 (facade.py) arms it after every stamped solve and reads its knobs from the
-service configuration (`IncrementalConfig.from_config`). There is no mesh
-branch: the port runs on one card.
+service configuration (`IncrementalConfig.from_config`). On an optimizer
+with a partition-axis mesh, K10 scatters into the canonical (unplaced)
+context and the result is placed on the mesh again (the JAX lane's
+:593-596).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from cruise_control_torch.kernels.delta_scatter import (  # noqa: F401  (KIND_NO
     delta_scatter,
 )
 from cruise_control_torch.models.flat_model import FlatClusterModel
+from cruise_control_torch.parallel.sharding import place_static
 
 # -- the delta vocabulary ------------------------------------------------------
 
@@ -311,7 +314,8 @@ class _ArmedState:
     pmodel: FlatClusterModel  # padded host copy, kept consistent with the scatter
     dims: object
     static: StaticCtx  # on the optimizer's device
-    static_canon: StaticCtx  # the copy K10 updates (the same one: no mesh)
+    static_canon: StaticCtx  # the copy K10 updates (`static` unplaced; the same one
+    # without a mesh)
     bucketed: Dict
     base_replica_dst: torch.Tensor  # bool[B], the state-independent factors
     base_leadership_dst: torch.Tensor  # bool[B]
@@ -419,7 +423,8 @@ class IncrementalLane:
                                       armed.static_canon.part_load.device)
             new_canon = delta_scatter(armed.static_canon, batch, armed.base_replica_dst,
                                       armed.base_leadership_dst)
-            new_static = new_canon
+            mesh = self._optimizer._mesh
+            new_static = new_canon if mesh is None else place_static(new_canon, mesh)
             pmodel = self._updated_pmodel(armed, deltas, new_model)
         p_valid = new_model.num_partitions
         result = self._optimizer.incremental_optimizations(

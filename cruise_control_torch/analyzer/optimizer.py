@@ -12,7 +12,11 @@ machine (`chunk_rounds > 0`, the service default, `SERVICE_SETTINGS`), with
 the provenance ledger and the before/after cluster statistics, at the exact
 shape or padded to a shape bucket (`bucket_partitions`, `bucket_brokers`),
 under any OptimizationOptions, for the default stack or a subset of it, or
-for the kafka-assigner goals (their own machine).
+for the kafka-assigner goals (their own machine), on one device or on a
+partition-axis mesh (`mesh=`, parallel/sharding.py): the model is then
+padded to a multiple of the mesh's size, the static context placed once,
+and the greedy grid's shortlist runs shard by shard (parallel/spmd.py)
+while every other round runs whole on the mesh's first device.
 
 The front half (`_prepare`) pads the model, builds the static context and
 keeps both in a two-entry cache keyed by the identity of the caller's model
@@ -110,11 +114,15 @@ from cruise_control_torch.kernels.score_candidates import ScoreContext, score_ca
 from cruise_control_torch.kernels.state_fingerprint import state_fingerprint
 from cruise_control_torch.models.flat_model import FlatClusterModel
 from cruise_control_torch.parallel.sharding import (
+    as_device,
     geom_bucket,
     pad_brokers_to,
     pad_partitions_to,
     partition_bucket,
+    place_static,
+    shard_model,
 )
+from cruise_control_torch.parallel.spmd import make_grid_shortlist
 
 
 REGISTRY.gauge("GoalOptimizer.program-cache-size", build.loaded)
@@ -325,10 +333,12 @@ def _scaled_cap(cost, violated, use_bulk: bool, floor: int, settings: OptimizerS
     return int(scaled.to(torch.int32))
 
 
-def _make_grid_round(goal, dims: Dims, settings: OptimizerSettings):
+def _make_grid_round(goal, dims: Dims, settings: OptimizerSettings, mesh=None):
     """one_round(static, agg, tables, rnd) -> (agg, applied): the batch_k=1
     greedy round (optimizer.py:357-520). K9 gives the shortlist (the best
-    action over the [P, R, K] move grid and the [P, R-1] leadership grid);
+    action over the [P, R, K] move grid and the [P, R-1] leadership grid;
+    on a mesh of more than one shard, K9 a shard and K12's merge,
+    parallel/spmd.py, :351-369);
     unless the round is the faithful greedy's (one entry, a goal with moves),
     `apply_waves` waves re-score it (K3) and apply it (K4), toward
     rank-paired destinations for moves and wherever the promoted replica
@@ -340,14 +350,21 @@ def _make_grid_round(goal, dims: Dims, settings: OptimizerSettings):
     k_dst = max(1, min(settings.num_dst_candidates, dims.num_racks))
     k_sel = max(1, min(settings.batch_k, p_count))
     n_waves = max(1, settings.apply_waves)
+    spmd_shortlist = None
+    if mesh is not None and mesh.size > 1:
+        spmd_shortlist = make_grid_shortlist(mesh, goal, dims, settings)
 
     def one_round(static, agg, tables, rnd: int):
         dev = agg.assignment.device
         gs = goal.prepare(static, agg, dims)
         cands = dst_candidates(static, gs, agg, goal, dims, k_dst, tables)
         ctx = ScoreContext(static, agg, tables, goal, gs)
-        top_scores, sel_p, sel_kind, sel_slot, sel_dst0 = grid_shortlist(
-            static, agg, tables, goal, gs, cands, k_sel, ctx=ctx)
+        if spmd_shortlist is not None:
+            top_scores, sel_p, sel_kind, sel_slot, sel_dst0 = spmd_shortlist(
+                static, agg, gs, tables, cands)
+        else:
+            top_scores, sel_p, sel_kind, sel_slot, sel_dst0 = grid_shortlist(
+                static, agg, tables, goal, gs, cands, k_sel, ctx=ctx)
         live = torch.isfinite(top_scores)
         is_move = sel_kind == KIND_MOVE
         applied = torch.zeros((), dtype=torch.bool, device=dev)
@@ -392,7 +409,7 @@ def _make_grid_round(goal, dims: Dims, settings: OptimizerSettings):
     return one_round
 
 
-def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
+def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings, mesh=None):
     """goal_loop(static, agg, tables, budget, rnd_base, empties0, stall_at)
     -> (agg, rounds, empties): rounds until the goal stalls or `budget` more
     rounds ran (optimizer.py:536-775); `agg` is updated in place. Each round:
@@ -402,7 +419,8 @@ def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
     `rnd_base` and `empties0` resume a goal paused by the chunked machine:
     the absolute round index seeds the round jitter and the touch tags, and
     the empty-round streak carries over. Without a `budget` the cap is
-    max_rounds_per_goal, or the cost-scaled cap."""
+    max_rounds_per_goal, or the cost-scaled cap. `mesh` reaches the grid
+    round."""
     use_bulk = _use_bulk(goal, dims, settings)
     use_drain = _use_drain(goal, dims, settings)
     bulk_fn = None
@@ -410,7 +428,7 @@ def _make_goal_loop(goal, dims: Dims, settings: OptimizerSettings):
         bulk_fn = make_bulk_count_round(goal, dims, settings.drain_per_broker, settings.bulk_waves)
     drain_fn = grid_fn = topic_swap_fn = lead_swap_fn = swap_fn = None
     if not use_drain:
-        grid_fn = _make_grid_round(goal, dims, settings)
+        grid_fn = _make_grid_round(goal, dims, settings, mesh)
     elif goal.pair_drain:
         drain_fn = make_pair_drain_round(goal, dims, settings.drain_src, settings.apply_waves)
         topic_swap_fn = make_topic_swap_round(goal, dims, settings.drain_src,
@@ -550,7 +568,7 @@ def _polish_skip(agg, converged: bool, exit_fp) -> bool:
     return converged and int(state_fingerprint(agg)) == int(exit_fp)
 
 
-def run_stack(goals, dims: Dims, settings: OptimizerSettings, static, agg):
+def run_stack(goals, dims: Dims, settings: OptimizerSettings, static, agg, mesh=None):
     """Run the priority-ordered goal stack (the JAX package's
     _make_stack_step, :823-889): each goal's loop feeds the next, and each
     finished goal contributes its bounds to the merged acceptance tables.
@@ -562,7 +580,7 @@ def run_stack(goals, dims: Dims, settings: OptimizerSettings, static, agg):
     tags are snapshotted after each phase. Returns (agg, StackMetrics,
     snapshots or None), on the host."""
     tables = empty_tables(dims, agg.assignment.device)
-    loops = [_make_goal_loop(goal, dims, settings) for goal in goals]
+    loops = [_make_goal_loop(goal, dims, settings, mesh) for goal in goals]
     vb, va, cb, ca, rs, cv, fps, snaps_a, snaps_t = [], [], [], [], [], [], [], [], []
 
     def snapshot():
@@ -610,7 +628,7 @@ def run_stack(goals, dims: Dims, settings: OptimizerSettings, static, agg):
     return agg, metrics, prov
 
 
-def _make_goal_machine(goals, dims: Dims, settings: OptimizerSettings):
+def _make_goal_machine(goals, dims: Dims, settings: OptimizerSettings, mesh=None):
     """The chunked goal machine (optimizer.py:911-1170) as a host function:
 
         machine(static, agg, tables, phase, rounds_in_goal, empties_in_goal,
@@ -634,7 +652,7 @@ def _make_goal_machine(goals, dims: Dims, settings: OptimizerSettings):
     rows, and writes its snapshot row from the unchanged state (skip_branch,
     :1107-1121). `metrics` and `snap` are updated in place; the cursor is
     host ints."""
-    loops = [_make_goal_loop(g, dims, settings) for g in goals]
+    loops = [_make_goal_loop(g, dims, settings, mesh) for g in goals]
     n_goals = len(goals)
     n_phases = 2 * n_goals if settings.polish_rounds > 0 else n_goals
 
@@ -815,14 +833,24 @@ _PREP_CACHE_SIZE = 2
 
 class GoalOptimizer:
     """Runs goals in priority order against one flattened cluster model, on
-    `device` ("cuda" unless the caller asks for the CPU)."""
+    `device` ("cuda" unless the caller asks for the CPU), or on the
+    partition-axis mesh `mesh` (parallel/sharding.py Mesh; optimizer.py:1535),
+    whose first device is then the optimizer's: an explicit `device` that
+    is another raises."""
 
     def __init__(self, constraint: Optional[BalancingConstraint] = None,
-                 settings: OptimizerSettings = SLICE_SETTINGS, device="cuda"):
+                 settings: OptimizerSettings = SLICE_SETTINGS, device=None, mesh=None):
         self._constraint = constraint or BalancingConstraint.default()
         self._settings = settings
-        self._device = torch.device(device)
-        #: _prepare_key -> (p_orig, pmodel, dims, static, static_canon,
+        self._mesh = mesh
+        if mesh is None:
+            self._device = torch.device("cuda" if device is None else device)
+        else:
+            self._device = mesh.devices[0]
+            if device is not None and as_device(device) != self._device:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{self._device}")
+        #: _cache_key -> (p_orig, pmodel, dims, static, static_canon,
         #: bucketed, model, options); the last two pin the key's objects
         self._prep_cache: "collections.OrderedDict" = collections.OrderedDict()
 
@@ -837,7 +865,7 @@ class GoalOptimizer:
         writes them in place."""
         goals = goals_by_priority(goal_names)
         check_supported(goals, self._settings, options)
-        key = self._prepare_key(model, options)
+        key = self._cache_key(model, options)
         hit = self._prep_cache.get(key)
         if hit is not None:
             self._prep_cache.move_to_end(key)
@@ -858,8 +886,10 @@ class GoalOptimizer:
 
     def _initial_aggregates(self, pmodel: FlatClusterModel, dims: Dims, static, static_canon):
         """K1 on the padded model's assignment (optimizer.py:1693), shared by
-        `_prepare` and the incremental lane. There is no mesh, so the
-        canonical context is the context."""
+        `_prepare` and the incremental lane, over the canonical (unplaced)
+        context. On a mesh the aggregates stay whole on its first device,
+        where every round but the grid's shortlist runs; that one cuts them
+        into shards each round (parallel/sharding.place_aggregates)."""
         return compute_aggregates(static_canon, pmodel.assignment, dims)
 
     def _kernel_libraries(self, dims: Dims) -> None:
@@ -895,7 +925,7 @@ class GoalOptimizer:
         """(p_orig, pmodel, dims, static, static_canon, bucketed) of the prep
         cache's entry for (model, options), or None (optimizer.py:1714): the
         incremental lane's seam."""
-        hit = self._prep_cache.get(self._prepare_key(model, options))
+        hit = self._prep_cache.get(self._cache_key(model, options))
         return None if hit is None else hit[:6]
 
     @staticmethod
@@ -912,16 +942,23 @@ class GoalOptimizer:
         return tuple(id(f) for f in model) + tuple(
             kid(getattr(options, f.name)) for f in dataclasses.fields(options))
 
+    def _cache_key(self, model: FlatClusterModel, options: OptimizationOptions):
+        """The prep cache's key: the mesh (its entries are padded and placed
+        for it), then `_prepare_key`."""
+        return (self._mesh,) + self._prepare_key(model, options)
+
     def _build_ctx(self, model: FlatClusterModel,
                    options: OptimizationOptions = OptimizationOptions()):
         """The prep cache's miss path (optimizer.py:1742-1858): resolve the
         options' broker ids (a topic pattern needs the caller's topic names,
         so `resolve_options` raises for it here, as in the JAX package),
-        bucket every axis up its ladder, pad the model on the host with the
-        option masks (padded partitions excluded, padded brokers in no
-        broker mask), move it to the device once and build the static
-        context with the real counts. Returns (p_orig, pmodel, dims, static,
-        static_canon, bucketed)."""
+        bucket every axis up its ladder (the partition axis then up to a
+        multiple of the mesh's size, :1767-1771), pad the model on the host
+        with the option masks (padded partitions excluded, padded brokers in
+        no broker mask), move it to the device once and build the static
+        context with the real counts; on a mesh, place it (`static`; K1 and
+        the lane's K10 read the unplaced `static_canon`, :1834-1848). Returns
+        (p_orig, pmodel, dims, static, static_canon, bucketed)."""
         s = self._settings
         host = model.to("cpu")
         if options.destination_broker_ids is not None or options.excluded_topic_pattern is not None:
@@ -929,6 +966,8 @@ class GoalOptimizer:
         p_orig, b_orig = host.num_partitions, host.num_brokers
         exact = dims_of(host)
         target_p = partition_bucket(p_orig) if s.bucket_partitions else p_orig
+        if self._mesh is not None:
+            target_p += (-target_p) % self._mesh.size
         host = pad_partitions_to(host, target_p)
         if target_p != p_orig and options.excluded_partitions is not None:
             options = dataclasses.replace(options, excluded_partitions=np.concatenate(
@@ -956,8 +995,12 @@ class GoalOptimizer:
                     num_brokers=target_b, num_racks=num_racks, num_hosts=num_hosts,
                     num_topics=num_topics)
         pmodel = host.to(self._device)
-        static = build_static_ctx(pmodel, self._constraint, dims, options, valid_brokers=b_orig,
-                                  valid_partitions=p_orig)
+        static_canon = build_static_ctx(pmodel, self._constraint, dims, options,
+                                        valid_brokers=b_orig, valid_partitions=p_orig)
+        static = static_canon
+        if self._mesh is not None:
+            pmodel = shard_model(pmodel, self._mesh)
+            static = place_static(static_canon, self._mesh)
         bucketed = {
             "exact": dataclasses.asdict(exact),
             "padded": dataclasses.asdict(dims),
@@ -965,7 +1008,7 @@ class GoalOptimizer:
             "paddedPartitions": dims.num_partitions - p_orig,
             "paddedBrokers": dims.num_brokers - b_orig,
         }
-        return p_orig, pmodel, dims, static, static, bucketed
+        return p_orig, pmodel, dims, static, static_canon, bucketed
 
     def warmup(self, model: FlatClusterModel, goal_names: Optional[Sequence[str]] = None,
                options: OptimizationOptions = OptimizationOptions()) -> float:
@@ -981,7 +1024,8 @@ class GoalOptimizer:
         names = tuple(g.name for g in goals)
         if self._settings.chunk_rounds > 0:
             machine_names, enabled, _ = _machine_goal_plan(names)
-            machine = _make_goal_machine(goals_by_priority(machine_names), dims, self._settings)
+            machine = _make_goal_machine(goals_by_priority(machine_names), dims, self._settings,
+                                         self._mesh)
             out = machine(static, agg, empty_tables(dims, agg.assignment.device), 0, 0, 0,
                           empty_stack_metrics(len(machine_names), agg.assignment.device), 1,
                           enabled, empty_prov_snapshots(machine.n_phases, dims,
@@ -990,7 +1034,7 @@ class GoalOptimizer:
             if self._settings.polish_rounds > 0:
                 measure(goals_by_priority(machine_names), dims, static, out[0])
         else:
-            run_stack(goals, dims, self._settings, static, agg)
+            run_stack(goals, dims, self._settings, static, agg, self._mesh)
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
         return time.monotonic() - t0
@@ -1073,7 +1117,7 @@ class GoalOptimizer:
         n = len(goals)
         tables = empty_tables(dims, dev)
         metrics = empty_stack_metrics(n, dev)
-        machine = _make_goal_machine(goals, dims, s)
+        machine = _make_goal_machine(goals, dims, s, self._mesh)
         snap = empty_prov_snapshots(machine.n_phases, dims, s.ledger, dev)
         gi = rig = emp = 0
         chunk = s.chunk_rounds
@@ -1151,7 +1195,8 @@ class GoalOptimizer:
             t_stack = time.monotonic()
             with TRACER.span("optimizer.stack-call", kind="device-call", goal="<fused-stack>",
                              phase="main"), torch.profiler.record_function("cc-stack-call"):
-                agg, metrics, prov = run_stack(goals, dims, self._settings, static, agg)
+                agg, metrics, prov = run_stack(goals, dims, self._settings, static, agg,
+                                               self._mesh)
             metrics_full = metrics
             stack_s = time.monotonic() - t_stack
             REGISTRY.meter("GoalOptimizer.device-dispatches").mark()

@@ -3,15 +3,22 @@
 The JAX package's common/telemetry.py, on torch. It records:
 
   * **Kernel-library builds** in place of XLA programs. XLA cost analysis
-    (flops, bytes accessed per compiled program) and the lowered HLO's
-    collective account have no torch analog: the port's device code is
-    hand-written kernels in shared libraries, and one card runs no
-    collective. A program record keeps the JAX schema's keys with
-    `costAvailable: False` and zero collectives, and adds what the port
-    does have: the kernel library's name, the seconds its build or load
-    took and whether it was built or found in the build cache
-    (kernels/build.py), keyed by the shape bucket of the solve that needed
-    it.
+    (flops, bytes accessed per compiled program) has no torch analog: the
+    port's device code is hand-written kernels in shared libraries. A
+    program record keeps the JAX schema's keys with `costAvailable: False`
+    and adds what the port does have: the kernel library's name, the
+    seconds its build or load took and whether it was built or found in the
+    build cache (kernels/build.py), keyed by the shape bucket of the solve
+    that needed it.
+  * **Collectives** of the partition-axis mesh (parallel/spmd.py), counted
+    as they happen rather than read from lowered HLO: each gather of the
+    shards' shortlist records an `all-gather`, each integer sum of their
+    counts an `all-reduce`, on a program record named after the entry point
+    (`spmd-grid-shortlist`, `spmd-partition-stats`) in the JAX schema's
+    collective fields (`collectiveOps`, `collectiveBytes`, `collectives`,
+    `collectivesPerRound` for the shortlist's, which a round makes).
+    `collective_totals()` and `snapshot()["collectives"]` sum them, as the
+    JAX package's do.
   * **Device memory watermarks**: `torch.cuda.memory_stats` and
     `max_memory_allocated` when the service runs on the card; on the CPU
     process RSS stands in (flagged `fallback: 1`), as on the JAX CPU path.
@@ -29,6 +36,7 @@ and measures its own overhead (`DeviceTelemetry.overhead-seconds`).
 
 from __future__ import annotations
 
+import copy
 import os
 import pathlib
 import subprocess
@@ -213,14 +221,64 @@ class DeviceTelemetry:
             records = [r for (b, _), r in self._programs.items() if b == bucket]
         return {
             "programs": len(records), "flops": 0.0, "bytesAccessed": 0.0,
-            "collectiveOps": 0, "collectiveBytes": 0,
+            "collectiveOps": sum(r.get("collectiveOps", 0) for r in records),
+            "collectiveBytes": sum(r.get("collectiveBytes", 0) for r in records),
             "buildSeconds": sum(r.get("buildSeconds") or 0.0 for r in records),
         }
 
     def programs(self) -> List[Dict]:
         """All recorded program records (the /perf payload rows)."""
         with self._lock:
-            return [dict(r) for r in self._programs.values()]
+            return [copy.deepcopy(r) for r in self._programs.values()]
+
+    # -- the mesh's collectives --------------------------------------------------
+
+    def record_collective(self, op: str, nbytes: int, bucket: str, tag: str,
+                          per_round: bool) -> None:
+        """One collective of the mesh as it happens: `op` ("all-gather" or
+        "all-reduce") of `nbytes` landing on the mesh's first device, counted
+        on the program record (`bucket`, `tag`), and in its per-round account
+        when a round makes it."""
+        if not self.enabled:
+            return
+        t0 = time.monotonic()
+        with self._lock:
+            record = self._programs.get((bucket, tag))
+            if record is None:
+                record = self._programs[(bucket, tag)] = {
+                    "program": tag, "bucket": bucket, "costAvailable": False,
+                    "collectiveOps": 0, "collectiveBytes": 0, "collectives": {},
+                    "collectivesPerRound": {"ops": 0, "bytes": 0, "byOp": {}},
+                    "library": None, "buildSeconds": None, "built": None,
+                }
+            accounts = [(record, "collectiveOps", "collectiveBytes", record["collectives"])]
+            if per_round:
+                rnd = record["collectivesPerRound"]
+                accounts.append((rnd, "ops", "bytes", rnd["byOp"]))
+            for acc, ops, nb, by_op in accounts:
+                acc[ops] += 1
+                acc[nb] += int(nbytes)
+                slot = by_op.setdefault(op, {"count": 0, "bytes": 0})
+                slot["count"] += 1
+                slot["bytes"] += int(nbytes)
+            self._charge_locked(time.monotonic() - t0)
+
+    def collective_totals(self) -> Dict:
+        """Collective-traffic totals across all program records (the JAX
+        package's keys: ops, bytes, perRoundOps, perRoundBytes, byOp)."""
+        records = self.programs()
+        out: Dict = {"ops": 0, "bytes": 0, "perRoundOps": 0, "perRoundBytes": 0, "byOp": {}}
+        for r in records:
+            out["ops"] += r.get("collectiveOps", 0)
+            out["bytes"] += r.get("collectiveBytes", 0)
+            per_round = r.get("collectivesPerRound") or {}
+            out["perRoundOps"] += per_round.get("ops", 0)
+            out["perRoundBytes"] += per_round.get("bytes", 0)
+            for op, slot in (r.get("collectives") or {}).items():
+                agg = out["byOp"].setdefault(op, {"count": 0, "bytes": 0})
+                agg["count"] += slot["count"]
+                agg["bytes"] += slot["bytes"]
+        return out
 
     # -- host<->device transfer meters -----------------------------------------
 
@@ -302,6 +360,19 @@ class DeviceTelemetry:
         """Last observed memory picture (never polls; the /metrics gauge)."""
         with self._lock:
             return dict(self._memory)
+
+    # -- aggregate views -------------------------------------------------------
+
+    def snapshot(self) -> Dict:
+        """One joined record: programs, memory, transfers, collectives and
+        overhead."""
+        return {
+            "programs": self.programs(),
+            "memory": self.memory(),
+            "transfers": self.transfer_totals(),
+            "collectives": self.collective_totals(),
+            "overheadS": round(self.overhead_s, 6),
+        }
 
     def reset(self) -> None:
         """Drop per-process program/memory records (tests isolation);

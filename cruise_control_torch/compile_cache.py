@@ -6,7 +6,7 @@ again. The port's device code is its hand-written CUDA kernels, each built
 by nvcc into a shared library named by the hash of its source
 (kernels/build.py); this module points that build directory at a durable
 one, so a restarted service loads the libraries instead of building them
-(about 15 s of nvcc for the twelve kernels).
+(about 15 s of nvcc for the fourteen kernels).
 
 Call `enable_persistent_cache()` before the first kernel is built. Safe to
 call more than once: the first directory stays in force.

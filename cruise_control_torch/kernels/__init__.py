@@ -19,6 +19,11 @@ PyTorch version.
   K11 elect_preferred    goals/preferred.elect_preferred_leaders, the
                          preferred-leader election off demoted and dead
                          brokers
+  K12 shard_merge        the partition-axis mesh's merge of the shards'
+                         shortlist records (parallel/spmd.make_grid_shortlist
+                         :183-190)
+  K13 partition_stats    a shard's coverage counts
+                         (parallel/spmd.make_partition_stats :218-227)
 
 A wrapper runs the plain version for CPU tensors and launches its kernel for
 CUDA tensors (or raises); it counts its launches in `<wrapper>.launches`
@@ -41,9 +46,11 @@ def wrappers():
     from cruise_control_torch.kernels.elect_preferred import elect_preferred
     from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
     from cruise_control_torch.kernels.pair_picks import pair_picks
+    from cruise_control_torch.kernels.partition_stats import partition_stats
     from cruise_control_torch.kernels.score_candidates import score_candidates
     from cruise_control_torch.kernels.score_swaps import score_swaps
     from cruise_control_torch.kernels.segment_aggregates import segment_aggregates
+    from cruise_control_torch.kernels.shard_merge import shard_merge
     from cruise_control_torch.kernels.state_fingerprint import state_fingerprint
     from cruise_control_torch.kernels.window_sum import window_sum
 
@@ -60,6 +67,8 @@ def wrappers():
         "grid_shortlist": grid_shortlist,
         "delta_scatter": delta_scatter,
         "elect_preferred": elect_preferred,
+        "shard_merge": shard_merge,
+        "partition_stats": partition_stats,
     }
 
 

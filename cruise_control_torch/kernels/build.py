@@ -41,7 +41,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "cruise_control_torch"
 KERNEL_SOURCES = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
                   "score_swaps", "pair_picks", "window_sum", "state_fingerprint",
-                  "cluster_stats", "grid_shortlist", "delta_scatter", "elect_preferred")
+                  "cluster_stats", "grid_shortlist", "delta_scatter", "elect_preferred",
+                  "shard_merge", "partition_stats")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",

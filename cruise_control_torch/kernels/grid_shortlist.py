@@ -109,13 +109,21 @@ def _work(dev: int, r: int, k: int, p: int) -> int:
     return ws[1]
 
 
-def grid_shortlist(static, agg, tables, goal, gs, dst_cands, k: int = 1, ctx=None):
+def grid_shortlist(static, agg, tables, goal, gs, dst_cands, k: int = 1, ctx=None, out=None):
     """`grid_shortlist_plain` for CPU tensors, the CUDA kernel for CUDA
     tensors. The kernel takes the greedy round's k = 1 only. `ctx` is the
-    round's ScoreContext (one is built when none is given)."""
+    round's ScoreContext (one is built when none is given). `out` = (score
+    f32[k], record i32[k, 4]), both contiguous on the same device, takes the
+    result in place of fresh tensors, each record (p, kind, slot, dst): the
+    partition-axis mesh gathers the shards' records so (parallel/spmd.py)."""
     dev = agg.assignment.device
     if dev.type == "cpu":
-        return grid_shortlist_plain(static, agg, tables, goal, gs, dst_cands, k)
+        res = grid_shortlist_plain(static, agg, tables, goal, gs, dst_cands, k)
+        if out is None:
+            return res
+        out[0].copy_(res[0])
+        out[1].copy_(torch.stack(res[1:], dim=1))
+        return (out[0], *out[1].unbind(1))
     if k != 1:
         raise ValueError(f"grid_shortlist: the kernel takes k = 1, got {k}")
     # the context lives through the call: the C entry reads its struct
@@ -125,8 +133,15 @@ def grid_shortlist(static, agg, tables, goal, gs, dst_cands, k: int = 1, ctx=Non
         dst_cands = dst_cands.to(torch.int32).contiguous()
     build.require(dst_cands, torch.int32, 1, "dst_cands", dev)
     p_count, r = agg.assignment.shape
-    out_score = torch.empty(1, dtype=torch.float32, device=dev)
-    out_idx = torch.empty(4, dtype=torch.int32, device=dev)
+    if out is None:
+        out_score = torch.empty(1, dtype=torch.float32, device=dev)
+        out_idx = torch.empty(4, dtype=torch.int32, device=dev)
+    else:
+        out_score, out_idx = out[0], out[1].view(-1)
+        build.require(out_score, torch.float32, 1, "out score", dev)
+        build.require(out_idx, torch.int32, 1, "out record", dev)
+        if out_score.shape[0] != 1 or out_idx.shape[0] != 4:
+            raise ValueError("grid_shortlist: out must be (f32[1], i32[1, 4])")
     code = build.entry("grid_shortlist", _ARGTYPES)(
         address, out_score.data_ptr(), out_idx.data_ptr(), _scratch(dev.index),
         _work(dev.index, r, dst_cands.shape[0], p_count), dst_cands.data_ptr(), p_count,

@@ -48,9 +48,11 @@ def build_simulated_service(
     and the resilience keys (`executor.task.deadline.s`, `executor.retry.*`,
     `executor.proposal.revalidate`, `executor.proposal.max.generation.skew`,
     `selfhealing.breaker.*`) shape the executor deadline/retry/drift-safety
-    behavior and the self-healing circuit breakers. `tpu.mesh.devices`
-    above 1 is refused: the port has no multi-GPU path yet (ROADMAP.md
-    Queue 1 item 9). `device` is where every solve runs."""
+    behavior and the self-healing circuit breakers. `tpu.mesh.devices` and
+    `tpu.mesh.axis.name` build the partition-axis mesh the optimizer solves
+    on (parallel/sharding.make_mesh_from_config: a mesh larger than the
+    visible cards is refused, as the JAX package refuses it). `device` is
+    where every solve runs: on a mesh, the mesh's first card."""
     from cruise_control_torch.analyzer.incremental import IncrementalConfig
     from cruise_control_torch.analyzer.optimizer import GoalOptimizer, OptimizerSettings
     from cruise_control_torch.async_ops import AsyncCruiseControl
@@ -105,17 +107,17 @@ def build_simulated_service(
         from cruise_control_torch.config.cruise_config import CruiseControlConfig
 
         cfg = CruiseControlConfig(load_properties(config_path))
-        # tpu.mesh.* places the JAX package's partition axis on a device
-        # mesh; one card is the port's only layout
-        if cfg.get_int("tpu.mesh.devices") > 1:
-            raise ValueError(
-                f"tpu.mesh.devices={cfg.get_int('tpu.mesh.devices')}: the PyTorch port runs "
-                "on one card; its multi-GPU path is not ported yet (ROADMAP.md Queue 1 "
-                "item 9)")
+        # tpu.mesh.* -> the partition-axis mesh (None on one card or with
+        # tpu.mesh.devices=1); the optimizer runs the greedy grid's shortlist
+        # shard by shard on it (parallel/spmd.py)
+        from cruise_control_torch.parallel.sharding import make_mesh_from_config
+
+        mesh = make_mesh_from_config(cfg)
         optimizer = GoalOptimizer(
             constraint=BalancingConstraint.from_config(cfg),
             settings=OptimizerSettings.from_config(cfg),
             device=device,
+            mesh=mesh,
         )
         # resilience keys: executor deadlines/concurrency and the
         # self-healing breaker ladder. The simulator driver needs no retry

@@ -1,8 +1,17 @@
-"""chip_smoke.py's phase-19, phase-20 and phase-21 references, computed on
-the JAX package on the CPU.
+"""chip_smoke.py's phase-19, phase-20, phase-21 and phase-23 references,
+computed on the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/executor_references.py [--no-chaos] \
         [--served [--bodies PATH]]
+    JAX_PLATFORMS=cpu python scripts/executor_references.py --mesh
+
+--mesh runs phase 23's reference alone: the JAX package's greedy pass
+(bench.py's greedy settings, the pinned schedule) of the bench's config-5
+parity model on a mesh of 4 virtual CPU devices (the process is started
+with XLA_FLAGS' host device count at 4), and prints its decision digest,
+per-goal moves, final assignment SHA-256, goal rows and moves beside
+chip_smoke's JAX_CPU_DIGESTS["mesh parity greedy"] and phase 9's
+JAX_CPU_DIGESTS["parity greedy"] (about 2 minutes on 8 CPU cores).
 
 Runs phase 18's recipe on the JAX package (the smoke model's metrics through
 chip_smoke.monitored_model, then the pinned bucketed service solve, held to
@@ -33,6 +42,7 @@ the same records.
 import dataclasses
 import hashlib
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -40,6 +50,11 @@ from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+
+if "--mesh" in sys.argv:
+    # four virtual CPU devices for the mesh, set before JAX starts
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=4").strip()
 
 import jax  # noqa: E402
 
@@ -154,7 +169,43 @@ def served_references(sim, monitor) -> dict:
                     if k != "metrics"})
 
 
+def mesh_references() -> dict:
+    """Phase 23 (b)'s reference: the parity model's greedy pass on a mesh of
+    4 virtual CPU devices."""
+    from cruise_control_tpu.parallel.sharding import make_mesh
+
+    parity = generators.random_cluster(chip_smoke.SEED + 5, generators.ClusterProperty(
+        num_racks=52, num_brokers=chip_smoke.PARITY_BROKERS,
+        num_topics=max(50, (chip_smoke.PARITY_BROKERS * 20) // 13),
+        mean_partitions_per_topic=50.0, replication_factor=3, load_distribution="exponential"))
+    greedy = jopt.OptimizerSettings(
+        batch_k=1, max_rounds_per_goal=512, num_dst_candidates=16, num_swap_pairs=16,
+        swap_candidates=16, swaps_per_broker=4, chunk_rounds=64, cost_scaled_rounds=1.5,
+        rounds_ceiling=4096, bucket_partitions=False, bucket_brokers=False,
+        chunk_target_s=chip_smoke.PINNED_TARGET_S)
+    t0 = time.perf_counter()
+    res = jopt.GoalOptimizer(settings=greedy, mesh=make_mesh(4)).optimizations(
+        parity, None, raise_on_hard_failure=False)
+    seconds = time.perf_counter() - t0
+    names = [g.name for g in res.goal_results]
+    dg = res.provenance.digest(goals=names)
+    sha = hashlib.sha256(np.ascontiguousarray(res.final_assignment, dtype=np.int32)
+                         .tobytes()).hexdigest()
+    record = (dg["checksum"], dg["byGoal"], sha)
+    return {"partitions": parity.num_partitions, "mesh_parity_greedy": list(record),
+            "equal_to_mesh_constant": record == chip_smoke.JAX_CPU_DIGESTS["mesh parity greedy"],
+            "equal_to_phase_9": record == chip_smoke.JAX_CPU_DIGESTS["parity greedy"],
+            "goals": {g.name: [g.violated_brokers_before, g.violated_brokers_after, g.rounds,
+                               g.converged] for g in res.goal_results},
+            "moves": {"replica": res.num_replica_moves,
+                      "leadership": res.num_leadership_moves},
+            "host_seconds": seconds}
+
+
 def main() -> int:
+    if "--mesh" in sys.argv:
+        print(json.dumps(mesh_references(), indent=1))
+        return 0
     ns = SimpleNamespace(
         SimulatedCluster=SimulatedCluster, InMemoryTransport=InMemoryTransport,
         MetadataClient=MetadataClient, TransportMetricSampler=TransportMetricSampler,

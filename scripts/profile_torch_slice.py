@@ -59,7 +59,8 @@ OWN_KERNELS = {
     "k_grid_bid": "K9 grid_shortlist",
     "k_grid_take": "K9 grid_shortlist", "k_delta_scatter": "K10 delta_scatter",
     "k_elect_preferred": "K11 elect_preferred", "k_elect_wide": "K11 elect_preferred",
-    "k_merge_bits": "K11 elect_preferred",
+    "k_merge_bits": "K11 elect_preferred", "k_shard_merge": "K12 shard_merge",
+    "k_partition_stats": "K13 partition_stats",
 }
 #: the chunked solves, whose per-goal times come from the solve itself
 CHUNKED = ("service", "bench", "greedy")

@@ -300,8 +300,8 @@ def test_a_pinned_chunk_target_fixes_the_call_schedule(tick, monkeypatch):
     budgets = []
     inner = topt._make_goal_machine
 
-    def logged(goals, dims, settings):
-        machine = inner(goals, dims, settings)
+    def logged(goals, dims, settings, *mesh):
+        machine = inner(goals, dims, settings, *mesh)
 
         def call(*args):
             budgets.append(args[7])

@@ -64,6 +64,11 @@ FRONT_DOOR_PATH = tuple(f"cruise_control_torch.{m}" for m in (
     "platform_probe", "common.telemetry", "compile_cache", "servlet", "servlet.purgatory",
     "servlet.user_tasks", "servlet.responses", "servlet.server", "client", "client.endpoint",
     "client.display", "client.cccli", "main"))
+#: the partition-axis mesh: its placement, its SPMD kernels and their K12
+#: and K13 kernels
+MESH_PATH = tuple(f"cruise_control_torch.{m}" for m in (
+    "parallel", "parallel.sharding", "parallel.spmd", "kernels.shard_merge",
+    "kernels.partition_stats"))
 
 
 def test_every_module_imports_without_jax():
@@ -83,6 +88,7 @@ def test_every_module_imports_without_jax():
         f"    sorted(set({SELF_HEALING_PATH!r}) - set(names))\n"
         f"assert set({FRONT_DOOR_PATH!r}) <= set(names), \\\n"
         f"    sorted(set({FRONT_DOOR_PATH!r}) - set(names))\n"
+        f"assert set({MESH_PATH!r}) <= set(names), sorted(set({MESH_PATH!r}) - set(names))\n"
         "assert 'aiohttp' not in sys.modules, 'the port serves on the standard library'\n"
         "from cruise_control_torch.config import CruiseControlConfig\n"
         "from cruise_control_torch.detector import AnomalyNotifier, NoopNotifier\n"

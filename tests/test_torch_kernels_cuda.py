@@ -15,6 +15,7 @@ on the card and held equal to the CPU run.
 import collections
 import dataclasses
 
+import merge_cases
 import numpy as np
 import pytest
 import topk_cases
@@ -2339,3 +2340,127 @@ def test_service_on_the_card_answers_rest_like_the_cpu():
     assert out["cuda"][1] > 0 and out["cpu"][1] == 0
     assert out["cuda"][0] == out["cpu"][0] and len(out["cuda"][0]["brokers"]) == 24
     assert out["cuda"][2] == out["cpu"][2] and out["cuda"][2]["proposals"]
+
+
+# -- the partition-axis mesh: K12, K13 and the sharded shortlist ----------------
+
+@pytest.mark.parametrize("kind", merge_cases.KINDS)
+@pytest.mark.parametrize("n_dev,k_loc", merge_cases.SHAPES)
+def test_k12_shard_merge(kind, n_dev, k_loc):
+    """K12 against its plain version (tests/merge_cases.py, which
+    test_torch_spmd.py holds to JAX's lexsort) for k_sel 1, k_loc and all
+    the records."""
+    _card()
+    from cruise_control_torch.kernels.shard_merge import shard_merge, shard_merge_plain
+
+    rng = np.random.default_rng([merge_cases.KINDS.index(kind), n_dev, k_loc])
+    s, rec = (torch.from_numpy(x) for x in merge_cases.records(kind, n_dev, k_loc, rng))
+    for k_sel in sorted({1, k_loc, n_dev * k_loc}):
+        want = shard_merge_plain(s, rec, k_sel)
+        before = shard_merge.launches
+        got = shard_merge(s.cuda(), rec.cuda(), k_sel)
+        torch.cuda.synchronize()
+        assert shard_merge.launches == before + 1
+        assert _bits(want[0], got[0]) and _bits(want[1], got[1]), (kind, k_sel)
+
+
+def test_k12_refuses_what_it_does_not_take():
+    _card()
+    from cruise_control_torch.kernels.shard_merge import shard_merge
+
+    s, rec = torch.zeros(4, device="cuda"), torch.zeros((4, 4), dtype=torch.int32, device="cuda")
+    for bad in ((s.double(), rec, 1), (s, rec[:, :3].contiguous(), 1), (s, rec.t(), 1),
+                (s, rec, 0), (s[:0], rec[:0], 1)):
+        with pytest.raises((TypeError, ValueError)):
+            shard_merge(*bad)
+
+
+@pytest.mark.parametrize("n,r", [(0, 3), (1, 1), (1000, 3), (199520, 3), (4097, 17)])
+def test_k13_partition_stats(n, r):
+    """K13 against its plain version, three calls back to back (the last
+    block leaves its accumulators at 0), the last into a row of a gather
+    buffer."""
+    _card()
+    from cruise_control_torch.kernels.partition_stats import (
+        partition_stats,
+        partition_stats_plain,
+    )
+
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.integers(-1, 50, (n, r)).astype(np.int32))
+    movable = torch.from_numpy(rng.random(n) < 0.7)
+    want = partition_stats_plain(movable, a)
+    assert want.tolist() == [int(movable.sum()), int((a >= 0).sum()), n]
+    ag, mg = a.cuda(), movable.cuda()
+    for _ in range(2):
+        assert _bits(want, partition_stats(mg, ag))
+    buf = torch.full((2, 3), -7, dtype=torch.int32, device="cuda")
+    partition_stats(mg, ag, out=buf[1])
+    torch.cuda.synchronize()
+    assert _bits(want, buf[1]) and buf[0].tolist() == [-7, -7, -7]
+
+
+def test_mesh_shortlist_and_stats_on_the_card(pair):
+    """On a mesh of 4 shards of the card: each goal's sharded shortlist
+    equals the unsharded K9 and the plain sharded shortlist, the partition
+    stats the host's counts; K9 launches once a shard and K12 once."""
+    from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
+    from cruise_control_torch.kernels.partition_stats import partition_stats
+    from cruise_control_torch.kernels.shard_merge import shard_merge
+    from cruise_control_torch.parallel import sharding, spmd
+
+    dims, sg, ag = pair["dims"], pair["sg"], pair["ag"]
+    mesh = sharding.make_mesh(4, devices=["cuda:0"] * 4)
+    p = dims.num_partitions - dims.num_partitions % 4
+    cut = dataclasses.replace(dims, num_partitions=p)
+    st = sg._replace(part_load=sg.part_load[:p], topic_id=sg.topic_id[:p],
+                     movable_partition=sg.movable_partition[:p])
+    agg = ag._replace(assignment=ag.assignment[:p], rack_replica_count=ag.rack_replica_count[:p],
+                      touch_tag=ag.touch_tag[:p])
+    placed = sharding.place_static(st, mesh)
+    goals = goals_by_priority(None)
+    for gi in (2, 13):
+        g = goals[gi]
+        tables = build_tables(goals[:gi], st, agg, cut)
+        gs = g.prepare(st, agg, cut)
+        cands = opt.dst_candidates(st, gs, agg, g, cut, 4, tables)
+        shortlist = spmd.make_grid_shortlist(mesh, g, cut, opt.GREEDY_SETTINGS)
+        k9, k12 = grid_shortlist.launches, shard_merge.launches
+        got = shortlist(placed, agg, gs, tables, cands)
+        torch.cuda.synchronize()
+        assert (grid_shortlist.launches - k9, shard_merge.launches - k12) == (4, 1)
+        for want in (grid_shortlist(st, agg, tables, g, gs, cands),
+                     shortlist.plain(placed, agg, gs, tables, cands)):
+            for w, x in zip(want, got):
+                assert _bits(w, x), (g.name, want, got)
+    k13 = partition_stats.launches
+    counts = spmd.make_partition_stats(mesh)(placed, agg)
+    assert partition_stats.launches - k13 == 4
+    assert [int(c) for c in counts] == [int(st.movable_partition.sum()),
+                                        int((agg.assignment >= 0).sum()), p]
+
+
+def test_greedy_on_a_mesh_of_the_card_equals_the_cpu():
+    """The bench's greedy pass on fixture C through a mesh of 4 shards of
+    the card equals the same run on a mesh of 4 shards of the CPU (766
+    partitions padded to 768 on both), K9 launched 4 times a grid round and
+    K12 once."""
+    _card()
+    from cruise_control_torch import kernels
+    from cruise_control_torch.parallel.sharding import make_mesh
+
+    model = generators.random_cluster(42, FIXTURE_C)
+    cpu = opt.GoalOptimizer(settings=opt.GREEDY_SETTINGS,
+                            mesh=make_mesh(4, devices=["cpu"] * 4)).optimizations(
+        model, None, raise_on_hard_failure=False)
+    kernels.reset_launches()
+    card = opt.GoalOptimizer(settings=opt.GREEDY_SETTINGS,
+                             mesh=make_mesh(4, devices=["cuda:0"] * 4)).optimizations(
+        model, None, raise_on_hard_failure=False)
+    launched = kernels.launches()
+    assert launched["shard_merge"] > 0
+    assert launched["grid_shortlist"] == 4 * launched["shard_merge"]
+    names = [g.name for g in cpu.goal_results]
+    assert np.array_equal(cpu.final_assignment, card.final_assignment)
+    assert np.array_equal(cpu.touch_tag, card.touch_tag)
+    assert cpu.provenance.digest(goals=names) == card.provenance.digest(goals=names)

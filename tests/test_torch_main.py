@@ -113,14 +113,30 @@ def test_history_telemetry_and_ledger_config_keys_reach_stores(tmp_path):
 
 
 def test_mesh_of_two_devices_is_refused(tmp_path):
+    """A mesh larger than the visible cards is refused with the JAX
+    package's message (parallel/sharding.make_mesh): here there is no card."""
     from cruise_control_torch.main import build_simulated_service, main
+    from cruise_control_torch.parallel.sharding import visible_devices
 
     props = tmp_path / "cc.properties"
     props.write_text("tpu.mesh.devices=2\n")
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match=f"need 2 devices, have {len(visible_devices())}"):
         build_simulated_service(num_brokers=4, num_racks=2, num_topics=3,
                                 config_path=str(props), device="cpu")
     assert main(["--device", "cpu", "--config", str(props), "--port", "0"]) == 1
+
+
+def test_mesh_of_one_device_is_no_mesh(tmp_path):
+    """`tpu.mesh.devices=1` turns the mesh off, as in the JAX package: the
+    service builds and its optimizer solves on `device` alone."""
+    from cruise_control_torch.main import build_simulated_service
+
+    props = tmp_path / "cc.properties"
+    props.write_text("tpu.mesh.devices=1\ntpu.mesh.axis.name=shards\n")
+    _, parts = build_simulated_service(num_brokers=4, num_racks=2, num_topics=3,
+                                       config_path=str(props), device="cpu")
+    optimizer = parts["facade"]._optimizer
+    assert optimizer._mesh is None and str(optimizer._device) == "cpu"
 
 
 def test_main_without_a_card_exits_naming_it_and_serves_nothing():

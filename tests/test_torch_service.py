@@ -325,7 +325,8 @@ def test_chip_smoke_jax_references_are_current():
     GB of memory), of BASELINE config 5 under the bench's batched settings and
     of the bench's config-5 parity model under its greedy and batched
     settings (bench.py:215-248), each at the exact shape and, for the service
-    and the bench, bucketed; then the JAX lane armed on the bucketed service
+    and the bench, bucketed, and the greedy one also on a mesh of 4 virtual
+    devices (phase 23); then the JAX lane armed on the bucketed service
     solve and its two proposals (chip_smoke.lane_perturbations): each solve's
     decision digest, per-goal move counts, final assignment hash and goal
     rows, and the bucketed service solve's bucket record; then the option
@@ -402,6 +403,15 @@ def test_chip_smoke_jax_references_are_current():
         if label == "service bucketed":
             assert res.bucketed == chip_smoke.JAX_CPU_SERVICE_BUCKETED_BLOCK
             service_opt, goals = opt, [g.name for g in res.goal_results]
+    # phase 23's reference: the greedy pass of the parity model on a mesh of
+    # 4 of the conftest's virtual CPU devices (nothing padded) makes phase 9's
+    # decisions
+    from cruise_control_tpu.parallel.sharding import make_mesh as jmake_mesh
+
+    res = jopt.GoalOptimizer(settings=jopt.OptimizerSettings(
+        **greedy, chunk_target_s=chip_smoke.PINNED_TARGET_S), mesh=jmake_mesh(4)).optimizations(
+        parity_model, None, raise_on_hard_failure=False)
+    check("mesh parity greedy", res, chip_smoke.JAX_CPU_PARITY_GREEDY_REFERENCE)
     lane = jinc.IncrementalLane(service_opt)
     assert lane.arm(model, jopt.OptimizationOptions(), goals, generation=1)
     lane_a, lane_b = chip_smoke.lane_perturbations(
