@@ -180,6 +180,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      coverage certificate on its placed context, lane (a) under that mesh
      held to phase 12's; `make_mesh_from_config` refusing a mesh larger than
      the card count with the JAX package's message.
+ 24. lint (lint_phase): the port's linter on the checkout. Its token tier
+     (`python -m cruise_control_torch.lint --tier token`) with no
+     unsuppressed finding; its trace tier with `--device cuda` on a fresh
+     cache, so the ten registered entry points run through the hand kernels
+     on the card under the dispatch recorder and the CUDA sync-debug mode,
+     with no unsuppressed finding, each entry having launched a hand kernel,
+     and each entry's sync sites printed on a line of their own; then a sync
+     census of the main path: the bucketed service solve of phase 10 once
+     more under the recorder and `torch.cuda.set_sync_debug_mode("warn")`,
+     the recorder's and the debug mode's counts side by side with the top
+     sites, its decision digest and final assignment held to phase 10's JAX
+     constants.
   Around each solve every kernel's launch count is set to 0 and read after
   (K3's and K5's also by path; the service bucketed solve must take all
   three of K3's);
@@ -212,6 +224,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -482,6 +495,8 @@ JAX_CPU_DIGESTS["lane b"] = (
 JAX_CPU_LANE_B_MOVES = {"replica": 48901, "leadership": 20175}
 JAX_CPU_DIGESTS["mesh service bucketed"] = JAX_CPU_DIGESTS["service bucketed"]
 JAX_CPU_DIGESTS["mesh lane a"] = JAX_CPU_DIGESTS["lane a"]
+#: phase 24's census solve is phase 10's, under the sync recorder
+JAX_CPU_DIGESTS["lint census"] = JAX_CPU_DIGESTS["service bucketed"]
 #: the option phases (13-17): JAX's CPU runs of option_recipes under the
 #: pinned SERVICE_SETTINGS: each goal's row, the moves, the decision digest
 #: with per-goal move counts and the final assignment's SHA-256
@@ -2194,6 +2209,134 @@ def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
     return out
 
 
+#: phase 24's trace tier: the entries the port's registry must certify
+LINT_ENTRY_POINTS = 10
+#: phase 24's census: the top sites printed
+CENSUS_TOP_SITES = 12
+#: seconds phase 24 allows each linter run
+LINT_TIMEOUT_S = 600
+
+
+def lint_run(args, env=None) -> dict:
+    """`python -m cruise_control_torch.lint --json <args>` on the checkout:
+    its JSON document; fails unless it exits 0 with no unsuppressed finding."""
+    root = pathlib.Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-m", "cruise_control_torch.lint", "--json", *args],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=LINT_TIMEOUT_S)
+    try:
+        doc = json.loads(proc.stdout)
+    except ValueError:
+        fail(f"lint {' '.join(args)}: exit {proc.returncode}, no JSON: "
+             f"{(proc.stderr or proc.stdout)[-2000:]}")
+    for f in doc["findings"]:
+        if not f["suppressed"]:
+            print(f"lint: {f['path']}:{f['line']}: {f['rule']}  {f['message'][:400]}")
+    if proc.returncode != 0 or doc["summary"]["unsuppressed"]:
+        fail(f"lint {' '.join(args)}: exit {proc.returncode}, "
+             f"{doc['summary']['unsuppressed']} unsuppressed finding(s)")
+    return doc
+
+
+def lint_phase(model_cpu, card: str, run_and_check, solves) -> dict:
+    """Phase 24: the port's linter. (1) The token tier over the checkout; (2)
+    the trace tier with `--device cuda` on a fresh cache, which runs the ten
+    registered entry points through the hand kernels on this card, each
+    entry's sites printed from the worker's document (the cache entry); (3)
+    the sync census of the main path: phase 10's bucketed service solve once
+    more under the dispatch recorder and the sync-debug mode, the two counts
+    side by side (a gap names syncs the recorder misses) with the top sites,
+    its digest and final assignment held to phase 10's JAX constants.
+    Returns the phase's numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    from cruise_control_torch.analyzer import optimizer as opt
+    from cruise_control_torch.lint.trace_worker import sync_census
+
+    t_phase = time.monotonic()
+    out = {}
+    t0 = time.monotonic()
+    doc = lint_run(["--tier", "token"])
+    out["token_s"] = time.monotonic() - t0
+    print(f"lint token tier: 0 findings, {doc['summary']['suppressed']} suppressed over "
+          f"{doc['numFiles']} files in {out['token_s']:.2f} s ({card})")
+
+    cache = tempfile.mkdtemp(prefix="cclint-torch-")
+    try:
+        t0 = time.monotonic()
+        doc = lint_run(["--tier", "trace", "--device", "cuda"],
+                       env=dict(os.environ, CCLINT_TORCH_TRACE_CACHE=cache))
+        out["trace_s"] = time.monotonic() - t0
+        worker = json.loads(next(pathlib.Path(cache).glob("trace-*.json")).read_text())
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    trace = doc["trace"]
+    if trace["cacheHit"] or trace["entryPoints"] != LINT_ENTRY_POINTS:
+        fail(f"lint trace tier: {trace['entryPoints']} entry points (cache hit "
+             f"{trace['cacheHit']}), expected {LINT_ENTRY_POINTS} run anew")
+    if worker["stats"]["device"] == "cpu":
+        fail("lint trace tier: the worker ran on the CPU")
+    entries = {}
+    for e in worker["stats"]["entries"]:
+        if not e.get("launches"):
+            fail(f"lint trace tier: entry {e['name']} launched no hand kernel")
+        sites = "; ".join(f"{site} {what} x{n}" for site, what, n in e["syncSites"])
+        print(f"lint entry {e['name']}: {e['runS']:.3f} s in {e['runs']} run(s), "
+              f"{e['recorderSyncs']} recorder syncs, {e['syncDebugWarnings']} sync-debug "
+              f"warnings, kernels {json.dumps(e['launches'])}; sites: {sites or 'none'} ({card})")
+        entries[e["name"]] = {k: e[k] for k in ("runS", "recorderSyncs", "syncDebugWarnings",
+                                                 "launches")}
+    print(f"lint trace tier: {len(entries)} entry points on {worker['stats']['device']}, "
+          f"0 unsuppressed findings, {doc['summary']['suppressed']} suppressed, worker "
+          f"{trace['workerWallS']:.1f} s, {out['trace_s']:.1f} s in all ({card})")
+    out["entries"] = entries
+
+    pinned = dataclasses.replace(opt.SERVICE_SETTINGS, chunk_target_s=PINNED_TARGET_S)
+    o = opt.GoalOptimizer(device="cuda", settings=pinned)
+    census = {}
+
+    def solve():
+        res, census["counts"] = sync_census(
+            lambda: o.optimizations(model_cpu, None, raise_on_hard_failure=False),
+            pathlib.Path(__file__).resolve().parent, torch.device("cuda"))
+        return res
+
+    run_and_check("lint census", model_cpu, solve, STACK_PATH,
+                  JAX_CPU_SERVICE_BUCKETED_REFERENCE, JAX_CPU_SERVICE_BUCKETED_MOVES)
+    counts = census["counts"]
+    rec, dbg = counts["recorder"], counts["syncDebug"]
+    n_rec, n_dbg = sum(rec.values()), sum(dbg.values())
+    rec_sites = {site for site, _ in rec}
+    missed = {site: n for (site, _), n in dbg.items() if site not in rec_sites}
+    wall = solves["lint census"]["wall_s"]
+    print(f"lint census: the service bucketed solve syncs {n_rec} times by the recorder "
+          f"({len(rec)} site/kind pairs over {counts['ops']} ops) and {n_dbg} times by the "
+          f"sync-debug mode; {sum(missed.values())} warnings at {len(missed)} sites the "
+          f"recorder does not see; {wall:.2f} s under both against phase 10's "
+          f"{solves['service bucketed']['wall_s']:.2f} s ({card})")
+    by_kind = {}
+    for (_, what), n in rec.items():
+        by_kind[what] = by_kind.get(what, 0) + n
+    print(f"lint census: by kind {json.dumps(dict(sorted(by_kind.items())))} ({card})")
+    top = sorted(rec.items(), key=lambda kv: (-kv[1], kv[0]))[:CENSUS_TOP_SITES]
+    for (site, what), n in top:
+        print(f"lint census site: {site} {what} x{n} (sync-debug warnings there: "
+              f"{sum(m for (s2, _), m in dbg.items() if s2 == site)}; {card})")
+    for site, n in sorted(missed.items(), key=lambda kv: -kv[1])[:CENSUS_TOP_SITES]:
+        print(f"lint census site the recorder misses: {site} sync-debug warning x{n} ({card})")
+    out["census"] = {"recorder": n_rec, "syncDebug": n_dbg, "byKind": by_kind,
+                     "missed": sum(missed.values()), "ops": counts["ops"], "wall_s": wall,
+                     "sites": [[site, what, n] for (site, what), n in sorted(
+                         rec.items(), key=lambda kv: (-kv[1], kv[0]))],
+                     "missedSites": missed}
+    del o
+    out["seconds"] = time.monotonic() - t_phase
+    print(f"lint: phase 24 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def executed_phase(res, model_m, meta_m, sim_m, monitor_m, card: str) -> dict:
     """Phase 19 on phase 18's result, model, metadata, simulator and monitor:
     stamp, execute, check against JAX_CPU_EXECUTED, rebuild the model, run
@@ -3891,6 +4034,9 @@ def main() -> int:
 
     # -- 23. mesh: the partition-axis mesh on shards of the card --------------
     executed["mesh"] = mesh_phase(model_cpu, parity_model, card, row, run_and_check, solves)
+
+    # -- 24. lint: the port's linter, its entry points on the card, a census --
+    executed["lint"] = lint_phase(model_cpu, card, run_and_check, solves)
 
     if results["service"][:2] != results["stack"][:2]:
         fail("service: the chunked solve's final assignment or touch tags differ from the "

@@ -46,6 +46,7 @@ def make_bulk_count_round(goal, dims, k_cand: int, max_waves: int):
 
     def bulk_round(static: StaticCtx, agg: Aggregates, tables, gs, contrib, rnd: int = 0):
         dev = agg.assignment.device
+        # cclint: disable=cuda-host-sync -- the planner's round gate reads the largest surplus once a round (the JAX while_loop's cond); it stays until the rounds are captured as CUDA graphs (ROADMAP Queue 2 item 4)
         max_surplus = float(torch.max(goal.bulk_counts(static, gs, agg).surplus))
         if not max_surplus >= 1.0:
             return agg, False
@@ -94,6 +95,7 @@ def make_bulk_count_round(goal, dims, k_cand: int, max_waves: int):
             n_applied = torch.sum(sel.to(torch.int32))
             # one device read per wave: keep going only while waves deliver
             # bulk-scale progress (at least 1/8 of the surplus set)
+            # cclint: disable=cuda-host-sync -- one read a wave of the applied and surplus counts (the `go` handoff); it stays until the rounds are captured as CUDA graphs (ROADMAP Queue 2 item 4)
             n_applied, n_valid = (int(x) for x in torch.stack([n_applied, n_valid]).cpu())
             applied = applied or n_applied > 0
             if n_applied < max(1, n_valid // 8):

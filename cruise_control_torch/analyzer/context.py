@@ -67,9 +67,12 @@ def resolve_options(options: OptimizationOptions, model: FlatClusterModel,
         if topic_names is None:
             raise ValueError("excluded_topic_pattern requires topic names (monitor-built model)")
         rx = re.compile(options.excluded_topic_pattern)
+        # cclint: disable=cuda-host-sync -- option resolution on the host, once per request, before any round
         excluded_topics = np.array([bool(rx.fullmatch(name)) for name in topic_names], dtype=bool)
+        # cclint: disable=cuda-host-sync -- option resolution on the host, once per request, before any round
         mask = excluded_topics[model.topic_id.cpu().numpy()]
         if options.excluded_partitions is not None:
+            # cclint: disable=cuda-host-sync -- option resolution on the host, once per request, before any round
             mask = mask | np.asarray(options.excluded_partitions, dtype=bool)
         out = dataclasses.replace(out, excluded_partitions=mask, excluded_topic_pattern=None)
     if options.destination_broker_ids is not None:
@@ -79,6 +82,7 @@ def resolve_options(options: OptimizationOptions, model: FlatClusterModel,
         dst = np.zeros(model.num_brokers, dtype=bool)
         dst[list(options.destination_broker_ids)] = True
         if out.requested_destination_brokers is not None:
+            # cclint: disable=cuda-host-sync -- option resolution on the host, once per request, before any round
             dst = dst & np.asarray(out.requested_destination_brokers, dtype=bool)
         out = dataclasses.replace(out, requested_destination_brokers=dst,
                                   destination_broker_ids=None)
@@ -157,6 +161,7 @@ class Dims:
 
 def dims_of(model: FlatClusterModel) -> Dims:
     def count(t):
+        # cclint: disable=cuda-host-sync,cuda-shape-branch -- Dims are host ints, read once per prepared model
         return int(t.max()) + 1 if t.numel() else 0
 
     return Dims(
@@ -187,6 +192,7 @@ def build_static_ctx(
     neither alive nor dead."""
     dev = model.device
     b = dims.num_brokers
+    # cclint: disable=cuda-host-sync -- the static context is built once per prepared model, before any round
     state = model.broker_state.cpu()
     valid = torch.arange(b) < (b if valid_brokers is None else valid_brokers)
     alive = (state != BrokerState.DEAD) & valid
@@ -195,6 +201,7 @@ def build_static_ctx(
     def mask(arr, default: bool) -> torch.Tensor:
         if arr is None:
             return torch.full((b,), default)
+        # cclint: disable=cuda-host-sync -- the static context is built once per prepared model, before any round
         return torch.as_tensor(np.asarray(arr, dtype=bool))
 
     replica_dst_ok = alive & ~mask(options.excluded_brokers_for_replica_move, False)
@@ -204,19 +211,24 @@ def build_static_ctx(
     if options.excluded_partitions is None:
         movable = torch.ones(dims.num_partitions, dtype=torch.bool)
     else:
+        # cclint: disable=cuda-host-sync -- the static context is built once per prepared model, before any round
         movable = ~torch.as_tensor(np.asarray(options.excluded_partitions, dtype=bool))
 
     effective = constraint
     if options.is_triggered_by_goal_violation:
         effective = constraint.with_multiplier_applied()
 
+    # cclint: disable=cuda-host-sync -- the static context is built once per prepared model, before any round
     capacity = model.broker_capacity.cpu()
+    # cclint: disable=cuda-host-sync -- the static context is built once per prepared model, before any round
     cap_threshold = torch.as_tensor(np.asarray(effective.capacity_threshold, dtype=np.float32))
     capacity_limit = capacity * cap_threshold[None, :]
     host_cpu_cap = torch.zeros(dims.num_hosts, dtype=torch.float32).index_add_(
+        # cclint: disable=cuda-host-sync -- the static context is built once per prepared model, before any round
         0, model.broker_host.cpu().long(), capacity[:, Resource.CPU])
 
     def f32(x):
+        # cclint: disable=cuda-host-sync -- the static context is built once per prepared model, before any round
         return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
 
     return StaticCtx(
@@ -243,8 +255,10 @@ def build_static_ctx(
         replica_balance_pct=f32(effective.replica_balance_percentage),
         leader_replica_balance_pct=f32(effective.leader_replica_balance_percentage),
         topic_replica_balance_pct=f32(effective.topic_replica_balance_percentage),
+        # cclint: disable=cuda-host-sync -- the static context is built once per prepared model, before any round
         max_replicas_per_broker=torch.tensor(int(effective.max_replicas_per_broker),
                                              dtype=torch.int32, device=dev),
+        # cclint: disable=cuda-host-sync -- the static context is built once per prepared model, before any round
         only_move_immigrants=torch.tensor(bool(options.only_move_immigrants), device=dev),
     )
 

@@ -216,6 +216,7 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
                agg.topic_replica_count, agg.host_cpu_load, agg.touch_tag)
     idx = score.get_device()
     shape = score.shape
+    # cclint: disable=cuda-shape-branch -- a guard that refuses what the kernel does not take; it picks no launch sequence
     if not (idx >= 0 and score.dtype is torch.float32 and ok.dtype is torch.bool
             and score.dim() == 1 and ok.shape == shape and ok.get_device() == idx
             and score.is_contiguous() and ok.is_contiguous()
@@ -229,6 +230,7 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
         raise ValueError(f"apply_wave: {n} entries, the kernel takes fewer than 2**31 - 1")
     slots = max(agg.assignment.shape[0], groups)
     ws = _WORKSPACE.get(dev)
+    # cclint: disable=cuda-shape-branch -- the workspace grows once to the largest size seen; the launches are the same either way
     if ws is None or ws.shape[1] < slots:
         ws = torch.zeros((2, slots), dtype=torch.int32, device=dev)
         ws[1] = torch.iinfo(torch.int32).max
@@ -236,6 +238,7 @@ def apply_wave(static, agg, p, kind, slot, dst, score, ok, tag: int, leg2=None,
     scratch = ws  # not read by the block configuration
     if n > BLOCK_ENTRIES or groups > BLOCK_GROUPS:
         scratch = _SCRATCH.get(dev)
+        # cclint: disable=cuda-shape-branch -- the workspace grows once to the largest size seen; the launches are the same either way
         if scratch is None or scratch.numel() < n * WIDE_BYTES_PER_ENTRY:
             scratch = torch.empty(n * WIDE_BYTES_PER_ENTRY, dtype=torch.uint8, device=dev)
             _SCRATCH[dev] = scratch

@@ -65,6 +65,7 @@ def _refuse(contrib, assignment, movable_partition):
 def _scratch(dev: int, b: int, blocks: int):
     """The device's (runs, keys) scratch, grown to these sizes."""
     ws = _SCRATCH.get(dev)
+    # cclint: disable=cuda-shape-branch -- the workspace grows once to the largest size seen; the launches are the same either way
     if ws is None or ws[0].numel() < blocks * b or ws[1].numel() < blocks * CHUNK:
         old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
         cuda = torch.device("cuda", dev)
@@ -85,6 +86,7 @@ def broker_topk(contrib, assignment, movable_partition, k: int, num_brokers: int
         return broker_topk_plain(contrib, assignment, movable_partition, k, num_brokers,
                                  heaviest)
     dev = contrib.device
+    # cclint: disable=cuda-shape-branch -- a guard that refuses what the kernel does not take; it picks no launch sequence
     if not (contrib.is_cuda and contrib.dtype == torch.float32 and assignment.dtype == torch.int32
             and movable_partition.dtype == torch.bool and contrib.dim() == 2
             and movable_partition.dim() == 1 and contrib.shape == assignment.shape

@@ -70,6 +70,7 @@ def topic_sum(values: np.ndarray, num_brokers: int) -> np.float32:
     main = t - t % lanes if lanes else 0
     for i in range(main):
         acc[i % lanes] = acc[i % lanes] + values[i]
+    # cclint: disable=cuda-shape-branch -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     while acc.shape[0] > 1:
         h = acc.shape[0] // 2
         acc = acc[:h] + acc[h:]
@@ -90,6 +91,7 @@ def topic_order_sum(values: torch.Tensor, num_brokers: int) -> torch.Tensor:
     main = t - t % lanes if lanes else 0
     for i in range(main):
         acc[i % lanes] += values[i]
+    # cclint: disable=cuda-shape-branch -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     while acc.shape[0] > 1:
         h = acc.shape[0] // 2
         acc = acc[:h] + acc[h:]
@@ -137,6 +139,7 @@ def cluster_stats_plain(broker_load, capacity, alive, replica_count, leader_coun
     t_nonempty = tc.long().sum(dim=1) > 0
     t_std = torch.where(t_nonempty, _sqrt(t_var), counts.new_zeros(()))
     n_topics = torch.clamp_min(t_nonempty.sum().to(f32), 1.0)
+    # cclint: disable=cuda-shape-branch -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     topic_std = (topic_order_sum(t_std, load.shape[0]) / n_topics if t_std.shape[0]
                  else counts.new_zeros(()))
     out = torch.stack([*(x[0] for x in res), *(x[1] for x in res), *(x[2] for x in res),
@@ -150,6 +153,7 @@ def _scratch(dev: int, t: int):
     """(topic deviations f32, counters i32[2] at 0, their addresses) of device
     `dev`, the deviations grown to at least `t`."""
     ws = _SCRATCH.get(dev)
+    # cclint: disable=cuda-shape-branch -- the workspace grows once to the largest size seen; the launches are the same either way
     if ws is None or ws[0].numel() < t:
         cuda = torch.device("cuda", dev)
         std = torch.empty(max(t, 4096 if ws is None else 2 * ws[0].numel()),

@@ -68,6 +68,7 @@ def workspace_words(b: int) -> int:
     """The u32 words of the bits workspace for `b` brokers."""
     fn = build.load("elect_preferred").elect_preferred_workspace_words
     fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_longlong]
+    # cclint: disable=cuda-host-sync -- a ctypes call's host integer (the kernel library's scratch size), no tensor
     return int(fn(b))
 
 
@@ -87,6 +88,7 @@ def elect_preferred(assignment: torch.Tensor, demoted: torch.Tensor,
     if assignment.device.type == "cpu":
         return elect_preferred_plain(assignment, demoted, dead)
     idx = assignment.get_device()
+    # cclint: disable=cuda-shape-branch -- a guard that refuses what the kernel does not take; it picks no launch sequence
     if not (idx >= 0 and assignment.dtype is torch.int32 and assignment.dim() == 2
             and demoted.dtype is torch.bool and dead.dtype is torch.bool and demoted.dim() == 1
             and demoted.shape == dead.shape and demoted.get_device() == idx

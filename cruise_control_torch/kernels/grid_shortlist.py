@@ -84,6 +84,7 @@ def _scratch(dev: int) -> int:
     if addr is None:
         lib = build.load("grid_shortlist")
         lib.grid_shortlist_scratch_bytes.restype = ctypes.c_longlong
+        # cclint: disable=cuda-host-sync -- a ctypes call's host integer (the kernel library's scratch size), no tensor
         buf = torch.empty(int(lib.grid_shortlist_scratch_bytes()), dtype=torch.uint8,
                           device=torch.device("cuda", dev))
         _SCRATCH[dev] = addr = (buf, buf.data_ptr())
@@ -103,6 +104,7 @@ def _work(dev: int, r: int, k: int, p: int) -> int:
     if need == 0:
         return 0
     ws = _WORK.get(dev)
+    # cclint: disable=cuda-shape-branch -- the workspace grows once to the largest size seen; the launches are the same either way
     if ws is None or ws[0].numel() < need:
         buf = torch.empty(need, dtype=torch.uint8, device=torch.device("cuda", dev))
         ws = _WORK[dev] = (buf, buf.data_ptr())

@@ -35,6 +35,7 @@ def _scratch(idx: int) -> int:
     if ws is None:
         lib = build.load("partition_stats")
         lib.partition_stats_scratch_words.restype = ctypes.c_longlong
+        # cclint: disable=cuda-host-sync -- a ctypes call's host integer (the kernel library's scratch size), no tensor
         t = torch.zeros(int(lib.partition_stats_scratch_words()), dtype=torch.int32,
                         device=torch.device("cuda", idx))
         ws = _SCRATCH[idx] = (t, t.data_ptr())

@@ -164,6 +164,7 @@ def layout(*idx):
         raise ValueError(f"score_candidates: rank {rank} > 3")
     dims = [1, 1, 1]
     for t in idx:
+        # cclint: disable=cuda-python-loop -- loops over a tensor's rank (at most 5 dims), not a model axis
         for i, n in enumerate(t.shape, 3 - t.dim()):
             if n != 1:
                 if dims[i] == 1:
@@ -174,6 +175,7 @@ def layout(*idx):
     strides = []
     for t in idx:
         s3 = [0, 0, 0]
+        # cclint: disable=cuda-python-loop -- loops over a tensor's rank (at most 5 dims), not a model axis
         for i, (n, s) in enumerate(zip(t.shape, t.stride()), 3 - t.dim()):
             if n != 1:
                 s3[i] = s

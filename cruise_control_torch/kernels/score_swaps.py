@@ -64,6 +64,7 @@ def layout(*idx):
         raise ValueError(f"score_swaps: rank {rank} > 5")
     dims = [1] * 5
     for t in idx:
+        # cclint: disable=cuda-python-loop -- loops over a tensor's rank (at most 5 dims), not a model axis
         for i, n in enumerate(t.shape, 5 - t.dim()):
             if n != 1:
                 if dims[i] == 1:
@@ -74,6 +75,7 @@ def layout(*idx):
     strides = []
     for t in idx:
         s5 = [0] * 5
+        # cclint: disable=cuda-python-loop -- loops over a tensor's rank (at most 5 dims), not a model axis
         for i, (n, s) in enumerate(zip(t.shape, t.stride()), 5 - t.dim()):
             if n != 1:
                 s5[i] = s

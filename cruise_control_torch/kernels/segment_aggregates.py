@@ -81,6 +81,7 @@ def _scratch(dev: int, p: int, r: int, b: int, h: int):
             _BYTES.clear()
         need = _BYTES[(p, r, b, h)] = fn(p, r, b, h)
     ws = _SCRATCH.get(dev)
+    # cclint: disable=cuda-shape-branch -- the workspace grows once to the largest size seen; the launches are the same either way
     if ws is None or ws[0].numel() < need:
         old = 0 if ws is None else ws[0].numel()
         buf = torch.empty(max(need, 2 * old, 1 << 20), dtype=torch.uint8,

@@ -83,10 +83,12 @@ def _lanes(x, main: int, zeros):
     acc = zeros((VECTOR_LANES,) + tuple(x.shape[1:]))
     for i in range(main):
         acc[i % VECTOR_LANES] = acc[i % VECTOR_LANES] + x[i]
+    # cclint: disable=cuda-shape-branch -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     while acc.shape[0] > 1:
         h = acc.shape[0] // 2
         acc = acc[:h] + acc[h:]
     s = acc[0]
+    # cclint: disable=cuda-python-loop -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     for i in range(main, x.shape[0]):
         s = s + x[i]
     return s
@@ -95,12 +97,15 @@ def _lanes(x, main: int, zeros):
 def xla_sum(a: np.ndarray, order: FusedOrder | None = None) -> np.ndarray:
     """f32[...]: the sum over the first axis of the float32 array `a`, in
     XLA:CPU's order (module docstring), vectorized as `order` says."""
+    # cclint: disable=cuda-host-sync -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     a = np.asarray(a, dtype=np.float32)
     main = lane_terms(a.shape[0], order)
     if main:
         return _lanes(a, main, lambda shape: np.zeros(shape, dtype=np.float32))
+    # cclint: disable=cuda-shape-branch -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     if a.shape[0] == 1:
         return a[0]
+    # cclint: disable=cuda-shape-branch -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     while a.shape[0] > WINDOW:
         n = a.shape[0]
         m = -(-n // WINDOW) * WINDOW
@@ -112,6 +117,7 @@ def xla_sum(a: np.ndarray, order: FusedOrder | None = None) -> np.ndarray:
             acc = acc + a[:, k]
         a = acc
     acc = np.zeros(a.shape[1:], dtype=np.float32)
+    # cclint: disable=cuda-python-loop -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     for k in range(a.shape[0]):
         acc = acc + a[k]
     return acc
@@ -124,8 +130,10 @@ def xla_order_sum(x: torch.Tensor, order: FusedOrder | None = None) -> torch.Ten
     main = lane_terms(x.shape[0], order)
     if main:
         return _lanes(x, main, x.new_zeros)
+    # cclint: disable=cuda-shape-branch -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     if x.shape[0] == 1:
         return x[0].clone()
+    # cclint: disable=cuda-shape-branch -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     while x.shape[0] > WINDOW:
         n = x.shape[0]
         m = -(-n // WINDOW) * WINDOW
@@ -138,6 +146,7 @@ def xla_order_sum(x: torch.Tensor, order: FusedOrder | None = None) -> torch.Ten
             acc.add_(w[:, k])
         x = acc
     acc = x.new_zeros(x.shape[1:])
+    # cclint: disable=cuda-python-loop -- the plain version's summation order (XLA's), the CPU spec of the kernel; the card runs the kernel
     for k in range(x.shape[0]):
         acc.add_(x[k])
     return acc
@@ -151,6 +160,7 @@ def window_sum_plain(x: torch.Tensor, order: FusedOrder | None = None) -> torch.
 def _scratch(dev: int, floats: int, tiles: int):
     """(scratch, tickets, their addresses) of device `dev`, grown to these sizes."""
     ws = _SCRATCH.get(dev)
+    # cclint: disable=cuda-shape-branch -- the workspace grows once to the largest size seen; the launches are the same either way
     if ws is None or ws[0].numel() < floats or ws[1].numel() < tiles:
         old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
         cuda = torch.device("cuda", dev)

@@ -61,6 +61,7 @@ class FlatClusterModel(NamedTuple):
     @property
     def num_topics(self) -> int:
         # topic ids are dense [0, T)
+        # cclint: disable=cuda-host-sync,cuda-shape-branch -- Dims are host ints, read once per prepared model
         return int(self.topic_id.max()) + 1 if self.topic_id.shape[0] else 0
 
     @property
@@ -91,7 +92,9 @@ class ClusterMetadata:
         """Render partition p as 'topic-partitionIndex' for proposals/REST."""
         if self.topic_of_partition is None:
             raise ValueError("ClusterMetadata built without topic_of_partition")
+        # cclint: disable=cuda-host-sync -- host helper (model construction, names, host copies): never runs inside a round
         t = int(self.topic_of_partition[p])
+        # cclint: disable=cuda-host-sync -- host helper (model construction, names, host copies): never runs inside a round
         return f"{self.topic_names[t]}-{int(self.partition_index[p])}"
 
 
@@ -121,7 +124,9 @@ def segment_sums(model: FlatClusterModel, num_topics: int):
     XLA:CPU's segment_sum."""
     from cruise_control_torch.kernels.segment_aggregates import segment_aggregates
 
+    # cclint: disable=cuda-host-sync -- the rack and host counts, read once a statistics call, outside the rounds
     num_racks = int(model.broker_rack.max()) + 1 if model.num_brokers else 0
+    # cclint: disable=cuda-host-sync -- the rack and host counts, read once a statistics call, outside the rounds
     num_hosts = int(model.broker_host.max()) + 1 if model.num_brokers else 0
     return segment_aggregates(model.assignment, model.part_load, model.topic_id,
                               model.broker_rack, model.broker_host, model.num_brokers,
@@ -191,6 +196,7 @@ def from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> FlatClusterMod
     Values are copied; dtypes are the JAX model's (int32 / float32)."""
     return FlatClusterModel(
         **{
+            # cclint: disable=cuda-host-sync -- host helper (model construction, names, host copies): never runs inside a round
             name: torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
             for name, dtype in _DTYPES.items()
         }
@@ -199,12 +205,14 @@ def from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> FlatClusterMod
 
 def to_numpy(model: FlatClusterModel) -> dict:
     """The model's fields as numpy arrays (the inverse of `from_numpy`)."""
+    # cclint: disable=cuda-host-sync -- host helper (model construction, names, host copies): never runs inside a round
     return {k: v.cpu().numpy() for k, v in model._asdict().items()}
 
 
 def sanity_check(model: FlatClusterModel) -> None:
     """Invariant checker, the analog of ClusterModel.sanityCheck
     (cc/model/ClusterModel.java:918). Host-side; raises on violation."""
+    # cclint: disable=cuda-host-sync -- host helper (model construction, names, host copies): never runs inside a round
     a = model.assignment.cpu().numpy()
     b = model.num_brokers
     valid = a >= 0
@@ -224,6 +232,7 @@ def sanity_check(model: FlatClusterModel) -> None:
     packed = (rf == r) | (first_invalid == rf)
     if not packed.all():
         raise ValueError("replica slots must be left-packed")
+    # cclint: disable=cuda-host-sync -- host helper (model construction, names, host copies): never runs inside a round
     load = model.part_load.cpu().numpy()
     if (load < 0).any() or not np.isfinite(load).all():
         raise ValueError("partition loads must be finite and non-negative")

@@ -1,0 +1,23 @@
+"""Flag fixture: a mesh entry that gathers twice a call against a budget of
+one."""
+
+
+def _shortlist(x):
+    from cruise_control_torch.common.telemetry import TELEMETRY
+
+    for _ in range(2):
+        TELEMETRY.record_collective("all-gather", 64, "fixture", "fixture-shortlist",
+                                    per_round=True)
+    return x.max()
+
+
+def _build(device):
+    import torch
+
+    return dict(fn=_shortlist, args=(torch.ones(8, device=device),),
+                collectives={"all-gather": 1})
+
+
+CCLINT_TRACE_ENTRYPOINTS = [
+    dict(name="over-budget-mesh-kernel", build=_build),
+]

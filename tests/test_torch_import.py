@@ -69,6 +69,11 @@ FRONT_DOOR_PATH = tuple(f"cruise_control_torch.{m}" for m in (
 MESH_PATH = tuple(f"cruise_control_torch.{m}" for m in (
     "parallel", "parallel.sharding", "parallel.spmd", "kernels.shard_merge",
     "kernels.partition_stats"))
+#: the linter: its core, command line, rule families, entry-point registry
+#: and trace worker
+LINT_PATH = tuple(f"cruise_control_torch.lint.{m}" for m in (
+    "core", "cli", "rules_concurrency", "rules_registry", "rules_cuda", "rules_trace",
+    "entrypoints", "trace_worker", "__main__"))
 
 
 def test_every_module_imports_without_jax():
@@ -89,6 +94,7 @@ def test_every_module_imports_without_jax():
         f"assert set({FRONT_DOOR_PATH!r}) <= set(names), \\\n"
         f"    sorted(set({FRONT_DOOR_PATH!r}) - set(names))\n"
         f"assert set({MESH_PATH!r}) <= set(names), sorted(set({MESH_PATH!r}) - set(names))\n"
+        f"assert set({LINT_PATH!r}) <= set(names), sorted(set({LINT_PATH!r}) - set(names))\n"
         "assert 'aiohttp' not in sys.modules, 'the port serves on the standard library'\n"
         "from cruise_control_torch.config import CruiseControlConfig\n"
         "from cruise_control_torch.detector import AnomalyNotifier, NoopNotifier\n"
@@ -133,3 +139,49 @@ def test_executor_path_imports_without_jax_and_configures_the_port():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["8", "13"]
+
+
+def test_linter_imports_without_torch_or_jax():
+    """The linter's parent process imports neither torch nor JAX: its core,
+    CLI, rule families and registry import, and the token tier runs, with
+    both made unimportable."""
+    code = (
+        "import sys, pathlib\n"
+        "for name in ('jax', 'jaxlib', 'cruise_control_tpu', 'torch'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {LINT_PATH!r}:\n"
+        "    if not m.endswith(('trace_worker', '__main__')):\n"
+        "        importlib.import_module(m)\n"
+        "import cruise_control_torch.lint.trace_worker as w\n"
+        "from cruise_control_torch.lint import all_rules, build_context, run_rules, tier_rules\n"
+        "ctx = build_context(pathlib.Path('.'), device='cpu')\n"
+        "found = run_rules(ctx, rules=tier_rules('token'))\n"
+        "assert not [f for f in found if not f.suppressed], found\n"
+        "print(len(all_rules()), w.WORKER_SCHEMA)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 20
+
+
+def test_trace_worker_runs_without_jax():
+    """The worker imports torch and the port, never JAX: it runs an entry of
+    the package's registry with JAX made unimportable."""
+    code = (
+        "import sys, pathlib, torch\n"
+        "for name in ('jax', 'jaxlib', 'cruise_control_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from cruise_control_torch.lint import entrypoints, trace_worker\n"
+        "entry = next(e for e in entrypoints.CCLINT_TRACE_ENTRYPOINTS\n"
+        "             if e['name'] == 'sharded-compute-aggregates')\n"
+        "fs, st = trace_worker.analyze_entry(entry, 'e.py', 1, torch.device('cpu'),\n"
+        "                                    trace_worker.SiteFinder(pathlib.Path('.')))\n"
+        "assert fs == [], fs\n"
+        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v is not None}\n"
+        "print(st['collectivesPerCall'])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
