@@ -171,10 +171,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      solve, and SIGINT stops the service within MAIN_SIGINT_S.
  23. mesh (mesh_phase): the partition-axis mesh, its shards row blocks of
      the one card: K12 shard_merge and K13 partition_stats against their
-     plain versions (K12 on generated record sets, K13 on the smoke model
-     padded to 199,520 rows, also against the host's counts) and timed; the
-     sharded shortlist on 8 row blocks at the smoke model's full greedy grid
-     equal to the unsharded K9; the parity model under GREEDY_SETTINGS on 4
+     plain versions (K12 on generated record sets of the shards' local rows,
+     1 to 4,097 records, each of its three paths; K13 on the smoke model
+     padded to 199,520 rows and on each of its 8 shards' row-block views,
+     also against the host's counts) and timed; the sharded shortlist on 8
+     row blocks at the smoke model's full greedy grid equal to the unsharded
+     K9, its kernels a grid round from a profiler trace (K9's a shard, one
+     K12, no glue); the parity model under GREEDY_SETTINGS on 4
      shards (K9 a shard and K12 a grid round) held to phase 9's JAX digest;
      the bucketed service solve on 8 shards held to phase 10's, K13's
      coverage certificate on its placed context, lane (a) under that mesh
@@ -192,6 +195,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the recorder's and the debug mode's counts side by side with the top
      sites, its decision digest and final assignment held to phase 10's JAX
      constants.
+ 25. model api (model_api_phase): the flat model's helpers of the JAX
+     package's names (replication_factor, the new and dead broker masks,
+     the leader and follower contributions, host_loads and host_capacity,
+     also with the brokers MODEL_API_HOST_GROUP a host, utilization_matrix)
+     and gather_actions on the leadership grid, on the smoke model on the
+     card: every output on the card, K1 launched, host_loads' CPU column
+     equal to K1's host_cpu_load, each output's SHA-256 equal to the JAX CPU
+     run's (JAX_CPU_MODEL_API) and to the port's CPU run's.
   Around each solve every kernel's launch count is set to 0 and read after
   (K3's and K5's also by path; the service bucketed solve must take all
   three of K3's);
@@ -221,10 +232,12 @@ JSON object of per-kernel numbers and the final `{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -914,6 +927,26 @@ JAX_CPU_SERVED_K11_SHA256 = {
     "initial": "ecf3d379930542175e8dee7238654de4fb70e1696103db098cc8a1d19fbc5834",
     "final": "8d054843f040570b7608c01285f9cfff6b879c6bd28f7efdaa92d148aca8e8b8"
 }
+#: Phase 25: chip_smoke.model_api_outputs on the JAX package's model API,
+#: jitted on the CPU, on the smoke model (the host sums also with its brokers
+#: MODEL_API_HOST_GROUP a host): each output's SHA-256
+#: (scripts/model_api_references.py)
+JAX_CPU_MODEL_API = {
+    "replication_factor": "a8ab19e6f77e43a7f5b6d7976e5ec325b86bd5d3d0f2c07239929a51c9ff4efe",
+    "new_broker_mask": "8bffbf88a5b1e8bb4ac2bc48957d26c4c5e294774dad81758f2c0cbfaf6f8d52",
+    "dead_broker_mask": "879d5a631d591b4782f238ac2bb457f673372de1d9b4048790a90a7dfb8750cd",
+    "leader_contribution": "8f34dae75b4f9aca07c809746ff076e75927aafcb327480ed46514385ab9d1c1",
+    "follower_contribution": "e5fd49bcc2d815ea0713607242f3861d63f6d0d6665cdfec5d943fe9cb669dd0",
+    "host_loads": "568be551ae6c1501a09c424484c7f6ea5b96af525c87a8d009c28b89e081f123",
+    "host_capacity": "e4b6cff8d053e2ffb078e254f904e142145b834cac0e1c6e8d155536f1c901cf",
+    "host_loads, 3 brokers a host":
+        "2ea05f764ae4349437fdc76e0f5b3473ba34d58eb20961b2c1d63637b0eb47dd",
+    "host_capacity, 3 brokers a host":
+        "460959036f44eee8a9065860df0b8dbbee8e1c14921679964c5ae4141e4c25bc",
+    "utilization_matrix": "73b998c59edcac712b5fdffe9fbe1187b291849308cd1993fd597dcd71e691bc",
+    "gather_actions, leadership grid":
+        "ef7b91b12d148adcb9c2c769669bf9f861fd52637ca3c99aedc5b68667b77855",
+}
 #: the kernels of each solve's path
 HARD_PATH = ("segment_aggregates", "broker_topk", "score_candidates", "apply_wave",
              "window_sum", "state_fingerprint", "cluster_stats")
@@ -952,8 +985,14 @@ ALL_KERNELS = ("segment_aggregates", "broker_topk", "score_candidates", "apply_w
 #: model's bucketed service solve (212,992 = 8 x 26,624) and for the kernel
 #: rows (the smoke model's 199,518 partitions padded to 199,520)
 MESH_PARITY_SHARDS, MESH_SERVICE_SHARDS = 4, 8
-#: phase 23's K12 record sets: (shards, records a shard), and their kinds
-MESH_MERGE_SHAPES = ((2, 1), (4, 1), (8, 1), (2, 16), (4, 16), (8, 16))
+#: phase 23's K12 record sets: (shards, records a shard), and their kinds:
+#: the mesh's (2-8 shards, k_loc 1 and 16) and K12's path edges, 32 records
+#: (one warp), 33 and 4,096 (staged in shared memory), 4,097 (device memory)
+MESH_MERGE_SHAPES = ((2, 1), (4, 1), (8, 1), (2, 16), (4, 16), (8, 16), (4, 8), (3, 11),
+                     (8, 512), (17, 241))
+#: rows of a shard's block in phase 23's K12 record sets (the parity model's
+#: 40,316 partitions over 4 shards)
+MESH_MERGE_ROWS = 10079
 MESH_MERGE_KINDS = ("random", "equal scores across shards", "-0.0 against +0.0",
                     "shards all -inf", "all -inf")
 #: partitions the lane phase's first proposal adds (inside the bucket)
@@ -1926,11 +1965,12 @@ def entry_point_phase(name: str, card: str) -> dict:
 
 def merge_records(kind: str, n_dev: int, k_loc: int, rng):
     """Phase 23's K12 input: the [n_dev * k_loc] records a mesh of n_dev
-    shards gathers, each shard's k_loc (score f32, global partition i32 in
-    its 10,079-row block, kind, slot, dst), as CPU tensors."""
+    shards gathers, as the shards write them: each shard's k_loc (score f32,
+    local partition i32 in its MESH_MERGE_ROWS-row block, kind, slot, dst),
+    as CPU tensors."""
     n = n_dev * k_loc
-    p = np.concatenate([np.sort(rng.choice(10079, k_loc, replace=False)) + 10079 * d
-                        for d in range(n_dev)]).astype(np.int32)
+    p = np.concatenate([np.sort(rng.choice(MESH_MERGE_ROWS, k_loc, replace=False))
+                        for _ in range(n_dev)]).astype(np.int32)
     if kind == "random":
         s = rng.standard_normal(n).astype(np.float32)
     elif kind == "equal scores across shards":
@@ -1947,64 +1987,70 @@ def merge_records(kind: str, n_dev: int, k_loc: int, rng):
             torch.from_numpy(np.concatenate([p[:, None], rest.astype(np.int32)], axis=1)))
 
 
-def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
-               device="cuda:0") -> dict:
-    """Phase 23: the partition-axis mesh on one card, its shards row blocks
-    of cuda:0 (parallel/sharding.make_mesh may name a device several times).
-    (a) K12 bit-equal to its plain version on MESH_MERGE_SHAPES x
-    MESH_MERGE_KINDS at k_sel 1, k_loc and every record, and timed at (b)'s
-    shape; K13 on the smoke model padded to 8 shards (199,520 rows)
-    bit-equal to its plain version and to the host's counts, and timed; the
-    sharded shortlist on 8 row blocks at the smoke model's full greedy grid
-    (phase 3's hard goal with dead brokers and LeaderReplicaDistributionGoal)
-    equal to the unsharded K9 and to the plain sharded version, bit for bit,
-    its 8 K9 launches and K12 timed against one K9 launch. (b) The parity
-    model under GREEDY_SETTINGS (pinned) on a mesh of MESH_PARITY_SHARDS:
-    phase 9's JAX digest and SHA-256, K9 launched 4 times and K12 once a
-    grid round, as many grid rounds as phase 9's, each gathered once
-    (`collective_totals`). (c) The smoke model's bucketed service solve on
-    a mesh of MESH_SERVICE_SHARDS: phase 10's JAX digest and SHA-256; K13's
-    coverage certificate on its placed context equal to the host's counts
-    (its own launch count, the path of the JSON line's partition_stats row);
-    lane (a) under that mesh: lane (a)'s JAX digest, the lane's context
-    placed again after K10. (d) `make_mesh_from_config` on the card:
-    `tpu.mesh.devices=0` gives no mesh on one card, 2 raises JAX's message.
-    Every shard is a row block of `device`. Returns the phase's host seconds
-    and counts."""
-    from cruise_control_torch import kernels
-    from cruise_control_torch.analyzer import incremental as inc
+#: profiler traces a kernel's row and device_kernels take before they give
+#: up on one that holds device events (a session on the card's machine now
+#: and then records none)
+TRACE_TRIES = 4
+
+
+def device_kernels(call) -> collections.Counter:
+    """{kernel name: launches} of one `call` (after one warm-up call), from a
+    profiler trace: every device kernel it ran, the hand kernels by their
+    `k_*` name, anything else (PyTorch's glue) by its full name. Empty when
+    TRACE_TRIES traces held no device event."""
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = collections.Counter()
+    for _ in range(TRACE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        for evt in prof.events():
+            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                own = re.search(r"\b(k_\w+)", evt.name)
+                out[own.group(1) if own else evt.name] += 1
+        if out:
+            break
+    return out
+
+
+def mesh_kernels(model_cpu, card: str, row, dev) -> dict:
+    """Phase 23 (a), on row blocks of `dev`: K12 bit-equal to its plain
+    version on MESH_MERGE_SHAPES x MESH_MERGE_KINDS at k_sel 1, k_loc and
+    every record (the shards' local rows in, the global ones out), and timed
+    at the parity greedy pass's 4 x 1; K13 on the smoke model padded to 8
+    shards (199,520 rows) bit-equal to its plain version and to the host's
+    counts, whole and on each shard's row-block views (their flags at other
+    offsets from a 16-byte boundary), and timed whole; the sharded shortlist
+    on 8 row blocks at the smoke model's full greedy grid (phase 3's hard
+    goal with dead brokers and LeaderReplicaDistributionGoal) equal to the
+    unsharded K9 and to the plain sharded version, bit for bit, its launches
+    a grid round from a profiler trace (K9's two kernels a shard, K12 once,
+    no other kernel: the records' global rows are K12's), its 8 K9 launches
+    and K12 timed against one K9 launch. Returns the numbers."""
     from cruise_control_torch.analyzer import optimizer as opt
     from cruise_control_torch.analyzer.acceptance import build_tables
-    from cruise_control_torch.analyzer.context import (
-        OptimizationOptions,
-        build_static_ctx,
-        compute_aggregates,
-        dims_of,
-    )
+    from cruise_control_torch.analyzer.context import build_static_ctx, compute_aggregates, dims_of
     from cruise_control_torch.analyzer.goals import goals_by_priority
-    from cruise_control_torch.common.telemetry import TELEMETRY
-    from cruise_control_torch.config import CruiseControlConfig
     from cruise_control_torch.config.balancing import BalancingConstraint
+    from cruise_control_torch.kernels import partition_stats as k13
     from cruise_control_torch.kernels.grid_shortlist import grid_shortlist
     from cruise_control_torch.kernels.partition_stats import partition_stats, partition_stats_plain
     from cruise_control_torch.kernels.score_candidates import ScoreContext
     from cruise_control_torch.kernels.shard_merge import shard_merge, shard_merge_plain
-    from cruise_control_torch.models.flat_model import from_numpy
     from cruise_control_torch.parallel import sharding, spmd
 
-    t_phase = time.monotonic()
-    dev = torch.device(device)
     out = {}
-
-    # (a) K12 on generated record sets, against its plain version on the CPU
+    # K12 on generated record sets, against its plain version on the CPU
     rng = np.random.default_rng(SEED)
     checked = 0
     for n_dev, k_loc in MESH_MERGE_SHAPES:
         for kind in MESH_MERGE_KINDS:
             sc, rc = merge_records(kind, n_dev, k_loc, rng)
             for k_sel in sorted({1, k_loc, n_dev * k_loc}):
-                want, got = shard_merge_plain(sc, rc, k_sel), shard_merge(sc.to(dev), rc.to(dev),
-                                                                          k_sel)
+                want = shard_merge_plain(sc, rc, k_sel, k_loc, MESH_MERGE_ROWS)
+                got = shard_merge(sc.to(dev), rc.to(dev), k_sel, k_loc, MESH_MERGE_ROWS)
                 torch.cuda.synchronize()
                 if not (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1])):
                     fail(f"mesh: K12 shard_merge ({kind}, {n_dev} x {k_loc}, k_sel {k_sel}) "
@@ -2013,21 +2059,23 @@ def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
     sc, rc = merge_records("equal scores across shards", MESH_PARITY_SHARDS, 1, rng)
     sg, rg = sc.to(dev), rc.to(dev)
     n12 = sc.shape[0]
-    err12 = max(max_abs_err(a, b) for a, b in zip(shard_merge(sg, rg, 1),
-                                                   shard_merge_plain(sc, rc, 1)))
-    # a first profiler session after a long pause can hold no device time
-    # (phase 3's first row shows it too): warm it up on this call
-    device_ms(lambda i: shard_merge(sg, rg, 1))
+    err12 = max(max_abs_err(a, b) for a, b in zip(
+        shard_merge(sg, rg, 1, 1, MESH_MERGE_ROWS),
+        shard_merge_plain(sc, rc, 1, 1, MESH_MERGE_ROWS)))
     # the records read once and the winner written; n^2 comparisons
-    r12 = row("shard_merge", "shard_merge.cu", "cruise_control_tpu/parallel/spmd.py:183", err12,
-              lambda i: shard_merge(sg, rg, 1), lambda i: shard_merge_plain(sg, rg, 1),
+    r12 = row("shard_merge", "shard_merge.cu", "cruise_control_tpu/parallel/spmd.py:185", err12,
+              lambda i: shard_merge(sg, rg, 1, 1, MESH_MERGE_ROWS),
+              lambda i: shard_merge_plain(sg, rg, 1, 1, MESH_MERGE_ROWS),
               (n12 + 1) * 20, n12 * n12,
-              f"one block, a thread a record ranking it against the {n12} gathered records "
-              "(scores and partitions staged in shared memory), the winner written at rank 0")
+              f"one warp, a lane a record holding it in registers and ranking it against the "
+              f"{n12} gathered records by shuffles, each record's global row formed from its "
+              "shard's local one, the winner written at rank 0")
+    out["k12_record_sets"] = checked
     print(f"mesh: K12 shard_merge bit-equal to its plain version on {checked} record sets "
-          f"(shards x records {list(MESH_MERGE_SHAPES)}, kinds {list(MESH_MERGE_KINDS)}); "
-          f"{r12['ms']:.4f} ms on the device at {n12} records, {r12['call_ms']:.4f} ms per "
-          f"call, plain {r12['plain_ms']:.4f} ms, bound {r12['bound_ms']:.8f} ms ({card})")
+          f"(shards x records {list(MESH_MERGE_SHAPES)}, kinds {list(MESH_MERGE_KINDS)}; the "
+          f"shards' local rows in, global rows out); {r12['ms']:.4f} ms on the device at {n12} "
+          f"records, {r12['call_ms']:.4f} ms per call, plain {r12['plain_ms']:.4f} ms, bound "
+          f"{r12['bound_ms']:.8f} ms ({card})")
 
     # K13 on the smoke model padded to MESH_SERVICE_SHARDS shards
     padded = sharding.pad_partitions(model_cpu, MESH_SERVICE_SHARDS)
@@ -2048,17 +2096,35 @@ def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
     if not bits_equal(got13, plain13) or got13.tolist() != host:
         fail(f"mesh: K13 partition_stats {got13.tolist()} differs from its plain version "
              f"{plain13.tolist()} or the host's counts {host}")
+    rows8 = p8 // MESH_SERVICE_SHARDS
+    offsets = []
+    for i in range(MESH_SERVICE_SHARDS):
+        cut = slice(i * rows8, (i + 1) * rows8)
+        got_i = partition_stats(mov_g[cut], a_g[cut])
+        torch.cuda.synchronize()
+        want_i = partition_stats_plain(st_c.movable_partition[cut], padded.assignment[cut])
+        if not bits_equal(got_i, want_i):
+            fail(f"mesh: K13 on shard {i} {got_i.tolist()} differs from its plain version "
+                 f"{want_i.tolist()}")
+        if k13._SCRATCH[dev.index][0].any():
+            fail(f"mesh: K13 left its scratch nonzero after shard {i}")
+        offsets.append((mov_g[cut].data_ptr() % 16, a_g[cut].data_ptr() % 16))
     r13 = row("partition_stats", "partition_stats.cu", "cruise_control_tpu/parallel/spmd.py:218",
               max_abs_err(got13, plain13), lambda i: partition_stats(mov_g, a_g),
               lambda i: partition_stats_plain(mov_g, a_g), p8 * (1 + 4 * r) + 12, p8 * (1 + r),
-              f"[{p8}, {r}] slots and {p8} flags: one launch, block counts, an atomic a block "
-              "and count, the last block writes the totals",
+              f"[{p8}, {r}] slots and {p8} flags: one launch over a grid sized to the card, "
+              "16-byte vector loads at any alignment (flags counted by byte SIMD), block counts "
+              "to the scratch, the last block adds them and writes the totals",
               library=lambda i: (torch.sum(mov_g), torch.sum(a_g >= 0)))
+    out["k13_shard_offsets"] = offsets
     print(f"mesh: K13 partition_stats on the smoke model padded to {p8} rows: {host} (movable, "
-          f"populated slots, rows), bit-equal to the plain version and the host's counts; "
+          f"populated slots, rows), bit-equal to the plain version and the host's counts, and "
+          f"on each of its {MESH_SERVICE_SHARDS} shards' row-block views ([{rows8}, {r}]; "
+          f"(flags, slots) bytes past a 16-byte boundary {offsets}), the scratch left 0; "
           f"{r13['ms']:.4f} ms on the device, {r13['call_ms']:.4f} ms per call, plain "
           f"{r13['plain_ms']:.4f} ms, two integer torch.sum {r13['library_ms']:.4f} ms, bound "
-          f"{r13['bound_ms']:.6f} ms ({card})")
+          f"{r13['bound_ms']:.6f} ms, grid of at most {k13._SCRATCH[dev.index][2]} blocks "
+          f"({card})")
 
     # the sharded shortlist on 8 row blocks of the card at the full grid
     mesh8 = sharding.make_mesh(MESH_SERVICE_SHARDS, devices=[dev] * MESH_SERVICE_SHARDS)
@@ -2066,6 +2132,7 @@ def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
     goals = goals_by_priority(None)
     by_name = {g.name: g for g in goals}
     out["shortlist"] = {}
+    own = {"k_grid_bid", "k_grid_take", "k_shard_merge", "k_shard_merge_warp"}
     for label, goal in (("hard goal", by_name["DiskCapacityGoal"]),
                         ("leader count goal", by_name["LeaderReplicaDistributionGoal"])):
         tables = build_tables(goals[:goals.index(goal)], st_g, agg_g, dims8)
@@ -2079,6 +2146,22 @@ def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
         if (grid_shortlist.launches - k9, shard_merge.launches - k12) != (MESH_SERVICE_SHARDS, 1):
             fail(f"mesh: the sharded shortlist ({label}) did not launch K9 once a shard and K12 "
                  "once")
+        traced = device_kernels(lambda: shortlist(placed, agg_g, gs, tables, cands))
+        k9_traced = traced["k_grid_bid"] + traced["k_grid_take"]
+        k12_traced = traced["k_shard_merge"] + traced["k_shard_merge_warp"]
+        glue = {k: v for k, v in traced.items() if k not in own}
+        if not traced:
+            print(f"mesh: the shortlist ({label}) a grid round: {TRACE_TRIES} profiler traces "
+                  f"held no device event; the wrappers counted {MESH_SERVICE_SHARDS} K9 "
+                  "launches and one K12")
+        else:
+            print(f"mesh: the shortlist ({label}) a grid round: {MESH_SERVICE_SHARDS} K9 "
+                  f"launches ({k9_traced} kernels: k_grid_bid and k_grid_take a shard), "
+                  f"{k12_traced} K12 and {sum(glue.values())} other kernels {dict(glue)} "
+                  f"(profiler trace of one round; {dict(traced)})")
+            if glue or k12_traced != 1 or k9_traced != 2 * MESH_SERVICE_SHARDS:
+                fail(f"mesh: the shortlist ({label}) launched {dict(traced)}: expected K9's two "
+                     f"kernels a shard, one K12 and nothing else")
         whole = grid_shortlist(st_g, agg_g, tables, goal, gs, cands)
         plain = shortlist.plain(placed, agg_g, gs, tables, cands)
         for name_, a_, b_, c_ in zip(("score", "p", "kind", "slot", "dst"), sharded, whole, plain):
@@ -2096,15 +2179,50 @@ def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
                                                       ctx=ctx))
         out["shortlist"][label] = {"record": [float(sharded[0])] + [int(x) for x in sharded[1:]],
                                    "ms_sharded": ms_sharded, "ms_whole": ms_whole,
-                                   "call_ms_sharded": call_sharded, "call_ms_whole": call_whole}
+                                   "call_ms_sharded": call_sharded, "call_ms_whole": call_whole,
+                                   "kernels_a_round": dict(traced)}
         print(f"mesh: the shortlist ({label}) on {MESH_SERVICE_SHARDS} row blocks of "
               f"[{p8 // MESH_SERVICE_SHARDS}, {r}, {cands.shape[0]}]: p {int(sharded[1])} kind "
               f"{int(sharded[2])} slot {int(sharded[3])} dst {int(sharded[4])} score "
               f"{float(sharded[0]):.6g}, bit-equal to the unsharded K9 and the plain sharded "
-              f"version; {MESH_SERVICE_SHARDS} K9 launches, the gather and K12 {ms_sharded} ms "
+              f"version; {MESH_SERVICE_SHARDS} K9 launches and K12 {ms_sharded} ms "
               f"on the device ({call_sharded:.4f} ms per call) against one K9 launch "
               f"{ms_whole} ms ({call_whole:.4f} ms per call) ({card})")
-    del padded_g, st_g, agg_g, placed, mov_g, a_g
+    return out
+
+
+def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
+               device="cuda:0") -> dict:
+    """Phase 23: the partition-axis mesh on one card, its shards row blocks
+    of cuda:0 (parallel/sharding.make_mesh may name a device several times).
+    (a) K12, K13 and the sharded shortlist (mesh_kernels). (b) The parity
+    model under GREEDY_SETTINGS (pinned) on a mesh of MESH_PARITY_SHARDS:
+    phase 9's JAX digest and SHA-256, K9 launched 4 times and K12 once a
+    grid round, as many grid rounds as phase 9's, each gathered once
+    (`collective_totals`). (c) The smoke model's bucketed service solve on
+    a mesh of MESH_SERVICE_SHARDS: phase 10's JAX digest and SHA-256; K13's
+    coverage certificate on its placed context equal to the host's counts
+    (its own launch count, the path of the JSON line's partition_stats row);
+    lane (a) under that mesh: lane (a)'s JAX digest, the lane's context
+    placed again after K10. (d) `make_mesh_from_config` on the card:
+    `tpu.mesh.devices=0` gives no mesh on one card, 2 raises JAX's message.
+    Every shard is a row block of `device`. Returns the phase's host seconds
+    and counts."""
+    from cruise_control_torch import kernels
+    from cruise_control_torch.analyzer import incremental as inc
+    from cruise_control_torch.analyzer import optimizer as opt
+    from cruise_control_torch.analyzer.context import OptimizationOptions, compute_aggregates
+    from cruise_control_torch.analyzer.goals import goals_by_priority
+    from cruise_control_torch.common.telemetry import TELEMETRY
+    from cruise_control_torch.config import CruiseControlConfig
+    from cruise_control_torch.models.flat_model import from_numpy
+    from cruise_control_torch.parallel import sharding, spmd
+
+    t_phase = time.monotonic()
+    dev = torch.device(device)
+    out = mesh_kernels(model_cpu, card, row, dev)
+    mesh8 = sharding.make_mesh(MESH_SERVICE_SHARDS, devices=[dev] * MESH_SERVICE_SHARDS)
+    goals = goals_by_priority(None)
 
     # (b) the parity model's greedy pass on a mesh of MESH_PARITY_SHARDS
     if parity_model.num_partitions % MESH_PARITY_SHARDS:
@@ -2204,8 +2322,146 @@ def mesh_phase(model_cpu, parity_model, card: str, row, run_and_check, solves,
             fail(f"mesh config: the refusal differs from the JAX package's message: {e}")
     totals = TELEMETRY.collective_totals()
     print(f"mesh: collective totals {json.dumps(totals)}")
-    out.update(seconds=time.monotonic() - t_phase, k12_record_sets=checked, collectives=totals)
+    out.update(seconds=time.monotonic() - t_phase, collectives=totals)
     print(f"mesh: phase 23 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
+#: phase 25: the smoke model's brokers grouped this many a host for a second
+#: run of the host sums (the smoke model's own hosts hold one broker each)
+MODEL_API_HOST_GROUP = 3
+#: phase 25's picks from the [P, R-1] leadership grid, from SEED: rows and
+#: slots in range and past either end of their axis (JAX clamps them)
+MODEL_API_PICKS = 4096
+
+
+def model_api_picks(p: int, r: int):
+    """(rows, slots) i32[MODEL_API_PICKS] of phase 25's gather over the
+    [p, r - 1] leadership grid."""
+    rng = np.random.default_rng(SEED)
+    return (rng.integers(-p - 64, p + 64, MODEL_API_PICKS).astype(np.int32),
+            rng.integers(-2, r + 1, MODEL_API_PICKS).astype(np.int32))
+
+
+def model_api_outputs(api, model, grouped) -> dict:
+    """Phase 25's outputs, {label: array or tuple of arrays}, of one package's
+    model API on the smoke model `model` and on `grouped` (its brokers
+    MODEL_API_HOST_GROUP a host). `api` names the eight helpers of the flat
+    model with the JAX package's names and arguments, `leadership_picks(model,
+    rows, slots)` (gather_actions on the leadership grid) and `host_count`."""
+    p, r = model.assignment.shape
+    rows, slots = model_api_picks(p, r)
+    h, hg = api.host_count(model), api.host_count(grouped)
+    return {
+        "replication_factor": api.replication_factor(model),
+        "new_broker_mask": api.new_broker_mask(model),
+        "dead_broker_mask": api.dead_broker_mask(model),
+        "leader_contribution": api.leader_contribution(model.part_load),
+        "follower_contribution": api.follower_contribution(model.part_load),
+        "host_loads": api.host_loads(model, h),
+        "host_capacity": api.host_capacity(model, h),
+        f"host_loads, {MODEL_API_HOST_GROUP} brokers a host": api.host_loads(grouped, hg),
+        f"host_capacity, {MODEL_API_HOST_GROUP} brokers a host": api.host_capacity(grouped, hg),
+        "utilization_matrix": api.utilization_matrix(model),
+        "gather_actions, leadership grid": tuple(api.leadership_picks(model, rows, slots)),
+    }
+
+
+def outputs_sha256(outputs: dict, to_numpy) -> dict:
+    """{label: SHA-256 of the output's bytes (a tuple's fields in order)}, each
+    array converted by `to_numpy` (C order, the JAX package's dtypes)."""
+    out = {}
+    for label, x in outputs.items():
+        h = hashlib.sha256()
+        for a in (x if isinstance(x, tuple) else (x,)):
+            h.update(np.ascontiguousarray(to_numpy(a)).tobytes())
+        out[label] = h.hexdigest()
+    return out
+
+
+def port_model_api():
+    """The port's model API in `model_api_outputs`' form."""
+    import types
+
+    from cruise_control_torch.analyzer.actions import (
+        build_selected,
+        gather_actions,
+        leadership_grid,
+    )
+    from cruise_control_torch.models import flat_model as fm
+
+    return types.SimpleNamespace(
+        **{n: getattr(fm, n) for n in ("replication_factor", "new_broker_mask",
+                                       "dead_broker_mask", "leader_contribution",
+                                       "follower_contribution", "host_loads", "host_capacity",
+                                       "utilization_matrix")},
+        host_count=lambda m: int(m.broker_host.max()) + 1,
+        leadership_picks=lambda m, rows, slots: gather_actions(
+            build_selected(m.part_load, m.assignment, *leadership_grid(m.assignment)),
+            torch.from_numpy(rows).to(m.device), torch.from_numpy(slots).to(m.device)))
+
+
+def model_api_phase(model_cpu, card: str, device="cuda:0") -> dict:
+    """Phase 25: the model and analyzer API on the smoke model on the card.
+    The flat model's eight helpers (the host sums also with the brokers
+    MODEL_API_HOST_GROUP a host) and gather_actions on the leadership grid
+    (MODEL_API_PICKS picks, some past either end) on CUDA tensors: every
+    output on the card (no CPU fallback), K1 launched for host_loads and
+    utilization_matrix, host_loads' CPU column bit-equal to K1's
+    host_cpu_load, and each output's SHA-256 equal to the JAX CPU run's
+    (JAX_CPU_MODEL_API) and to the port's CPU run of the same helper.
+    Returns the phase's host seconds and counts."""
+    from cruise_control_torch import kernels
+    from cruise_control_torch.common.resources import Resource
+    from cruise_control_torch.models.flat_model import segment_sums
+
+    t_phase = time.monotonic()
+    dev = torch.device(device)
+    api = port_model_api()
+    grouped_cpu = model_cpu._replace(broker_host=(
+        torch.arange(model_cpu.num_brokers, dtype=torch.int32) // MODEL_API_HOST_GROUP))
+    model_g, grouped_g = model_cpu.to(dev), grouped_cpu.to(dev)
+
+    def on_card(x):
+        if x.device != dev:
+            fail(f"model api: an output landed on {x.device}, not {dev}")
+        return x.cpu().numpy()
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    outs_g = model_api_outputs(api, model_g, grouped_g)
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    launched = {k: v for k, v in kernels.launches().items() if v}
+    sha_g = outputs_sha256(outs_g, on_card)
+    if not launched.get("segment_aggregates"):
+        fail(f"model api: host_loads and utilization_matrix launched no K1 ({launched})")
+    for label, m in (("smoke model", model_g), ("grouped", grouped_g)):
+        k1 = segment_sums(m, m.num_topics)[7]
+        hl = api.host_loads(m, api.host_count(m))[:, Resource.CPU]
+        if not bits_equal(hl, k1):
+            fail(f"model api: host_loads' CPU column ({label}) differs from K1's host_cpu_load")
+    t0 = time.monotonic()
+    sha_c = outputs_sha256(model_api_outputs(api, model_cpu, grouped_cpu),
+                           lambda x: x.numpy())
+    cpu_s = time.monotonic() - t0
+    for label, want in JAX_CPU_MODEL_API.items():
+        if not (sha_g.get(label) == sha_c.get(label) == want):
+            fail(f"model api: {label}'s SHA-256 on the card {sha_g.get(label)}, on the CPU "
+                 f"{sha_c.get(label)}, the JAX run's {want}")
+    if set(sha_g) != set(JAX_CPU_MODEL_API):
+        fail(f"model api: outputs {sorted(sha_g)} against the JAX record's "
+             f"{sorted(JAX_CPU_MODEL_API)}")
+    print(f"model api: {len(sha_g)} outputs on the smoke model (the eight helpers, the host "
+          f"sums also {MODEL_API_HOST_GROUP} brokers a host, gather_actions on the leadership "
+          f"grid, {MODEL_API_PICKS} picks some past either end), each on the card and its "
+          "SHA-256 equal to the JAX CPU run's and the port's CPU run's; host_loads' CPU column "
+          f"bit-equal to K1's host_cpu_load; kernels {json.dumps(launched)}; {card_s:.3f} s on "
+          f"the card, {cpu_s:.3f} s on the CPU ({card})")
+    out = dict(seconds=time.monotonic() - t_phase, card_s=card_s, cpu_s=cpu_s, launches=launched,
+               sha256=sha_g)
+    print(f"model api: phase 25 took {out['seconds']:.1f} s ({card})")
     return out
 
 
@@ -2646,10 +2902,15 @@ def main() -> int:
         wrapper calls, host work included; `plain_ms` the same for the plain
         version on the card; `library_ms` the same for the one PyTorch call
         that computes the same function, where there is one."""
-        ms, call_ms, plain_ms = device_ms(call), time_ms(call), time_ms(plain)
+        for _ in range(TRACE_TRIES):
+            ms = device_ms(call)
+            if ms is not None:
+                break
+        call_ms, plain_ms = time_ms(call), time_ms(plain)
         library_ms = time_ms(library) if library is not None else None
         if ms is None:
-            print(f"{key}: the profiler trace holds no device time; ms is the CUDA-event time")
+            print(f"{key}: {TRACE_TRIES} profiler traces held no device time; ms is the "
+                  "CUDA-event time")
             ms = call_ms
         bound_ms, bound_by = bound(nbytes, nops)
         rows[key] = {
@@ -4037,6 +4298,9 @@ def main() -> int:
 
     # -- 24. lint: the port's linter, its entry points on the card, a census --
     executed["lint"] = lint_phase(model_cpu, card, run_and_check, solves)
+
+    # -- 25. model api: the flat model's helpers and gather_actions on the card --
+    executed["model_api"] = model_api_phase(model_cpu, card)
 
     if results["service"][:2] != results["stack"][:2]:
         fail("service: the chunked solve's final assignment or touch tags differ from the "

@@ -8,11 +8,13 @@ scored as one batch. Action kinds mirror cc/analyzer/ActionType.java:24.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from cruise_control_torch.common.resources import PartMetric, Resource
+from cruise_control_torch.models.flat_model import follower_contribution, leader_contribution
 
 KIND_MOVE = 0
 KIND_LEADERSHIP = 1
@@ -53,29 +55,11 @@ class ActionBatch(NamedTuple):
 
 def _leader_vec(part_load: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """f32[..., 4] load the partitions `p` place on their leader."""
-    pl = part_load[p.long()]
-    return torch.stack(
-        [
-            pl[..., PartMetric.CPU_LEADER],
-            pl[..., PartMetric.NW_IN_LEADER],
-            pl[..., PartMetric.NW_OUT_LEADER],
-            pl[..., PartMetric.DISK],
-        ],
-        dim=-1,
-    )
+    return leader_contribution(part_load[p.long()])
 
 
 def _follower_vec(part_load: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    pl = part_load[p.long()]
-    return torch.stack(
-        [
-            pl[..., PartMetric.CPU_FOLLOWER],
-            pl[..., PartMetric.NW_IN_FOLLOWER],
-            torch.zeros_like(pl[..., 0]),
-            pl[..., PartMetric.DISK],
-        ],
-        dim=-1,
-    )
+    return follower_contribution(part_load[p.long()])
 
 
 def load_total(vec: torch.Tensor) -> torch.Tensor:
@@ -164,3 +148,63 @@ def build_selected(part_load, assignment, p, kind, slot, dst) -> ActionBatch:
         dpnw=torch.where(is_move, pl[..., PartMetric.NW_OUT_LEADER], zero),
         dleader_nw_in=torch.where(leader_transfer, pl[..., PartMetric.NW_IN_LEADER], zero),
     )
+
+
+def _clamped(i, n: int, dev) -> torch.Tensor:
+    """An index tensor read as JAX's gather reads it: a negative index counts
+    from the end once, then the index is clamped to [0, n - 1] (torch would
+    raise where JAX clamps)."""
+    i = torch.as_tensor(i, device=dev).long()
+    return torch.clamp(torch.where(i < 0, i + n, i), 0, max(n - 1, 0))
+
+
+def gather_actions(batch: ActionBatch, *idx) -> ActionBatch:
+    """Pick concrete actions out of a broadcast grid by index arrays (the JAX
+    package's gather_actions, actions.py:219).
+
+    `idx` has one index array per grid axis; each field is broadcast (a
+    view) and then gathered, so the full grid is never materialized. Indices
+    out of range are clamped as JAX clamps them."""
+    grid = (batch.kind, batch.p, batch.slot, batch.src, batch.dst, batch.valid)
+    shape = torch.broadcast_shapes(*(torch.as_tensor(f).shape for f in grid))
+    dev = batch.p.device
+    # cclint: disable=cuda-python-loop -- one index tensor a grid axis (2 or 3 of them), not a loop over a model axis
+    at = tuple(_clamped(i, n, dev) for i, n in zip(idx, shape))
+
+    def pick(field):
+        return torch.as_tensor(field, device=dev).broadcast_to(shape)[at]
+
+    def pick_vec(field):  # trailing per-Resource axis
+        return field.broadcast_to(shape + (field.shape[-1],))[at]
+
+    return ActionBatch(
+        kind=pick(batch.kind),
+        p=pick(batch.p),
+        slot=pick(batch.slot),
+        src=pick(batch.src),
+        dst=pick(batch.dst),
+        valid=pick(batch.valid),
+        dload=pick_vec(batch.dload),
+        drep=pick(batch.drep),
+        dleader=pick(batch.dleader),
+        dpnw=pick(batch.dpnw),
+        dleader_nw_in=pick(batch.dleader_nw_in),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class BalancingAction:
+    """Host-side rendering of one applied action, the analog of
+    cc/analyzer/BalancingAction.java:17 (for logs, REST responses, tests)."""
+
+    partition: int
+    slot: int
+    source_broker: int
+    destination_broker: int
+    kind: int  # KIND_MOVE | KIND_LEADERSHIP
+
+    @property
+    def action_type(self) -> str:
+        return (
+            "INTER_BROKER_REPLICA_MOVEMENT" if self.kind == KIND_MOVE else "LEADERSHIP_MOVEMENT"
+        )

@@ -20,8 +20,9 @@ PyTorch version.
                          preferred-leader election off demoted and dead
                          brokers
   K12 shard_merge        the partition-axis mesh's merge of the shards'
-                         shortlist records (parallel/spmd.make_grid_shortlist
-                         :183-190)
+                         shortlist records, their global rows included
+                         (parallel/spmd.make_grid_shortlist :170-171,
+                         :185-189)
   K13 partition_stats    a shard's coverage counts
                          (parallel/spmd.make_partition_stats :218-227)
 

@@ -55,6 +55,18 @@ def score_candidates_plain(static, agg, tables, goal, gs, p, kind, slot, dst):
     return score_batch(static, agg, act, goal, gs, tables)
 
 
+#: per device: the read-only True that stands for a window's `active` flag
+#: where the goal has no window, made once (not a fill launch a context)
+_ALWAYS_ACTIVE = {}
+
+
+def _always_active(dev) -> torch.Tensor:
+    t = _ALWAYS_ACTIVE.get(dev)
+    if t is None:
+        t = _ALWAYS_ACTIVE[dev] = torch.ones((), dtype=torch.bool, device=dev)
+    return t
+
+
 def _context_tensors(static, agg, tables, goal, gs):
     """The tensors of `struct ScoreCtx`, in its order."""
     dev = agg.assignment.device
@@ -72,7 +84,7 @@ def _context_tensors(static, agg, tables, goal, gs):
     w_upper = gs.upper.contiguous() if has_window else limit
     w_active = getattr(gs, "active", None)
     if w_active is None:
-        w_active = torch.ones((), dtype=torch.bool, device=dev)
+        w_active = _always_active(dev)
     return (
         agg.assignment, static.part_load, static.topic_id, static.broker_capacity,
         static.broker_rack, static.broker_host, static.dead, static.replica_dst_ok,

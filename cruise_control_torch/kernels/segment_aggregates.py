@@ -12,6 +12,7 @@ import torch
 
 from cruise_control_torch.common.resources import PartMetric, Resource
 from cruise_control_torch.kernels import build
+from cruise_control_torch.models.flat_model import follower_contribution, leader_contribution
 
 #: per device: the kernels' scratch (bytes) and its address, grown on
 #: demand; by (P, R, B, H), the bytes a call takes. Calls on one stream use
@@ -36,10 +37,7 @@ def segment_aggregates_plain(assignment, part_load, topic_id, broker_rack, broke
     valid = assignment >= 0
     seg = torch.where(valid, assignment, b).reshape(p * r).long()
     pl = part_load
-    lead = torch.stack([pl[:, PartMetric.CPU_LEADER], pl[:, PartMetric.NW_IN_LEADER],
-                        pl[:, PartMetric.NW_OUT_LEADER], pl[:, PartMetric.DISK]], dim=-1)
-    foll = torch.stack([pl[:, PartMetric.CPU_FOLLOWER], pl[:, PartMetric.NW_IN_FOLLOWER],
-                        torch.zeros_like(pl[:, 0]), pl[:, PartMetric.DISK]], dim=-1)
+    lead, foll = leader_contribution(pl), follower_contribution(pl)
     is_leader = (torch.arange(r, device=dev) == 0)[None, :, None]
     contrib = torch.where(is_leader, lead[:, None, :], foll[:, None, :])
     broker_load = torch.zeros((b + 1, 4), dtype=torch.float32, device=dev).index_add_(

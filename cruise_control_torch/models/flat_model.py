@@ -11,9 +11,12 @@ The same dense layout as the JAX package's model:
   broker_state : i32[B]   BrokerState (ALIVE/NEW/DEMOTED/DEAD).
 
 Every tensor lives on one device; `to(device)` moves the whole model. The
-segment helpers (`broker_loads`, `replica_counts`, ...) are the JAX model's
-(models/flat_model.py :96-246); their sums come from K1
-(kernels.segment_aggregates) on the model's assignment.
+masks and segment helpers (`broker_loads`, `replica_counts`, `host_loads`,
+`utilization_matrix`, ...) are the JAX model's (models/flat_model.py
+:96-246) with its names, arguments and dtypes; their float sums come from
+K1 (kernels.segment_aggregates) on the model's assignment, or add in
+ascending broker order from +0.0 (the host sums), the order of XLA:CPU's
+segment_sum.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
-from cruise_control_torch.common.resources import BrokerState
+from cruise_control_torch.common.resources import BrokerState, PartMetric, Resource
 
 _DTYPES = {
     "assignment": torch.int32,
@@ -106,9 +109,49 @@ def valid_slot_mask(model: FlatClusterModel) -> torch.Tensor:
     return model.assignment >= 0
 
 
+def replication_factor(model: FlatClusterModel) -> torch.Tensor:
+    """i32[P]: replicas per partition."""
+    return torch.sum(valid_slot_mask(model), dim=1, dtype=torch.int32)
+
+
 def alive_broker_mask(model: FlatClusterModel) -> torch.Tensor:
     """bool[B]: brokers that can receive replicas (not DEAD)."""
     return model.broker_state != BrokerState.DEAD
+
+
+def new_broker_mask(model: FlatClusterModel) -> torch.Tensor:
+    return model.broker_state == BrokerState.NEW
+
+
+def dead_broker_mask(model: FlatClusterModel) -> torch.Tensor:
+    return model.broker_state == BrokerState.DEAD
+
+
+def leader_contribution(part_load: torch.Tensor) -> torch.Tensor:
+    """f32[..., 4]: per-Resource load a partition places on its leader broker
+    (`part_load` f32[..., M]). Exact column selection (no matmul)."""
+    return torch.stack(
+        [
+            part_load[..., PartMetric.CPU_LEADER],
+            part_load[..., PartMetric.NW_IN_LEADER],
+            part_load[..., PartMetric.NW_OUT_LEADER],
+            part_load[..., PartMetric.DISK],
+        ],
+        dim=-1,
+    )
+
+
+def follower_contribution(part_load: torch.Tensor) -> torch.Tensor:
+    """f32[..., 4]: per-Resource load a partition places on each follower broker."""
+    return torch.stack(
+        [
+            part_load[..., PartMetric.CPU_FOLLOWER],
+            part_load[..., PartMetric.NW_IN_FOLLOWER],
+            torch.zeros_like(part_load[..., 0]),
+            part_load[..., PartMetric.DISK],
+        ],
+        dim=-1,
+    )
 
 
 def _segment_ids(model: FlatClusterModel) -> torch.Tensor:
@@ -156,6 +199,65 @@ def potential_nw_out(model: FlatClusterModel) -> torch.Tensor:
 def topic_replica_counts(model: FlatClusterModel, num_topics: int) -> torch.Tensor:
     """i32[T, B]: replicas of each topic on each broker."""
     return segment_sums(model, num_topics)[6]
+
+
+def _host_sum(values: torch.Tensor, broker_host: torch.Tensor, num_hosts: int) -> torch.Tensor:
+    """f32[H, ...]: `values` f32[B, ...] summed over each host's brokers, in
+    ascending broker order from +0.0 (XLA:CPU's segment_sum; a broker whose
+    host is outside [0, H) is dropped, as its scatter drops it). The brokers
+    are sorted stably by host into a [H, m] table, m the most brokers a host
+    has, and its m columns are added left to right: elementwise adds, no
+    atomics, the same order on the CPU and on the card. Empty places add
+    +0.0, which changes no sum that starts at +0.0."""
+    dev, b = values.device, values.shape[0]
+    # brokers of no host go to bucket H, the table's last row, which is cut
+    h = torch.where((broker_host >= 0) & (broker_host < num_hosts), broker_host, num_hosts).long()
+    order = torch.argsort(h, stable=True)
+    hs = h[order]
+    counts = torch.bincount(h, minlength=num_hosts + 1)
+    # cclint: disable=cuda-host-sync -- the table's width, read once a call of a host helper that runs on no round
+    m = int(counts[:num_hosts].max()) if num_hosts and b else 0
+    col = torch.arange(b, device=dev) - (torch.cumsum(counts, 0) - counts)[hs]
+    table = torch.zeros((num_hosts + 1, m + 1) + tuple(values.shape[1:]), dtype=values.dtype,
+                        device=dev)
+    table[hs, torch.clamp(col, max=m)] = values[order]
+    out = torch.zeros((num_hosts,) + tuple(values.shape[1:]), dtype=values.dtype, device=dev)
+    for c in range(m):
+        out = out + table[:num_hosts, c]
+    return out
+
+
+def host_loads(model: FlatClusterModel, num_hosts: int) -> torch.Tensor:
+    """f32[H, 4]: broker loads aggregated per host (CPU capacity is host-level);
+    its CPU column equals K1's host_cpu_load bit for bit."""
+    return _host_sum(broker_loads(model), model.broker_host, num_hosts)
+
+
+def host_capacity(model: FlatClusterModel, num_hosts: int) -> torch.Tensor:
+    """f32[H, 4]: per-host capacity = sum of its brokers' capacities."""
+    return _host_sum(model.broker_capacity, model.broker_host, num_hosts)
+
+
+def utilization_matrix(model: FlatClusterModel) -> torch.Tensor:
+    """f32[7, B]: derived-resource x broker matrix over RawAndDerivedResource
+    (DISK, CPU, LEADER_NW_IN, FOLLOWER_NW_IN, NW_OUT, PWN_NW_OUT, REPLICAS),
+    as ClusterModel.utilizationMatrix (cc/model/ClusterModel.java:1113).
+
+    Each row is a K1 output that adds the JAX function's terms in its order:
+    DISK, CPU and NW_OUT are broker_load's columns, LEADER_NW_IN leader_nw_in
+    (the JAX sum's +0.0 at follower slots changes no sum from +0.0),
+    PWN_NW_OUT potential_nw_out, REPLICAS replica_count as f32 (exact below
+    2**24). FOLLOWER_NW_IN is the NW_IN column of a second K1 call whose
+    part_load has its NW_IN_LEADER column zeroed: leader slots then add the
+    same +0.0 that the JAX function's `where` puts there."""
+    t = model.num_topics
+    load, replicas, _, pwn, leader_nw_in = segment_sums(model, t)[:5]
+    no_leader_in = model.part_load.clone()
+    no_leader_in[:, PartMetric.NW_IN_LEADER] = 0.0
+    follower_nw_in = segment_sums(model._replace(part_load=no_leader_in), t)[0][:, Resource.NW_IN]
+    return torch.stack([load[:, Resource.DISK], load[:, Resource.CPU], leader_nw_in,
+                        follower_nw_in, load[:, Resource.NW_OUT], pwn,
+                        replicas.to(torch.float32)])
 
 
 # -- single-action edits (the JAX model's :271-312) -----------------------------

@@ -12,15 +12,17 @@ make_grid_shortlist (the greedy grid's round, JAX :95):
      against the whole broker state and keeps the shard's best: a cell's
      score reads only its own partition's rows, so each shard's
      per-partition best is bit-identical to the unsharded one.
-  2. **Local top-k**, k_loc = min(k_sel, P/D) records a shard, its local
-     row offset to the global one (int32).
+  2. **Local top-k**, k_loc = min(k_sel, P/D) records a shard, each with
+     its shard's local row.
   3. **One all-gather.** The records land in one [D, k_loc] tensor of
-     scores and one [D, k_loc, 4] of (partition, kind, slot, dst) on the
-     mesh's first device; a shard there writes its record in place.
-  4. **Deterministic merge.** K12 (kernels/shard_merge.py) orders them by
-     (-score, global partition), `lax.top_k`'s order, and keeps k_sel. The
-     shortlist, the only cross-shard decision, is the unsharded one, so a
-     mesh-N run makes a mesh-1 run's decisions.
+     scores and one [D, k_loc, 4] of (local partition, kind, slot, dst) on
+     the mesh's first device; a shard there writes its record in place.
+  4. **Deterministic merge.** K12 (kernels/shard_merge.py) offsets each
+     record's row to the global one (JAX's int32 `axis_index * p_local`),
+     orders them by (-score, global partition), `lax.top_k`'s order, and
+     keeps k_sel: a grid round is D K9 launches and one K12, nothing
+     between. The shortlist, the only cross-shard decision, is the
+     unsharded one, so a mesh-N run makes a mesh-1 run's decisions.
 
 make_partition_stats (JAX :208): K13 (kernels/partition_stats.py) counts a
 shard's movable rows, populated slots and rows; the counts are gathered and
@@ -84,7 +86,6 @@ def make_grid_shortlist(mesh: Mesh, goal, dims, settings):
     k_loc = min(k_sel, p_local)
     first = mesh.devices[0]
     bucket = bucket_label(dims)
-    offsets = torch.arange(n_dev, dtype=torch.int32, device=first)[:, None] * p_local
 
     def run(static, agg, gs, tables, dst_cands, local, merge):
         shards = static_shards(static, mesh)
@@ -104,10 +105,9 @@ def make_grid_shortlist(mesh: Mesh, goal, dims, settings):
                 local(shards[i], aggs[i], tables_i, goal, gs_i, cands_i, k_loc, out=(s_i, rec_i))
             g_score[i].copy_(s_i, non_blocking=True)
             g_rec[i].copy_(rec_i, non_blocking=True)
-        g_rec[:, :, 0] += offsets
         TELEMETRY.record_collective("all-gather", n_dev * k_loc * _RECORD_BYTES, bucket,
                                     GRID_SHORTLIST_ENTRY, per_round=True)
-        top_scores, sel = merge(g_score.view(-1), g_rec.view(-1, 4), k_sel)
+        top_scores, sel = merge(g_score.view(-1), g_rec.view(-1, 4), k_sel, k_loc, p_local)
         return (top_scores, *sel.unbind(0))
 
     def plain_local(static, agg, tables, goal_, gs, dst_cands, k, out):

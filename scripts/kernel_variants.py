@@ -1,6 +1,7 @@
-"""Where K1, K2, window_sum, K3, K5, K6, K7, K8, K10 and K11 spend their time, on one NVIDIA GPU.
+"""Where K1, K2, window_sum, K3, K5, K6, K7, K8, K10, K11, K12 and K13 spend their time, on one NVIDIA GPU.
 
-    python3 scripts/kernel_variants.py [--only K7,K10 | --only K11 [--parent DIR]] [--out build/kernel_variants.json]
+    python3 scripts/kernel_variants.py [--only K7,K10 | --only K11 [--parent DIR] |
+                                        --only K12,K13 --parent DIR] [--out build/kernel_variants.json]
 
 Builds variants of cruise_control_torch/csrc/broker_topk.cu and window_sum.cu
 into build/kernel_variants/ with the package's nvcc flags, each the source
@@ -99,6 +100,39 @@ DIR` (another checkout of the repo, such as the parent commit unpacked by
 in turns, DIR, this one, this one, DIR, each in a process of its own
 importing its own package: device microseconds and the call's host
 microseconds on the same cases.
+
+K12 and K13 (alone with `--only K12,K13`, which needs `--parent DIR`: their
+previous designs are DIR's csrc/shard_merge.cu and partition_stats.cu,
+built with this checkout's nvcc flags and called through their C entries),
+in one process, each design timed in turns (previous, this, this,
+previous), each turn as device microseconds a call from a profiler trace
+and microseconds a call from CUDA events around 200 back-to-back launches:
+
+  K12         the mesh's record sets: 4 shards x 1 record (the parity
+              model's greedy pass, k_sel 1), 8 x 16 (k_sel 16), and the
+              new design's path edges, 2 x 16 = 32 (one warp), 3 x 11 = 33,
+              8 x 512 = 4,096 (shared memory) and 17 x 241 = 4,097 (device
+              memory), k_sel = k_loc; the previous design with the glue
+              launch the mesh ran before it (each record's global row
+              added, `g_rec[:, :, 0] += offsets`) and alone, on records
+              made global beforehand; the new design's variants: no warp
+              path (every size staged), the block paths comparing one or
+              four records at a time (eight in full), empty (a launch's
+              floor)
+  K13         the smoke model's shape padded for 8 shards, [199,520, 3]
+              slots and 199,520 flags, whole and as shard 1 of 8 ([24,940,
+              3] at row 24,940: its flags 12 bytes past a 16-byte
+              boundary); the new design's variants: the card's whole grid
+              at every size, 1, 4 and 8 vectors a thread loaded at once (2
+              in full); a stage split, each taking a step out (its counts
+              wrong by design): no loads (the reductions and the last
+              block's pass alone), a relaxed ticket (no ordering), no
+              ticket (every block writes its counts and ends: no last
+              block); the previous ordering, a fence on each side of a
+              relaxed ticket (right counts), in place of the full design's
+              release-acquire ticket;
+              empty (a launch's floor)
+
 Prints the card's name and power limit and every number; writes them as
 JSON to --out. Needs a GPU.
 """
@@ -307,6 +341,40 @@ K11_VARIANTS = {
     "empty": [("  const int r = (int)g.r;\n  const I span",
                "  if (g.p >= 0) return;\n  const int r = (int)g.r;\n  const I span")],
 }
+#: K12 and K13's variants of this checkout's sources
+K12_VARIANTS = {
+    "no warp path": [("  if (n <= SM_WARP)\n", "  if (n < 0)\n")],
+    "no unrolling": [("constexpr int MERGE_UNROLL = 8;", "constexpr int MERGE_UNROLL = 1;")],
+    "unrolled 4": [("constexpr int MERGE_UNROLL = 8;", "constexpr int MERGE_UNROLL = 4;")],
+    "empty": [("  const int i = threadIdx.x;\n  const bool live",
+               "  const int i = threadIdx.x;\n  if (a.n > 0) return;\n  const bool live"),
+              ("  extern __shared__ float s_score[];\n",
+               "  extern __shared__ float s_score[];\n  if (a.n > 0) return;\n")],
+}
+K13_VARIANTS = {
+    "the card's whole grid": [("  blocks = blocks < 1 ? 1 : blocks > grid ? grid : blocks;",
+                               "  blocks = grid;")],
+    "1 vector a thread": [("constexpr int PS_VECTORS = 2;", "constexpr int PS_VECTORS = 1;")],
+    "4 vectors a thread": [("constexpr int PS_VECTORS = 2;", "constexpr int PS_VECTORS = 4;")],
+    "8 vectors a thread": [("constexpr int PS_VECTORS = 2;", "constexpr int PS_VECTORS = 8;")],
+    "no loads": [("  for (long long v0 = t; v0 < g.m_vecs || v0 < g.s_vecs;",
+                  "  for (long long v0 = t; v0 < 0;")],
+    "full fences": [
+        ("      s_last = cuda::atomic_ref<unsigned, cuda::thread_scope_device>(*g.ticket)\n"
+         "                   .fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;",
+         "      __threadfence();\n      s_last = atomicAdd(g.ticket, 1u) == gridDim.x - 1;"),
+        ("  if (!s_last) return;  // the barrier passes thread 0's acquire to the block\n",
+         "  if (!s_last) return;\n  __threadfence();\n")],
+    "relaxed ticket": [("cuda::memory_order_acq_rel", "cuda::memory_order_relaxed")],
+    "no ticket": [("      s_last = cuda::atomic_ref<unsigned, cuda::thread_scope_device>(*g.ticket)\n"
+                   "                   .fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;",
+                   "      s_last = false;")],
+    "empty": [("  const int tid = threadIdx.x;\n  const long long t",
+               "  if (g.n >= 0) return;\n  const int tid = threadIdx.x;\n  const long long t")],
+}
+#: K13's variants whose counts are right (the others take a step out)
+K13_CHECKED = ("full", "the card's whole grid", "1 vector a thread", "4 vectors a thread",
+               "8 vectors a thread", "full fences")
 WS_VARIANTS = {
     "empty": [("  const int tid = threadIdx.x;\n",
                "  const int tid = threadIdx.x;\n  if (cols > 0) return;\n")],
@@ -324,7 +392,8 @@ def variant(src: str, edits) -> str:
 VARIANTS = {"broker_topk": K2_VARIANTS, "window_sum": WS_VARIANTS, "score_swaps": K5_VARIANTS,
             "segment_aggregates": K1_VARIANTS, "cluster_stats": K8_VARIANTS,
             "state_fingerprint": K7_VARIANTS, "delta_scatter": K10_VARIANTS,
-            "elect_preferred": K11_VARIANTS}
+            "elect_preferred": K11_VARIANTS, "shard_merge": K12_VARIANTS,
+            "partition_stats": K13_VARIANTS}
 
 
 def build_variants(build, out_dir: pathlib.Path, names=tuple(VARIANTS)) -> dict:
@@ -574,6 +643,181 @@ def k11(build, libs, res: dict) -> None:
         print(f"host {label:30s} {res['host_us'][label]:.2f} us per call")
 
 
+#: K12's record sets: (shards, records a shard, k_sel)
+K12_SHAPES = ((4, 1, 1), (8, 16, 16), (2, 16, 16), (3, 11, 11), (8, 512, 512), (17, 241, 241))
+#: K13's rows: the smoke model's 199,518 partitions padded for 8 shards
+K13_ROWS, K13_SHARDS = 199_520, 8
+
+
+def events_us(call, reps: int = 200) -> float:
+    """Microseconds a call: CUDA events around `reps` back-to-back calls."""
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        call()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / reps
+
+
+def build_parent(build, parent: pathlib.Path, out_dir: pathlib.Path, names) -> dict:
+    """{name: .so} of `parent`'s csrc/<name>.cu, built with this checkout's
+    nvcc flags beside `parent`'s headers."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    csrc = parent / "cruise_control_torch" / "csrc"
+    for h in csrc.glob("*.cuh"):
+        (out_dir / h.name).write_text(h.read_text())
+    jobs = {}
+    for name in names:
+        cu = out_dir / f"{name}.cu"
+        cu.write_text((csrc / f"{name}.cu").read_text())
+        jobs[name] = (cu.with_suffix(".so"), subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"kernel_variants: nvcc failed for the parent's {name}:\n{log}")
+        libs[name] = so
+    return libs
+
+
+def in_turns(old: dict, new: dict) -> dict:
+    """{label: [{device_us, events_us}, ...]}: each call of `old` and `new`
+    timed in turns, old, new, new, old."""
+    out = {label: [] for label in (*old, *new)}
+    for side in (old, new, new, old):
+        for label, call in side.items():
+            us = device_us(call)
+            out[label].append({"device_us": sum(us.values()), "kernels": us,
+                               "events_us": events_us(call)})
+    return out
+
+
+def k12_k13(build, parent: pathlib.Path, res: dict) -> None:
+    """K12's and K13's previous designs (`parent`'s sources) and this
+    checkout's, in turns, at the mesh's shapes; each output held to the plain
+    version first."""
+    import merge_cases
+
+    from cruise_control_torch.kernels import partition_stats as k13
+    from cruise_control_torch.kernels import shard_merge as k12
+
+    libs = build_variants(build, ROOT / "build" / "kernel_variants",
+                          ("shard_merge", "partition_stats"))
+    old = build_parent(build, parent, ROOT / "build" / "kernel_variants" / "parent",
+                       ("shard_merge", "partition_stats"))
+    stream = build.raw_stream(0)
+    res["K12"], res["K13"] = {}, {}
+
+    old12 = entry(old["shard_merge"], "shard_merge", (build.PTR,) * 4 + (build.INT,) * 2 +
+                  (build.PTR,))
+    rng = np.random.default_rng(12)
+    for n_dev, k_loc, k_sel in K12_SHAPES:
+        n = n_dev * k_loc
+        s_np, rec_np = merge_cases.records("random", n_dev, k_loc, rng)
+        s, rec = torch.from_numpy(s_np).cuda(), torch.from_numpy(rec_np).cuda()
+        g_rec = k12.global_records(rec, k_loc, merge_cases.ROWS)
+        offsets = torch.arange(n_dev, dtype=torch.int32, device="cuda")[:, None] * merge_cases.ROWS
+        work = rec.clone()
+        out_s = torch.empty(k_sel, device="cuda")
+        out_r = torch.empty((4, k_sel), dtype=torch.int32, device="cuda")
+        want = k12.shard_merge_plain(s.cpu(), rec.cpu(), k_sel, k_loc, merge_cases.ROWS)
+        fns = {label: entry(libs[("shard_merge", label)], "shard_merge", k12._ARGTYPES)
+               for label in ("full", *K12_VARIANTS)}
+
+        def new_call(fn, s=s, rec=rec, n=n, k_sel=k_sel, k_loc=k_loc):
+            launched(fn(s.data_ptr(), rec.data_ptr(), out_s.data_ptr(), out_r.data_ptr(), n,
+                        k_sel, k_loc, merge_cases.ROWS, stream))
+
+        def old_alone(s=s, g_rec=g_rec, n=n, k_sel=k_sel):
+            launched(old12(s.data_ptr(), g_rec.data_ptr(), out_s.data_ptr(), out_r.data_ptr(), n,
+                           k_sel, stream))
+
+        def old_glued(s=s, rec=rec, n=n, k_sel=k_sel, k_loc=k_loc, n_dev=n_dev):
+            # the gather buffer's one add (a single launch, from the shards' rows)
+            torch.add(rec.view(n_dev, k_loc, 4)[:, :, 0], offsets,
+                      out=work.view(n_dev, k_loc, 4)[:, :, 0])
+            launched(old12(s.data_ptr(), work.data_ptr(), out_s.data_ptr(), out_r.data_ptr(), n,
+                           k_sel, stream))
+
+        for label, call in (("previous, alone", old_alone),
+                            *((f"this, {v}", lambda fn=fns[v]: new_call(fn))
+                              for v in ("full", "no warp path", "no unrolling",
+                                        "unrolled 4"))):
+            out_s.fill_(-7.0)
+            call()
+            if not (torch.equal(out_s.cpu().view(torch.int32), want[0].view(torch.int32)) and
+                    torch.equal(out_r.cpu(), want[1])):
+                raise SystemExit(f"kernel_variants: K12 {label} at {n_dev} x {k_loc} differs "
+                                 "from the plain version")
+        key = f"{n_dev} x {k_loc} records, k_sel {k_sel}"
+        res["K12"][key] = in_turns(
+            {"previous: offset add + K12": old_glued, "previous: K12 alone": old_alone},
+            {"this: K12": lambda: new_call(fns["full"]),
+             "this: no warp path": lambda: new_call(fns["no warp path"]),
+             "this: no unrolling": lambda: new_call(fns["no unrolling"]),
+             "this: unrolled 4": lambda: new_call(fns["unrolled 4"]),
+             "this: empty (floor)": lambda: new_call(fns["empty"])})
+        print(f"K12 {key}: " + json.dumps({k: [round(t["device_us"], 3) for t in v]
+                                           for k, v in res["K12"][key].items()}))
+
+    old13 = entry(old["partition_stats"], "partition_stats", (build.PTR,) * 4 +
+                  (build.INT,) * 2 + (build.PTR,))
+    old_scratch = torch.zeros(3, dtype=torch.int32, device="cuda")
+    grid = k13._scratch(0)[2]
+    r = 3
+    flags = torch.from_numpy(rng.random(K13_ROWS) < 0.9).cuda()
+    slots = torch.from_numpy(rng.integers(-1, 2_600, (K13_ROWS, r)).astype(np.int32)).cuda()
+    rows = K13_ROWS // K13_SHARDS
+    out = torch.empty(3, dtype=torch.int32, device="cuda")
+    for case, (mov, a) in {"whole, [199,520, 3]": (flags, slots),
+                           "shard 1 of 8, [24,940, 3]": (flags[rows:2 * rows],
+                                                          slots[rows:2 * rows])}.items():
+        want = k13.partition_stats_plain(mov.cpu(), a.cpu())
+        n = mov.shape[0]
+        fns = {}
+        for label in ("full", *K13_VARIANTS):
+            so = libs[("partition_stats", label)]
+            lib = ctypes.CDLL(str(so))
+            lib.partition_stats_scratch_words.argtypes = [ctypes.c_longlong]
+            lib.partition_stats_scratch_words.restype = ctypes.c_longlong
+            ws = torch.zeros(lib.partition_stats_scratch_words(grid), dtype=torch.int32,
+                             device="cuda")
+            fns[label] = (entry(so, "partition_stats", k13._ARGTYPES), ws)
+
+        def new_call(label, mov=mov, a=a, n=n):
+            fn, ws = fns[label]
+            launched(fn(mov.data_ptr(), a.data_ptr(), out.data_ptr(), ws.data_ptr(), n, r, grid,
+                        stream))
+
+        def old_call(mov=mov, a=a, n=n):
+            launched(old13(mov.data_ptr(), a.data_ptr(), out.data_ptr(), old_scratch.data_ptr(),
+                           n, r, stream))
+
+        for label, call in (("previous", old_call),
+                            *((f"this, {v}", lambda v=v: new_call(v))
+                              for v in K13_CHECKED)):
+            out.fill_(-7)
+            call()
+            if not torch.equal(out.cpu(), want):
+                raise SystemExit(f"kernel_variants: K13 {label} ({case}) differs from the plain "
+                                 "version")
+        res["K13"][case] = in_turns(
+            {"previous": old_call},
+            {"this": lambda: new_call("full"),
+             **{f"this: {v}": lambda v=v: new_call(v) for v in K13_VARIANTS}})
+        res["K13"][case]["flags' offset from 16 bytes"] = mov.data_ptr() % 16
+        print(f"K13 {case}: " + json.dumps({k: [round(t["device_us"], 3) for t in v]
+                                            for k, v in res["K13"][case].items()
+                                            if isinstance(v, list)}))
+    res["K13 grid"] = grid
+
+
 def k7_agg(load, lnw, lc, rc):
     return collections.namedtuple("FpAgg", "broker_load leader_nw_in leader_count replica_count")(
         load, lnw, lc, rc)
@@ -582,11 +826,12 @@ def k7_agg(load, lnw, lc, rc):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "kernel_variants.json"))
-    ap.add_argument("--only", choices=("K7,K10", "K11"), default=None,
-                    help="time K7's and K10's variants, or K11's, alone")
+    ap.add_argument("--only", choices=("K7,K10", "K11", "K12,K13"), default=None,
+                    help="time K7's and K10's variants, K11's, or K12's and K13's, alone")
     ap.add_argument("--parent", default=None,
                     help="with --only K11: another checkout whose K11 wrapper is timed in "
-                         "turns with this one's")
+                         "turns with this one's; with --only K12,K13 (needed): the checkout "
+                         "whose K12 and K13 sources are the previous designs")
     ap.add_argument("--k11-turn", default=None, metavar="DIR",
                     help="time K11's wrapper in the checkout DIR alone (one JSON line)")
     args = ap.parse_args()
@@ -602,6 +847,11 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card)
     res = {"card": card, "broker_topk": {}, "window_sum": {}, "host_us": {}}
+    if args.only == "K12,K13":
+        if not args.parent:
+            raise SystemExit("kernel_variants: --only K12,K13 needs --parent DIR")
+        k12_k13(build, pathlib.Path(args.parent).resolve(), res)
+        return write(args.out, res)
     if args.only == "K11":
         k11(build, build_variants(build, ROOT / "build" / "kernel_variants",
                                   ("elect_preferred",)), res)

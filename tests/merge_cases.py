@@ -4,9 +4,10 @@ card tests against the plain version (test_torch_kernels_cuda.py). No JAX
 here: the card's machine has none.
 
 `records(kind, n_dev, k_loc, rng)` returns the [n_dev * k_loc] records a
-mesh of n_dev shards gathers, k_loc a shard, as numpy arrays: scores f32[n]
-and records i32[n, 4] (global partition, kind, slot, dst), shard d's
-partitions sorted inside its block of ROWS rows. Kinds: KINDS.
+mesh of n_dev shards gathers, k_loc a shard, as the shards write them, as
+numpy arrays: scores f32[n] and records i32[n, 4] (local partition, kind,
+slot, dst), shard d's rows sorted inside its block of ROWS rows (K12 adds
+d * ROWS). Kinds: KINDS.
 """
 
 from __future__ import annotations
@@ -17,15 +18,19 @@ KINDS = ("random", "ties across shards", "signed zeros", "all -inf", "some shard
          "nan")
 #: rows of a shard's block of the partition axis
 ROWS = 4096
-#: (shards, records a shard) of the sweeps; 8 x 640 records pass K12's
-#: shared-memory staging and take several blocks
-SHAPES = ((2, 1), (4, 1), (8, 1), (2, 16), (4, 16), (8, 16), (8, 640))
+#: (shards, records a shard) of the sweeps: the mesh's record sets (2-8
+#: shards, k_loc 1 and 16), K12's warp path up to 32 records and its first
+#: staged size (1 x 1, 31, 32, 33), its last staged size (8 x 512 = 4,096),
+#: and past the stage (17 x 241 = 4,097; 8 x 640 = 5,120: several blocks
+#: reading device memory)
+SHAPES = ((2, 1), (4, 1), (8, 1), (2, 16), (4, 16), (8, 16), (8, 640), (1, 1), (1, 31),
+          (1, 32), (1, 33), (8, 512), (17, 241))
 
 
 def records(kind: str, n_dev: int, k_loc: int, rng):
     n = n_dev * k_loc
-    p = np.concatenate([np.sort(rng.choice(ROWS, k_loc, replace=False)) + ROWS * d
-                        for d in range(n_dev)]).astype(np.int32)
+    p = np.concatenate([np.sort(rng.choice(ROWS, k_loc, replace=False))
+                        for _ in range(n_dev)]).astype(np.int32)
     if kind == "random":
         s = rng.standard_normal(n).astype(np.float32)
     elif kind == "ties across shards":

@@ -111,6 +111,34 @@ def test_every_module_imports_without_jax():
     assert int(out.stdout.strip().splitlines()[-1]) >= 15
 
 
+def test_exported_names_import_without_jax():
+    """The JAX package's exported names, from the port's packages, with JAX and
+    the JAX package made unimportable; `analyzer`'s names load lazily, so the
+    kernel modules' `import cruise_control_torch.analyzer.actions` does not
+    pull the optimizer in."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'cruise_control_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import cruise_control_torch.analyzer.actions\n"
+        "import cruise_control_torch.kernels.score_candidates\n"
+        "assert 'cruise_control_torch.analyzer.optimizer' not in sys.modules\n"
+        "from cruise_control_torch import Resource\n"
+        "from cruise_control_torch.common import ActionAcceptance, NUM_PART_METRICS\n"
+        "from cruise_control_torch.models import host_loads, utilization_matrix\n"
+        "from cruise_control_torch.analyzer import GoalOptimizer, OptimizerResult, GOAL_REGISTRY\n"
+        "from cruise_control_torch.analyzer import BalancingAction, proposal_diff\n"
+        "import cruise_control_torch.analyzer as a\n"
+        "assert len(a.__all__) == 11 and all(getattr(a, n) for n in a.__all__)\n"
+        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v is not None}\n"
+        "print(GoalOptimizer.__module__)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["cruise_control_torch.analyzer.optimizer"]
+
+
 def test_executor_path_imports_without_jax_and_configures_the_port():
     """The executor's path with JAX and the JAX package made unimportable:
     every class-name default of the port's configuration names a class of

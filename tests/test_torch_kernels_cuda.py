@@ -2348,17 +2348,18 @@ def test_service_on_the_card_answers_rest_like_the_cpu():
 @pytest.mark.parametrize("n_dev,k_loc", merge_cases.SHAPES)
 def test_k12_shard_merge(kind, n_dev, k_loc):
     """K12 against its plain version (tests/merge_cases.py, which
-    test_torch_spmd.py holds to JAX's lexsort) for k_sel 1, k_loc and all
-    the records."""
+    test_torch_spmd.py holds to JAX's offsets and lexsort) for k_sel 1, k_loc
+    and all the records: its warp path (up to 32 records), its staged path
+    (33 to 4,096) and device memory beyond (4,097 and 5,120)."""
     _card()
     from cruise_control_torch.kernels.shard_merge import shard_merge, shard_merge_plain
 
     rng = np.random.default_rng([merge_cases.KINDS.index(kind), n_dev, k_loc])
     s, rec = (torch.from_numpy(x) for x in merge_cases.records(kind, n_dev, k_loc, rng))
     for k_sel in sorted({1, k_loc, n_dev * k_loc}):
-        want = shard_merge_plain(s, rec, k_sel)
+        want = shard_merge_plain(s, rec, k_sel, k_loc, merge_cases.ROWS)
         before = shard_merge.launches
-        got = shard_merge(s.cuda(), rec.cuda(), k_sel)
+        got = shard_merge(s.cuda(), rec.cuda(), k_sel, k_loc, merge_cases.ROWS)
         torch.cuda.synchronize()
         assert shard_merge.launches == before + 1
         assert _bits(want[0], got[0]) and _bits(want[1], got[1]), (kind, k_sel)
@@ -2369,10 +2370,28 @@ def test_k12_refuses_what_it_does_not_take():
     from cruise_control_torch.kernels.shard_merge import shard_merge
 
     s, rec = torch.zeros(4, device="cuda"), torch.zeros((4, 4), dtype=torch.int32, device="cuda")
-    for bad in ((s.double(), rec, 1), (s, rec[:, :3].contiguous(), 1), (s, rec.t(), 1),
-                (s, rec, 0), (s[:0], rec[:0], 1)):
+    for bad in ((s.double(), rec, 1, 1, 8), (s, rec[:, :3].contiguous(), 1, 1, 8),
+                (s, rec.t(), 1, 1, 8), (s, rec, 0, 1, 8), (s[:0], rec[:0], 1, 1, 8),
+                (s, rec, 1, 0, 8), (s, rec, 1, 1, -1), (s, rec, 1, 1, 2**31)):
         with pytest.raises((TypeError, ValueError)):
             shard_merge(*bad)
+
+
+@pytest.mark.parametrize("p_local", [2**30 + 7, 2**31 - 1])
+def test_k12_offsets_wrap_as_the_plain_version(p_local):
+    """Global rows past 2**31 wrap in int32 in the kernel as in the plain
+    version (which test_torch_spmd.py holds to JAX's arithmetic)."""
+    _card()
+    from cruise_control_torch.kernels.shard_merge import shard_merge, shard_merge_plain
+
+    for n_dev, k_loc in ((8, 4), (8, 512), (17, 241)):
+        rng = np.random.default_rng([n_dev, k_loc, p_local % 97])
+        s, rec = (torch.from_numpy(x) for x in merge_cases.records("ties across shards", n_dev,
+                                                                   k_loc, rng))
+        want = shard_merge_plain(s, rec, n_dev * k_loc, k_loc, p_local)
+        assert (want[1][0] < 0).any()
+        got = shard_merge(s.cuda(), rec.cuda(), n_dev * k_loc, k_loc, p_local)
+        assert _bits(want[0], got[0]) and _bits(want[1], got[1])
 
 
 @pytest.mark.parametrize("n,r", [(0, 3), (1, 1), (1000, 3), (199520, 3), (4097, 17)])
@@ -2398,6 +2417,33 @@ def test_k13_partition_stats(n, r):
     partition_stats(mg, ag, out=buf[1])
     torch.cuda.synchronize()
     assert _bits(want, buf[1]) and buf[0].tolist() == [-7, -7, -7]
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 24940, 199520])
+def test_k13_partition_stats_on_misaligned_views(n):
+    """K13 on row-block views at any address: flags starting 0-15 bytes past
+    a 16-byte boundary, slots 0-3 words past one (a shard's views of the
+    padded model, parallel/sharding.py), each against its plain version and
+    the host's counts, the scratch left all 0 after every launch."""
+    _card()
+    from cruise_control_torch.kernels import partition_stats as k13
+
+    rng = np.random.default_rng(n)
+    r = 3
+    flags = torch.from_numpy(rng.random(n + 16) < 0.6).cuda()
+    flags[rng.integers(0, n + 16, (n + 16) // 7)] = False
+    slots = torch.from_numpy(rng.integers(-1, 40, (n + 4) * r).astype(np.int32)).cuda()
+    assert flags.data_ptr() % 16 == 0 and slots.data_ptr() % 16 == 0
+    for off in range(16):
+        mov = flags[off:off + n]
+        a = slots[(off % 4):(off % 4) + n * r].view(n, r)
+        want = k13.partition_stats_plain(mov.cpu(), a.cpu())
+        assert want.tolist() == [int(mov.sum()), int((a >= 0).sum()), n]
+        got = k13.partition_stats(mov, a)
+        torch.cuda.synchronize()
+        assert _bits(want, got), (off, want, got)
+        scratch = k13._SCRATCH[torch.cuda.current_device()][0]
+        assert not scratch.any(), off
 
 
 def test_mesh_shortlist_and_stats_on_the_card(pair):
@@ -2464,3 +2510,46 @@ def test_greedy_on_a_mesh_of_the_card_equals_the_cpu():
     assert np.array_equal(cpu.final_assignment, card.final_assignment)
     assert np.array_equal(cpu.touch_tag, card.touch_tag)
     assert cpu.provenance.digest(goals=names) == card.provenance.digest(goals=names)
+
+
+def test_model_api_helpers_on_the_card():
+    """The flat model's helpers and `gather_actions` on CUDA tensors equal
+    their CPU results (which tests/test_torch_model_api.py holds to jitted
+    JAX), bit for bit; `host_loads` and `utilization_matrix` run through K1
+    on the card, and every output stays there."""
+    _card()
+    from cruise_control_torch.analyzer.actions import build_selected, gather_actions
+    from cruise_control_torch.kernels.segment_aggregates import segment_aggregates
+    from cruise_control_torch.models import flat_model as fm
+
+    cpu = generators.random_cluster(42, PROP)
+    a = cpu.assignment.clone()
+    a[::7, 2] = -1
+    cpu = cpu._replace(assignment=a, broker_host=torch.arange(24, dtype=torch.int32) // 3)
+    gpu = cpu.to("cuda")
+    h = 8
+    for name, fn in (("replication_factor", fm.replication_factor),
+                     ("new_broker_mask", fm.new_broker_mask),
+                     ("dead_broker_mask", fm.dead_broker_mask),
+                     ("leader_contribution", lambda m: fm.leader_contribution(m.part_load)),
+                     ("follower_contribution", lambda m: fm.follower_contribution(m.part_load)),
+                     ("host_loads", lambda m: fm.host_loads(m, h)),
+                     ("host_capacity", lambda m: fm.host_capacity(m, h)),
+                     ("utilization_matrix", fm.utilization_matrix)):
+        before = segment_aggregates.launches
+        got = fn(gpu)
+        torch.cuda.synchronize()
+        assert got.is_cuda, name
+        assert _bits(fn(cpu), got), name
+        if name in ("host_loads", "utilization_matrix"):
+            assert segment_aggregates.launches > before, name
+    assert _bits(fm.host_loads(gpu, h)[:, 0], fm.segment_sums(gpu, gpu.num_topics)[7])
+    rng = np.random.default_rng(3)
+    batch = {d.type: build_selected(m.part_load, m.assignment, *leadership_grid(m.assignment))
+             for d, m in ((torch.device("cpu"), cpu), (torch.device("cuda"), gpu))}
+    p, r = cpu.assignment.shape
+    idx = (rng.integers(-p - 5, p + 5, 64), rng.integers(-3, r + 2, 64))
+    want = gather_actions(batch["cpu"], *(torch.from_numpy(i) for i in idx))
+    got = gather_actions(batch["cuda"], *(torch.from_numpy(i).cuda() for i in idx))
+    for f, w, g in zip(want._fields, want, got):
+        assert g.is_cuda and _bits(w, g), f

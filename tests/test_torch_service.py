@@ -343,11 +343,19 @@ def test_chip_smoke_jax_references_are_current():
     JAX service on that cluster, served by aiohttp and driven by its client
     (chip_smoke.served), held to its record (chip_smoke.served_record), the
     three solves' digests and goal rows and K11 on the demote's
-    assignments."""
+    assignments; and phase 25's: the JAX model API's outputs on the smoke
+    model (scripts/model_api_references.py)."""
     import hashlib
+    import importlib.util
 
     sys.path.insert(0, str(REPO))
     import chip_smoke
+
+    spec = importlib.util.spec_from_file_location(
+        "model_api_references", REPO / "scripts" / "model_api_references.py")
+    refs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(refs)
+    assert refs.references() == chip_smoke.JAX_CPU_MODEL_API
     from cruise_control_tpu.analyzer import incremental as jinc
     from cruise_control_tpu.analyzer.goals import HARD_GOAL_NAMES as JHARD
 

@@ -206,27 +206,48 @@ def test_grid_shortlist_equals_jax(jmodel, n_dev, goal_name, batch_k):
             assert r.numpy().tobytes() == g.numpy().tobytes()
 
 
-#: the JAX merge's order (parallel/spmd.py:185)
-_jax_merge_order = jax.jit(lambda g_score, g_p: jnp.lexsort((g_p, -g_score)))
+#: the JAX merge (parallel/spmd.py:170-171, :185-189): each shard's local
+#: rows offset by its int32 `axis_index * p_local`, then the lexsort's order
+@jax.jit
+def _jax_merge_order(g_score, loc_p, k_loc, p_local):
+    shard = jnp.arange(g_score.shape[0], dtype=jnp.int32) // k_loc
+    g_p = loc_p + shard * p_local
+    return jnp.lexsort((g_p, -g_score)), g_p
 
 
 @pytest.mark.parametrize("case", merge_cases.KINDS)
-@pytest.mark.parametrize("n_dev,k_loc", merge_cases.SHAPES[:6])
+@pytest.mark.parametrize("n_dev,k_loc", merge_cases.SHAPES)
 def test_plain_merge_equals_lexsort(case, n_dev, k_loc):
-    """K12's plain version against the JAX merge, `jnp.lexsort((g_p,
-    -g_score))[:k_sel]`, on the same records (tests/merge_cases.py)."""
+    """K12's plain version, the shards' offsets fused in, against the JAX
+    merge, `jnp.lexsort((g_p, -g_score))[:k_sel]`, on the same records
+    (tests/merge_cases.py)."""
     rng = np.random.default_rng([merge_cases.KINDS.index(case), n_dev, k_loc])
     s, rec = merge_cases.records(case, n_dev, k_loc, rng)
-    order = np.asarray(_jax_merge_order(s, rec[:, 0]))
+    order, g_p = (np.asarray(x) for x in _jax_merge_order(s, rec[:, 0], k_loc, merge_cases.ROWS))
+    g_rec = np.concatenate([g_p[:, None], rec[:, 1:]], axis=1)
     for k_sel in sorted({1, k_loc, n_dev * k_loc}):
         sel = order[:k_sel]
         for fn in (shard_merge_plain, shard_merge):
-            got_s, got_rec = fn(torch.from_numpy(s), torch.from_numpy(rec), k_sel)
+            got_s, got_rec = fn(torch.from_numpy(s), torch.from_numpy(rec), k_sel, k_loc,
+                                merge_cases.ROWS)
             assert got_s.numpy().tobytes() == s[sel].tobytes(), (case, k_sel)
-            assert np.array_equal(got_rec.numpy(), rec[sel].T), (case, k_sel)
+            assert np.array_equal(got_rec.numpy(), g_rec[sel].T), (case, k_sel)
     if case == "all -inf":
-        assert int(shard_merge_plain(torch.from_numpy(s), torch.from_numpy(rec), 1)[1][0, 0]) \
-            == int(rec[:, 0].min())
+        assert int(shard_merge_plain(torch.from_numpy(s), torch.from_numpy(rec), 1, k_loc,
+                                     merge_cases.ROWS)[1][0, 0]) == int(g_p.min())
+
+
+@pytest.mark.parametrize("p_local", [2**30 + 7, 2**31 - 1])
+def test_plain_merge_offsets_wrap_as_jax(p_local):
+    """Offsets past 2**31 wrap in int32, in JAX's arithmetic and in the port's
+    (the merge then orders by the wrapped partitions, as JAX's does)."""
+    rng = np.random.default_rng(p_local % 97)
+    s, rec = merge_cases.records("ties across shards", 8, 4, rng)
+    order, g_p = (np.asarray(x) for x in _jax_merge_order(s, rec[:, 0], 4, p_local))
+    assert (g_p < 0).any()
+    got_s, got_rec = shard_merge_plain(torch.from_numpy(s), torch.from_numpy(rec), 32, 4, p_local)
+    assert got_s.numpy().tobytes() == s[order].tobytes()
+    assert np.array_equal(got_rec[0].numpy(), g_p[order])
 
 
 def test_partition_stats_equal_jax_and_host(jmodel, tmesh):
